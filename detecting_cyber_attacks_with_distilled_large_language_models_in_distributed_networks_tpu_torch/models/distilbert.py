@@ -1,0 +1,195 @@
+"""DistilBERT encoder + DDoS classification head in PyTorch.
+
+Port of the JAX package's ``models/distilbert.py`` (inference forward):
+embeddings (word + learned position, LayerNorm eps 1e-12), N post-LayerNorm
+transformer blocks (MHA -> residual -> LN -> GELU FFN -> residual -> LN),
+then CLS pooling -> Linear(dim, n_classes) in fp32.
+
+Module names mirror the JAX parameter tree (``encoder.layer_0.attn.q``
+for ``encoder/layer_0/attn/q``), so :mod:`.convert` maps one layout onto
+the other by renaming leaves alone.
+
+Dtypes: parameters stay fp32; every Linear and embedding runs in
+``cfg.compute_dtype`` (weights cast at use, as flax ``nn.Dense(dtype=)``
+does); LayerNorm statistics, the attention softmax and the head run in
+fp32. The forward is deterministic (eval): dropout, ``remat`` and the
+ring attention path arrive with later slices.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import ModelConfig
+from ..device import torch_dtype
+from ..ops.attention import dot_product_attention, make_attention_bias
+from ..ops.flash_attention import flash_attention
+
+
+def _linear(x: torch.Tensor, mod: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    return F.linear(x.to(dtype), mod.weight.to(dtype), mod.bias.to(dtype))
+
+
+def _layer_norm(x: torch.Tensor, mod: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
+    """fp32 statistics, output in the activation dtype (flax LayerNorm
+    with ``dtype=compute_dtype``)."""
+    return F.layer_norm(
+        x.float(), mod.normalized_shape, mod.weight, mod.bias, mod.eps
+    ).to(dtype)
+
+
+class MultiHeadSelfAttention(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.q = nn.Linear(cfg.dim, cfg.dim)
+        self.k = nn.Linear(cfg.dim, cfg.dim)
+        self.v = nn.Linear(cfg.dim, cfg.dim)
+        self.o = nn.Linear(cfg.dim, cfg.dim)
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        cd = torch_dtype(cfg.compute_dtype)
+        B, L, _ = x.shape
+
+        def split(t):  # [B, L, dim] -> [B, H, L, d]
+            return t.reshape(B, L, cfg.n_heads, cfg.head_dim).transpose(1, 2)
+
+        if cfg.fused_qkv:
+            # One [3D, D] product over weights concatenated at use; the
+            # parameters keep the separate q/k/v layout.
+            w = torch.cat([self.q.weight, self.k.weight, self.v.weight]).to(cd)
+            b3 = torch.cat([self.q.bias, self.k.bias, self.v.bias]).to(cd)
+            qkv = F.linear(x.to(cd), w, b3)
+            q, k, v = (split(t) for t in qkv.chunk(3, dim=-1))
+        else:
+            q = split(_linear(x, self.q, cd))
+            k = split(_linear(x, self.k, cd))
+            v = split(_linear(x, self.v, cd))
+        if cfg.attention_impl == "flash":
+            ctx = flash_attention(q, k, v, bias)
+        else:
+            ctx = dot_product_attention(q, k, v, bias)
+        ctx = ctx.transpose(1, 2).reshape(B, L, cfg.dim)
+        return _linear(ctx, self.o, cd)
+
+
+class TransformerBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.attn = MultiHeadSelfAttention(cfg)
+        self.sa_ln = nn.LayerNorm(cfg.dim, eps=cfg.layer_norm_eps)
+        self.lin1 = nn.Linear(cfg.dim, cfg.hidden_dim)
+        self.lin2 = nn.Linear(cfg.hidden_dim, cfg.dim)
+        self.out_ln = nn.LayerNorm(cfg.dim, eps=cfg.layer_norm_eps)
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        cd = torch_dtype(self.cfg.compute_dtype)
+        x = _layer_norm(x + self.attn(x, bias), self.sa_ln, cd)
+        h = _linear(x, self.lin1, cd)
+        h = F.gelu(h, approximate="tanh" if self.cfg.gelu == "tanh" else "none")
+        h = _linear(h, self.lin2, cd)
+        return _layer_norm(x + h, self.out_ln, cd)
+
+
+class Embeddings(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.dim)
+        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, cfg.dim)
+        self.ln = nn.LayerNorm(cfg.dim, eps=cfg.layer_norm_eps)
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        cd = torch_dtype(self.cfg.compute_dtype)
+        L = input_ids.shape[-1]
+        word = self.word_embeddings(input_ids).to(cd)
+        pos = self.position_embeddings.weight[:L].to(cd)[None, :, :]
+        return _layer_norm(word + pos, self.ln, cd)
+
+
+class DistilBertEncoder(nn.Module):
+    """Token ids + attention mask -> last hidden states ``[B, L, dim]``."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.attention_impl == "ring":
+            raise NotImplementedError(
+                "attention_impl='ring' (sequence parallel) arrives with the "
+                "port's sequence-parallel slice"
+            )
+        if cfg.remat:
+            raise NotImplementedError(
+                "remat arrives with the port's training slice"
+            )
+        self.cfg = cfg
+        self.embeddings = Embeddings(cfg)
+        for i in range(cfg.n_layers):
+            self.add_module(f"layer_{i}", TransformerBlock(cfg))
+
+    def forward(
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor
+    ) -> torch.Tensor:
+        x = self.embeddings(input_ids)
+        bias = make_attention_bias(attention_mask)
+        for i in range(self.cfg.n_layers):
+            x = getattr(self, f"layer_{i}")(x, bias)
+        return x
+
+
+class DDoSClassifier(nn.Module):
+    """Encoder + the reference's classification head (CLS -> Linear)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = DistilBertEncoder(cfg)
+        self.classifier = nn.Linear(cfg.dim, cfg.n_classes)
+
+    def forward(
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor
+    ) -> torch.Tensor:
+        hidden = self.encoder(input_ids, attention_mask)
+        pooled = hidden[:, 0, :].float()  # CLS token; head in fp32
+        return F.linear(pooled, self.classifier.weight, self.classifier.bias)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict[str, torch.Tensor]:
+    """A fresh fp32 state dict drawn as the JAX package initializes:
+    normal(initializer_range) kernels and embeddings, zero biases,
+    LayerNorm scale 1 and shift 0. Deterministic in ``generator``."""
+    with torch.device("meta"):
+        shapes = {k: t.shape for k, t in DDoSClassifier(cfg).state_dict().items()}
+    out = {}
+    for name, shape in sorted(shapes.items()):
+        leaf = name.rsplit(".", 1)[-1]
+        is_norm = name.rsplit(".", 2)[-2].endswith("ln")
+        if leaf == "bias":
+            out[name] = torch.zeros(shape)
+        elif is_norm:
+            out[name] = torch.ones(shape)
+        else:
+            out[name] = torch.empty(shape).normal_(
+                0.0, cfg.initializer_range, generator=generator
+            )
+    return out
+
+
+def build_model(
+    cfg: ModelConfig, state_dict: dict, device: torch.device
+) -> DDoSClassifier:
+    """An eval-mode classifier on ``device`` holding ``state_dict``
+    (strict: missing or unexpected keys raise). The module is built on the
+    meta device, so no throwaway initialization runs."""
+    with torch.device("meta"):
+        model = DDoSClassifier(cfg)
+    model.load_state_dict(
+        {k: torch.as_tensor(v, dtype=torch.float32).to(device) for k, v in state_dict.items()},
+        strict=True,
+        assign=True,
+    )
+    return model.eval().requires_grad_(False)
+
