@@ -6,7 +6,8 @@
 Phases; any failure exits non-zero before the last line is printed:
 
 1. card   — the card's name and power limit (nvidia-smi) and torch's name;
-2. build  — every CUDA kernel of the serving path, compiled from csrc/;
+2. build  — every CUDA kernel of the port, compiled from csrc/ (one nvcc
+            per source, all started together);
 3. kernel — the flash forward kernel (K1) held against its plain PyTorch
             version on the card at the serving shapes (B in 1/8/32/128,
             H=12, L=128, D=64, random key masks with fully masked rows,
@@ -14,7 +15,21 @@ Phases; any failure exits non-zero before the last line is printed:
             p and O each take one bf16 rounding; lse compared in fp32),
             with its time beside the plain version's, SDPA's (a yardstick
             the port never calls) and the least time the card could take;
-4. path   — full-width DistilBERT-base (6 layers, dim 768, 12 heads,
+4. kernel-train — at the training shapes (B=16, H=12, L=128, D=64, plus
+            L in {40, 200}; a fully masked row in all but one case): K1
+            with dropout at rate 0.1 against flash_attention_reference on
+            the same seed words, and K2 + K3 through FlashAttention's
+            backward against flash_backward_reference with dropout off
+            and on, in fp32 (K1 atol 2e-5; gradients atol 1e-4, the JAX
+            flash gradient bound) and bf16 (K1 atol 2e-2; gradients atol
+            1e-5 + rtol 8e-3: both sides round one fp32 result to bf16,
+            so they may differ by one bf16 ulp, at most 2^-7 relative);
+            dbias atol 1e-3 (an fp32 sum over H·Lq terms in another
+            order). Then the times of
+            K1 with dropout, K2 and K3 at B=16 bf16, each beside its plain
+            version's, SDPA's (forward with dropout, and its backward
+            alone: a yardstick the port never calls) and its bound;
+5. path   — full-width DistilBERT-base (6 layers, dim 768, 12 heads,
             L=128, flash attention, bf16) with seeded random weights,
             written as a registry artifact and served by the port's
             ``infer-serve`` on the card; a few dozen concurrent text and
@@ -22,7 +37,21 @@ Phases; any failure exits non-zero before the last line is printed:
             be finite in [0, 1] and match the same weights through
             attention_impl="dot" on the card (bf16 atol 1e-2), and the
             kernel must have launched once per layer of every batch;
-5. the kernels' JSON line, then the result line
+6. train  — ``local`` at full width (``--preset distilbert
+            --attention-impl flash --synthetic 2400 --epochs 1``: 9 steps
+            of bs16 with dropout on, then val and test evaluation) through
+            the port's parser. K1 with dropout, K2 and K3 must launch once
+            per layer of every step, K1 at rate 0 once per layer of every
+            eval batch; every loss and the metrics CSV must be finite.
+            Then 108 more steps (the epoch's 9 batches 12 times) time the
+            steady training samples/s. Then one fp32 step
+            with dropout off: gradients through flash against the dot path
+            on the card (atol 1e-4 + rtol 1e-3); and 20 steps on one fixed
+            batch with dropout off must bring the loss below its first
+            value;
+7. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
+   serving shape and dropout at the training shape, then K2 and K3),
+   then the result line
    ``{"ok": true, "device": {...}}``.
 
 Needs CUDA: without a card (or without the repository beside it) it
@@ -48,11 +77,15 @@ import torch.nn.functional as F
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli import (
     build_parser,
 )
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.local import (
+    run_local,
+)
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.serving import (
     build_server,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.config import (
     ModelConfig,
+    TrainConfig,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.data import (
     FLOW_TEXT_COLUMNS,
@@ -63,6 +96,10 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     flatten_tree,
     init_params,
     params_to_jax,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.models.distilbert import (
+    build_trainable_params,
+    model_skeleton,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.ops import (
     _build,
@@ -75,11 +112,20 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     ScoreEngine,
     ScoringClient,
 )
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.engine import (
+    Trainer,
+    loss_fn,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 BUCKETS = (1, 8, 32, 128)
 H, L, D = 12, 128, 64
+B_TRAIN = 16  # DataConfig.batch_size
+STEADY_PASSES = 12  # passes over the epoch's 9 batches timed for samples/s
+RATE = 0.1  # ModelConfig.attention_dropout
+PORT = "detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch"
+JAX_FLASH = "detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu/ops/flash_attention.py"
 
 
 def fail(msg: str) -> None:
@@ -115,6 +161,23 @@ def attention_bound(b: int, h: int, l: int, d: int, elsize: int) -> tuple[float,
     key bias; 2 products of 2·L·L·D flops per (b, h) at the bf16 peak."""
     nbytes = 4 * b * h * l * d * elsize + b * h * l * 4 + b * l * 4
     flops = 4 * b * h * l * l * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def backward_bound(b: int, h: int, l: int, d: int, elsize: int, kernel: str) -> tuple[float, str]:
+    """Least time (ms) for K2 ("dkdv") or K3 ("dq"): q, k, v and dO read
+    once, lse, delta and the key bias, and the outputs (dk, dv and the
+    fp32 per-head dbias rows; or dq) written once; 4 (K2) or 3 (K3)
+    products of 2·L·L·D flops per (b, h) at the bf16 peak."""
+    rows = b * h * l
+    nbytes = 4 * rows * d * elsize + 2 * rows * 4 + b * l * 4
+    if kernel == "dkdv":
+        nbytes += 2 * rows * d * elsize + rows * 4
+        flops = 4 * 2 * b * h * l * l * d
+    else:
+        nbytes += rows * d * elsize
+        flops = 3 * 2 * b * h * l * l * d
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
@@ -168,8 +231,8 @@ def kernel_phase(seed: int) -> dict:
     return {
         "name": "flash_fwd",
         "route": "cuda",
-        "source": "detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu/ops/flash_attention.py:135",
+        "source": f"{PORT}/csrc/flash_fwd.cu",
+        "replaces": f"{JAX_FLASH}:135",
         "launches": None,
         "max_abs_err": bf16_err,
         "ms": t_k,
@@ -178,6 +241,106 @@ def kernel_phase(seed: int) -> dict:
         "bound_by": bound_by,
         "library_ms": t_l,
     }
+
+
+def max_excess(a: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> tuple[float, bool]:
+    """(max |a - ref|, whether every element is within atol + rtol·|ref|)."""
+    diff = (a.float() - ref.float()).abs()
+    return diff.max().item(), bool((diff <= atol + rtol * ref.float().abs()).all())
+
+
+def train_kernel_phase(seed: int) -> tuple[dict, dict, dict]:
+    """Phase 4: K1 with dropout, K2 and K3 against their plain versions
+    at the training shapes, then their times. Returns the kernels-line
+    entries of K1 with dropout, K2 and K3."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    cases = [(B_TRAIN, L, True), (B_TRAIN, L, False), (3, 40, True), (2, 200, True)]
+    bounds = {torch.float32: (2e-5, 1e-4, 0.0), torch.bfloat16: (2e-2, 1e-5, 8e-3)}
+    errs = {"fwd": 0.0, "dkdv": 0.0, "dq": 0.0}
+    for dtype, (fwd_atol, atol, rtol) in bounds.items():
+        for b, l, masked_row in cases:
+            q, k, v, bias = attention_inputs(g, b, l, dtype, masked_row)
+            do = torch.randn(b, H, l, D, generator=g, device="cuda").to(dtype)
+            words = torch.randint(0, 2**32, (2,), generator=g, device="cuda", dtype=torch.int64)
+            out, lse = flash_mod.flash_forward(q, k, v, bias, seed=words, rate=RATE)
+            ref, ref_lse = flash_mod.flash_attention_reference(q, k, v, bias, seed=words, rate=RATE)
+            err = (out.float() - ref.float()).abs().max().item()
+            lse_ok = bool(((lse - ref_lse).abs() <= 2e-5 + 2e-7 * ref_lse.abs()).all())
+            check(err <= fwd_atol and lse_ok, f"K1 with dropout disagrees: {err} > {fwd_atol} (lse ok {lse_ok}) at B={b} L={l} {dtype}")
+            if dtype == torch.bfloat16 and l == L:
+                errs["fwd"] = max(errs["fwd"], err)
+            for rate in (0.0, RATE):
+                seed_words = words if rate else None
+                qg, kg, vg, bg = (t.detach().clone().requires_grad_(True) for t in (q, k, v, bias))
+                before = (flash_mod.DKDV_LAUNCHES, flash_mod.DQ_LAUNCHES)
+                o = flash_mod.FlashAttention.apply(qg, kg, vg, bg, seed_words, rate)
+                o.backward(do)
+                torch.cuda.synchronize()
+                check((flash_mod.DKDV_LAUNCHES, flash_mod.DQ_LAUNCHES) == (before[0] + 1, before[1] + 1),
+                      "FlashAttention's backward did not launch K2 and K3")
+                _, lse_k = flash_mod.flash_forward(q, k, v, bias, seed=seed_words, rate=rate)
+                want = flash_mod.flash_backward_reference(q, k, v, bias, seed_words, o.detach(), lse_k, do, rate=rate)
+                line = []
+                for name, got, ref_g in (("dq", qg.grad, want[0]), ("dk", kg.grad, want[1]), ("dv", vg.grad, want[2])):
+                    check(got.dtype == dtype and bool(torch.isfinite(got.float()).all()), f"{name} not finite / wrong dtype at B={b} L={l} {dtype}")
+                    e, ok = max_excess(got, ref_g, atol, rtol)
+                    check(ok, f"{name} disagrees with its plain version: max {e} (atol {atol}, rtol {rtol}) at B={b} L={l} rate={rate} {dtype}")
+                    line.append(f"{name} {e:.3e}")
+                    if dtype == torch.bfloat16 and l == L:
+                        key = "dq" if name == "dq" else "dkdv"
+                        errs[key] = max(errs[key], e)
+                e, ok = max_excess(bg.grad, want[3], 1e-3, 0.0)
+                check(ok, f"dbias disagrees: {e} at B={b} L={l} rate={rate} {dtype}")
+                print(f"K2/K3 check {str(dtype):14s} B={b:2d} L={l:3d} rate={rate} max|grad-ref|: {' '.join(line)} dbias {e:.3e}; K1 drop max|O-ref|={err:.3e}", flush=True)
+
+    # Times at the training shape, bf16, dropout on.
+    q, k, v, bias = attention_inputs(g, B_TRAIN, L, torch.bfloat16, True)
+    do = torch.randn(B_TRAIN, H, L, D, generator=g, device="cuda").to(torch.bfloat16)
+    words = torch.randint(0, 2**32, (2,), generator=g, device="cuda", dtype=torch.int64)
+    mask_bf16 = bias.to(torch.bfloat16)
+    out, lse = flash_mod.flash_forward(q, k, v, bias, seed=words, rate=RATE)
+    x = flash_mod._BwdInputs(q, k, v, bias, words, out, lse, do, RATE)
+    ref_args = (q, k, v, bias, words, out, lse, do)
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask_bf16, dropout_p=RATE)
+    t_lib_bwd = time_ms(lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), do, retain_graph=True))
+    fwd = {
+        "name": "flash_fwd_dropout",
+        "route": "cuda",
+        "source": f"{PORT}/csrc/flash_fwd.cu",
+        "replaces": f"{JAX_FLASH}:135",
+        "launches": None,
+        "max_abs_err": errs["fwd"],
+        "ms": time_ms(lambda: flash_mod.flash_forward(q, k, v, bias, seed=words, rate=RATE)),
+        "plain_ms": time_ms(lambda: flash_mod.flash_attention_reference(q, k, v, bias, seed=words, rate=RATE)),
+    }
+    fwd["bound_ms"], fwd["bound_by"] = attention_bound(B_TRAIN, H, L, D, 2)
+    fwd["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask_bf16, dropout_p=RATE))
+    print(f"K1 dropout time B={B_TRAIN} bf16 rate={RATE} kernel_ms={fwd['ms']:.4f} plain_ms={fwd['plain_ms']:.4f} library_ms={fwd['library_ms']:.4f} bound_us={fwd['bound_ms'] * 1e3:.1f} ({fwd['bound_by']})", flush=True)
+    rows = [fwd]
+    for name, kernel, launch, plain in (
+        ("flash_bwd_dkdv", "dkdv", lambda: flash_mod.flash_bwd_dkdv(x),
+         lambda: flash_mod.flash_dkdv_reference(*ref_args, rate=RATE)),
+        ("flash_bwd_dq", "dq", lambda: flash_mod.flash_bwd_dq(x),
+         lambda: flash_mod.flash_dq_reference(*ref_args, rate=RATE)),
+    ):
+        t_k, t_p = time_ms(launch), time_ms(plain)
+        bound, bound_by = backward_bound(B_TRAIN, H, L, D, 2, kernel)
+        print(f"{name} time B={B_TRAIN} bf16 rate={RATE} kernel_ms={t_k:.4f} plain_ms={t_p:.4f} library_ms(SDPA backward, both halves)={t_lib_bwd:.4f} bound_us={bound * 1e3:.1f} ({bound_by})", flush=True)
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"{PORT}/csrc/flash_bwd.cu",
+            "replaces": f"{JAX_FLASH}:{196 if kernel == 'dkdv' else 261}",
+            "launches": None,
+            "max_abs_err": errs[kernel],
+            "ms": t_k,
+            "plain_ms": t_p,
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "library_ms": t_lib_bwd,
+        })
+    return rows
 
 
 def flow_records(seed: int, n: int) -> list[dict]:
@@ -259,7 +422,7 @@ def path_phase(seed: int, device_name: str) -> int:
                 errors.append(e)
 
         with server:  # warmup runs every bucket here
-            flash_mod.FWD_LAUNCHES = 0
+            flash_mod.FWD_LAUNCHES = flash_mod.FWD_DROPOUT_LAUNCHES = 0
             batches0 = server.stats()["batches"]
             drive([0])  # a lone request: bucket 1
             workers = [threading.Thread(target=drive, args=(range(1 + t, 49, 16),)) for t in range(16)]
@@ -270,6 +433,7 @@ def path_phase(seed: int, device_name: str) -> int:
                 w.join(timeout=300)
             burst_s = time.perf_counter() - t_burst
             launches = flash_mod.FWD_LAUNCHES
+            check(flash_mod.FWD_DROPOUT_LAUNCHES == 0, "serving launched K1 with dropout")
             batches = server.stats()["batches"] - batches0
         check(not any(w.is_alive() for w in workers), "client threads hung")
         if errors:
@@ -306,6 +470,96 @@ def path_phase(seed: int, device_name: str) -> int:
     return launches
 
 
+def train_phase(seed: int, card: str) -> dict[str, int]:
+    """Phase 6: ``local`` at full width on the card (``card``: its name and
+    power limit, as nvidia-smi gives them). Returns each kernel's
+    launches during it."""
+    with tempfile.TemporaryDirectory() as out_dir:
+        args = build_parser().parse_args(
+            ["local", "--preset", "distilbert", "--attention-impl", "flash",
+             "--synthetic", "2400", "--epochs", "1", "--seed", str(seed),
+             "--output-dir", out_dir]
+        )
+        flash_mod.FWD_LAUNCHES = flash_mod.FWD_DROPOUT_LAUNCHES = 0
+        flash_mod.DKDV_LAUNCHES = flash_mod.DQ_LAUNCHES = 0
+        res = run_local(args)
+        torch.cuda.synchronize()
+        launches = {
+            "flash_fwd": flash_mod.FWD_LAUNCHES,
+            "flash_fwd_dropout": flash_mod.FWD_DROPOUT_LAUNCHES,
+            "flash_bwd_dkdv": flash_mod.DKDV_LAUNCHES,
+            "flash_bwd_dq": flash_mod.DQ_LAUNCHES,
+        }
+        with open(res["metrics_csv"]) as f:
+            header, values = f.read().strip().splitlines()
+    cfg, state, trainer = res["config"], res["state"], res["trainer"]
+    mcfg = cfg.model
+    check(trainer.device.type == "cuda", f"trainer on {trainer.device}")
+    check((mcfg.dim, mcfg.n_layers, mcfg.n_heads, mcfg.hidden_dim, mcfg.max_len) == (768, 6, 12, 3072, 128), f"not full width: {mcfg}")
+    check(mcfg.compute_dtype == "bfloat16" and mcfg.attention_impl == "flash" and mcfg.attention_dropout == RATE, f"config {mcfg}")
+    steps = state.step
+    eval_batches = sum(-(-res[s]["n"] // cfg.data.eval_batch_size) for s in ("val", "test"))
+    print(f"train: {steps} steps of bs{cfg.data.batch_size}, {eval_batches} eval batches, epoch losses {res['losses']}, launches {launches}", flush=True)
+    check(steps == 9, f"{steps} train steps, want 9 (2400 x 0.1 x 0.6 / 16)")
+    check(launches["flash_fwd_dropout"] == launches["flash_bwd_dkdv"] == launches["flash_bwd_dq"] == mcfg.n_layers * steps,
+          f"K1-dropout/K2/K3 launches {launches} for {steps} steps")
+    check(launches["flash_fwd"] == mcfg.n_layers * eval_batches, f"K1 (rate 0) launches {launches['flash_fwd']} for {eval_batches} eval batches")
+    check(all(np.isfinite(res["losses"])), f"non-finite loss {res['losses']}")
+    check(header == "Accuracy,Loss,Precision,Recall,F1-Score", f"metrics CSV header {header!r}")
+    check(all(np.isfinite(float(v)) for v in values.split(",")), f"metrics CSV {values!r}")
+    print(f"train: test metrics {header} = {values}", flush=True)
+
+    # Steady-state rate: the epoch's batches 12 times again, after the fit.
+    batches = list(trainer.epoch_batches(res["client"].train, 1, cfg.data.batch_size))
+    for b in batches[:2]:
+        state, _ = trainer.train_step(state, b)
+    torch.cuda.synchronize()
+    passes = []
+    for _ in range(STEADY_PASSES):
+        t0 = time.perf_counter()
+        for b in batches:
+            state, _ = trainer.train_step(state, b)
+        torch.cuda.synchronize()
+        passes.append(time.perf_counter() - t0)
+    n_steps = STEADY_PASSES * len(batches)
+    dt = sum(passes)
+    per_pass = [len(batches) * cfg.data.batch_size / p for p in passes]
+    print(
+        f"train: {card}: {n_steps * cfg.data.batch_size / dt:.1f} samples/s steady ({n_steps} steps of "
+        f"bs{cfg.data.batch_size}, {dt / n_steps * 1e3:.3f} ms/step; per pass of {len(batches)} steps "
+        f"min {min(per_pass):.1f} median {float(np.median(per_pass)):.1f} max {max(per_pass):.1f}); "
+        f"the fit's first epoch {res['train_samples'] / res['train_seconds']:.1f} samples/s including its first step",
+        flush=True,
+    )
+
+    # Parity on the card: one fp32 step, dropout off, flash against dot.
+    batch = batches[0]
+    ids, mask, labels = (torch.from_numpy(batch[k]).cuda() for k in ("input_ids", "attention_mask", "labels"))
+    f32 = dataclasses.replace(mcfg, compute_dtype="float32", dropout=0.0, attention_dropout=0.0, head_dropout=0.0)
+    params = init_params(f32, torch.Generator().manual_seed(seed))
+    grads = {}
+    for impl in ("flash", "dot"):
+        c = dataclasses.replace(f32, attention_impl=impl)
+        leaves = build_trainable_params(c, params, torch.device("cuda"))
+        logits = torch.func.functional_call(model_skeleton(c), leaves, (ids, mask))
+        grads[impl] = dict(zip(leaves, torch.autograd.grad(loss_fn(logits, labels), list(leaves.values()))))
+    worst, ok = 0.0, True
+    for name, g_dot in grads["dot"].items():
+        e, good = max_excess(grads["flash"][name], g_dot, 1e-4, 1e-3)
+        worst, ok = max(worst, e), ok and good
+    print(f"train: fp32 grads flash vs dot over {len(grads['dot'])} leaves: max|diff| {worst:.3e} (atol 1e-4 + rtol 1e-3)", flush=True)
+    check(ok, f"flash gradients disagree with the dot path: {worst}")
+
+    # Learning: 20 steps on one fixed batch, dropout off.
+    no_drop = dataclasses.replace(mcfg, dropout=0.0, attention_dropout=0.0, head_dropout=0.0)
+    learner = Trainer(no_drop, TrainConfig(seed=seed), pad_id=trainer.pad_id, device="cuda")
+    lstate = learner.init_state()
+    losses = [float(learner.train_step(lstate, batch)[1]) for _ in range(20)]
+    print(f"train: 20 steps on one batch: loss {losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -319,7 +573,8 @@ def main() -> int:
         capture_output=True, text=True, timeout=60,
     )
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     device_name = torch.cuda.get_device_name(0)
     print(f"torch: {device_name}, {torch.cuda.device_count()} card(s), torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
@@ -331,10 +586,20 @@ def main() -> int:
     phase("kernel")
     k1 = kernel_phase(seed)
 
-    phase("path")
-    k1["launches"] = path_phase(seed, device_name)
+    phase("kernel-train")
+    k1_drop, k2, k3 = train_kernel_phase(seed)
 
-    print(json.dumps({"kernels": [k1]}), flush=True)
+    phase("path")
+    serve_launches = path_phase(seed, device_name)
+
+    phase("train")
+    train_launches = train_phase(seed, card)
+    k1["launches"] = serve_launches + train_launches["flash_fwd"]
+    for row in (k1_drop, k2, k3):
+        row["launches"] = train_launches[row["name"]]
+    print(f"launches: flash_fwd {serve_launches} (serving) + {train_launches['flash_fwd']} (evaluation)", flush=True)
+
+    print(json.dumps({"kernels": [k1, k1_drop, k2, k3]}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()},

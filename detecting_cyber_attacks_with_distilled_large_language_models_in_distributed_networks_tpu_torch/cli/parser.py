@@ -1,7 +1,8 @@
 """Command line of the port: ``python -m <package> <verb> ...``.
 
-The verbs and flags mirror the JAX package's ``cli/parser.py``; this
-slice ports ``infer-serve`` only.
+The verbs and flags mirror the JAX package's ``cli/parser.py``; the port
+has ``local`` (single-client training) and ``infer-serve`` so far. Both
+run on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -11,7 +12,17 @@ import logging
 import sys
 
 from ..models.presets import preset_names
+from .local import cmd_local
 from .serving import cmd_infer_serve
+
+
+def _add_device(p: argparse.ArgumentParser, what: str) -> None:
+    p.add_argument(
+        "--device",
+        choices=["cuda", "cpu"],
+        default="cuda",
+        help=f"where {what} (default cuda; there is no silent CPU fallback)",
+    )
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -20,6 +31,29 @@ def build_parser() -> argparse.ArgumentParser:
         description="fedtpu on PyTorch + CUDA (the H100 port)",
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("local", help="single-client train/eval/report")
+    p.add_argument(
+        "--preset", default="tiny", help=f"{'|'.join(preset_names())}"
+    )
+    p.add_argument("--csv", help="CICIDS2017-style flow CSV path")
+    p.add_argument("--synthetic", type=int, metavar="N", help="use N synthetic flows")
+    p.add_argument("--output-dir", default=None)
+    p.add_argument("--batch-size", type=int)
+    p.add_argument("--epochs", type=int, help="epochs per round")
+    p.add_argument("--learning-rate", type=float)
+    p.add_argument(
+        "--attention-impl",
+        choices=["dot", "flash"],
+        help="attention path: dot (plain PyTorch, default) or flash (the "
+        "CUDA kernels: K1 forward, K2/K3 backward, dropout in-kernel)",
+    )
+    p.add_argument("--max-len", type=int)
+    p.add_argument("--data-fraction", type=float)
+    p.add_argument("--seed", type=int)
+    p.add_argument("--client-id", type=int, default=0)
+    _add_device(p, "training and evaluation run")
+    p.set_defaults(fn=cmd_local)
+
     p = sub.add_parser(
         "infer-serve",
         help="online inference: dynamic-batching TCP scoring service",
@@ -80,13 +114,7 @@ def build_parser() -> argparse.ArgumentParser:
         default=0.5,
         help="P(attack) decision threshold in replies (default 0.5)",
     )
-    p.add_argument(
-        "--device",
-        choices=["cuda", "cpu"],
-        default="cuda",
-        help="where the model runs (default cuda; there is no silent CPU "
-        "fallback)",
-    )
+    _add_device(p, "the model runs")
     p.set_defaults(fn=cmd_infer_serve)
     return ap
 

@@ -1,11 +1,13 @@
-// Flash attention forward for Hopper (sm_90a), inference only.
+// Flash attention forward for Hopper (sm_90a), with attention dropout.
 //
 // Replaces the TPU kernel ops/flash_attention.py::_fwd_kernel of the JAX
-// package (launched by _flash_forward's pallas_call), at dropout rate 0:
+// package (launched by _flash_forward's pallas_call):
 //
 //   s   = (q . k^T) * scale + key_bias         fp32 accumulation
-//   m,l = running row max and denominator      fp32, over the unrounded p
-//   acc = acc * alpha + round(p) . v           p rounded to the input dtype
+//   m,l = running row max and denominator      fp32, over the unrounded,
+//                                              UNdropped p
+//   p'  = p * keep * inv  (dropout only)       keep_mask.cuh, global coords
+//   acc = acc * alpha + round(p') . v          p' rounded to the input dtype
 //   O   = acc / l  (input dtype),  lse = m + log(l)  (fp32)
 //
 // Bound on the card. At the serving path's largest shape (B=128, H=12,
@@ -14,7 +16,8 @@
 // 6.5 us at the bf16 tensor-core peak. So it is bound by bytes: the design
 // reads each q, k and v element from device memory once per (query tile,
 // key tile) pair and writes O and lse once, and keeps the L x L scores in
-// registers and shared memory only.
+// registers and shared memory only. Dropout adds no bytes: the keep bits
+// are hashed in registers from the seed words and the coordinates.
 //
 // Design (simple and right first; tensor cores are later work):
 //   * one CTA per (batch, head, 64-row query tile); 256 threads as a 16 x 16
@@ -30,94 +33,21 @@
 //     L works;
 //   * the key bias -1e9 is added as the finite number it is. A row whose
 //     keys are all masked (the bucket's pad rows) then comes out uniform
-//     with l > 0, as in the JAX kernel; no key tile is ever skipped.
+//     with l > 0, as in the JAX kernel; no key tile is ever skipped;
+//   * dropout is a template branch: at rate 0 (serving, evaluation) the
+//     kernel is the same code as before, with no hash work at all.
 // Only head_dim 64 is built; the wrapper raises for any other.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_tile.cuh"
+#include "keep_mask.cuh"
 
 namespace {
 
-constexpr int kD = 64;         // head dim
-constexpr int kTile = 64;      // query rows per CTA, key rows per loop step
-constexpr int kLd = 68;        // shared row stride in floats (16-byte rows)
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kSmemBytes = 4 * kTile * kLd * (int)sizeof(float);
+using namespace flash;
 
-template <typename T>
-struct Elem;
-
-template <>
-struct Elem<float> {
-  static constexpr int kVec = 4;  // elements per 16-byte load
-  __device__ static void load(const float* src, float* dst) {
-    float4 v = *reinterpret_cast<const float4*>(src);
-    dst[0] = v.x;
-    dst[1] = v.y;
-    dst[2] = v.z;
-    dst[3] = v.w;
-  }
-  __device__ static float round(float x) { return x; }
-  __device__ static float out(float x) { return x; }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  __device__ static void load(const __nv_bfloat16* src, float* dst) {
-    uint4 raw = *reinterpret_cast<const uint4*>(src);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      dst[2 * i] = f.x;
-      dst[2 * i + 1] = f.y;
-    }
-  }
-  // Round to nearest even, as JAX's astype(bfloat16).
-  __device__ static float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-  __device__ static __nv_bfloat16 out(float x) { return __float2bfloat16(x); }
-};
-
-// Rows [row0, row0 + kTile) of a row-major [rows, kD] matrix into shared
-// memory as fp32; rows past `rows` are zero. kTranspose stores dst[d][r].
-template <typename T, bool kTranspose>
-__device__ void load_tile(const T* __restrict__ src, int row0, int rows,
-                          float* dst) {
-  constexpr int V = Elem<T>::kVec;
-  constexpr int kChunks = kD / V;
-  for (int idx = threadIdx.x; idx < kTile * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * V;
-    float vals[V];
-    if (row0 + r < rows) {
-      Elem<T>::load(src + (size_t)(row0 + r) * kD + c, vals);
-    } else {
-#pragma unroll
-      for (int e = 0; e < V; ++e) vals[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      if (kTranspose) {
-        dst[(c + e) * kLd + r] = vals[e];
-      } else {
-        dst[r * kLd + c + e] = vals[e];
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void load4(const float* p, float out[4]) {
-  float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x;
-  out[1] = v.y;
-  out[2] = v.z;
-  out[3] = v.w;
-}
+constexpr int kSmemBytes = 4 * kTileFloats * (int)sizeof(float);
 
 // Reduce over the 16 threads that share a row group (lanes differing in
 // their low four bits).
@@ -135,18 +65,18 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-template <typename T>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
                      T* __restrict__ o, float* __restrict__ lse, int H,
-                     int Lq, int Lk, float scale) {
+                     int Lq, int Lk, float scale, DropParams drop) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* qt = smem;                 // [kD][kLd]     q tile, transposed
-  float* kt = qt + kD * kLd;        // [kD][kLd]     k tile, transposed
-  float* vs = kt + kD * kLd;        // [kTile][kLd]  v tile
-  float* pt = vs + kTile * kLd;     // [kTile][kLd]  p tile, transposed
+  float* qt = smem;               // [kD][kLd]     q tile, transposed
+  float* kt = qt + kTileFloats;   // [kD][kLd]     k tile, transposed
+  float* vs = kt + kTileFloats;   // [kTile][kLd]  v tile
+  float* pt = vs + kTileFloats;   // [kTile][kLd]  p tile, transposed
 
   const int q0 = blockIdx.x * kTile;
   const int bh = blockIdx.y;  // b * H + h
@@ -159,6 +89,12 @@ __global__ void __launch_bounds__(kThreads)
   const int tx = threadIdx.x % 16;  // key columns (scores) / dims (O)
   const int ty = threadIdx.x / 16;  // query rows ty*4 .. ty*4+3
 
+  uint32_t s0 = 0, s1 = 0;
+  if (kDrop) {
+    s0 = (uint32_t)drop.seed[0];
+    s1 = (uint32_t)drop.seed[1];
+  }
+
   load_tile<T, true>(qb, q0, Lq, qt);
 
   float m[4], l[4], acc[4][4];
@@ -166,9 +102,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
   }
+  zero_4x4(acc);
 
   for (int k0 = 0; k0 < Lk; k0 += kTile) {
     __syncthreads();  // the previous step is done with kt, vs and pt
@@ -177,20 +112,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < kD; ++d) {
-      float a[4], c[4];
-      load4(qt + d * kLd + ty * 4, a);
-      load4(kt + d * kLd + tx * 4, c);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
-    }
+    zero_4x4(s);
+    mma_4x4(qt, kt, ty * 4, tx * 4, s);
 
     // Scale, key bias, and the ragged edge: a column past Lk is no key.
 #pragma unroll
@@ -213,8 +136,16 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
-        rs += p;
-        pt[(tx * 4 + j) * kLd + ty * 4 + i] = Elem<T>::round(p);
+        rs += p;  // the denominator takes the undropped p
+        float pv = p;
+        if (kDrop) {
+          const bool keep =
+              keep_bit(s0, s1, (uint32_t)b, (uint32_t)(bh - b * H),
+                       (uint32_t)(q0 + ty * 4 + i),
+                       (uint32_t)(k0 + tx * 4 + j), drop.thresh);
+          pv = keep ? p * drop.inv : 0.f;
+        }
+        pt[(tx * 4 + j) * kLd + ty * 4 + i] = Elem<T>::round(pv);
       }
       l[i] = l[i] * alpha + row_sum(rs);
       m[i] = m_new;
@@ -223,16 +154,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-#pragma unroll 8
-    for (int c = 0; c < kTile; ++c) {
-      float a[4], w[4];
-      load4(pt + c * kLd + ty * 4, a);
-      load4(vs + c * kLd + tx * 4, w);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
+    mma_4x4(pt, vs, ty * 4, tx * 4, acc);
   }
 
 #pragma unroll
@@ -246,37 +168,56 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* bias,
-           void* o, void* lse, int B, int H, int Lq, int Lk, float scale,
-           void* stream) {
+template <typename T, bool kDrop>
+int launch_t(const void* q, const void* k, const void* v, const void* bias,
+             void* o, void* lse, int B, int H, int Lq, int Lk, float scale,
+             DropParams drop, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<T, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Lq + kTile - 1) / kTile, B * H);
-  flash_fwd_kernel<T><<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+  flash_fwd_kernel<T, kDrop><<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<T*>(o), static_cast<float*>(lse), H, Lq, Lk, scale);
+      static_cast<T*>(o), static_cast<float*>(lse), H, Lq, Lk, scale, drop);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* bias,
+           void* o, void* lse, const void* seed, int B, int H, int Lq,
+           int Lk, float scale, unsigned int thresh, float inv,
+           void* stream) {
+  DropParams drop{static_cast<const int64_t*>(seed), thresh, inv};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (seed == nullptr)
+    return launch_t<T, false>(q, k, v, bias, o, lse, B, H, Lq, Lk, scale,
+                              drop, s);
+  return launch_t<T, true>(q, k, v, bias, o, lse, B, H, Lq, Lk, scale, drop,
+                           s);
 }
 
 }  // namespace
 
 // q, k, v, o: contiguous [B, H, L, 64]; bias: contiguous fp32 [B, Lk];
-// lse: fp32 [B, H, Lq]. Returns the cudaError_t of the launch.
+// lse: fp32 [B, H, Lq]; seed: two int64 words on the device, or null for
+// no dropout (then thresh and inv are unused). Returns the cudaError_t of
+// the launch.
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
-                              const void* bias, void* o, void* lse, int B,
-                              int H, int Lq, int Lk, float scale,
+                              const void* bias, void* o, void* lse,
+                              const void* seed, int B, int H, int Lq, int Lk,
+                              float scale, unsigned int thresh, float inv,
                               void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, bias, o, lse, B, H, Lq, Lk, scale,
-                               stream);
+  return launch<__nv_bfloat16>(q, k, v, bias, o, lse, seed, B, H, Lq, Lk,
+                               scale, thresh, inv, stream);
 }
 
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
-                             const void* bias, void* o, void* lse, int B,
-                             int H, int Lq, int Lk, float scale,
+                             const void* bias, void* o, void* lse,
+                             const void* seed, int B, int H, int Lq, int Lk,
+                             float scale, unsigned int thresh, float inv,
                              void* stream) {
-  return launch<float>(q, k, v, bias, o, lse, B, H, Lq, Lk, scale, stream);
+  return launch<float>(q, k, v, bias, o, lse, seed, B, H, Lq, Lk, scale,
+                       thresh, inv, stream);
 }

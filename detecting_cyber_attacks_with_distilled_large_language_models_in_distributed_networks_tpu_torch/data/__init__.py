@@ -3,6 +3,7 @@ from .textualize import (  # noqa: F401
     FLOW_TEXT_COLUMNS,
     flow_to_text,
     render_row,
+    render_template,
 )
 from .tokenizer import (  # noqa: F401
     WordPieceTokenizer,

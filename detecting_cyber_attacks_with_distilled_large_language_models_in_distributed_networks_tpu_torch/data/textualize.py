@@ -2,13 +2,15 @@
 
 The same CICIDS2017 template as the JAX package's ``data/textualize.py``
 (reference client1.py:68-81), byte for byte: the scoring server renders
-``features`` requests through it, and the model's inputs depend on every
-byte.
+``features`` requests through it, the training data path renders whole
+frames through it, and the model's inputs depend on every byte.
 """
 
 from __future__ import annotations
 
 from typing import Mapping, Sequence
+
+import numpy as np
 
 #: The 10 flow-feature columns the template renders, in order.
 FLOW_TEXT_COLUMNS: tuple[str, ...] = (
@@ -48,3 +50,17 @@ def render_row(row: Mapping[str, object], template: Sequence[tuple[str, str, str
 def flow_to_text(row: Mapping[str, object]) -> str:
     """Render one flow record through the CICIDS2017 template."""
     return render_row(row, CICIDS_TEMPLATE)
+
+
+def render_template(
+    frame: Mapping[str, np.ndarray], template: Sequence[tuple[str, str, str]]
+) -> list[str]:
+    """Template rendering for a whole frame (``{column: numpy values}``),
+    built column-wise. ``tolist()`` yields Python ints and floats whose
+    ``str()`` is what the JAX package's pandas path writes
+    (``'666666.6667'``, ``'54865'``, ``'nan'``, ``'inf'``)."""
+    cols = [
+        [f"{prefix}{v}{suffix}" for v in frame[col].tolist()]
+        for prefix, col, suffix in template
+    ]
+    return ["".join(row) for row in zip(*cols)]

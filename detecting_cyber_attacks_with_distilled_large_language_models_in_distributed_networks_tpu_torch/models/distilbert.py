@@ -1,9 +1,9 @@
 """DistilBERT encoder + DDoS classification head in PyTorch.
 
-Port of the JAX package's ``models/distilbert.py`` (inference forward):
-embeddings (word + learned position, LayerNorm eps 1e-12), N post-LayerNorm
-transformer blocks (MHA -> residual -> LN -> GELU FFN -> residual -> LN),
-then CLS pooling -> Linear(dim, n_classes) in fp32.
+Port of the JAX package's ``models/distilbert.py``: embeddings (word +
+learned position, LayerNorm eps 1e-12), N post-LayerNorm transformer
+blocks (MHA -> residual -> LN -> GELU FFN -> residual -> LN), then CLS
+pooling -> Dropout -> Linear(dim, n_classes) in fp32.
 
 Module names mirror the JAX parameter tree (``encoder.layer_0.attn.q``
 for ``encoder/layer_0/attn/q``), so :mod:`.convert` maps one layout onto
@@ -12,8 +12,16 @@ the other by renaming leaves alone.
 Dtypes: parameters stay fp32; every Linear and embedding runs in
 ``cfg.compute_dtype`` (weights cast at use, as flax ``nn.Dense(dtype=)``
 does); LayerNorm statistics, the attention softmax and the head run in
-fp32. The forward is deterministic (eval): dropout, ``remat`` and the
-ring attention path arrive with later slices.
+fp32.
+
+Dropout (train mode, ``deterministic=False``) sits where the JAX model
+puts it: the embeddings' output, each block's attention output and FFN
+output (``dropout``), the attention weights (``attention_dropout``; in
+the flash kernels on the flash path) and the pooled CLS vector
+(``head_dropout``). Masks come from the explicit ``generator`` passed to
+``forward``, never from torch's global generator, so they match the JAX
+package's in distribution, not in bits. ``remat`` and the ring attention
+path arrive with later slices.
 """
 
 from __future__ import annotations
@@ -26,6 +34,21 @@ from ..config import ModelConfig
 from ..device import torch_dtype
 from ..ops.attention import dot_product_attention, make_attention_bias
 from ..ops.flash_attention import flash_attention
+
+
+def _dropout(
+    x: torch.Tensor, rate: float, deterministic: bool,
+    generator: torch.Generator | None,
+) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale
+    the kept values by ``1 / (1 - rate)``, in x's dtype."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("train-mode dropout needs a generator")
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _linear(x: torch.Tensor, mod: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -49,7 +72,10 @@ class MultiHeadSelfAttention(nn.Module):
         self.v = nn.Linear(cfg.dim, cfg.dim)
         self.o = nn.Linear(cfg.dim, cfg.dim)
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, bias: torch.Tensor, deterministic: bool = True,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
         cfg = self.cfg
         cd = torch_dtype(cfg.compute_dtype)
         B, L, _ = x.shape
@@ -68,10 +94,14 @@ class MultiHeadSelfAttention(nn.Module):
             q = split(_linear(x, self.q, cd))
             k = split(_linear(x, self.k, cd))
             v = split(_linear(x, self.v, cd))
+        drop = dict(
+            dropout_rate=cfg.attention_dropout, generator=generator,
+            deterministic=deterministic,
+        )
         if cfg.attention_impl == "flash":
-            ctx = flash_attention(q, k, v, bias)
+            ctx = flash_attention(q, k, v, bias, **drop)
         else:
-            ctx = dot_product_attention(q, k, v, bias)
+            ctx = dot_product_attention(q, k, v, bias, **drop)
         ctx = ctx.transpose(1, 2).reshape(B, L, cfg.dim)
         return _linear(ctx, self.o, cd)
 
@@ -86,12 +116,19 @@ class TransformerBlock(nn.Module):
         self.lin2 = nn.Linear(cfg.hidden_dim, cfg.dim)
         self.out_ln = nn.LayerNorm(cfg.dim, eps=cfg.layer_norm_eps)
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-        cd = torch_dtype(self.cfg.compute_dtype)
-        x = _layer_norm(x + self.attn(x, bias), self.sa_ln, cd)
+    def forward(
+        self, x: torch.Tensor, bias: torch.Tensor, deterministic: bool = True,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        cfg = self.cfg
+        cd = torch_dtype(cfg.compute_dtype)
+        attn_out = self.attn(x, bias, deterministic, generator)
+        attn_out = _dropout(attn_out, cfg.dropout, deterministic, generator)
+        x = _layer_norm(x + attn_out, self.sa_ln, cd)
         h = _linear(x, self.lin1, cd)
-        h = F.gelu(h, approximate="tanh" if self.cfg.gelu == "tanh" else "none")
+        h = F.gelu(h, approximate="tanh" if cfg.gelu == "tanh" else "none")
         h = _linear(h, self.lin2, cd)
+        h = _dropout(h, cfg.dropout, deterministic, generator)
         return _layer_norm(x + h, self.out_ln, cd)
 
 
@@ -103,12 +140,16 @@ class Embeddings(nn.Module):
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, cfg.dim)
         self.ln = nn.LayerNorm(cfg.dim, eps=cfg.layer_norm_eps)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, input_ids: torch.Tensor, deterministic: bool = True,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
         cd = torch_dtype(self.cfg.compute_dtype)
         L = input_ids.shape[-1]
         word = self.word_embeddings(input_ids).to(cd)
         pos = self.position_embeddings.weight[:L].to(cd)[None, :, :]
-        return _layer_norm(word + pos, self.ln, cd)
+        x = _layer_norm(word + pos, self.ln, cd)
+        return _dropout(x, self.cfg.dropout, deterministic, generator)
 
 
 class DistilBertEncoder(nn.Module):
@@ -123,7 +164,8 @@ class DistilBertEncoder(nn.Module):
             )
         if cfg.remat:
             raise NotImplementedError(
-                "remat arrives with the port's training slice"
+                "remat (activation recompute in the backward) is not ported: "
+                "the training slice runs without it"
             )
         self.cfg = cfg
         self.embeddings = Embeddings(cfg)
@@ -131,12 +173,13 @@ class DistilBertEncoder(nn.Module):
             self.add_module(f"layer_{i}", TransformerBlock(cfg))
 
     def forward(
-        self, input_ids: torch.Tensor, attention_mask: torch.Tensor
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+        deterministic: bool = True, generator: torch.Generator | None = None,
     ) -> torch.Tensor:
-        x = self.embeddings(input_ids)
+        x = self.embeddings(input_ids, deterministic, generator)
         bias = make_attention_bias(attention_mask)
         for i in range(self.cfg.n_layers):
-            x = getattr(self, f"layer_{i}")(x, bias)
+            x = getattr(self, f"layer_{i}")(x, bias, deterministic, generator)
         return x
 
 
@@ -150,11 +193,16 @@ class DDoSClassifier(nn.Module):
         self.classifier = nn.Linear(cfg.dim, cfg.n_classes)
 
     def forward(
-        self, input_ids: torch.Tensor, attention_mask: torch.Tensor
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+        deterministic: bool = True, generator: torch.Generator | None = None,
     ) -> torch.Tensor:
-        hidden = self.encoder(input_ids, attention_mask)
-        pooled = hidden[:, 0, :].float()  # CLS token; head in fp32
-        return F.linear(pooled, self.classifier.weight, self.classifier.bias)
+        """Logits ``[B, n_classes]`` in fp32. ``deterministic=False`` is
+        train mode: every dropout site draws from ``generator``."""
+        hidden = self.encoder(input_ids, attention_mask, deterministic, generator)
+        pooled = _dropout(
+            hidden[:, 0, :], self.cfg.head_dropout, deterministic, generator
+        )  # the CLS token (reference client1.py:62-63)
+        return F.linear(pooled.float(), self.classifier.weight, self.classifier.bias)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict[str, torch.Tensor]:
@@ -175,6 +223,42 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict[str, torch
             out[name] = torch.empty(shape).normal_(
                 0.0, cfg.initializer_range, generator=generator
             )
+    return out
+
+
+def model_skeleton(cfg: ModelConfig) -> DDoSClassifier:
+    """The classifier's modules on the meta device: no storage, for
+    ``torch.func.functional_call`` over a state dict of leaves."""
+    with torch.device("meta"):
+        return DDoSClassifier(cfg)
+
+
+def build_trainable_params(
+    cfg: ModelConfig, state_dict: dict, device: torch.device, *,
+    trainable: str = "all",
+) -> dict[str, torch.Tensor]:
+    """Fresh fp32 leaves on ``device`` for training, copied from
+    ``state_dict`` (strict: missing, unexpected or misshapen keys raise):
+    ``trainable="all"`` makes every leaf require grad, ``"head"`` only
+    the classifier's. The copies never alias the input, so training can
+    update them in place."""
+    shapes = {k: tuple(t.shape) for k, t in model_skeleton(cfg).state_dict().items()}
+    if set(state_dict) != set(shapes):
+        raise KeyError(
+            f"state dict keys differ from the model's: missing "
+            f"{sorted(set(shapes) - set(state_dict))[:4]}, unexpected "
+            f"{sorted(set(state_dict) - set(shapes))[:4]}"
+        )
+    out = {}
+    for name, shape in shapes.items():
+        leaf = torch.as_tensor(state_dict[name]).detach().to(
+            device=device, dtype=torch.float32, copy=True
+        )
+        if tuple(leaf.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(leaf.shape)}, want {shape}")
+        out[name] = leaf.requires_grad_(
+            trainable == "all" or name.startswith("classifier.")
+        )
     return out
 
 

@@ -3,8 +3,9 @@
 Each source under ``csrc/`` compiles on its own into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds). The
 library lands in ``build/torch_kernels/`` at the repository root, named by
-a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused. Nothing is built at import: the first call that
+a hash of the source, of every ``csrc/`` header it includes (directly or
+through another header) and of the flags, so an edited source or shared
+header rebuilds every library that uses it and an unchanged one is reused. Nothing is built at import: the first call that
 needs a kernel builds it. A failed build raises; nothing falls back.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,7 +25,9 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 
 #: Library name -> source file under csrc/.
-SOURCES = {"flash_fwd": "flash_fwd.cu"}
+SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu"}
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -49,11 +53,27 @@ def nvcc_path() -> str:
     return found
 
 
+def source_files(name: str) -> list[str]:
+    """The source of library ``name`` and every ``csrc/`` file it
+    includes with ``#include "..."``, transitively, source first."""
+    order, todo = [], [SOURCES[name]]
+    while todo:
+        rel = todo.pop()
+        if rel in order:
+            continue
+        order.append(rel)
+        with open(os.path.join(CSRC_DIR, rel)) as f:
+            todo += [inc for inc in _INCLUDE.findall(f.read())
+                     if os.path.isfile(os.path.join(CSRC_DIR, inc))]
+    return order
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, SOURCES[name])
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for rel in source_files(name):
+        h.update(rel.encode() + b"\0")
+        with open(os.path.join(CSRC_DIR, rel), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

@@ -139,18 +139,35 @@ def test_bf16_inputs_round_p_like_the_kernel():
 
 
 def test_dropout_is_not_ported_yet():
+    """Dropout is ported now (tests/test_torch_dropout.py holds it against
+    JAX): train mode needs a generator, and deterministic calls ignore the
+    rate, as in the JAX wrapper."""
     q, k, v, _ = _inputs(7, l=16)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="generator"):
         flash_attention(*_t(q, k, v), dropout_rate=0.1, deterministic=False)
-    # Deterministic calls ignore the rate, as in the JAX wrapper.
-    flash_attention(*_t(q, k, v), dropout_rate=0.1, deterministic=True)
+    plain = flash_attention(*_t(q, k, v))
+    same = flash_attention(*_t(q, k, v), dropout_rate=0.1, deterministic=True)
+    assert torch.equal(plain, same)
+    dropped = flash_attention(
+        *_t(q, k, v), dropout_rate=0.1, deterministic=False,
+        generator=torch.Generator().manual_seed(0),
+    )
+    assert not torch.equal(plain, dropped)
 
 
 def test_cpu_path_counts_no_launches():
-    before = flash_mod.FWD_LAUNCHES
+    counters = ("FWD_LAUNCHES", "FWD_DROPOUT_LAUNCHES", "DKDV_LAUNCHES", "DQ_LAUNCHES")
+    before = [getattr(flash_mod, c) for c in counters]
     q, k, v, _ = _inputs(8, l=16)
     flash_forward(*_t(q, k, v))
-    assert flash_mod.FWD_LAUNCHES == before
+    tq = torch.from_numpy(q).requires_grad_(True)
+    flash_attention(tq, *_t(k, v)).sum().backward()
+    flash_attention(
+        tq, *_t(k, v), dropout_rate=0.1, deterministic=False,
+        generator=torch.Generator().manual_seed(0),
+    ).sum().backward()
+    assert tq.grad is not None
+    assert [getattr(flash_mod, c) for c in counters] == before
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -1,7 +1,9 @@
 """Boundaries of the PyTorch port.
 
-* The port and chip_smoke.py import with JAX, flax, optax, orbax and the
-  JAX package blocked, and no file of theirs imports any of them.
+* The port and chip_smoke.py import with JAX, flax, optax, orbax, pandas,
+  matplotlib and the JAX package blocked (the card's machine has neither
+  JAX nor pandas nor matplotlib), and no file of theirs imports any of
+  them.
 * Entry points run on the card unless the caller asks for the CPU: with
   no CUDA they raise instead of falling back.
 * The static checker still resolves its path-suffix rules inside the JAX
@@ -28,7 +30,7 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PKG = "detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu"
 PORT_PKG = JAX_PKG + "_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", JAX_PKG)
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "matplotlib", JAX_PKG)
 
 
 def _port_files():
