@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a served batch's or a train step's time goes on the card.
 
-    python3 chip_profile.py [--mode serve|train] [--bucket 128] [--seed 0]
+    python3 chip_profile.py [--mode serve|train|fold] [--bucket 128] [--seed 0]
 
 ``serve`` builds the port's scoring engine for full-width DistilBERT-base
 (6 layers, dim 768, 12 heads, L=128, flash attention, bf16, seeded random
@@ -13,7 +13,14 @@ profiles a few more, then profiles each flash kernel alone at
 the training shape (B=16, H=12, L=128, D=64, bf16, dropout 0.1) for its
 device time per launch, free of the wrapper's host work.
 
-Both print per-category device time (the flash kernels K1/K2/K3, GEMMs,
+``fold`` profiles the fold kernel K4 alone on DistilBERT-base's largest
+leaf (the 30522 x 768 word embedding) at K=2 and K=8 clients for its
+device time per launch, then one round's fold as the aggregation server
+runs it: two uploads of the ``client`` command's full-width model (102
+leaves), host numpy in and out, each leaf copied to the card, folded and
+copied back.
+
+All print per-category device time (the flash kernels K1/K2/K3, K4, GEMMs,
 LayerNorm, the optimizer, dropout masks, other elementwise, copies), the
 host wall time per call or step, and the device's idle share of that
 wall, then one JSON line with the same numbers. Needs CUDA; exits
@@ -40,10 +47,13 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     default_tokenizer,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.models import (
+    flatten_tree,
     init_params,
+    params_to_jax,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.ops import (
     flash_attention as flash_mod,
+    fold as fold_mod,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.ops.attention import (
     make_attention_bias,
@@ -63,6 +73,7 @@ CATEGORIES = (
     ("K1 flash_fwd", ("flash_fwd",)),
     ("K2 flash_dkdv", ("flash_dkdv",)),
     ("K3 flash_dq", ("flash_dq",)),
+    ("K4 fold", ("fold_",)),
     ("optimizer", ("foreach", "multi_tensor", "MultiTensor")),
     ("dropout rng", ("philox", "distribution", "uniform", "random")),
     ("GEMM", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
@@ -185,9 +196,59 @@ def profile_train(card: str, args) -> None:
     print(json.dumps({"card": card, "mode": "kernels", "device_ms_per_launch": alone}))
 
 
+def profile_fold(card: str, args) -> None:
+    """K4 alone on the word-embedding leaf, then one round's fold."""
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    n_embed = 30522 * 768
+    alone = {}
+    for k in (2, 8):
+        x = torch.randn(k, n_embed, generator=g, device="cuda")
+        w = torch.rand(k, generator=g, device="cuda") + 0.05
+        fold_mod.fold_stacked(x, w)
+        torch.cuda.synchronize()
+        n = 20
+        with profile(activities=[ProfilerActivity.CUDA]) as kprof:
+            for _ in range(n):
+                fold_mod.fold_stacked(x, w)
+            torch.cuda.synchronize()
+        us, count = 0.0, 0
+        for name, (t, c) in device_times(kprof).items():
+            if "fold_" in name:
+                us, count = us + t, count + c
+        if count != n:
+            raise SystemExit(f"chip_profile: K4 at K={k}: {count} launches recorded, want {n}")
+        alone[f"K={k}"] = us / count / 1e3
+        gbps = (k + 1) * n_embed * 4 / (alone[f"K={k}"] * 1e-3) / 1e9
+        print(f"{card}: fold alone, K={k} n={n_embed}: {alone[f'K={k}']:.4f} ms device per launch ({gbps:.1f} GB/s)")
+        del x
+    tok = default_tokenizer()
+    cfg = ModelConfig.distilbert_base(vocab_size=len(tok.vocab))
+    first = flatten_tree(params_to_jax(init_params(cfg, torch.Generator().manual_seed(args.seed))))
+    uploads = [first, {key: a * np.float32(0.5) for key, a in first.items()}]
+    weights = [np.float32(0.5)] * 2
+
+    def fold_round() -> None:
+        for key in first:
+            fold_mod.fold_ordered([u[key] for u in uploads], weights, device="cuda")
+
+    fold_round()
+    t0 = time.perf_counter()
+    for _ in range(args.iters):
+        fold_round()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.iters):
+            fold_round()
+        torch.cuda.synchronize()
+    n_params = sum(a.size for a in first.values())
+    report(card, f"one round's fold, K=2 uploads of {len(first)} leaves ({n_params} fp32)",
+           wall_ms, prof, args.iters,
+           {"mode": "fold", "leaves": len(first), "params": n_params, "device_ms_per_launch": alone})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--mode", choices=["serve", "train"], default="serve")
+    ap.add_argument("--mode", choices=["serve", "train", "fold"], default="serve")
     ap.add_argument("--bucket", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=5)
@@ -201,6 +262,9 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
     if args.mode == "train":
         profile_train(card, args)
+        return 0
+    if args.mode == "fold":
+        profile_fold(card, args)
         return 0
     tok = default_tokenizer()
     cfg = ModelConfig.distilbert_base(

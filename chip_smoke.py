@@ -49,8 +49,27 @@ Phases; any failure exits non-zero before the last line is printed:
             on the card (atol 1e-4 + rtol 1e-3); and 20 steps on one fixed
             batch with dropout off must bring the loss below its first
             value;
-7. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
-   serving shape and dropout at the training shape, then K2 and K3),
+7. kernel-fold — the fold kernel K4 against its plain version on the
+            card and against numpy's ``acc += float32(w) * x`` on the
+            host, with no tolerance (``array_equal``): K in {1, 2, 8} over
+            the word-embedding leaf (23,440,896 elements) and n in {1, 3,
+            768, 32769}, scales 10^-4..10^4, subnormal inputs, repeated
+            calls giving the same bits. Then the times at K=2 and K=8 on
+            that leaf, beside the plain version's, ``torch.mv``'s (a
+            yardstick the port never calls) and the bound, and the
+            aggregator's host-to-device copies, kernel and copy back;
+8. round    — one FedAvg round of full-width DistilBERT-base on loopback:
+            the port's ``serve`` (2 clients, fold on the card) in a
+            thread and two port ``client``s in threads (``--preset
+            distilbert --attention-impl flash --synthetic 2400 --epochs 1
+            --rounds 1``), all through the port's parser. K4 must launch
+            once per parameter leaf (102); both clients must receive the
+            same bytes, whose crc equals that of ``fold_reference`` over
+            the two uploads as sent; K1 with dropout, K2 and K3 once per
+            layer of every step of both clients; both aggregated metrics
+            CSVs finite. Prints the round's time split;
+9. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
+   serving shape and dropout at the training shape, then K2, K3 and K4),
    then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -77,8 +96,15 @@ import torch.nn.functional as F
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli import (
     build_parser,
 )
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.comm import (
+    build_server as build_round_server,
+    run_client,
+)
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.local import (
     run_local,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.comm import (
+    wire,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.serving import (
     build_server,
@@ -104,6 +130,7 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.ops import (
     _build,
     flash_attention as flash_mod,
+    fold as fold_mod,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.ops.attention import (
     make_attention_bias,
@@ -126,6 +153,8 @@ STEADY_PASSES = 12  # passes over the epoch's 9 batches timed for samples/s
 RATE = 0.1  # ModelConfig.attention_dropout
 PORT = "detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch"
 JAX_FLASH = "detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu/ops/flash_attention.py"
+JAX_FOLD = "detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu/ops/fold.py"
+EMBED_N = 30522 * 768  # the word-embedding leaf, DistilBERT-base's largest
 
 
 def fail(msg: str) -> None:
@@ -560,6 +589,180 @@ def train_phase(seed: int, card: str) -> dict[str, int]:
     return launches
 
 
+def numpy_fold(leaves: list[np.ndarray], weights: np.ndarray) -> np.ndarray:
+    """The JAX package's ``fold_naive`` on the host: ``acc += float32(w) * x``."""
+    acc = np.zeros(leaves[0].shape, np.float32)
+    for a, w in zip(leaves, weights):
+        acc += np.float32(w) * a
+    return acc
+
+
+def fold_bound(k: int, n: int) -> tuple[float, str]:
+    """Least time (ms) for one fold: K leaves read once, the result
+    written once, fp32; 2·K·n fp32 operations are far below the card's
+    rate, so bytes bound it."""
+    return (k + 1) * n * 4 / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def fold_kernel_phase(seed: int, card: str) -> dict:
+    """Phase 7: K4 bit-exact against its plain version and numpy, then its
+    times on the word-embedding leaf. Returns its kernels-line entry."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    cases = [(k, EMBED_N, False) for k in (1, 2, 8)]
+    cases += [(k, n, False) for k in (1, 2, 8) for n in (1, 3, 768, 32769)]
+    cases += [(k, n, True) for k in (2, 8) for n in (4099, 32768)]
+    for k, n, subnormal in cases:
+        if subnormal:  # ±1e-40, subnormal in fp32
+            x = (torch.randint(0, 2, (k, n), generator=g, device="cuda") * 2 - 1).float() * 1e-40
+        else:
+            scales = 10.0 ** torch.randint(-4, 5, (k, 1), generator=g, device="cuda").float()
+            x = torch.randn(k, n, generator=g, device="cuda") * scales
+        w = torch.rand(k, generator=g, device="cuda") + 0.05
+        got = fold_mod.fold_stacked(x, w)
+        torch.cuda.synchronize()
+        plain = fold_mod.fold_reference(list(x), w)
+        host = numpy_fold(list(x.cpu().numpy()), w.cpu().numpy())
+        same = torch.equal(got, plain) and np.array_equal(got.cpu().numpy(), host)
+        again = torch.equal(fold_mod.fold_stacked(x, w), got)
+        if subnormal:
+            check(bool(((host != 0) & (np.abs(host) < np.finfo(np.float32).tiny)).any()), "the subnormal case made no subnormal result")
+        if n >= EMBED_N or n <= 3 or subnormal:
+            print(f"K4 check K={k} n={n:9d}{' subnormal' if subnormal else ''}: array_equal plain {torch.equal(got, plain)} numpy {np.array_equal(got.cpu().numpy(), host)} repeat {again}", flush=True)
+        check(same and again, f"K4 is not bit-exact at K={k} n={n} subnormal={subnormal}")
+        del x, got, plain
+    entry = None
+    for k in (2, 8):
+        x = torch.randn(k, EMBED_N, generator=g, device="cuda")
+        w = torch.rand(k, generator=g, device="cuda") + 0.05
+        xt = x.t()
+        t_k = time_ms(lambda: fold_mod.fold_stacked(x, w))
+        t_p = time_ms(lambda: fold_mod.fold_reference(list(x), w))
+        t_l = time_ms(lambda: torch.mv(xt, w))
+        bound, bound_by = fold_bound(k, EMBED_N)
+        print(f"K4 time K={k} n={EMBED_N} fp32 {card}: kernel_ms={t_k:.4f} plain_ms={t_p:.4f} library_ms(torch.mv)={t_l:.4f} bound_ms={bound:.4f} ({bound_by}); {(k + 1) * EMBED_N * 4 / (t_k * 1e-3) / 1e9:.1f} GB/s", flush=True)
+        if k == 2:
+            entry = {
+                "name": "fold",
+                "route": "cuda",
+                "source": f"{PORT}/csrc/fold.cu",
+                "replaces": f"{JAX_FOLD}:138",
+                "launches": None,
+                "max_abs_err": 0.0,
+                "ms": t_k,
+                "plain_ms": t_p,
+                "bound_ms": bound,
+                "bound_by": bound_by,
+                "library_ms": t_l,
+            }
+        del x, xt
+    # The aggregator's path on one leaf: host leaves in, host result out.
+    leaves = [np.random.default_rng(seed + i).standard_normal(EMBED_N, dtype=np.float32) for i in range(2)]
+    weights = [np.float32(0.5)] * 2
+    times: dict = {}
+    for _ in range(3):
+        times.clear()
+        t0 = time.perf_counter()
+        out = fold_mod.fold_ordered(leaves, weights, device="cuda", times=times)
+        wall = time.perf_counter() - t0
+    check(np.array_equal(out, numpy_fold(leaves, weights)), "fold_ordered is not bit-exact on the embedding leaf")
+    print(f"K4 fold_ordered K=2 n={EMBED_N} (host numpy in and out) {card}: wall {wall * 1e3:.2f} ms: H2D {times['h2d_ms']:.2f} ms, launch + kernel {times['kernel_ms']:.4f} ms, D2H {times['d2h_ms']:.2f} ms (CUDA events)", flush=True)
+    return entry
+
+
+def round_phase(seed: int, card: str) -> int:
+    """Phase 8: one full-width FedAvg round on loopback, folded by K4 on
+    the card. Returns K4's launches during it."""
+    with tempfile.TemporaryDirectory() as out_dir:
+        server = build_round_server(build_parser().parse_args(
+            ["serve", "--host", "127.0.0.1", "--port", "0", "--num-clients", "2",
+             "--timeout", "600", "--device", "cuda"]
+        ))
+        check(server.device.type == "cuda", f"server folds on {server.device}")
+        results: dict[int, dict] = {}
+        errors: list[BaseException] = []
+
+        def client(i: int) -> None:
+            try:
+                results[i] = run_client(build_parser().parse_args(
+                    ["client", "--client-id", str(i), "--host", "127.0.0.1", "--port", str(server.port),
+                     "--preset", "distilbert", "--attention-impl", "flash", "--synthetic", "2400",
+                     "--epochs", "1", "--rounds", "1", "--seed", str(seed), "--timeout", "600",
+                     "--output-dir", out_dir]
+                ))
+            except BaseException as e:  # re-raised below, after the join
+                errors.append(e)
+
+        fold_mod.FOLD_LAUNCHES = 0
+        flash_mod.FWD_LAUNCHES = flash_mod.FWD_DROPOUT_LAUNCHES = 0
+        flash_mod.DKDV_LAUNCHES = flash_mod.DQ_LAUNCHES = 0
+        t0 = time.perf_counter()
+        with server:
+            st = threading.Thread(target=server.serve, args=(1,))
+            workers = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+            for t in (st, *workers):
+                t.start()
+            for t in (*workers, st):
+                t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = fold_mod.FOLD_LAUNCHES
+        flash = (flash_mod.FWD_LAUNCHES, flash_mod.FWD_DROPOUT_LAUNCHES, flash_mod.DKDV_LAUNCHES, flash_mod.DQ_LAUNCHES)
+        check(not any(t.is_alive() for t in (st, *workers)), "round threads hung")
+        if errors:
+            raise errors[0]
+        csvs = {}
+        for i in range(2):
+            for path in results[i]["metrics_csvs"]:
+                with open(path) as f:
+                    csvs[os.path.basename(path)] = f.read().strip().splitlines()
+    check(sorted(csvs) == [f"client{i}_{p}_metrics.csv" for i in range(2) for p in ("aggregated", "local")],
+          f"metrics CSVs {sorted(csvs)}")
+    for name, (header, values) in csvs.items():
+        check(header == "Accuracy,Loss,Precision,Recall,F1-Score", f"{name} header {header!r}")
+        check(all(np.isfinite(float(v)) for v in values.split(",")), f"{name} {values!r}")
+    uploads = [wire.flatten_params(results[i]["uploaded"]) for i in range(2)]
+    aggs = [wire.flatten_params(results[i]["aggregate"]) for i in range(2)]
+    n_leaves = len(uploads[0])
+    n_params = sum(a.size for a in uploads[0].values())
+    print(f"round: {n_leaves} leaves, {n_params} fp32 parameters ({n_params * 4 / 1e6:.2f} MB) per upload; K4 launches {launches}; flash launches (K1 rate 0, K1 dropout, K2, K3) {flash}", flush=True)
+    check(n_leaves == 102 and launches == n_leaves, f"K4 launched {launches} times for {n_leaves} leaves (want one per leaf, 102)")
+    check(aggs[0].keys() == aggs[1].keys() and all(np.array_equal(aggs[0][k], aggs[1][k]) for k in aggs[0]),
+          "the two clients received different aggregates")
+    w = np.ones(2, np.float64) / 2  # unweighted FedAvg: StreamAgg's weight math
+    ref = {
+        key: fold_mod.fold_reference([torch.from_numpy(u[key]) for u in uploads], [np.float32(x) for x in w]).numpy()
+        for key in uploads[0]
+    }
+    crc, want = wire.flat_crc32(aggs[0]), wire.flat_crc32(ref)
+    print(f"round: aggregate crc {crc:#010x}, fold_reference over the uploads {want:#010x}", flush=True)
+    check(crc == want, "the round's aggregate differs from the plain fold of the uploads")
+    steps = [results[i]["state"].step for i in range(2)]
+    mcfg = results[0]["config"].model
+    check(flash[1] == flash[2] == flash[3] == mcfg.n_layers * sum(steps),
+          f"K1-dropout/K2/K3 launches {flash[1:]} for {steps} steps")
+    eval_batches = sum(2 * -(-results[i]["local"]["n"] // results[i]["config"].data.eval_batch_size) for i in range(2))
+    check(flash[0] == mcfg.n_layers * eval_batches, f"K1 (rate 0) launches {flash[0]} for {eval_batches} eval batches")
+    stats = server.last_fold_stats
+    check(stats["fold_engine"] == "cuda", f"fold engine {stats['fold_engine']}")
+    for i in range(2):
+        s, x = results[i]["seconds"], results[i]["exchange"]
+        print(
+            f"round: client {i}: set-up {s['setup']:.3f} s, train {s['train']:.3f} s ({steps[i]} steps), eval {s['eval_local']:.3f} s, "
+            f"host_params {s['host_params']:.3f} s, upload {x['upload_s']:.3f} s ({x['upload_bytes'] / 1e6:.1f} MB), "
+            f"wait for the reply {x['reply_wait_s']:.3f} s ({x['reply_bytes'] / 1e6:.1f} MB), "
+            f"re-evaluation {s['eval_aggregated']:.3f} s, adopt {s['adopt']:.3f} s",
+            flush=True,
+        )
+    ph = server.phase_seconds
+    print(
+        f"round: server {card}: wait {ph['wait']:.3f} s, agg {ph['agg']:.3f} s (fold {stats['fold_s']:.3f} s = "
+        f"H2D {stats['fold_h2d_ms']:.2f} ms, launch + kernel {stats['fold_kernel_ms']:.3f} ms, D2H {stats['fold_d2h_ms']:.2f} ms "
+        f"by CUDA events, over {launches} leaves), reply {ph['reply']:.3f} s; round wall {wall:.3f} s",
+        flush=True,
+    )
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -599,7 +802,13 @@ def main() -> int:
         row["launches"] = train_launches[row["name"]]
     print(f"launches: flash_fwd {serve_launches} (serving) + {train_launches['flash_fwd']} (evaluation)", flush=True)
 
-    print(json.dumps({"kernels": [k1, k1_drop, k2, k3]}), flush=True)
+    phase("kernel-fold")
+    k4 = fold_kernel_phase(seed, card)
+
+    phase("round")
+    k4["launches"] = round_phase(seed, card)
+
+    print(json.dumps({"kernels": [k1, k1_drop, k2, k3, k4]}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()},

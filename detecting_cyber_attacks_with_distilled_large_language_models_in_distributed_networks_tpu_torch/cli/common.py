@@ -1,6 +1,7 @@
 """Shared CLI plumbing of the ported commands: config resolution from
 flags, data loading and per-client report writing (the port's copy of
-the parts of the JAX package's ``cli/common.py`` that ``local`` uses)."""
+the parts of the JAX package's ``cli/common.py`` that ``local`` and
+``client`` use)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import logging
 import os
 from typing import Any
 
-from ..config import DataConfig, ExperimentConfig, ModelConfig
+from ..config import DataConfig, ExperimentConfig, FedConfig, ModelConfig
 
 log = logging.getLogger(__name__)
 
@@ -42,7 +43,11 @@ def resolve_config(args: argparse.Namespace, *, vocab_size: int) -> ExperimentCo
         data_kw.update(batch_size=args.batch_size, eval_batch_size=args.batch_size)
     if getattr(args, "data_fraction", None):
         data_kw.update(data_fraction=args.data_fraction)
-    cfg = ExperimentConfig(model=model, data=DataConfig(**data_kw))
+    fed = FedConfig(
+        num_clients=getattr(args, "num_clients", None) or FedConfig.num_clients,
+        rounds=getattr(args, "rounds", None) or FedConfig.rounds,
+    )
+    cfg = ExperimentConfig(model=model, data=DataConfig(**data_kw), fed=fed)
 
     train_kw: dict[str, Any] = {}
     if getattr(args, "epochs", None):
@@ -75,14 +80,22 @@ def _load_clients(args, cfg: ExperimentConfig, tok, num_clients: int):
     return [tokenize_client(s, tok, max_len=cfg.model.max_len) for s in splits]
 
 
-def _write_reports(client_id: int, local: dict, output_dir: str) -> str:
-    """The reference's one-row metrics CSV ``client{N}_local_metrics.csv``
-    (client1.py:386). The JAX package's plots are not ported."""
+def _write_reports(
+    client_id: int, local: dict, aggregated: dict | None, output_dir: str
+) -> list[str]:
+    """The reference's one-row metrics CSVs ``client{N}_local_metrics.csv``
+    and, after a round, ``client{N}_aggregated_metrics.csv``
+    (client1.py:386,401); returns their paths. The JAX package's plots are
+    not ported."""
     from .. import reporting
 
     os.makedirs(output_dir, exist_ok=True)
-    path = reporting.save_metrics(
-        local, os.path.join(output_dir, f"client{client_id}_local_metrics.csv")
-    )
-    log.info(f"[CLIENT {client_id}] wrote {path}")
-    return path
+    phases = [("local", local)] + ([("aggregated", aggregated)] if aggregated is not None else [])
+    paths = [
+        reporting.save_metrics(
+            metrics, os.path.join(output_dir, f"client{client_id}_{phase}_metrics.csv")
+        )
+        for phase, metrics in phases
+    ]
+    log.info(f"[CLIENT {client_id}] wrote {', '.join(paths)}")
+    return paths

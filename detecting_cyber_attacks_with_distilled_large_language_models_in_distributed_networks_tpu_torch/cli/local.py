@@ -43,7 +43,7 @@ def run_local(args) -> dict:
         f"{tag}val acc {val['Accuracy']:.4f} | "
         f"test acc {test['Accuracy']:.4f} f1 {test['F1-Score']:.4f}"
     )
-    path = _write_reports(args.client_id, test, cfg.output_dir)
+    (path,) = _write_reports(args.client_id, test, None, cfg.output_dir)
     return {
         "config": cfg, "client": client, "trainer": trainer, "state": state,
         "losses": losses,

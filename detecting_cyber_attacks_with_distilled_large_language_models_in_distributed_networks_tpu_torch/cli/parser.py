@@ -1,8 +1,9 @@
 """Command line of the port: ``python -m <package> <verb> ...``.
 
 The verbs and flags mirror the JAX package's ``cli/parser.py``; the port
-has ``local`` (single-client training) and ``infer-serve`` so far. Both
-run on the card unless ``--device cpu`` is given.
+has ``local`` (single-client training), ``serve`` and ``client`` (a
+federated round over TCP) and ``infer-serve`` so far. Each runs on the
+card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import logging
 import sys
 
 from ..models.presets import preset_names
+from .comm import cmd_client, cmd_serve
 from .local import cmd_local
 from .serving import cmd_infer_serve
 
@@ -25,13 +27,8 @@ def _add_device(p: argparse.ArgumentParser, what: str) -> None:
     )
 
 
-def build_parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(
-        prog="fedtpu-torch",
-        description="fedtpu on PyTorch + CUDA (the H100 port)",
-    )
-    sub = ap.add_subparsers(dest="cmd", required=True)
-    p = sub.add_parser("local", help="single-client train/eval/report")
+def _add_training(p: argparse.ArgumentParser) -> None:
+    """The data, model and training flags ``local`` and ``client`` share."""
     p.add_argument(
         "--preset", default="tiny", help=f"{'|'.join(preset_names())}"
     )
@@ -50,9 +47,52 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-len", type=int)
     p.add_argument("--data-fraction", type=float)
     p.add_argument("--seed", type=int)
-    p.add_argument("--client-id", type=int, default=0)
     _add_device(p, "training and evaluation run")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="fedtpu-torch",
+        description="fedtpu on PyTorch + CUDA (the H100 port)",
+    )
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("local", help="single-client train/eval/report")
+    _add_training(p)
+    p.add_argument("--client-id", type=int, default=0)
     p.set_defaults(fn=cmd_local)
+
+    p = sub.add_parser(
+        "serve",
+        help="TCP aggregation server: one dense fp32 FedAvg fold per round",
+        epilog="Clients upload single FTPW frames and get the aggregate back "
+        "on the same connection; a JAX client interoperates. The fold runs "
+        "on the card (the hand-written K4 kernel) unless --device cpu.",
+    )
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=12345)
+    p.add_argument("--num-clients", type=int, default=2)
+    p.add_argument("--rounds", type=int, default=1)
+    p.add_argument("--min-clients", type=int, default=None)
+    p.add_argument("--weighted", action="store_true", help="weight the mean by n_samples")
+    p.add_argument("--timeout", type=float, default=300.0)
+    _add_device(p, "the fold runs")
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser(
+        "client",
+        help="TCP federated client: train -> exchange -> adopt, per round",
+        epilog="Writes client{N}_local_metrics.csv and, after a round, "
+        "client{N}_aggregated_metrics.csv; a failed exchange leaves the "
+        "local report only. A JAX server interoperates.",
+    )
+    _add_training(p)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=12345)
+    p.add_argument("--client-id", type=int, required=True)
+    p.add_argument("--num-clients", type=int, default=None, help="clients the data is split for (default 2)")
+    p.add_argument("--rounds", type=int, default=1)
+    p.add_argument("--timeout", type=float, default=300.0)
+    p.set_defaults(fn=cmd_client)
 
     p = sub.add_parser(
         "infer-serve",

@@ -1,12 +1,13 @@
 """Model configuration for the PyTorch port.
 
 Copies of the JAX package's ``ModelConfig``, ``DataConfig`` and
-``TrainConfig`` (fields, defaults, validation and presets unchanged), so a
-manifest or config written by either package means the same thing in
-both. Fields whose code paths the port has not reached yet (FedProx,
-gradient accumulation, the non-``sample`` partitions) are kept for
-compatibility and raise ``NotImplementedError`` when set away from their
-defaults, instead of being ignored. ``ExperimentConfig`` carries only the
+``TrainConfig`` (fields, defaults, validation and presets unchanged) and
+the round fields of its ``FedConfig``, so a manifest or config written by
+either package means the same thing in both. Fields whose code paths the
+port has not reached yet (FedProx, gradient accumulation, the
+non-``sample`` partitions) are kept for compatibility and raise
+``NotImplementedError`` when set away from their defaults, instead of
+being ignored. ``ExperimentConfig`` carries only the
 sections the ported commands read.
 """
 
@@ -222,6 +223,21 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class FedConfig:
+    """Federated-round structure: the fields of the JAX package's
+    ``FedConfig`` that the TCP round reads (client count and rounds).
+
+    The reference runs one FedAvg round per invocation with exactly two
+    clients (reference server.py:13); here both are first-class. The JAX
+    package's mesh-tier fields (participation, DP, server optimizers,
+    personalization, relays, wire dtypes) are not ported.
+    """
+
+    num_clients: int = 2
+    rounds: int = 1
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     """The sections of the JAX package's ``ExperimentConfig`` that the
     ported commands read."""
@@ -229,6 +245,7 @@ class ExperimentConfig:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    fed: FedConfig = dataclasses.field(default_factory=FedConfig)
     output_dir: str = "outputs"
 
     def __post_init__(self) -> None:

@@ -56,22 +56,24 @@ def params_from_jax(tree_or_flat: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
 def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """The port's state dict -> the nested flax dict of numpy fp32 leaves
-    (the inverse of :func:`params_from_jax`)."""
+    (the inverse of :func:`params_from_jax`). Kernels are transposed
+    where the tensor lies (on the card for a card's state), and every
+    leaf is a host copy that never aliases the state."""
     tree: dict = {}
     for key, t in state_dict.items():
         module, _, name = key.rpartition(".")
-        arr = t.detach().to("cpu", torch.float32).numpy()
+        t = t.detach().to(torch.float32)
         if name == "weight":
-            if arr.ndim == 1:
+            if t.ndim == 1:
                 name = "scale"  # LayerNorm
             elif module.endswith("_embeddings"):
                 name = "embedding"
             else:
-                arr, name = arr.T, "kernel"
+                t, name = t.t(), "kernel"
         elif name != "bias":
             raise ValueError(f"unknown parameter {key!r}")
         node = tree
         for part in module.split("."):
             node = node.setdefault(part, {})
-        node[name] = np.ascontiguousarray(arr)
+        node[name] = t.contiguous().to("cpu", copy=True).numpy()
     return tree

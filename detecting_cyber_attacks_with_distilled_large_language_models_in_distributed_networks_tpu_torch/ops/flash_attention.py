@@ -28,6 +28,7 @@ the JAX kernels drop the same weights.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -41,6 +42,9 @@ FWD_LAUNCHES = 0
 FWD_DROPOUT_LAUNCHES = 0
 DKDV_LAUNCHES = 0
 DQ_LAUNCHES = 0
+#: Guards the counters' read-modify-writes: two trainers in one process
+#: (a federated round's clients as threads) launch concurrently.
+_COUNT_LOCK = threading.Lock()
 
 #: The head dims the CUDA kernels are built for.
 KERNEL_HEAD_DIMS = (64,)
@@ -373,10 +377,11 @@ def _launch_fwd(q, k, v, bias, seed, rate) -> tuple[torch.Tensor, torch.Tensor]:
         out.data_ptr(), lse.data_ptr(), _ptr(seed_d), b, h, lq, lk,
         1.0 / (d**0.5), thresh, inv,
     )
-    if seed_d is None:
-        FWD_LAUNCHES += 1
-    else:
-        FWD_DROPOUT_LAUNCHES += 1
+    with _COUNT_LOCK:
+        if seed_d is None:
+            FWD_LAUNCHES += 1
+        else:
+            FWD_DROPOUT_LAUNCHES += 1
     return out, lse
 
 
@@ -438,7 +443,8 @@ def flash_bwd_dkdv(x: _BwdInputs) -> tuple[torch.Tensor, torch.Tensor, torch.Ten
     fn = _kernel_fn("flash_bwd", "flash_bwd_dkdv", x.q.dtype, 11)
     _run(fn, "flash_bwd_dkdv", x.q.device, *x.ptrs(),
          dk.data_ptr(), dv.data_ptr(), db_h.data_ptr(), *x.tail())
-    DKDV_LAUNCHES += 1
+    with _COUNT_LOCK:
+        DKDV_LAUNCHES += 1
     return dk, dv, db_h
 
 
@@ -448,7 +454,8 @@ def flash_bwd_dq(x: _BwdInputs) -> torch.Tensor:
     dq = torch.empty_like(x.q)
     fn = _kernel_fn("flash_bwd", "flash_bwd_dq", x.q.dtype, 9)
     _run(fn, "flash_bwd_dq", x.q.device, *x.ptrs(), dq.data_ptr(), *x.tail())
-    DQ_LAUNCHES += 1
+    with _COUNT_LOCK:
+        DQ_LAUNCHES += 1
     return dq
 
 

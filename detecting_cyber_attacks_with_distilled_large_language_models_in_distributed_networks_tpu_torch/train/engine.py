@@ -29,7 +29,7 @@ from __future__ import annotations
 import logging
 import time
 from dataclasses import dataclass
-from typing import Iterator, NamedTuple
+from typing import Any, Iterator, Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -39,6 +39,7 @@ from torch.func import functional_call
 from ..config import ModelConfig, TrainConfig
 from ..data.pipeline import TokenizedSplit, batch_iterator, pad_split_to_batch
 from ..device import resolve_device
+from ..models.convert import params_from_jax, params_to_jax
 from ..models.distilbert import build_trainable_params, init_params, model_skeleton
 from ..ops.metrics import (
     BinaryCounts,
@@ -227,15 +228,18 @@ class Trainer:
         *,
         batch_size: int = 16,
         epochs: int | None = None,
+        epoch_offset: int = 0,
         tag: str = "",
     ) -> tuple[TrainState, list[float]]:
         """Train for E epochs; returns the state and each epoch's mean
-        loss. Losses stay on the device until the epoch's end."""
+        loss. Losses stay on the device until the epoch's end.
+        ``epoch_offset`` shifts the shuffle seeds (a round loop passes
+        ``round * E``), so every round draws new batch permutations."""
         epochs = self.train_cfg.epochs_per_round if epochs is None else epochs
         log_every = self.train_cfg.log_every
         epoch_losses: list[float] = []
         steps, samples, t0 = 0, 0, time.perf_counter()
-        for epoch in range(epochs):
+        for epoch in range(epoch_offset, epoch_offset + epochs):
             losses: list[torch.Tensor] = []
             for batch in self.epoch_batches(split, epoch, batch_size):
                 state, loss = self.train_step(state, batch)
@@ -250,20 +254,26 @@ class Trainer:
                     samples, t0 = 0, now
             avg = float(torch.stack(losses).mean()) if losses else 0.0
             epoch_losses.append(avg)
-            log.info(f"{tag}Epoch [{epoch + 1}/{epochs}], Average Loss: {avg:.4f}")
+            log.info(f"{tag}Epoch [{epoch - epoch_offset + 1}/{epochs}], Average Loss: {avg:.4f}")
         return state, epoch_losses
 
     # ------------------------------------------------------------- eval
     @torch.no_grad()
     def evaluate(
         self,
-        params: dict[str, torch.Tensor],
+        params: Mapping[str, Any],
         split: TokenizedSplit,
         *,
         batch_size: int = 16,
     ) -> dict:
         """Five reference metrics + confusion matrix (+ labels and probs
-        of the valid rows, the reference's evaluate_model return shape)."""
+        of the valid rows, the reference's evaluate_model return shape).
+
+        ``params``: a state's leaves, or a nested JAX-layout tree of host
+        arrays (a round's aggregate, as ``FederatedClient.exchange``
+        returns it), which is converted through ``params_from_jax``."""
+        if any(isinstance(v, Mapping) for v in params.values()):
+            params = build_trainable_params(self.model_cfg, params_from_jax(params), self.device)
         padded, valid = pad_split_to_batch(split, batch_size, pad_id=self.pad_id)
         totals: BinaryCounts | ClassCounts | None = None
         probs_dev: list[torch.Tensor] = []
@@ -289,3 +299,24 @@ class Trainer:
         metrics["probs"] = all_probs[valid == 1] if probs_dev else all_probs
         metrics["labels"] = split.labels.copy()
         return metrics
+
+    def evaluate_state(self, state: TrainState, split: TokenizedSplit, **kw: Any) -> dict:
+        """Metrics of the live training state."""
+        return self.evaluate(state.params, split, **kw)
+
+    # ------------------------------------------------------------ rounds
+    def host_params(self, state: TrainState) -> dict:
+        """The state's params as the JAX-layout nested tree of host numpy
+        fp32 arrays (flax names, dense kernels ``[in, out]``): the upload
+        form ``FederatedClient.exchange`` sends. The arrays are copies."""
+        return params_to_jax(state.params)
+
+    def adopt_aggregate(self, state: TrainState, aggregated: Mapping[str, Any]) -> TrainState:
+        """Continue the next round FROM a received aggregate (JAX layout)
+        with a fresh Adam (every reference re-launch builds a new
+        optimizer, client1.py:380) and a continuing step counter, so the
+        LR warmup does not restart: the JAX package's
+        ``adopt_aggregate_with_fresh_opt``."""
+        new = self.init_state(params=params_from_jax(aggregated))
+        new.step = state.step
+        return new

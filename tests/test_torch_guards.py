@@ -16,6 +16,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -53,13 +54,18 @@ for name in names:
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None)
 print(len(names), leaked)
+print(" ".join(names))
 """
     res = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, timeout=120
     )
     assert res.returncode == 0, res.stderr
-    n, leaked = res.stdout.split(" ", 1)
+    counts, imported = res.stdout.splitlines()
+    n, leaked = counts.split(" ", 1)
     assert int(n) >= 20 and leaked.strip() == "[]", res.stdout
+    # The federated round's modules are among them.
+    for mod in ("ops.fold", "comm.wire", "comm.stream_agg", "comm.server", "comm.client", "cli.comm"):
+        assert f"{PORT_PKG}.{mod}" in imported.split(), mod
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():
@@ -137,3 +143,26 @@ def test_only_pragmas_are_the_wire_magic_copies():
         f"{PORT_PKG}/comm/framing.py",
         f"{PORT_PKG}/comm/wire.py",
     ]
+
+
+def test_round_entry_points_raise_without_cuda(monkeypatch):
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli import (
+        build_parser,
+    )
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.comm import (
+        AggregationServer,
+    )
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.ops.fold import (
+        fold_ordered,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AggregationServer(port=0)  # the default fold device is the card
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fold_ordered([np.ones(3, np.float32)], [1.0], device="cuda")
+    with AggregationServer(port=0, device="cpu") as server:
+        assert server.device.type == "cpu"
+    parser = build_parser()
+    assert parser.parse_args(["serve"]).device == "cuda"
+    assert parser.parse_args(["client", "--client-id", "0"]).device == "cuda"

@@ -12,14 +12,18 @@ flash gradient bound, tests/test_attention.py); bf16 atol 1e-5 + rtol
 8e-3 (both sides compute in fp32 from the same bf16 inputs and round the
 result once, so they may differ by one bf16 ulp, at most 2^-7 = 7.8e-3
 relative; atol covers values near zero); dbias atol 1e-3 in both (an
-fp32 sum over H·Lq terms taken in another order).
+fp32 sum over H·Lq terms taken in another order). K4 (the fold): no
+tolerance at all, ``array_equal`` with its plain version on the card and
+with numpy's ``acc += float32(w) * x`` on the host, subnormals included.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.ops import (
     flash_attention as flash_mod,
+    fold as fold_mod,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.ops.attention import (
     make_attention_bias,
@@ -133,3 +137,56 @@ def test_flash_kernel_refuses_what_it_does_not_do(cuda_device):
         flash_mod.flash_attention(
             q.detach(), q.detach(), q.detach(), dropout_rate=0.1, deterministic=False
         )
+
+
+def _numpy_fold(leaves, weights):
+    """The JAX package's ``fold_naive``: ``acc += float32(w) * leaf``."""
+    acc = np.zeros(leaves[0].shape, np.float32)
+    for a, w in zip(leaves, weights):
+        acc += np.float32(w) * a
+    return acc
+
+
+def _fold_inputs(k, n, seed, subnormal=False):
+    rng = np.random.default_rng(seed)
+    if subnormal:
+        leaves = [(rng.choice([-1.0, 1.0], size=n) * 1e-40).astype(np.float32) for _ in range(k)]
+    else:
+        leaves = [
+            (rng.normal(size=n) * 10.0 ** rng.integers(-4, 5)).astype(np.float32) for _ in range(k)
+        ]
+    weights = np.asarray(rng.random(k) + 0.05, np.float32)
+    return leaves, weights
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 8])
+@pytest.mark.parametrize("n,subnormal", [(1, False), (3, False), (768, False), (32769, False), (4099, True), (4100, True)])
+def test_fold_kernel_is_bit_exact(cuda_device, k, n, subnormal):
+    leaves, weights = _fold_inputs(k, n, seed=k * 100003 + n, subnormal=subnormal)
+    x = torch.from_numpy(np.stack(leaves)).to(cuda_device)
+    w = torch.from_numpy(weights).to(cuda_device)
+    before = fold_mod.FOLD_LAUNCHES
+    got = fold_mod.fold_stacked(x, w)
+    torch.cuda.synchronize()
+    assert fold_mod.FOLD_LAUNCHES == before + 1
+    want = _numpy_fold(leaves, weights)
+    assert torch.equal(got, fold_mod.fold_reference(list(x), w))
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    if subnormal:
+        assert np.any((want != 0) & (np.abs(want) < np.finfo(np.float32).tiny))
+    # Same inputs, same bits.
+    assert torch.equal(fold_mod.fold_stacked(x, w), got)
+
+
+@pytest.mark.cuda
+def test_fold_ordered_on_the_card_launches_once_per_leaf(cuda_device):
+    leaves, weights = _fold_inputs(3, 999, seed=7)
+    shaped = [a.reshape(27, 37) for a in leaves]
+    times: dict = {}
+    before = fold_mod.FOLD_LAUNCHES
+    got = fold_mod.fold_ordered(shaped, weights, device=cuda_device, times=times)
+    assert fold_mod.FOLD_LAUNCHES == before + 1
+    assert got.shape == (27, 37) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, _numpy_fold(shaped, weights))
+    assert set(times) == {"h2d_ms", "kernel_ms", "d2h_ms"} and all(v >= 0 for v in times.values())
