@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a served batch's or a train step's time goes on the card.
 
-    python3 chip_profile.py [--mode serve|train|fold] [--bucket 128] [--seed 0]
+    python3 chip_profile.py [--mode serve|train|fold|k1] [--bucket 128] [--seed 0]
 
 ``serve`` builds the port's scoring engine for full-width DistilBERT-base
 (6 layers, dim 768, 12 heads, L=128, flash attention, bf16, seeded random
@@ -10,8 +10,9 @@ weights) and scores one full bucket of token rows a few times under
 model with dropout on (the ``local`` command's configuration, bs16): it
 times 100 steps by the host clock for the step's wall time and samples/s,
 profiles a few more, then profiles each flash kernel alone at
-the training shape (B=16, H=12, L=128, D=64, bf16, dropout 0.1) for its
-device time per launch, free of the wrapper's host work.
+the training shape (B=16, H=12, L=128, D=64, bf16, dropout 0.1; K1 also at
+rate 0 and at the serving shape B=128, on the model's q/k/v views) for
+its device time per launch, free of the wrapper's host work.
 
 ``fold`` profiles the fold kernel K4 alone on DistilBERT-base's largest
 leaf (the 30522 x 768 word embedding) at K=2 and K=8 clients for its
@@ -20,7 +21,19 @@ runs it: two uploads of the ``client`` command's full-width model (102
 leaves), host numpy in and out, each leaf copied to the card, folded and
 copied back.
 
-All print per-category device time (the flash kernels K1/K2/K3, K4, GEMMs,
+``k1`` weighs K1's design choices where its time is spent: it profiles
+the bf16 kernel alone (device time per launch at B=128 rate 0 and B=16
+rate 0.1, on the model's q/k/v views) as built and with one choice
+undone at a time: each variant is a copy of ``csrc/`` under
+``build/k1_variants/`` with a text edit to ``flash_fwd.cu`` (the register
+cap removed or tightened, ``expf`` in place of ``exp2f``, the exp2
+argument as one FMA), built like the real one. Variants run in turns,
+forward then backward, each held to the plain version (bf16 atol 2e-2)
+and to the exact keep-mask read-out; registers and spills come from
+``nvcc -Xptxas -v``. Then SDPA's device time on the same views, the
+yardstick.
+
+The other modes print per-category device time (the flash kernels K1/K2/K3, K4, GEMMs,
 LayerNorm, the optimizer, dropout masks, other elementwise, copies), the
 host wall time per call or step, and the device's idle share of that
 wall, then one JSON line with the same numbers. Needs CUDA; exits
@@ -31,6 +44,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -52,6 +68,7 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     params_to_jax,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.ops import (
+    _build,
     flash_attention as flash_mod,
     fold as fold_mod,
 )
@@ -162,10 +179,22 @@ def profile_train(card: str, args) -> None:
            wall_ms, prof, args.iters, {"mode": "train", "batch_size": bs,
                                        "samples_per_s": bs / wall_ms * 1e3})
 
-    # Each kernel alone: device time per launch at the training shape.
+    # Each kernel alone: device time per launch at the training shape, K1
+    # on the model's layout (views of [B, L, H*D] projections), and K1 at
+    # rate 0 at the serving shape B=128 too.
     g = torch.Generator(device="cuda").manual_seed(args.seed)
-    q, k, v, do = (torch.randn(bs, 12, 128, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
+
+    def views(b):
+        return [
+            torch.randn(b, 128, 12 * 64, generator=g, device="cuda").to(torch.bfloat16)
+            .reshape(b, 128, 12, 64).transpose(1, 2) for _ in range(3)
+        ]
+
+    q, k, v = views(bs)
+    do = torch.randn(bs, 12, 128, 64, generator=g, device="cuda").to(torch.bfloat16)
     bias = make_attention_bias(torch.from_numpy(mask).cuda())
+    q128, k128, v128 = views(128)
+    bias128 = make_attention_bias(torch.from_numpy(np.tile(mask, (8, 1))).cuda())
     words = flash_mod.draw_seed_words(g)
     out, lse = flash_mod.flash_forward(q, k, v, bias, seed=words, rate=0.1)
     x = flash_mod._BwdInputs(q, k, v, bias, words, out, lse, do, 0.1)
@@ -173,6 +202,7 @@ def profile_train(card: str, args) -> None:
     launches = {
         "flash_fwd (rate 0.1)": lambda: flash_mod.flash_forward(q, k, v, bias, seed=words, rate=0.1),
         "flash_fwd (rate 0)": lambda: flash_mod.flash_forward(q, k, v, bias),
+        "flash_fwd (rate 0, B=128)": lambda: flash_mod.flash_forward(q128, k128, v128, bias128),
         "flash_bwd_dkdv": lambda: flash_mod.flash_bwd_dkdv(x),
         "flash_bwd_dq": lambda: flash_mod.flash_bwd_dq(x),
     }
@@ -192,7 +222,8 @@ def profile_train(card: str, args) -> None:
         if count != n:
             raise SystemExit(f"chip_profile: {label}: {count} kernel launches recorded, want {n}")
         alone[label] = us / count / 1e3
-        print(f"{card}: {label} alone, B={bs} bf16: {alone[label]:.4f} ms device per launch")
+        shape = "B=128" if "B=128" in label else f"B={bs}"
+        print(f"{card}: {label} alone, {shape} bf16: {alone[label]:.4f} ms device per launch")
     print(json.dumps({"card": card, "mode": "kernels", "device_ms_per_launch": alone}))
 
 
@@ -246,9 +277,156 @@ def profile_fold(card: str, args) -> None:
            {"mode": "fold", "leaves": len(first), "params": n_params, "device_ms_per_launch": alone})
 
 
+#: K1 variants for --mode k1: name -> (old, new) text edits of flash_fwd.cu.
+_LB = "__launch_bounds__(kTcThreads, 4)"
+_P = "exp2f((s[n][2 * i + e] - m_new) * kLog2e)"
+K1_VARIANTS = {
+    "as built": (),
+    "no register cap": ((_LB, "__launch_bounds__(kTcThreads)"),),
+    "cap for 5 CTAs an SM": ((_LB, "__launch_bounds__(kTcThreads, 5)"),),
+    "cap for 6 CTAs an SM": ((_LB, "__launch_bounds__(kTcThreads, 6)"),),
+    "expf": (
+        ("exp2f((m[i] - m_new) * kLog2e)", "expf(m[i] - m_new)"),
+        (_P, "expf(s[n][2 * i + e] - m_new)"),
+    ),
+    "exp2 argument as one FMA": ((_P, "exp2f(fmaf(s[n][2 * i + e], kLog2e, -m_new * kLog2e))"),),
+}
+
+
+def k1_variant_dir(name: str, edits) -> str:
+    """A copy of csrc/ with ``edits`` applied to flash_fwd.cu; raises if an
+    edit no longer matches the source."""
+    slug = re.sub(r"[^a-z0-9]+", "-", name.lower()).strip("-")
+    root = os.path.join(os.path.dirname(_build.BUILD_DIR), "k1_variants", slug, "csrc")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(_build.CSRC_DIR, root)
+    path = os.path.join(root, "flash_fwd.cu")
+    with open(path) as f:
+        src = f.read()
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise SystemExit(f"chip_profile: variant {name!r}: {old!r} is not in flash_fwd.cu once")
+        src = src.replace(old, new)
+    with open(path, "w") as f:
+        f.write(src)
+    return root
+
+
+def ptxas_report(csrc: str) -> str:
+    """Registers and spill bytes of the bf16 kernel's two instantiations."""
+    out = subprocess.run(
+        [_build.nvcc_path(), *(f for f in _build.NVCC_FLAGS if f != "-shared"), "-Xptxas", "-v",
+         "-c", os.path.join(csrc, "flash_fwd.cu"), "-o", os.path.join(csrc, "flash_fwd.o")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=600,
+    ).stdout.splitlines()
+    found = []
+    for i, line in enumerate(out):
+        if "Compiling entry" in line and "tc_kernel" in line:
+            rest = " ".join(out[i + 1 : i + 4])
+            regs = re.search(r"Used (\d+) registers", rest)
+            spill = re.search(r"(\d+) bytes spill stores", rest)
+            found.append(f"{'dropout' if 'ILb1' in line else 'rate 0'}: {regs.group(1) if regs else '?'} regs, "
+                         f"{spill.group(1) if spill else '?'} B spilled")
+    return "; ".join(found)
+
+
+def profile_k1(card: str, args) -> None:
+    """K1 as built and each variant, alone, in turns."""
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+
+    def views(b):
+        return [
+            torch.randn(b, 128, 12 * 64, generator=g, device="cuda").to(torch.bfloat16)
+            .reshape(b, 128, 12, 64).transpose(1, 2) for _ in range(3)
+        ]
+
+    shapes = []
+    for b, rate in ((128, 0.0), (16, 0.1)):
+        mask = (torch.rand(b, 128, generator=g, device="cuda") > 0.3).int()
+        mask[:, 0] = 1
+        words = flash_mod.draw_seed_words(g) if rate else None
+        shapes.append((b, rate, *views(b), make_attention_bias(mask), words))
+    dirs = {name: k1_variant_dir(name, edits) for name, edits in K1_VARIANTS.items()}
+    built_src = _build.CSRC_DIR
+    results: dict[str, list[float]] = {}
+    order = list(K1_VARIANTS)
+    try:
+        for name in order + order[::-1]:
+            _build.CSRC_DIR = dirs[name]
+            _build._libs.clear()
+            flash_mod._FNS.clear()
+            line = []
+            for b, rate, q, k, v, bias, words in shapes:
+                out, _ = flash_mod.flash_forward(q, k, v, bias, seed=words, rate=rate)
+                ref, _ = flash_mod.flash_attention_reference(q, k, v, bias, seed=words, rate=rate)
+                err = (out.float() - ref.float()).abs().max().item()
+                if err > 2e-2:
+                    raise SystemExit(f"chip_profile: K1 variant {name!r} disagrees with the plain version: {err}")
+                n = 50
+                with profile(activities=[ProfilerActivity.CUDA]) as kprof:
+                    for _ in range(n):
+                        flash_mod.flash_forward(q, k, v, bias, seed=words, rate=rate)
+                    torch.cuda.synchronize()
+                us, count = 0.0, 0
+                for key, (t, c) in device_times(kprof).items():
+                    if "flash_fwd" in key:
+                        us, count = us + t, count + c
+                # The profiler may drop a kernel record now and then: the
+                # mean is over the launches it recorded.
+                if count == 0:
+                    raise SystemExit(f"chip_profile: K1 variant {name!r}: no launch recorded")
+                results.setdefault(f"{name} B={b} rate={rate}", []).append(us / count / 1e3)
+                line.append(f"B={b} rate={rate} {us / count / 1e3:.4f} ms ({count}/{n} recorded)")
+            words = torch.tensor([123, 456789], dtype=torch.int64, device="cuda")
+            for live_tile in (0, 1):
+                bad = _readout_mismatches(words, live_tile)
+                if bad:
+                    raise SystemExit(f"chip_profile: K1 variant {name!r}: read-out off at {bad} elements")
+            print(f"{card}: K1 {name:26s} device per launch: {'; '.join(line)}; read-out exact", flush=True)
+    finally:
+        _build.CSRC_DIR = built_src
+        _build._libs.clear()
+        flash_mod._FNS.clear()
+    for name in order:
+        print(f"{card}: K1 {name:26s} ptxas: {ptxas_report(dirs[name])}", flush=True)
+    # The yardstick: SDPA's kernels on the same views (device time a call).
+    import torch.nn.functional as F
+
+    sdpa = {}
+    for b, rate, q, k, v, bias, _ in shapes:
+        mask = bias.to(torch.bfloat16)
+        F.scaled_dot_product_attention(q, k, v, attn_mask=mask, dropout_p=rate)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as kprof:
+            for _ in range(50):
+                F.scaled_dot_product_attention(q, k, v, attn_mask=mask, dropout_p=rate)
+            torch.cuda.synchronize()
+        sdpa[f"B={b} rate={rate}"] = sum(t for t, _ in device_times(kprof).values()) / 50 / 1e3
+        print(f"{card}: SDPA on the same views, B={b} rate={rate}: {sdpa[f'B={b} rate={rate}']:.4f} ms device per call (all its kernels)", flush=True)
+    print(json.dumps({"card": card, "mode": "k1", "device_ms_per_launch": results, "sdpa_device_ms_per_call": sdpa}))
+
+
+def _readout_mismatches(words, live_tile: int) -> int:
+    """The keep-mask read-out of chip_smoke.py (q = k = 0, one-hot v, the
+    other 64-key tile masked) at rate 0.5 in bf16: elements where ``32·O``
+    is not the keep bit."""
+    b, h, l, d = 2, 3, 128, 64
+    q = torch.zeros(b, h, l, d, dtype=torch.bfloat16, device="cuda")
+    keys = torch.arange(l, device="cuda")
+    v = (keys[:, None] % d == torch.arange(d, device="cuda")).to(torch.bfloat16).expand(b, h, l, d).contiguous()
+    mask = torch.zeros(b, l, dtype=torch.int32, device="cuda")
+    mask[:, live_tile * 64 : (live_tile + 1) * 64] = 1
+    out, _ = flash_mod.flash_forward(q, q, v, make_attention_bias(mask), seed=words, rate=0.5)
+    o = out.float().cpu()
+    return sum(
+        int((o[bi, hi] * 32 != flash_mod.keep_mask_reference(words, bi, hi, 0, live_tile * 64, l, d, 0.5)).sum())
+        for bi in range(b) for hi in range(h)
+    )
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--mode", choices=["serve", "train", "fold"], default="serve")
+    ap.add_argument("--mode", choices=["serve", "train", "fold", "k1"], default="serve")
     ap.add_argument("--bucket", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=5)
@@ -265,6 +443,9 @@ def main() -> int:
         return 0
     if args.mode == "fold":
         profile_fold(card, args)
+        return 0
+    if args.mode == "k1":
+        profile_k1(card, args)
         return 0
     tok = default_tokenizer()
     cfg = ModelConfig.distilbert_base(

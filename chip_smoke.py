@@ -12,11 +12,22 @@ Phases; any failure exits non-zero before the last line is printed:
             version on the card at the serving shapes (B in 1/8/32/128,
             H=12, L=128, D=64, random key masks with fully masked rows,
             plus ragged lengths), in fp32 (atol 2e-5) and bf16 (atol 2e-2:
-            p and O each take one bf16 rounding; lse compared in fp32),
-            with its time beside the plain version's, SDPA's (a yardstick
-            the port never calls) and the least time the card could take;
-4. kernel-train — at the training shapes (B=16, H=12, L=128, D=64, plus
-            L in {40, 200}; a fully masked row in all but one case): K1
+            p and O each take one bf16 rounding; lse compared in fp32);
+            again on the layouts the model hands over (views of three
+            [B, L, 768] projections, and the chunks of one fused
+            [B, L, 2304] product) at the same bounds, with O stored as
+            [B, L, H, D]; a misaligned or last-dim-strided input must
+            raise and launch nothing. Then its time on the model's views
+            beside its time on dense copies, the plain version's, SDPA's
+            on the same views (a yardstick the port never calls) and the
+            least time the card could take;
+4. kernel-train — first the keep-mask read-out (q = k = 0, a one-hot v,
+            one 64-key tile masked; B=2, H=3, L=128) in fp32 and bf16 at
+            rates 0.1 and 0.5 with either key tile live: ``(O != 0)`` must
+            equal keep_mask_reference bit for bit, and at rate 0.5
+            ``32·O`` must equal it. Then at the training shapes (B=16,
+            H=12, L=128, D=64, plus L in {40, 200}, plus the model's split
+            and fused views; a fully masked row in all but one case): K1
             with dropout at rate 0.1 against flash_attention_reference on
             the same seed words, and K2 + K3 through FlashAttention's
             backward against flash_backward_reference with dropout off
@@ -26,7 +37,8 @@ Phases; any failure exits non-zero before the last line is printed:
             so they may differ by one bf16 ulp, at most 2^-7 relative);
             dbias atol 1e-3 (an fp32 sum over H·Lq terms in another
             order). Then the times of
-            K1 with dropout, K2 and K3 at B=16 bf16, each beside its plain
+            K1 with dropout (on the model's views, and on dense copies),
+            K2 and K3 at B=16 bf16, each beside its plain
             version's, SDPA's (forward with dropout, and its backward
             alone: a yardstick the port never calls) and its bound;
 5. path   — full-width DistilBERT-base (6 layers, dim 768, 12 heads,
@@ -211,11 +223,30 @@ def backward_bound(b: int, h: int, l: int, d: int, elsize: int, kernel: str) -> 
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def attention_inputs(g, b, l, dtype, fully_masked_row):
-    q, k, v = (
-        torch.randn(b, H, l, D, generator=g, device="cuda").to(dtype)
-        for _ in range(3)
-    )
+def split_heads(t: torch.Tensor) -> torch.Tensor:
+    """``[B, L, H*D] -> [B, H, L, D]``, a view: the model's ``split``."""
+    b, l, _ = t.shape
+    return t.reshape(b, l, H, D).transpose(1, 2)
+
+
+def attention_inputs(g, b, l, dtype, fully_masked_row, layout="dense"):
+    """q, k, v ``[b, H, l, D]`` and a key bias. ``layout``: "dense"
+    (contiguous), "split" (views of three ``[b, l, H*D]`` projections, as
+    the model's separate q/k/v hand them over) or "fused" (the chunks of
+    one ``[b, l, 3*H*D]`` product, the model's ``fused_qkv``)."""
+    if layout == "dense":
+        q, k, v = (
+            torch.randn(b, H, l, D, generator=g, device="cuda").to(dtype)
+            for _ in range(3)
+        )
+    elif layout == "split":
+        q, k, v = (
+            split_heads(torch.randn(b, l, H * D, generator=g, device="cuda").to(dtype))
+            for _ in range(3)
+        )
+    else:
+        qkv = torch.randn(b, l, 3 * H * D, generator=g, device="cuda").to(dtype)
+        q, k, v = (split_heads(t) for t in qkv.chunk(3, dim=-1))
     mask = (torch.rand(b, l, generator=g, device="cuda") > 0.3).to(torch.int32)
     mask[:, 0] = 1
     if fully_masked_row:
@@ -223,8 +254,48 @@ def attention_inputs(g, b, l, dtype, fully_masked_row):
     return q, k, v, make_attention_bias(mask)
 
 
+#: The keep-mask read-out's shape (B, H, L): both 64-row query tiles, a
+#: nonzero batch and head index, and both 64-key tiles are read.
+READOUT = (2, 3, 128)
+KEY_TILE = 64
+
+
+def readout_inputs(dtype, live_tile: int, device="cuda"):
+    """The keep-mask read-out: q = k = 0, ``v[key, d] = 1`` iff
+    ``d == key % 64``, and every key outside the 64-key tile ``live_tile``
+    masked by the bias. Every live key then scores 0 and gets p = 1 and
+    l = 64, so ``O[b, h, q, d] = keep(b, h, q, 64·live_tile + d) · inv / 64``:
+    O is nonzero exactly where the keep bit is set, and at rate 0.5
+    ``32·O`` is the mask itself. A keep bit hashed at a wrong fragment
+    coordinate moves O by ~0.009 at L=128, inside the bf16 bound of 2e-2,
+    so only this read-out catches it."""
+    b, h, l = READOUT
+    q = torch.zeros(b, h, l, D, dtype=dtype, device=device)
+    keys = torch.arange(l, device=device)
+    v = (keys[:, None] % D == torch.arange(D, device=device)).to(dtype)
+    v = v.expand(b, h, l, D).contiguous()
+    mask = torch.zeros(b, l, dtype=torch.int32, device=device)
+    mask[:, live_tile * KEY_TILE : (live_tile + 1) * KEY_TILE] = 1
+    return q, q.clone(), v, make_attention_bias(mask)
+
+
+def readout_mismatches(out: torch.Tensor, words, live_tile: int, rate: float) -> int:
+    """Elements where ``(O != 0)`` is not ``keep_mask_reference``'s bit
+    for the live key tile, plus, at rate 0.5, where ``32·O`` is not it."""
+    o = out.float().cpu()
+    bad = 0
+    for bi in range(o.shape[0]):
+        for hi in range(o.shape[1]):
+            want = flash_mod.keep_mask_reference(words, bi, hi, 0, live_tile * KEY_TILE, o.shape[2], KEY_TILE, rate)
+            bad += int(((o[bi, hi] != 0).float() != want).sum())
+            if rate == 0.5:
+                bad += int((o[bi, hi] * 32 != want).sum())
+    return bad
+
+
 def kernel_phase(seed: int) -> dict:
-    """Phase 3: K1 against its plain version, then its times."""
+    """Phase 3: K1 against its plain version on dense and strided
+    layouts, its refusals, then its times."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     cases = [(b, L, True) for b in BUCKETS] + [(1, L, False), (8, 40, True), (2, 200, True)]
     bf16_err = 0.0
@@ -246,16 +317,46 @@ def kernel_phase(seed: int) -> dict:
             check(lse_ok, f"K1 lse disagrees at B={b} L={l} {dtype}")
             if dtype == torch.bfloat16 and l == L:
                 bf16_err = max(bf16_err, err)
+        # The layouts the model hands over: read through strides, no copy;
+        # O is [B, L, H, D] storage.
+        for layout in ("split", "fused"):
+            for b, l in ((8, L), (BUCKETS[-1], L), (3, 40)):
+                q, k, v, bias = attention_inputs(g, b, l, dtype, True, layout)
+                check(not q.is_contiguous(), f"the {layout} layout gave dense q")
+                out, lse = flash_mod.flash_forward(q, k, v, bias)
+                torch.cuda.synchronize()
+                ref, ref_lse = flash_mod.flash_attention_reference(q, k, v, bias)
+                err = (out.float() - ref.float()).abs().max().item()
+                lse_ok = bool(((lse - ref_lse).abs() <= 2e-5 + 2e-7 * ref_lse.abs()).all())
+                layout_ok = out.shape == q.shape and out.transpose(1, 2).is_contiguous()
+                print(f"K1 check {str(dtype):14s} B={b:3d} L={l:3d} {layout:5s} views max|O-ref|={err:.3e} (atol {atol}) O stored [B,L,H,D] {layout_ok}", flush=True)
+                check(err <= atol and lse_ok, f"K1 on {layout} views disagrees: {err} > {atol} (lse ok {lse_ok}) at B={b} L={l} {dtype}")
+                check(layout_ok, f"K1's O is not [B, L, H, D] storage: strides {out.stride()}")
+                if dtype == torch.bfloat16 and l == L:
+                    bf16_err = max(bf16_err, err)
+    # What the kernel does not take raises, and launches nothing.
+    base = torch.zeros(2, H, L, 2 * D, dtype=torch.bfloat16, device="cuda")
+    before = flash_mod.FWD_LAUNCHES
+    for what, bad in (("misaligned rows", base[..., 1 : D + 1]), ("a strided last dim", base[..., ::2])):
+        try:
+            flash_mod.flash_forward(bad, bad, bad)
+        except ValueError as e:
+            print(f"K1 refuses {what}: {e}", flush=True)
+        else:
+            fail(f"K1 took {what}")
+    check(flash_mod.FWD_LAUNCHES == before, "a refused layout launched K1")
     times = {}
     for b in BUCKETS:
-        q, k, v, bias = attention_inputs(g, b, L, torch.bfloat16, True)
+        q, k, v, bias = attention_inputs(g, b, L, torch.bfloat16, True, "split")
+        qd, kd, vd = (t.contiguous() for t in (q, k, v))
         mask_bf16 = bias.to(torch.bfloat16)
         t_k = time_ms(lambda: flash_mod.flash_forward(q, k, v, bias))
+        t_d = time_ms(lambda: flash_mod.flash_forward(qd, kd, vd, bias))
         t_p = time_ms(lambda: flash_mod.flash_attention_reference(q, k, v, bias))
         t_l = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask_bf16))
         bound, bound_by = attention_bound(b, H, L, D, 2)
         times[b] = (t_k, t_p, t_l, bound, bound_by)
-        print(f"K1 time B={b:3d} bf16 kernel_ms={t_k:.4f} plain_ms={t_p:.4f} library_ms={t_l:.4f} bound_us={bound * 1e3:.1f} ({bound_by})", flush=True)
+        print(f"K1 time B={b:3d} bf16 kernel_ms={t_k:.4f} (the model's views) dense_ms={t_d:.4f} plain_ms={t_p:.4f} library_ms(SDPA, same views)={t_l:.4f} bound_us={bound * 1e3:.1f} ({bound_by})", flush=True)
     t_k, t_p, t_l, bound, bound_by = times[BUCKETS[-1]]
     return {
         "name": "flash_fwd",
@@ -283,12 +384,21 @@ def train_kernel_phase(seed: int) -> tuple[dict, dict, dict]:
     at the training shapes, then their times. Returns the kernels-line
     entries of K1 with dropout, K2 and K3."""
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
-    cases = [(B_TRAIN, L, True), (B_TRAIN, L, False), (3, 40, True), (2, 200, True)]
+    cases = [(B_TRAIN, L, True, "dense"), (B_TRAIN, L, False, "dense"), (3, 40, True, "dense"),
+             (2, 200, True, "dense"), (B_TRAIN, L, True, "split"), (3, 40, True, "fused")]
     bounds = {torch.float32: (2e-5, 1e-4, 0.0), torch.bfloat16: (2e-2, 1e-5, 8e-3)}
     errs = {"fwd": 0.0, "dkdv": 0.0, "dq": 0.0}
     for dtype, (fwd_atol, atol, rtol) in bounds.items():
-        for b, l, masked_row in cases:
-            q, k, v, bias = attention_inputs(g, b, l, dtype, masked_row)
+        # The keep-mask read-out: K1's dropout coordinates, bit for bit.
+        for rate in (RATE, 0.5):
+            for live_tile in (0, 1):
+                words = torch.randint(0, 2**32, (2,), generator=g, device="cuda", dtype=torch.int64)
+                out, _ = flash_mod.flash_forward(*readout_inputs(dtype, live_tile), seed=words, rate=rate)
+                bad = readout_mismatches(out, words, live_tile, rate)
+                print(f"K1 keep-mask read-out {str(dtype):14s} rate={rate} live key tile {live_tile}: {bad} of {out.numel()} elements differ from keep_mask_reference", flush=True)
+                check(bad == 0, f"K1's dropout mask is off at {bad} elements ({dtype}, rate {rate}, key tile {live_tile})")
+        for b, l, masked_row, layout in cases:
+            q, k, v, bias = attention_inputs(g, b, l, dtype, masked_row, layout)
             do = torch.randn(b, H, l, D, generator=g, device="cuda").to(dtype)
             words = torch.randint(0, 2**32, (2,), generator=g, device="cuda", dtype=torch.int64)
             out, lse = flash_mod.flash_forward(q, k, v, bias, seed=words, rate=RATE)
@@ -320,13 +430,14 @@ def train_kernel_phase(seed: int) -> tuple[dict, dict, dict]:
                         errs[key] = max(errs[key], e)
                 e, ok = max_excess(bg.grad, want[3], 1e-3, 0.0)
                 check(ok, f"dbias disagrees: {e} at B={b} L={l} rate={rate} {dtype}")
-                print(f"K2/K3 check {str(dtype):14s} B={b:2d} L={l:3d} rate={rate} max|grad-ref|: {' '.join(line)} dbias {e:.3e}; K1 drop max|O-ref|={err:.3e}", flush=True)
+                print(f"K2/K3 check {str(dtype):14s} B={b:2d} L={l:3d} {layout:5s} rate={rate} max|grad-ref|: {' '.join(line)} dbias {e:.3e}; K1 drop max|O-ref|={err:.3e}", flush=True)
 
     # Times at the training shape, bf16, dropout on.
     q, k, v, bias = attention_inputs(g, B_TRAIN, L, torch.bfloat16, True)
     do = torch.randn(B_TRAIN, H, L, D, generator=g, device="cuda").to(torch.bfloat16)
     words = torch.randint(0, 2**32, (2,), generator=g, device="cuda", dtype=torch.int64)
     mask_bf16 = bias.to(torch.bfloat16)
+    qv, kv, vv = (split_heads(t.transpose(1, 2).reshape(B_TRAIN, L, H * D)) for t in (q, k, v))
     out, lse = flash_mod.flash_forward(q, k, v, bias, seed=words, rate=RATE)
     x = flash_mod._BwdInputs(q, k, v, bias, words, out, lse, do, RATE)
     ref_args = (q, k, v, bias, words, out, lse, do)
@@ -340,12 +451,13 @@ def train_kernel_phase(seed: int) -> tuple[dict, dict, dict]:
         "replaces": f"{JAX_FLASH}:135",
         "launches": None,
         "max_abs_err": errs["fwd"],
-        "ms": time_ms(lambda: flash_mod.flash_forward(q, k, v, bias, seed=words, rate=RATE)),
-        "plain_ms": time_ms(lambda: flash_mod.flash_attention_reference(q, k, v, bias, seed=words, rate=RATE)),
+        "ms": time_ms(lambda: flash_mod.flash_forward(qv, kv, vv, bias, seed=words, rate=RATE)),
+        "plain_ms": time_ms(lambda: flash_mod.flash_attention_reference(qv, kv, vv, bias, seed=words, rate=RATE)),
     }
+    t_dense = time_ms(lambda: flash_mod.flash_forward(q, k, v, bias, seed=words, rate=RATE))
     fwd["bound_ms"], fwd["bound_by"] = attention_bound(B_TRAIN, H, L, D, 2)
-    fwd["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask_bf16, dropout_p=RATE))
-    print(f"K1 dropout time B={B_TRAIN} bf16 rate={RATE} kernel_ms={fwd['ms']:.4f} plain_ms={fwd['plain_ms']:.4f} library_ms={fwd['library_ms']:.4f} bound_us={fwd['bound_ms'] * 1e3:.1f} ({fwd['bound_by']})", flush=True)
+    fwd["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qv, kv, vv, attn_mask=mask_bf16, dropout_p=RATE))
+    print(f"K1 dropout time B={B_TRAIN} bf16 rate={RATE} kernel_ms={fwd['ms']:.4f} (the model's views) dense_ms={t_dense:.4f} plain_ms={fwd['plain_ms']:.4f} library_ms(SDPA, same views)={fwd['library_ms']:.4f} bound_us={fwd['bound_ms'] * 1e3:.1f} ({fwd['bound_by']})", flush=True)
     rows = [fwd]
     for name, kernel, launch, plain in (
         ("flash_bwd_dkdv", "dkdv", lambda: flash_mod.flash_bwd_dkdv(x),

@@ -1,7 +1,9 @@
 // Tile plumbing shared by the flash kernels (flash_fwd.cu, flash_bwd.cu):
 // 64 x 64 tiles of fp32 in shared memory, 256 threads as a 16 x 16 grid
 // that each own a 4 x 4 register block, and loads that widen bf16 or fp32
-// rows of a row-major [rows, 64] matrix with 16-byte vector reads.
+// rows of a [rows, 64] matrix with 16-byte vector reads. Used by K2, K3 and
+// the fp32 instantiation of K1; K1's bf16 instantiation runs on the tensor
+// cores (mma_bf16.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -53,11 +55,12 @@ struct Elem<__nv_bfloat16> {
   __device__ static __nv_bfloat16 out(float x) { return __float2bfloat16(x); }
 };
 
-// Rows [row0, row0 + kTile) of a row-major [rows, kD] matrix into shared
+// Rows [row0, row0 + kTile) of a [rows, kD] matrix whose row r starts at
+// src + r * ld (elements; 16-byte aligned, last dim contiguous) into shared
 // memory as fp32; rows past `rows` are zero. kTranspose stores dst[d][r].
 template <typename T, bool kTranspose>
 __device__ void load_tile(const T* __restrict__ src, int row0, int rows,
-                          float* dst) {
+                          float* dst, int64_t ld = kD) {
   constexpr int V = Elem<T>::kVec;
   constexpr int kChunks = kD / V;
   for (int idx = threadIdx.x; idx < kTile * kChunks; idx += kThreads) {
@@ -65,7 +68,7 @@ __device__ void load_tile(const T* __restrict__ src, int row0, int rows,
     const int c = (idx % kChunks) * V;
     float vals[V];
     if (row0 + r < rows) {
-      Elem<T>::load(src + (size_t)(row0 + r) * kD + c, vals);
+      Elem<T>::load(src + (row0 + r) * ld + c, vals);
     } else {
 #pragma unroll
       for (int e = 0; e < V; ++e) vals[e] = 0.f;

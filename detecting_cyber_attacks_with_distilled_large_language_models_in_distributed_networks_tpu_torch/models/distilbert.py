@@ -99,10 +99,12 @@ class MultiHeadSelfAttention(nn.Module):
             deterministic=deterministic,
         )
         if cfg.attention_impl == "flash":
+            # K1 reads the q/k/v views through their strides and writes O
+            # as [B, L, H, d] storage: no copy on either side of it.
             ctx = flash_attention(q, k, v, bias, **drop)
         else:
             ctx = dot_product_attention(q, k, v, bias, **drop)
-        ctx = ctx.transpose(1, 2).reshape(B, L, cfg.dim)
+        ctx = ctx.transpose(1, 2).reshape(B, L, cfg.dim)  # a view on flash
         return _linear(ctx, self.o, cd)
 
 

@@ -11,11 +11,26 @@ or launch; on CPU tensors they run the plain versions beside them
 :func:`keep_mask_reference`), the same arithmetic in eager PyTorch.
 Nothing falls back from the card to a plain version.
 
-Contract kept from the JAX wrapper: ``[B, H, L, D]`` layout, an additive
+Contract kept from the JAX wrapper: ``[B, H, L, D]`` shapes, an additive
 key-position bias ``[B, 1, 1, Lk]`` only (any other bias raises
 ``ValueError``), fp32 scores and softmax statistics, p cast to the
 activation dtype before ``p @ v`` in the forward, an fp32 backward, O and
 the gradients in the input dtype, the per-row ``lse = m + log l`` in fp32.
+
+Layout contract of the forward (K1), stated and checked by
+:func:`flash_layout`: q, k and v are taken as they come and read through
+their (batch, head, row) strides in elements, so the model's
+``[B, L, H, D] -> [B, H, L, D]`` views of its projections (or the chunks
+of one fused qkv product) reach the kernel without a copy. Each must have
+a contiguous last dim and 16-byte aligned row starts (base address and
+every stride a multiple of 16 bytes); on the card anything else raises
+``ValueError``, and nothing is made contiguous behind the caller's back
+(the plain version on the CPU takes any layout). O, on the card and the
+CPU alike, is allocated as ``[B, Lq, H, D]`` (:func:`empty_out`) and
+returned as its ``[B, H, Lq, D]`` transpose view, so merging the heads
+back (``O.transpose(1, 2).reshape(B, Lq, H * D)``) is a view. ``lse`` is
+dense fp32 ``[B, H, Lq, 1]``. The backward kernels (K2, K3) take dense
+rows, so :class:`_BwdInputs` copies q, k, v and dO once.
 
 Dropout: the keep bit of each ``(b, h, q, k)`` is a hash of two uint32
 seed words and the global coordinates, so all three kernels regenerate
@@ -51,6 +66,17 @@ KERNEL_HEAD_DIMS = (64,)
 
 _FNS: dict[tuple[str, torch.dtype], object] = {}
 _M32 = 0xFFFFFFFF
+
+#: ctypes signatures: K2/K3 take their tensor pointers, the sizes (B, H,
+#: Lq, Lk), then scale, keep threshold, 1 / (1 - rate) and the stream; K1
+#: also takes its key bias's batch stride after the bias pointer, and the
+#: (batch, head, row) strides of q, k, v and O after the sizes.
+_SIZES = [ctypes.c_int] * 4
+_TAIL = [ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
+_FWD_ARGTYPES = (
+    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
+    + _SIZES + [ctypes.c_longlong] * 12 + _TAIL
+)
 
 
 # ------------------------------------------------------------ keep mask
@@ -288,23 +314,66 @@ def flash_backward_reference(
     return dq, dk, dv, _dbias(db_h, bias)
 
 
+# ---------------------------------------------------------- the layout
+def _row_strides(name: str, t: torch.Tensor) -> tuple[int, int, int]:
+    """(batch, head, row) strides of a ``[B, H, L, D]`` operand, checked:
+    a size-1 dim's stride is never used and counts as 0."""
+    (b, h, l, d), (sb, sh, sr, sd) = t.shape, t.stride()
+    if d > 1 and sd != 1:
+        raise ValueError(
+            f"flash kernel: {name} needs a contiguous last dim, got strides "
+            f"{t.stride()}"
+        )
+    strides = (0 if b == 1 else sb, 0 if h == 1 else sh, 0 if l == 1 else sr)
+    size = t.element_size()
+    # Spelled out, not any(...) over a generator: this runs four times a
+    # launch, and the launch's host time is what small batches wait for.
+    if (
+        t.data_ptr() % 16 or strides[0] * size % 16
+        or strides[1] * size % 16 or strides[2] * size % 16
+    ):
+        raise ValueError(
+            f"flash kernel: {name} rows must start 16-byte aligned, got base "
+            f"offset {t.data_ptr() % 16} B and strides {t.stride()} of "
+            f"{size}-byte elements"
+        )
+    return strides
+
+
+def flash_layout(q, k, v, out) -> tuple[tuple[int, int, int], ...]:
+    """K1's layout contract: the (batch, head, row) strides in elements
+    of q, k, v and O, in that order. Raises ``ValueError`` for an operand
+    whose last dim is not contiguous or whose rows do not start 16-byte
+    aligned. Pure Python over shapes, strides and addresses, so it holds
+    for CPU tensors as for CUDA ones."""
+    return tuple(_row_strides(n, t) for n, t in (("q", q), ("k", k), ("v", v), ("O", out)))
+
+
+def empty_out(q: torch.Tensor) -> torch.Tensor:
+    """O as K1 writes it: ``[B, Lq, H, D]`` storage returned as its
+    ``[B, H, Lq, D]`` transpose view, so merging the heads is a view."""
+    b, h, lq, d = q.shape
+    return torch.empty_strided(
+        (b, h, lq, d), (lq * h * d, d, h * d, 1), dtype=q.dtype, device=q.device
+    )
+
+
 # ---------------------------------------------------------- the kernels
-def _kernel_fn(lib_name: str, symbol: str, dtype: torch.dtype, n_ptrs: int):
+def _kernel_fn(lib_name: str, symbol: str, dtype: torch.dtype, argtypes: list):
     fn = _FNS.get((symbol, dtype))
     if fn is None:
         from ._build import load
 
         suffix = "bf16" if dtype == torch.bfloat16 else "f32"
         fn = getattr(load(lib_name), f"{symbol}_{suffix}")
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [
-            ctypes.c_float,  # scale
-            ctypes.c_uint32,  # keep threshold
-            ctypes.c_float,  # 1 / (1 - rate)
-            ctypes.c_void_p,  # stream
-        ]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _FNS[(symbol, dtype)] = fn
     return fn
+
+
+def _bwd_argtypes(n_ptrs: int) -> list:
+    return [ctypes.c_void_p] * n_ptrs + _SIZES + _TAIL
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -341,14 +410,34 @@ def _drop_args(seed, rate: float, device) -> tuple[torch.Tensor | None, int, flo
 
 
 def _run(fn, name: str, device, *args) -> None:
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    """Launch on the device's current stream; enter the device only when
+    it is not the current one already."""
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def _kernel_bias(bias, batch: int, lk: int, device) -> tuple[torch.Tensor, int]:
+    """K1's key bias and its batch stride in elements (0: one row for
+    every batch): an fp32 ``[B or 1, 1, 1, Lk]`` bias with its keys
+    contiguous is read where it lies; anything else becomes a dense fp32
+    ``[B, Lk]`` copy."""
+    if bias is not None and bias.dtype == torch.float32 and bias.ndim == 4:
+        rows, heads, queries, keys = bias.shape
+        if (
+            heads == queries == 1 and keys == lk and rows in (1, batch)
+            and (lk == 1 or bias.stride(3) == 1)
+        ):
+            return bias, 0 if rows == 1 else bias.stride(0)
+    return _key_bias(bias, batch, lk, device), lk
 
 
 def _launch_fwd(q, k, v, bias, seed, rate) -> tuple[torch.Tensor, torch.Tensor]:
@@ -363,19 +452,19 @@ def _launch_fwd(q, k, v, bias, seed, rate) -> tuple[torch.Tensor, torch.Tensor]:
         )
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    # split() hands over a non-contiguous [B,H,L,D] view of [B,L,H,D]; the
-    # kernel takes dense rows, so the wrapper copies (strides are later work).
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    key_bias = _aligned(_key_bias(bias, b, lk, q.device))
+    out = empty_out(q)
+    # q, k and v as the model hands them over (views of its projections):
+    # read through their strides, never copied.
+    sq, sk, sv, so = flash_layout(q, k, v, out)
+    key_bias, bias_b = _kernel_bias(bias, b, lk, q.device)
     seed_d, thresh, inv = _drop_args(seed, rate, q.device)
-    out = torch.empty_like(q)
     lse = torch.empty((b, h, lq, 1), dtype=torch.float32, device=q.device)
-    fn = _kernel_fn("flash_fwd", "flash_fwd", q.dtype, 7)
+    fn = _kernel_fn("flash_fwd", "flash_fwd", q.dtype, _FWD_ARGTYPES)
     _run(
         fn, "flash_fwd", q.device,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), bias_b,
         out.data_ptr(), lse.data_ptr(), _ptr(seed_d), b, h, lq, lk,
-        1.0 / (d**0.5), thresh, inv,
+        *sq, *sk, *sv, *so, 1.0 / (d**0.5), thresh, inv,
     )
     with _COUNT_LOCK:
         if seed_d is None:
@@ -396,11 +485,14 @@ def flash_forward(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(O, lse)``: K1 for CUDA tensors, the plain version for CPU
     tensors. ``seed`` (two uint32 words as int64) keys the dropout mask
-    at ``rate`` > 0. Not differentiable: :func:`flash_attention` is."""
+    at ``rate`` > 0. O comes back in K1's layout on both (a view of
+    ``[B, Lq, H, D]`` storage, :func:`empty_out`). Not differentiable:
+    :func:`flash_attention` is."""
     _check_shapes(q, k, v)
     _check_rate(rate, seed)
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, bias, seed=seed, rate=rate)
+        ref, lse = flash_attention_reference(q, k, v, bias, seed=seed, rate=rate)
+        return empty_out(q).copy_(ref), lse
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     return _launch_fwd(q, k, v, bias, seed, rate)
@@ -440,7 +532,7 @@ def flash_bwd_dkdv(x: _BwdInputs) -> tuple[torch.Tensor, torch.Tensor, torch.Ten
     b, h, _, lk = x.dims
     dk, dv = torch.empty_like(x.k), torch.empty_like(x.v)
     db_h = torch.empty((b, h, lk), dtype=torch.float32, device=x.q.device)
-    fn = _kernel_fn("flash_bwd", "flash_bwd_dkdv", x.q.dtype, 11)
+    fn = _kernel_fn("flash_bwd", "flash_bwd_dkdv", x.q.dtype, _bwd_argtypes(11))
     _run(fn, "flash_bwd_dkdv", x.q.device, *x.ptrs(),
          dk.data_ptr(), dv.data_ptr(), db_h.data_ptr(), *x.tail())
     with _COUNT_LOCK:
@@ -452,7 +544,7 @@ def flash_bwd_dq(x: _BwdInputs) -> torch.Tensor:
     """K3 -> ``dq``."""
     global DQ_LAUNCHES
     dq = torch.empty_like(x.q)
-    fn = _kernel_fn("flash_bwd", "flash_bwd_dq", x.q.dtype, 9)
+    fn = _kernel_fn("flash_bwd", "flash_bwd_dq", x.q.dtype, _bwd_argtypes(9))
     _run(fn, "flash_bwd_dq", x.q.device, *x.ptrs(), dq.data_ptr(), *x.tail())
     with _COUNT_LOCK:
         DQ_LAUNCHES += 1
@@ -478,13 +570,12 @@ def flash_backward(
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention with its gradient (the JAX ``custom_vjp`` of
-    ``_flash``): the forward saves q, k, v, bias, the seed words, O and
-    lse; the backward returns dq, dk, dv and, when the bias requires
-    grad, dbias."""
+    ``_flash``): the forward saves q, k, v (the caller's views, as K1
+    read them), bias, the seed words, O and lse; the backward returns dq,
+    dk, dv and, when the bias requires grad, dbias."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, rate):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         out, lse = flash_forward(q, k, v, bias, seed=seed, rate=rate)
         ctx.save_for_backward(q, k, v, bias, seed, out, lse)
         ctx.rate = rate

@@ -15,6 +15,9 @@ def test_sources_name_their_headers():
         files = _build.source_files(name)
         assert files[0] == _build.SOURCES[name]
         assert {"keep_mask.cuh", "flash_tile.cuh"} <= set(files)
+    # The tensor-core header is K1's alone (for now).
+    assert "mma_bf16.cuh" in _build.source_files("flash_fwd")
+    assert "mma_bf16.cuh" not in _build.source_files("flash_bwd")
 
 
 def test_editing_a_shared_header_renames_every_library_using_it(tmp_path, monkeypatch):
@@ -36,3 +39,16 @@ def test_editing_a_shared_header_renames_every_library_using_it(tmp_path, monkey
     again = {name: _build.library_path(name) for name in _build.SOURCES}
     assert again["flash_fwd"] == after["flash_fwd"]
     assert again["flash_bwd"] != after["flash_bwd"]
+
+
+def test_editing_the_tensor_core_header_renames_the_forward_library(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
+    before = {name: _build.library_path(name) for name in _build.SOURCES}
+    header = csrc / "mma_bf16.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: _build.library_path(name) for name in _build.SOURCES}
+    assert after["flash_fwd"] != before["flash_fwd"]
+    assert after["flash_bwd"] == before["flash_bwd"]
+    assert after["fold"] == before["fold"]

@@ -138,9 +138,9 @@ def test_bf16_inputs_round_p_like_the_kernel():
     np.testing.assert_allclose(out.float().numpy(), ref.numpy(), atol=2e-2)
 
 
-def test_dropout_is_not_ported_yet():
-    """Dropout is ported now (tests/test_torch_dropout.py holds it against
-    JAX): train mode needs a generator, and deterministic calls ignore the
+def test_dropout_needs_a_generator_and_deterministic_calls_ignore_the_rate():
+    """tests/test_torch_dropout.py holds the dropout mask against JAX;
+    here: train mode needs a generator, and deterministic calls ignore the
     rate, as in the JAX wrapper."""
     q, k, v, _ = _inputs(7, l=16)
     with pytest.raises(ValueError, match="generator"):

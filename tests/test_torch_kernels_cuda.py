@@ -6,13 +6,19 @@ without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
+(from the repository root: the K1 read-out and layout cases use
+``chip_smoke``'s input functions, so the card test and the smoke run hold
+the kernel to the same construction.)
+
 Bounds. K1: fp32 atol 2e-5 (the JAX flash-vs-dot bound), bf16 atol 2e-2
 (p and O each take one bf16 rounding). K2/K3: fp32 atol 1e-4 (the JAX
 flash gradient bound, tests/test_attention.py); bf16 atol 1e-5 + rtol
 8e-3 (both sides compute in fp32 from the same bf16 inputs and round the
 result once, so they may differ by one bf16 ulp, at most 2^-7 = 7.8e-3
 relative; atol covers values near zero); dbias atol 1e-3 in both (an
-fp32 sum over H·Lq terms taken in another order). K4 (the fold): no
+fp32 sum over H·Lq terms taken in another order). K1's keep-mask read-out:
+exact (``(O != 0)`` equals ``keep_mask_reference``, and at rate 0.5
+``32·O`` equals it). K4 (the fold): no
 tolerance at all, ``array_equal`` with its plain version on the card and
 with numpy's ``acc += float32(w) * x`` on the host, subnormals included.
 """
@@ -21,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.ops import (
     flash_attention as flash_mod,
     fold as fold_mod,
@@ -137,6 +144,57 @@ def test_flash_kernel_refuses_what_it_does_not_do(cuda_device):
         flash_mod.flash_attention(
             q.detach(), q.detach(), q.detach(), dropout_rate=0.1, deterministic=False
         )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("live_tile", [0, 1])
+def test_flash_kernel_keep_mask_readout_is_exact(cuda_device, dtype, rate, live_tile):
+    """q = k = 0 and a one-hot v read the kernel's keep bits out of O: a
+    bit hashed at a wrong fragment coordinate shows here, exactly, where
+    the bf16 atol of 2e-2 would hide it (chip_smoke.readout_inputs)."""
+    words = torch.tensor([0xDEADBEEF, 0x9ABCDEF1], dtype=torch.int64, device=cuda_device)
+    inputs = chip_smoke.readout_inputs(dtype, live_tile, cuda_device)
+    out, _ = flash_mod.flash_forward(*inputs, seed=words, rate=rate)
+    torch.cuda.synchronize()
+    assert chip_smoke.readout_mismatches(out, words, live_tile, rate) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("layout", ["split", "fused"])
+@pytest.mark.parametrize("b,l,rate", [(8, 128, 0.0), (3, 40, 0.0), (16, 128, 0.1)])
+def test_flash_kernel_reads_views_and_writes_blhd(cuda_device, dtype, atol, layout, b, l, rate):
+    """q/k/v as the model hands them over (views of three projections, or
+    the chunks of one fused product) go in without a copy; O comes out as
+    [B, L, H, D] storage."""
+    g = torch.Generator(device=cuda_device).manual_seed(13 * b + l)
+    q, k, v, bias = chip_smoke.attention_inputs(g, b, l, dtype, True, layout)
+    assert not q.is_contiguous()
+    words = torch.randint(0, 2**32, (2,), generator=g, device=cuda_device, dtype=torch.int64)
+    seed = words if rate else None
+    before = flash_mod.FWD_LAUNCHES + flash_mod.FWD_DROPOUT_LAUNCHES
+    out, lse = flash_mod.flash_forward(q, k, v, bias, seed=seed, rate=rate)
+    torch.cuda.synchronize()
+    assert flash_mod.FWD_LAUNCHES + flash_mod.FWD_DROPOUT_LAUNCHES == before + 1
+    assert out.shape == q.shape and out.transpose(1, 2).is_contiguous()
+    ref, ref_lse = flash_mod.flash_attention_reference(q, k, v, bias, seed=seed, rate=rate)
+    assert (out.float() - ref.float()).abs().max().item() <= atol
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-7)
+    # No atomics: the same views give the same bits.
+    assert torch.equal(flash_mod.flash_forward(q, k, v, bias, seed=seed, rate=rate)[0], out)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_layouts_it_does_not_take(cuda_device):
+    base = torch.zeros(2, 12, 128, 128, dtype=torch.bfloat16, device=cuda_device)
+    before = flash_mod.FWD_LAUNCHES
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_mod.flash_forward(*(base[..., 1:65],) * 3)
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        flash_mod.flash_forward(*(base[..., ::2],) * 3)
+    assert flash_mod.FWD_LAUNCHES == before
 
 
 def _numpy_fold(leaves, weights):
