@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a served batch's or a train step's time goes on the card.
 
-    python3 chip_profile.py [--mode serve|train|fold|k1] [--bucket 128] [--seed 0]
+    python3 chip_profile.py [--mode serve|train|fold|k1|bwd] [--bucket 128] [--seed 0]
 
 ``serve`` builds the port's scoring engine for full-width DistilBERT-base
 (6 layers, dim 768, 12 heads, L=128, flash attention, bf16, seeded random
@@ -32,6 +32,18 @@ forward then backward, each held to the plain version (bf16 atol 2e-2)
 and to the exact keep-mask read-out; registers and spills come from
 ``nvcc -Xptxas -v``. Then SDPA's device time on the same views, the
 yardstick.
+
+``bwd`` does the same for K3 and K2 (``csrc/flash_bwd.cu``, under
+``build/bwd_variants/``) at the training shape (B=16, H=12, L=128, bf16,
+rate 0.1, the model's q/k/v views and dO in O's layout): as built, with y
+and ds fed as one bf16 each, with y as one, with ds as a hi/lo pair, with
+the gradient products summed in place, with the two 32-column halves
+unrolled, without the register cap or capped for 4 CTAs an SM, and with
+the eager delta of the plain version in place of K3's. Each
+variant's elements outside the bf16 bound on chip_smoke's hardest cases
+(a fully masked batch row, L=200) are reported, not fatal (as built must
+have none). Then the device time of SDPA's backward on the same views
+with dropout 0.1, the yardstick.
 
 The other modes print per-category device time (the flash kernels K1/K2/K3, K4, GEMMs,
 LayerNorm, the optimizer, dropout masks, other elementwise, copies), the
@@ -191,20 +203,19 @@ def profile_train(card: str, args) -> None:
         ]
 
     q, k, v = views(bs)
-    do = torch.randn(bs, 12, 128, 64, generator=g, device="cuda").to(torch.bfloat16)
     bias = make_attention_bias(torch.from_numpy(mask).cuda())
     q128, k128, v128 = views(128)
     bias128 = make_attention_bias(torch.from_numpy(np.tile(mask, (8, 1))).cuda())
     words = flash_mod.draw_seed_words(g)
-    out, lse = flash_mod.flash_forward(q, k, v, bias, seed=words, rate=0.1)
-    x = flash_mod._BwdInputs(q, k, v, bias, words, out, lse, do, 0.1)
+    x = _bwd_inputs(g, q, k, v, bias, words, 0.1)
     n = 50
+    # K3 before K2: it writes the delta K2 reads.
     launches = {
         "flash_fwd (rate 0.1)": lambda: flash_mod.flash_forward(q, k, v, bias, seed=words, rate=0.1),
         "flash_fwd (rate 0)": lambda: flash_mod.flash_forward(q, k, v, bias),
         "flash_fwd (rate 0, B=128)": lambda: flash_mod.flash_forward(q128, k128, v128, bias128),
-        "flash_bwd_dkdv": lambda: flash_mod.flash_bwd_dkdv(x),
         "flash_bwd_dq": lambda: flash_mod.flash_bwd_dq(x),
+        "flash_bwd_dkdv": lambda: flash_mod.flash_bwd_dkdv(x),
     }
     alone = {}
     for label, fn in launches.items():
@@ -225,6 +236,14 @@ def profile_train(card: str, args) -> None:
         shape = "B=128" if "B=128" in label else f"B={bs}"
         print(f"{card}: {label} alone, {shape} bf16: {alone[label]:.4f} ms device per launch")
     print(json.dumps({"card": card, "mode": "kernels", "device_ms_per_launch": alone}))
+
+
+def _bwd_inputs(g, q, k, v, bias, words, rate):
+    """The backward's operands on the model's layout: K1's O and lse on
+    the q/k/v views, and dO as a view of O's [B, L, H, D] storage."""
+    out, lse = flash_mod.flash_forward(q, k, v, bias, seed=words, rate=rate)
+    do = flash_mod.empty_out(q).copy_(torch.randn(q.shape, generator=g, device="cuda"))
+    return flash_mod._BwdInputs(q, k, v, bias, words, out, lse, do, rate)
 
 
 def profile_fold(card: str, args) -> None:
@@ -293,30 +312,33 @@ K1_VARIANTS = {
 }
 
 
-def k1_variant_dir(name: str, edits) -> str:
-    """A copy of csrc/ with ``edits`` applied to flash_fwd.cu; raises if an
-    edit no longer matches the source."""
+def variant_dir(kind: str, source: str, name: str, edits) -> str:
+    """A copy of csrc/ under build/<kind>/ with ``edits`` (old, new, count)
+    applied to ``source``; raises if an edit no longer matches the source
+    ``count`` times."""
     slug = re.sub(r"[^a-z0-9]+", "-", name.lower()).strip("-")
-    root = os.path.join(os.path.dirname(_build.BUILD_DIR), "k1_variants", slug, "csrc")
+    root = os.path.join(os.path.dirname(_build.BUILD_DIR), kind, slug, "csrc")
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(_build.CSRC_DIR, root)
-    path = os.path.join(root, "flash_fwd.cu")
+    path = os.path.join(root, source)
     with open(path) as f:
         src = f.read()
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise SystemExit(f"chip_profile: variant {name!r}: {old!r} is not in flash_fwd.cu once")
+    for old, new, *count in edits:
+        want = count[0] if count else 1
+        if src.count(old) != want:
+            raise SystemExit(f"chip_profile: variant {name!r}: {old!r} is not in {source} {want} time(s)")
         src = src.replace(old, new)
     with open(path, "w") as f:
         f.write(src)
     return root
 
 
-def ptxas_report(csrc: str) -> str:
-    """Registers and spill bytes of the bf16 kernel's two instantiations."""
+def ptxas_report(csrc: str, source: str = "flash_fwd.cu") -> str:
+    """Registers and spill bytes of each tensor-core kernel instantiation
+    in ``source``."""
     out = subprocess.run(
         [_build.nvcc_path(), *(f for f in _build.NVCC_FLAGS if f != "-shared"), "-Xptxas", "-v",
-         "-c", os.path.join(csrc, "flash_fwd.cu"), "-o", os.path.join(csrc, "flash_fwd.o")],
+         "-c", os.path.join(csrc, source), "-o", os.path.join(csrc, source + ".o")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=600,
     ).stdout.splitlines()
     found = []
@@ -325,8 +347,9 @@ def ptxas_report(csrc: str) -> str:
             rest = " ".join(out[i + 1 : i + 4])
             regs = re.search(r"Used (\d+) registers", rest)
             spill = re.search(r"(\d+) bytes spill stores", rest)
-            found.append(f"{'dropout' if 'ILb1' in line else 'rate 0'}: {regs.group(1) if regs else '?'} regs, "
-                         f"{spill.group(1) if spill else '?'} B spilled")
+            kernel = re.search(r"(flash_(?:fwd|dq|dkdv)_tc_kernel)", line)
+            found.append(f"{kernel.group(1) if kernel else '?'} {'dropout' if 'ILb1' in line else 'rate 0'}: "
+                         f"{regs.group(1) if regs else '?'} regs, {spill.group(1) if spill else '?'} B spilled")
     return "; ".join(found)
 
 
@@ -346,7 +369,7 @@ def profile_k1(card: str, args) -> None:
         mask[:, 0] = 1
         words = flash_mod.draw_seed_words(g) if rate else None
         shapes.append((b, rate, *views(b), make_attention_bias(mask), words))
-    dirs = {name: k1_variant_dir(name, edits) for name, edits in K1_VARIANTS.items()}
+    dirs = {name: variant_dir("k1_variants", "flash_fwd.cu", name, edits) for name, edits in K1_VARIANTS.items()}
     built_src = _build.CSRC_DIR
     results: dict[str, list[float]] = {}
     order = list(K1_VARIANTS)
@@ -406,6 +429,165 @@ def profile_k1(card: str, args) -> None:
     print(json.dumps({"card": card, "mode": "k1", "device_ms_per_launch": results, "sdpa_device_ms_per_call": sdpa}))
 
 
+#: K2/K3 variants for --mode bwd: name -> (old, new[, count]) text edits
+#: of flash_bwd.cu, each undoing one design choice of the bf16 kernels.
+_FRESH = "float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};"
+_ADD = "#pragma unroll\n  for (int e = 0; e < 4; ++e) acc[e] += step[e];"
+_ROW_DELTA = "const float dlt_row = row_delta(dob, a.sdo.r, ob, a.so.r, drow, Lq, lane & 1);"
+_HALVES = "#pragma unroll 1\n    for (int half = 0; half < 2; ++half) {"
+BWD_VARIANTS = {
+    "as built": (),
+    "y and ds as one bf16 each": (
+        ("constexpr int kYTerms = 2;", "constexpr int kYTerms = 1;"),
+        ("constexpr int kDsTerms = 3;", "constexpr int kDsTerms = 1;"),
+    ),
+    "y as one bf16": (("constexpr int kYTerms = 2;", "constexpr int kYTerms = 1;"),),
+    "ds as a hi/lo pair": (("constexpr int kDsTerms = 3;", "constexpr int kDsTerms = 2;"),),
+    "gradient sums in place": (
+        (_FRESH, "float* t0 = acc[2 * np]; float* t1 = acc[2 * np + 1];"),
+        (_ADD, "(void)acc;\n  (void)step;"),
+    ),
+    "halves unrolled": ((_HALVES, _HALVES.replace("unroll 1", "unroll"), 2),),
+    "no register cap": (
+        ("constexpr int kDqMinBlocks = 3;", "constexpr int kDqMinBlocks = 1;"),
+        ("constexpr int kDkdvMinBlocks = 3;", "constexpr int kDkdvMinBlocks = 1;"),
+    ),
+    "cap for 4 CTAs an SM": (
+        ("constexpr int kDqMinBlocks = 3;", "constexpr int kDqMinBlocks = 4;"),
+        ("constexpr int kDkdvMinBlocks = 3;", "constexpr int kDkdvMinBlocks = 4;"),
+    ),
+    # K3 reads delta instead of computing it; the profile then runs the
+    # plain version's eager rowsum(dO * O) before each K3 launch.
+    "eager delta": ((_ROW_DELTA, "const float dlt_row = drow < Lq ? a.delta[(size_t)bh * Lq + drow] : 0.f;"),),
+}
+
+
+def _bwd_bad_elements(g, dev) -> tuple[int, float]:
+    """Elements of dq, dk and dv outside the bf16 bound (atol 1e-5 + rtol
+    8e-3) against the plain version, and the largest |diff| / bound, over
+    chip_smoke's hardest cases: B=16 L=128 and B=2 L=200 with a fully
+    masked batch row, rates 0 and 0.1, on the model's views."""
+    bad, worst = 0, 0.0
+    for b, l, rate in ((16, 128, 0.0), (16, 128, 0.1), (2, 200, 0.1)):
+        mask = (torch.rand(b, l, generator=g, device=dev) > 0.3).int()
+        mask[:, 0] = 1
+        mask[-1] = 0
+        bias = make_attention_bias(mask)
+        q, k, v = (
+            torch.randn(b, l, 12 * 64, generator=g, device=dev).to(torch.bfloat16)
+            .reshape(b, l, 12, 64).transpose(1, 2) for _ in range(3)
+        )
+        words = flash_mod.draw_seed_words(g) if rate else None
+        x = _bwd_inputs(g, q, k, v, bias, words, rate)
+        got = flash_mod.flash_backward(q, k, v, bias, words, x.out, x.lse, x.do, rate=rate)
+        want = flash_mod.flash_backward_reference(q, k, v, bias, words, x.out, x.lse, x.do, rate=rate)
+        for a, w in zip(got[:3], want[:3]):
+            bound = 1e-5 + 8e-3 * w.float().abs()
+            ratio = (a.float() - w.float()).abs() / bound
+            bad += int((ratio > 1).sum())
+            worst = max(worst, ratio.max().item())
+    return bad, worst
+
+
+def profile_bwd(card: str, args) -> None:
+    """K3 and K2 as built and each variant, alone, in turns; then SDPA's
+    backward on the same views."""
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    b, l, rate = 16, 128, 0.1
+    mask = (torch.rand(b, l, generator=g, device="cuda") > 0.3).int()
+    mask[:, 0] = 1
+    bias = make_attention_bias(mask)
+    q, k, v = (
+        torch.randn(b, l, 12 * 64, generator=g, device="cuda").to(torch.bfloat16)
+        .reshape(b, l, 12, 64).transpose(1, 2) for _ in range(3)
+    )
+    words = flash_mod.draw_seed_words(g)
+    dirs = {name: variant_dir("bwd_variants", "flash_bwd.cu", name, edits) for name, edits in BWD_VARIANTS.items()}
+    built_src = _build.CSRC_DIR
+    results: dict[str, list[float]] = {}
+    accuracy: dict[str, tuple[int, float]] = {}
+    order = list(BWD_VARIANTS)
+    n = 50
+
+    def alone(fn, frag: str, before=None) -> tuple[float, float, int]:
+        """(device ms a launch of the kernel, of everything else, launches
+        recorded) over n calls of ``before`` then ``fn``."""
+        with profile(activities=[ProfilerActivity.CUDA]) as kprof:
+            for _ in range(n):
+                if before is not None:
+                    before()
+                fn()
+            torch.cuda.synchronize()
+        us, other, count = 0.0, 0.0, 0
+        for key, (t, c) in device_times(kprof).items():
+            if frag in key:
+                us, count = us + t, count + c
+            else:
+                other += t
+        if count == 0:
+            raise SystemExit(f"chip_profile: no {frag} launch recorded")
+        # The profiler may drop a kernel record now and then: the mean is
+        # over the launches it recorded.
+        return us / count / 1e3, other / n / 1e3, count
+
+    try:
+        for name in order + order[::-1]:
+            _build.CSRC_DIR = dirs[name]
+            _build._libs.clear()
+            flash_mod._FNS.clear()
+            x = _bwd_inputs(g, q, k, v, bias, words, rate)
+            eager = name == "eager delta"
+
+            def fill_delta():
+                x.delta = flash_mod._delta(x.do, x.out)
+
+            if name not in accuracy:
+                if eager:  # flash_backward does not fill delta for this variant
+                    accuracy[name] = (-1, float("nan"))
+                else:
+                    accuracy[name] = _bwd_bad_elements(torch.Generator(device="cuda").manual_seed(args.seed + 1), "cuda")
+                    if name == "as built" and accuracy[name][0]:
+                        raise SystemExit(f"chip_profile: K2/K3 as built break the bf16 bound at {accuracy[name][0]} elements")
+            flash_mod.flash_bwd_dq(x)  # a first launch, and delta for K2
+            flash_mod.flash_bwd_dkdv(x)
+            torch.cuda.synchronize()
+            t3, t_eager, c3 = alone(lambda: flash_mod.flash_bwd_dq(x), "flash_dq", fill_delta if eager else None)
+            t2, _, c2 = alone(lambda: flash_mod.flash_bwd_dkdv(x), "flash_dkdv")
+            results.setdefault(f"{name} K3", []).append(t3)
+            results.setdefault(f"{name} K2", []).append(t2)
+            extra = f" + eager delta {t_eager:.4f} ms" if eager else ""
+            print(f"{card}: K2/K3 {name:26s} device per launch: K3 {t3:.4f} ms{extra} ({c3}/{n} recorded); K2 {t2:.4f} ms ({c2}/{n})", flush=True)
+    finally:
+        _build.CSRC_DIR = built_src
+        _build._libs.clear()
+        flash_mod._FNS.clear()
+    for name in order:
+        bad, worst = accuracy[name]
+        acc = "not checked" if bad < 0 else f"{bad} elements outside the bf16 bound, worst |diff|/bound {worst:.3f}"
+        print(f"{card}: K2/K3 {name:26s} accuracy: {acc}; ptxas: {ptxas_report(dirs[name], 'flash_bwd.cu')}", flush=True)
+    # The yardstick: SDPA's backward kernels on the same views, dropout 0.1
+    # (device time a call, every kernel of the backward).
+    import torch.nn.functional as F
+
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias.to(torch.bfloat16), dropout_p=rate)
+    do = flash_mod.empty_out(q).copy_(torch.randn(q.shape, generator=g, device="cuda"))
+    grad = lambda: torch.autograd.grad(o, (qs, ks, vs), do, retain_graph=True)  # noqa: E731
+    grad()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as kprof:
+        for _ in range(n):
+            grad()
+        torch.cuda.synchronize()
+    per = device_times(kprof)
+    sdpa = sum(t for t, _ in per.values()) / n / 1e3
+    names = ", ".join(f"{key[:60]} x{c // n}" for key, (_, c) in sorted(per.items(), key=lambda kv: -kv[1][0])[:4])
+    print(f"{card}: SDPA backward on the same views, B={b} rate={rate}: {sdpa:.4f} ms device per call (its kernels: {names})", flush=True)
+    print(json.dumps({"card": card, "mode": "bwd", "device_ms_per_launch": results,
+                      "bad_elements": {k: v[0] for k, v in accuracy.items()},
+                      "sdpa_backward_device_ms_per_call": sdpa}))
+
+
 def _readout_mismatches(words, live_tile: int) -> int:
     """The keep-mask read-out of chip_smoke.py (q = k = 0, one-hot v, the
     other 64-key tile masked) at rate 0.5 in bf16: elements where ``32·O``
@@ -426,7 +608,7 @@ def _readout_mismatches(words, live_tile: int) -> int:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--mode", choices=["serve", "train", "fold", "k1"], default="serve")
+    ap.add_argument("--mode", choices=["serve", "train", "fold", "k1", "bwd"], default="serve")
     ap.add_argument("--bucket", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=5)
@@ -446,6 +628,9 @@ def main() -> int:
         return 0
     if args.mode == "k1":
         profile_k1(card, args)
+        return 0
+    if args.mode == "bwd":
+        profile_bwd(card, args)
         return 0
     tok = default_tokenizer()
     cfg = ModelConfig.distilbert_base(

@@ -25,22 +25,26 @@ Phases; any failure exits non-zero before the last line is printed:
             one 64-key tile masked; B=2, H=3, L=128) in fp32 and bf16 at
             rates 0.1 and 0.5 with either key tile live: ``(O != 0)`` must
             equal keep_mask_reference bit for bit, and at rate 0.5
-            ``32·O`` must equal it. Then at the training shapes (B=16,
-            H=12, L=128, D=64, plus L in {40, 200}, plus the model's split
-            and fused views; a fully masked row in all but one case): K1
-            with dropout at rate 0.1 against flash_attention_reference on
-            the same seed words, and K2 + K3 through FlashAttention's
+            ``32·O`` must equal it; and the same bits out of K2's dv and
+            K3's dq (bwd_readout_inputs), compared exactly. Then at the
+            training shapes (B=16, H=12, L=128, D=64, plus L in {40, 200},
+            plus the model's split and fused views with dO in O's
+            [B, L, H, D] layout; a fully masked row in all but one case):
+            K1 with dropout at rate 0.1 against flash_attention_reference
+            on the same seed words, and K3 + K2 through FlashAttention's
             backward against flash_backward_reference with dropout off
             and on, in fp32 (K1 atol 2e-5; gradients atol 1e-4, the JAX
             flash gradient bound) and bf16 (K1 atol 2e-2; gradients atol
             1e-5 + rtol 8e-3: both sides round one fp32 result to bf16,
             so they may differ by one bf16 ulp, at most 2^-7 relative);
             dbias atol 1e-3 (an fp32 sum over H·Lq terms in another
-            order). Then the times of
-            K1 with dropout (on the model's views, and on dense copies),
-            K2 and K3 at B=16 bf16, each beside its plain
-            version's, SDPA's (forward with dropout, and its backward
-            alone: a yardstick the port never calls) and its bound;
+            order); flash_backward must copy no dO, return dq/dk/dv as
+            [B, L, H, D] storage, and give the same bits twice. Then the
+            times of K1 with dropout (on the model's views, and on dense
+            copies), K3 and K2 at B=16 bf16 on the model's layout, each
+            beside its plain version's, SDPA's (forward with dropout, and
+            its backward alone: a yardstick the port never calls) and its
+            bound;
 5. path   — full-width DistilBERT-base (6 layers, dim 768, 12 heads,
             L=128, flash attention, bf16) with seeded random weights,
             written as a registry artifact and served by the port's
@@ -53,8 +57,9 @@ Phases; any failure exits non-zero before the last line is printed:
             --attention-impl flash --synthetic 2400 --epochs 1``: 9 steps
             of bs16 with dropout on, then val and test evaluation) through
             the port's parser. K1 with dropout, K2 and K3 must launch once
-            per layer of every step, K1 at rate 0 once per layer of every
-            eval batch; every loss and the metrics CSV must be finite.
+            per layer of every step (and the backward copy no dO), K1 at
+            rate 0 once per layer of every eval batch; every loss and the
+            metrics CSV must be finite.
             Then 108 more steps (the epoch's 9 batches 12 times) time the
             steady training samples/s. Then one fp32 step
             with dropout off: gradients through flash against the dot path
@@ -207,17 +212,19 @@ def attention_bound(b: int, h: int, l: int, d: int, elsize: int) -> tuple[float,
 
 
 def backward_bound(b: int, h: int, l: int, d: int, elsize: int, kernel: str) -> tuple[float, str]:
-    """Least time (ms) for K2 ("dkdv") or K3 ("dq"): q, k, v and dO read
-    once, lse, delta and the key bias, and the outputs (dk, dv and the
-    fp32 per-head dbias rows; or dq) written once; 4 (K2) or 3 (K3)
-    products of 2·L·L·D flops per (b, h) at the bf16 peak."""
+    """Least time (ms) for K2 ("dkdv") or K3 ("dq"), each input read once
+    and each output written once: q, k, v, dO, lse, the key bias, and for
+    K2 the delta K3 wrote, out dk, dv and the fp32 per-head dbias rows;
+    for K3 also O, out dq and delta. 4 (K2) or 3 (K3) products of 2·L·L·D
+    flops per (b, h) at the bf16 peak."""
     rows = b * h * l
-    nbytes = 4 * rows * d * elsize + 2 * rows * 4 + b * l * 4
-    if kernel == "dkdv":
-        nbytes += 2 * rows * d * elsize + rows * 4
+    tile = rows * d * elsize
+    nbytes = 4 * tile + rows * 4 + b * l * 4  # q, k, v, dO, lse, key bias
+    if kernel == "dkdv":  # delta in; dk, dv and the dbias rows out
+        nbytes += rows * 4 + 2 * tile + rows * 4
         flops = 4 * 2 * b * h * l * l * d
-    else:
-        nbytes += rows * d * elsize
+    else:  # O in; dq and delta out
+        nbytes += 2 * tile + rows * 4
         flops = 3 * 2 * b * h * l * l * d
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -277,6 +284,63 @@ def readout_inputs(dtype, live_tile: int, device="cuda"):
     mask = torch.zeros(b, l, dtype=torch.int32, device=device)
     mask[:, live_tile * KEY_TILE : (live_tile + 1) * KEY_TILE] = 1
     return q, q.clone(), v, make_attention_bias(mask)
+
+
+def bwd_readout_inputs(dtype, live_tile: int, kernel: str, device="cuda"):
+    """The backward's keep-mask read-out, ``(q, k, v, dO)`` at the
+    read-out shape with no bias: q = 0, so every score is 0 and p = 1/L.
+
+    K2 (``kernel="dkdv"``): k = 0, v = 1 and ``dO[q, d] = 1`` iff query q
+    lies in the 64-query tile ``live_tile`` and ``d == q % 64``. Then
+    ``dv[key, d] = y[64·live_tile + d, key] = keep · inv / L``: dv is
+    nonzero exactly where the keep bit of (query 64·live_tile + d, key)
+    is set.
+
+    K3 (``kernel="dq"``): ``k[key, d] = 1`` iff key lies in the 64-key tile
+    ``live_tile`` and ``d == key % 64``, v = 1 and ``dO[q, d] = 1`` iff
+    ``d == q % 64``. Then dP = 1 everywhere, ``delta[q] = O[q, q % 64]`` is
+    inv times the kept share f of row q, ``ds = p · inv · (keep - f)`` and
+    ``dq[q, d] = scale · ds[q, 64·live_tile + d]``: dq is positive exactly
+    where the bit is set and negative where it is not (every row keeps
+    some keys and drops some)."""
+    b, h, l = READOUT
+    rows = torch.arange(l, device=device)
+    one_hot = (rows[:, None] % D == torch.arange(D, device=device)).to(dtype)
+    in_tile = ((rows // KEY_TILE) == live_tile).to(dtype)[:, None]
+    zeros = torch.zeros(b, h, l, D, dtype=dtype, device=device)
+    ones = torch.ones(b, h, l, D, dtype=dtype, device=device)
+    if kernel == "dkdv":
+        return zeros, zeros.clone(), ones, (one_hot * in_tile).expand(b, h, l, D).contiguous()
+    k = (one_hot * in_tile).expand(b, h, l, D).contiguous()
+    return zeros, k, ones, one_hot.expand(b, h, l, D).contiguous()
+
+
+def bwd_readout(dtype, live_tile: int, kernel: str, words, rate: float, device="cuda") -> torch.Tensor:
+    """K1, then K3 and K2, on :func:`bwd_readout_inputs`: dv (``"dkdv"``)
+    or dq (``"dq"``)."""
+    q, k, v, do = bwd_readout_inputs(dtype, live_tile, kernel, device)
+    out, lse = flash_mod.flash_forward(q, k, v, seed=words, rate=rate)
+    dq, _, dv, _ = flash_mod.flash_backward(q, k, v, None, words, out, lse, do, rate=rate)
+    return dv if kernel == "dkdv" else dq
+
+
+def bwd_readout_mismatches(grad: torch.Tensor, words, live_tile: int, rate: float, kernel: str) -> int:
+    """Elements where :func:`bwd_readout`'s gradient disagrees with
+    keep_mask_reference: for dv, ``dv != 0`` against the bits of (query
+    64·live_tile + d, key); for dq, ``dq > 0`` against the bits of (query,
+    key 64·live_tile + d), plus every dq that is exactly 0."""
+    g = grad.float().cpu()
+    l = g.shape[2]
+    bad = 0
+    for bi in range(g.shape[0]):
+        for hi in range(g.shape[1]):
+            if kernel == "dkdv":
+                want = flash_mod.keep_mask_reference(words, bi, hi, live_tile * KEY_TILE, 0, KEY_TILE, l, rate)
+                bad += int(((g[bi, hi] != 0).float().T != want).sum())
+            else:
+                want = flash_mod.keep_mask_reference(words, bi, hi, 0, live_tile * KEY_TILE, l, KEY_TILE, rate)
+                bad += int(((g[bi, hi] > 0).float() != want).sum() + (g[bi, hi] == 0).sum())
+    return bad
 
 
 def readout_mismatches(out: torch.Tensor, words, live_tile: int, rate: float) -> int:
@@ -397,9 +461,17 @@ def train_kernel_phase(seed: int) -> tuple[dict, dict, dict]:
                 bad = readout_mismatches(out, words, live_tile, rate)
                 print(f"K1 keep-mask read-out {str(dtype):14s} rate={rate} live key tile {live_tile}: {bad} of {out.numel()} elements differ from keep_mask_reference", flush=True)
                 check(bad == 0, f"K1's dropout mask is off at {bad} elements ({dtype}, rate {rate}, key tile {live_tile})")
+                # The same bits out of K2's dv and K3's dq.
+                for kernel, what in (("dkdv", "K2 dv"), ("dq", "K3 dq")):
+                    grad = bwd_readout(dtype, live_tile, kernel, words, rate)
+                    bad = bwd_readout_mismatches(grad, words, live_tile, rate, kernel)
+                    print(f"{what} keep-mask read-out {str(dtype):14s} rate={rate} live tile {live_tile}: {bad} of {grad.numel()} elements differ from keep_mask_reference", flush=True)
+                    check(bad == 0, f"{what}'s dropout mask is off at {bad} elements ({dtype}, rate {rate}, tile {live_tile})")
         for b, l, masked_row, layout in cases:
             q, k, v, bias = attention_inputs(g, b, l, dtype, masked_row, layout)
             do = torch.randn(b, H, l, D, generator=g, device="cuda").to(dtype)
+            if layout != "dense":  # the model's dO: a view of O's [B, L, H, D] storage
+                do = flash_mod.empty_out(q).copy_(do)
             words = torch.randint(0, 2**32, (2,), generator=g, device="cuda", dtype=torch.int64)
             out, lse = flash_mod.flash_forward(q, k, v, bias, seed=words, rate=RATE)
             ref, ref_lse = flash_mod.flash_attention_reference(q, k, v, bias, seed=words, rate=RATE)
@@ -430,6 +502,18 @@ def train_kernel_phase(seed: int) -> tuple[dict, dict, dict]:
                         errs[key] = max(errs[key], e)
                 e, ok = max_excess(bg.grad, want[3], 1e-3, 0.0)
                 check(ok, f"dbias disagrees: {e} at B={b} L={l} rate={rate} {dtype}")
+                # Straight through flash_backward: the gradients as
+                # [B, L, H, D] storage, no copy of dO, the same bits again.
+                copies = flash_mod.BWD_DO_COPIES
+                got = flash_mod.flash_backward(q, k, v, bias, seed_words, o.detach(), lse_k, do, rate=rate)
+                again = flash_mod.flash_backward(q, k, v, bias, seed_words, o.detach(), lse_k, do, rate=rate)
+                torch.cuda.synchronize()
+                check(flash_mod.BWD_DO_COPIES == copies, f"the backward copied dO ({layout}, strides {do.stride()})")
+                check(all(t.transpose(1, 2).is_contiguous() for t in got[:3]),
+                      f"dq/dk/dv are not [B, L, H, D] storage: strides {[t.stride() for t in got[:3]]}")
+                check(all(torch.equal(a, w) for a, w in zip(got, again)), f"repeated backward calls differ at B={b} L={l} rate={rate} {dtype}")
+                check(all(torch.equal(a, w) for a, w in zip(got[:3], (qg.grad, kg.grad, vg.grad))),
+                      f"flash_backward and autograd disagree at B={b} L={l} rate={rate} {dtype}")
                 print(f"K2/K3 check {str(dtype):14s} B={b:2d} L={l:3d} {layout:5s} rate={rate} max|grad-ref|: {' '.join(line)} dbias {e:.3e}; K1 drop max|O-ref|={err:.3e}", flush=True)
 
     # Times at the training shape, bf16, dropout on.
@@ -438,10 +522,15 @@ def train_kernel_phase(seed: int) -> tuple[dict, dict, dict]:
     words = torch.randint(0, 2**32, (2,), generator=g, device="cuda", dtype=torch.int64)
     mask_bf16 = bias.to(torch.bfloat16)
     qv, kv, vv = (split_heads(t.transpose(1, 2).reshape(B_TRAIN, L, H * D)) for t in (q, k, v))
-    out, lse = flash_mod.flash_forward(q, k, v, bias, seed=words, rate=RATE)
-    x = flash_mod._BwdInputs(q, k, v, bias, words, out, lse, do, RATE)
-    ref_args = (q, k, v, bias, words, out, lse, do)
-    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    # The backward on the model's layout: q/k/v views of [B, L, H*D]
+    # projections, dO a view of O's [B, L, H, D] storage.
+    out, lse = flash_mod.flash_forward(qv, kv, vv, bias, seed=words, rate=RATE)
+    do = flash_mod.empty_out(qv).copy_(do)
+    copies = flash_mod.BWD_DO_COPIES
+    x = flash_mod._BwdInputs(qv, kv, vv, bias, words, out, lse, do, RATE)
+    check(flash_mod.BWD_DO_COPIES == copies, "the backward copied the model's dO")
+    ref_args = (qv, kv, vv, bias, words, out, lse, do)
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (qv, kv, vv))
     o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask_bf16, dropout_p=RATE)
     t_lib_bwd = time_ms(lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), do, retain_graph=True))
     fwd = {
@@ -459,11 +548,12 @@ def train_kernel_phase(seed: int) -> tuple[dict, dict, dict]:
     fwd["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qv, kv, vv, attn_mask=mask_bf16, dropout_p=RATE))
     print(f"K1 dropout time B={B_TRAIN} bf16 rate={RATE} kernel_ms={fwd['ms']:.4f} (the model's views) dense_ms={t_dense:.4f} plain_ms={fwd['plain_ms']:.4f} library_ms(SDPA, same views)={fwd['library_ms']:.4f} bound_us={fwd['bound_ms'] * 1e3:.1f} ({fwd['bound_by']})", flush=True)
     rows = [fwd]
+    # K3 first: it writes the delta K2 reads.
     for name, kernel, launch, plain in (
-        ("flash_bwd_dkdv", "dkdv", lambda: flash_mod.flash_bwd_dkdv(x),
-         lambda: flash_mod.flash_dkdv_reference(*ref_args, rate=RATE)),
         ("flash_bwd_dq", "dq", lambda: flash_mod.flash_bwd_dq(x),
          lambda: flash_mod.flash_dq_reference(*ref_args, rate=RATE)),
+        ("flash_bwd_dkdv", "dkdv", lambda: flash_mod.flash_bwd_dkdv(x),
+         lambda: flash_mod.flash_dkdv_reference(*ref_args, rate=RATE)),
     ):
         t_k, t_p = time_ms(launch), time_ms(plain)
         bound, bound_by = backward_bound(B_TRAIN, H, L, D, 2, kernel)
@@ -481,7 +571,8 @@ def train_kernel_phase(seed: int) -> tuple[dict, dict, dict]:
             "bound_by": bound_by,
             "library_ms": t_lib_bwd,
         })
-    return rows
+    # The kernels line lists K2 before K3.
+    return rows[0], rows[2], rows[1]
 
 
 def flow_records(seed: int, n: int) -> list[dict]:
@@ -622,7 +713,7 @@ def train_phase(seed: int, card: str) -> dict[str, int]:
              "--output-dir", out_dir]
         )
         flash_mod.FWD_LAUNCHES = flash_mod.FWD_DROPOUT_LAUNCHES = 0
-        flash_mod.DKDV_LAUNCHES = flash_mod.DQ_LAUNCHES = 0
+        flash_mod.DKDV_LAUNCHES = flash_mod.DQ_LAUNCHES = flash_mod.BWD_DO_COPIES = 0
         res = run_local(args)
         torch.cuda.synchronize()
         launches = {
@@ -631,6 +722,7 @@ def train_phase(seed: int, card: str) -> dict[str, int]:
             "flash_bwd_dkdv": flash_mod.DKDV_LAUNCHES,
             "flash_bwd_dq": flash_mod.DQ_LAUNCHES,
         }
+        do_copies = flash_mod.BWD_DO_COPIES
         with open(res["metrics_csv"]) as f:
             header, values = f.read().strip().splitlines()
     cfg, state, trainer = res["config"], res["state"], res["trainer"]
@@ -640,11 +732,12 @@ def train_phase(seed: int, card: str) -> dict[str, int]:
     check(mcfg.compute_dtype == "bfloat16" and mcfg.attention_impl == "flash" and mcfg.attention_dropout == RATE, f"config {mcfg}")
     steps = state.step
     eval_batches = sum(-(-res[s]["n"] // cfg.data.eval_batch_size) for s in ("val", "test"))
-    print(f"train: {steps} steps of bs{cfg.data.batch_size}, {eval_batches} eval batches, epoch losses {res['losses']}, launches {launches}", flush=True)
+    print(f"train: {steps} steps of bs{cfg.data.batch_size}, {eval_batches} eval batches, epoch losses {res['losses']}, launches {launches}, dO copies {do_copies}", flush=True)
     check(steps == 9, f"{steps} train steps, want 9 (2400 x 0.1 x 0.6 / 16)")
     check(launches["flash_fwd_dropout"] == launches["flash_bwd_dkdv"] == launches["flash_bwd_dq"] == mcfg.n_layers * steps,
           f"K1-dropout/K2/K3 launches {launches} for {steps} steps")
     check(launches["flash_fwd"] == mcfg.n_layers * eval_batches, f"K1 (rate 0) launches {launches['flash_fwd']} for {eval_batches} eval batches")
+    check(do_copies == 0, f"the backward copied dO {do_copies} times on the model's path")
     check(all(np.isfinite(res["losses"])), f"non-finite loss {res['losses']}")
     check(header == "Accuracy,Loss,Precision,Recall,F1-Score", f"metrics CSV header {header!r}")
     check(all(np.isfinite(float(v)) for v in values.split(",")), f"metrics CSV {values!r}")
@@ -806,7 +899,7 @@ def round_phase(seed: int, card: str) -> int:
 
         fold_mod.FOLD_LAUNCHES = 0
         flash_mod.FWD_LAUNCHES = flash_mod.FWD_DROPOUT_LAUNCHES = 0
-        flash_mod.DKDV_LAUNCHES = flash_mod.DQ_LAUNCHES = 0
+        flash_mod.DKDV_LAUNCHES = flash_mod.DQ_LAUNCHES = flash_mod.BWD_DO_COPIES = 0
         t0 = time.perf_counter()
         with server:
             st = threading.Thread(target=server.serve, args=(1,))
@@ -852,6 +945,7 @@ def round_phase(seed: int, card: str) -> int:
     mcfg = results[0]["config"].model
     check(flash[1] == flash[2] == flash[3] == mcfg.n_layers * sum(steps),
           f"K1-dropout/K2/K3 launches {flash[1:]} for {steps} steps")
+    check(flash_mod.BWD_DO_COPIES == 0, f"the clients' backward copied dO {flash_mod.BWD_DO_COPIES} times")
     eval_batches = sum(2 * -(-results[i]["local"]["n"] // results[i]["config"].data.eval_batch_size) for i in range(2))
     check(flash[0] == mcfg.n_layers * eval_batches, f"K1 (rate 0) launches {flash[0]} for {eval_batches} eval batches")
     stats = server.last_fold_stats

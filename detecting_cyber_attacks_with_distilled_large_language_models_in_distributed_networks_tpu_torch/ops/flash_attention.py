@@ -29,8 +29,19 @@ every stride a multiple of 16 bytes); on the card anything else raises
 CPU alike, is allocated as ``[B, Lq, H, D]`` (:func:`empty_out`) and
 returned as its ``[B, H, Lq, D]`` transpose view, so merging the heads
 back (``O.transpose(1, 2).reshape(B, Lq, H * D)``) is a view. ``lse`` is
-dense fp32 ``[B, H, Lq, 1]``. The backward kernels (K2, K3) take dense
-rows, so :class:`_BwdInputs` copies q, k, v and dO once.
+dense fp32 ``[B, H, Lq, 1]``.
+
+Layout contract of the backward (K3, then K2), stated and checked by
+:class:`_BwdInputs`: q, k, v and O as the forward saved them, and dO where
+autograd hands it over, are read through their strides under the same
+rule. The model's dO is a view of O's ``[B, L, H, D]`` storage and
+qualifies; a dO that does not (another dtype, a stride-0 grad of
+``out.sum()``, a misaligned or last-dim-strided view) gets one dense copy,
+counted in ``BWD_DO_COPIES`` (:func:`bwd_dout`). dq, dk and dv come back
+as ``[B, H, L, D]`` views of ``[B, L, H, D]`` storage, on the card and the
+CPU alike, so the projections' backward merges the heads as a view.
+``delta = rowsum(dO ⊙ O)`` is computed by K3 from the rows it loads and
+read by K2, which launches after it.
 
 Dropout: the keep bit of each ``(b, h, q, k)`` is a hash of two uint32
 seed words and the global coordinates, so all three kernels regenerate
@@ -57,6 +68,9 @@ FWD_LAUNCHES = 0
 FWD_DROPOUT_LAUNCHES = 0
 DKDV_LAUNCHES = 0
 DQ_LAUNCHES = 0
+#: Dense copies the backward made of a dO that its kernels could not read
+#: where it lay (:func:`bwd_dout`); the model's training path makes none.
+BWD_DO_COPIES = 0
 #: Guards the counters' read-modify-writes: two trainers in one process
 #: (a federated round's clients as threads) launch concurrently.
 _COUNT_LOCK = threading.Lock()
@@ -67,16 +81,22 @@ KERNEL_HEAD_DIMS = (64,)
 _FNS: dict[tuple[str, torch.dtype], object] = {}
 _M32 = 0xFFFFFFFF
 
-#: ctypes signatures: K2/K3 take their tensor pointers, the sizes (B, H,
-#: Lq, Lk), then scale, keep threshold, 1 / (1 - rate) and the stream; K1
-#: also takes its key bias's batch stride after the bias pointer, and the
-#: (batch, head, row) strides of q, k, v and O after the sizes.
+#: ctypes signatures: tensor pointers (the key bias's batch stride after
+#: the bias pointer), the sizes (B, H, Lq, Lk), the (batch, head, row)
+#: strides of every strided operand (K1: q, k, v, O; K2/K3: q, k, v, O,
+#: dO, dq, dk, dv), then scale, keep threshold, 1 / (1 - rate) and the
+#: stream.
 _SIZES = [ctypes.c_int] * 4
 _TAIL = [ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
 _FWD_ARGTYPES = (
     [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
     + _SIZES + [ctypes.c_longlong] * 12 + _TAIL
 )
+_BWD_ARGTYPES = (
+    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 9
+    + _SIZES + [ctypes.c_longlong] * 24 + _TAIL
+)
+_UNUSED = (0, 0, 0)  # the strides of an operand a launch ignores
 
 
 # ------------------------------------------------------------ keep mask
@@ -241,8 +261,8 @@ def flash_attention_reference(
 
 
 def _delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """``rowsum(dO ⊙ O)`` in fp32, ``[B, H, Lq]`` (outside the kernels, as
-    it was XLA outside the Pallas kernels)."""
+    """``rowsum(dO ⊙ O)`` in fp32, ``[B, H, Lq]``: the plain version's
+    (XLA outside the Pallas kernels in JAX; K3 on the card)."""
     return (do.float() * out.float()).sum(dim=-1)
 
 
@@ -372,10 +392,6 @@ def _kernel_fn(lib_name: str, symbol: str, dtype: torch.dtype, argtypes: list):
     return fn
 
 
-def _bwd_argtypes(n_ptrs: int) -> list:
-    return [ctypes.c_void_p] * n_ptrs + _SIZES + _TAIL
-
-
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """Contiguous, with a 16-byte aligned base (the kernel's vector loads)."""
     t = t.contiguous()
@@ -426,7 +442,7 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 
 def _kernel_bias(bias, batch: int, lk: int, device) -> tuple[torch.Tensor, int]:
-    """K1's key bias and its batch stride in elements (0: one row for
+    """The kernels' key bias and its batch stride in elements (0: one row for
     every batch): an fp32 ``[B or 1, 1, 1, Lk]`` bias with its keys
     contiguous is read where it lies; anything else becomes a dense fp32
     ``[B, Lk]`` copy."""
@@ -498,73 +514,107 @@ def flash_forward(
     return _launch_fwd(q, k, v, bias, seed, rate)
 
 
+def bwd_dout(do: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """dO as K2 and K3 read it: the tensor autograd handed over, where it
+    lies, when it has q's dtype and shape and passes the kernels' layout
+    rule (:func:`_row_strides`); else one dense copy in q's dtype, counted
+    in ``BWD_DO_COPIES``. The model's dO (a view of O's ``[B, L, H, D]``
+    storage) qualifies; a stride-0 grad of ``out.sum()`` does not."""
+    global BWD_DO_COPIES
+    if do.dtype == q.dtype and do.shape == q.shape:
+        try:
+            _row_strides("dO", do)
+            return do
+        except ValueError:
+            pass
+    with _COUNT_LOCK:
+        BWD_DO_COPIES += 1
+    return _aligned(do.to(q.dtype))
+
+
 class _BwdInputs:
-    """The backward's operands, checked and laid out as the kernels take
-    them: contiguous q, k, v and dO in one dtype, fp32 ``[B, Lk]`` bias,
-    fp32 ``[B, H, Lq]`` lse and delta, and the launch's dropout words."""
+    """The backward's operands, checked and laid out as K3 and K2 take
+    them: q, k, v and O read through their strides (as K1 took q, k and v
+    and wrote O), dO through :func:`bwd_dout`, the kernels' key bias, fp32
+    ``[B, H, Lq]`` lse, the fp32 delta buffer K3 fills for K2, and the
+    launch's dropout words."""
 
     def __init__(self, q, k, v, bias, seed, out, lse, do, rate):
         _check_kernel_inputs(q, k, v)
         b, h, lq, d = q.shape
-        self.dims = (b, h, lq, k.shape[2])
-        self.scale = 1.0 / (d**0.5)
-        self.q, self.k, self.v = _aligned(q), _aligned(k), _aligned(v)
-        self.do = _aligned(do.to(q.dtype))
-        self.key_bias = _aligned(_key_bias(bias, b, k.shape[2], q.device))
+        lk = k.shape[2]
+        if out.dtype != q.dtype or out.shape != q.shape:
+            raise ValueError(f"O {out.dtype} {tuple(out.shape)} does not match q")
+        self.q, self.k, self.v, self.out = q, k, v, out
+        self.do = bwd_dout(do, q)
+        self.strides = (*flash_layout(q, k, v, out), _row_strides("dO", self.do))
+        self.key_bias, self.bias_b = _kernel_bias(bias, b, lk, q.device)
         self.lse = _aligned(lse.reshape(b, h, lq).to(torch.float32))
-        self.delta = _aligned(_delta(do, out))
+        self.delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
         self.seed, self.thresh, self.inv = _drop_args(seed, rate, q.device)
+        self.dims = (b, h, lq, lk)
+        self.scale = 1.0 / (d**0.5)
 
-    def ptrs(self) -> list[int | None]:
-        return [
+    def launch(self, symbol: str, dq=None, dk=None, dv=None, db=None) -> None:
+        fn = _kernel_fn("flash_bwd", symbol, self.q.dtype, _BWD_ARGTYPES)
+        outs = [_row_strides(n, t) if t is not None else _UNUSED
+                for n, t in (("dq", dq), ("dk", dk), ("dv", dv))]
+        _run(
+            fn, symbol, self.q.device,
             self.q.data_ptr(), self.k.data_ptr(), self.v.data_ptr(),
-            self.key_bias.data_ptr(), self.lse.data_ptr(),
-            self.delta.data_ptr(), self.do.data_ptr(), _ptr(self.seed),
-        ]
-
-    def tail(self) -> list:
-        return [*self.dims, self.scale, self.thresh, self.inv]
-
-
-def flash_bwd_dkdv(x: _BwdInputs) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K2 -> ``(dk, dv, db_h)`` with per-head bias rows ``db_h [B,H,Lk]``."""
-    global DKDV_LAUNCHES
-    b, h, _, lk = x.dims
-    dk, dv = torch.empty_like(x.k), torch.empty_like(x.v)
-    db_h = torch.empty((b, h, lk), dtype=torch.float32, device=x.q.device)
-    fn = _kernel_fn("flash_bwd", "flash_bwd_dkdv", x.q.dtype, _bwd_argtypes(11))
-    _run(fn, "flash_bwd_dkdv", x.q.device, *x.ptrs(),
-         dk.data_ptr(), dv.data_ptr(), db_h.data_ptr(), *x.tail())
-    with _COUNT_LOCK:
-        DKDV_LAUNCHES += 1
-    return dk, dv, db_h
+            self.key_bias.data_ptr(), self.bias_b, self.out.data_ptr(),
+            self.lse.data_ptr(), self.delta.data_ptr(), self.do.data_ptr(),
+            _ptr(self.seed), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(db), *self.dims,
+            *(x for st in (*self.strides, *outs) for x in st),
+            self.scale, self.thresh, self.inv,
+        )
 
 
 def flash_bwd_dq(x: _BwdInputs) -> torch.Tensor:
-    """K3 -> ``dq``."""
+    """K3 -> ``dq`` (a ``[B, H, Lq, D]`` view of ``[B, Lq, H, D]``
+    storage); also fills ``x.delta``, which :func:`flash_bwd_dkdv` reads,
+    so it launches first."""
     global DQ_LAUNCHES
-    dq = torch.empty_like(x.q)
-    fn = _kernel_fn("flash_bwd", "flash_bwd_dq", x.q.dtype, _bwd_argtypes(9))
-    _run(fn, "flash_bwd_dq", x.q.device, *x.ptrs(), dq.data_ptr(), *x.tail())
+    dq = empty_out(x.q)
+    x.launch("flash_bwd_dq", dq=dq)
     with _COUNT_LOCK:
         DQ_LAUNCHES += 1
     return dq
 
 
+def flash_bwd_dkdv(x: _BwdInputs) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 -> ``(dk, dv, db_h)``, dk and dv as views of ``[B, Lk, H, D]``
+    storage, with per-head bias rows ``db_h [B,H,Lk]``. Reads the delta
+    that :func:`flash_bwd_dq` wrote into ``x``."""
+    global DKDV_LAUNCHES
+    b, h, _, lk = x.dims
+    dk, dv = empty_out(x.k), empty_out(x.v)
+    db_h = torch.empty((b, h, lk), dtype=torch.float32, device=x.q.device)
+    x.launch("flash_bwd_dkdv", dk=dk, dv=dv, db=db_h)
+    with _COUNT_LOCK:
+        DKDV_LAUNCHES += 1
+    return dk, dv, db_h
+
+
 def flash_backward(
     q, k, v, bias, seed, out, lse, do, *, rate: float = 0.0
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor | None]:
-    """``(dq, dk, dv, dbias)``: K2 and K3 for CUDA tensors, the plain
-    version for CPU tensors. ``dbias`` is None without a bias."""
+    """``(dq, dk, dv, dbias)``: K3 then K2 for CUDA tensors, the plain
+    version for CPU tensors; dq, dk and dv come back as ``[B, H, L, D]``
+    views of ``[B, L, H, D]`` storage on both (:func:`empty_out`).
+    ``dbias`` is None without a bias."""
     _check_shapes(q, k, v)
     _check_rate(rate, seed)
     if q.device.type == "cpu":
-        return flash_backward_reference(q, k, v, bias, seed, out, lse, do, rate=rate)
+        dq, dk, dv, dbias = flash_backward_reference(
+            q, k, v, bias, seed, out, lse, do, rate=rate
+        )
+        return empty_out(q).copy_(dq), empty_out(k).copy_(dk), empty_out(v).copy_(dv), dbias
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     x = _BwdInputs(q, k, v, bias, seed, out, lse, do, rate)
-    dk, dv, db_h = flash_bwd_dkdv(x)
     dq = flash_bwd_dq(x)
+    dk, dv, db_h = flash_bwd_dkdv(x)
     return dq, dk, dv, _dbias(db_h, bias)
 
 

@@ -18,7 +18,8 @@ result once, so they may differ by one bf16 ulp, at most 2^-7 = 7.8e-3
 relative; atol covers values near zero); dbias atol 1e-3 in both (an
 fp32 sum over H·Lq terms taken in another order). K1's keep-mask read-out:
 exact (``(O != 0)`` equals ``keep_mask_reference``, and at rate 0.5
-``32·O`` equals it). K4 (the fold): no
+``32·O`` equals it); K2's and K3's read-out (``chip_smoke.bwd_readout``):
+exact too, through dv and dq. K4 (the fold): no
 tolerance at all, ``array_equal`` with its plain version on the card and
 with numpy's ``acc += float32(w) * x`` on the host, subnormals included.
 """
@@ -195,6 +196,67 @@ def test_flash_kernel_refuses_layouts_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous last dim"):
         flash_mod.flash_forward(*(base[..., ::2],) * 3)
     assert flash_mod.FWD_LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dkdv", "dq"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("live_tile", [0, 1])
+def test_flash_backward_keep_mask_readout_is_exact(cuda_device, kernel, dtype, rate, live_tile):
+    """Inputs built so that K2's dv and K3's dq are the keep mask itself
+    (chip_smoke.bwd_readout_inputs): a bit hashed at a wrong fragment
+    coordinate shows here, exactly."""
+    words = torch.tensor([0xDEADBEEF, 0x9ABCDEF1], dtype=torch.int64, device=cuda_device)
+    grad = chip_smoke.bwd_readout(dtype, live_tile, kernel, words, rate, cuda_device)
+    torch.cuda.synchronize()
+    assert chip_smoke.bwd_readout_mismatches(grad, words, live_tile, rate, kernel) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["split", "fused"])
+@pytest.mark.parametrize("b,l,rate", [(16, 128, 0.1), (3, 40, 0.0), (2, 200, 0.1)])
+def test_flash_backward_reads_views_and_writes_blhd(cuda_device, dtype, layout, b, l, rate):
+    """q/k/v as the model hands them over and dO as a view of O's
+    [B, L, H, D] storage go in without a copy; dq, dk and dv come out as
+    [B, L, H, D] storage, at the unchanged bounds, the same bits twice."""
+    g = torch.Generator(device=cuda_device).manual_seed(17 * b + l)
+    q, k, v, bias = chip_smoke.attention_inputs(g, b, l, dtype, True, layout)
+    words = torch.randint(0, 2**32, (2,), generator=g, device=cuda_device, dtype=torch.int64)
+    seed = words if rate else None
+    out, lse = flash_mod.flash_forward(q, k, v, bias, seed=seed, rate=rate)
+    do = flash_mod.empty_out(q).copy_(torch.randn(q.shape, generator=g, device=cuda_device))
+    copies = flash_mod.BWD_DO_COPIES
+    got = flash_mod.flash_backward(q, k, v, bias, seed, out, lse, do, rate=rate)
+    torch.cuda.synchronize()
+    assert flash_mod.BWD_DO_COPIES == copies
+    want = flash_mod.flash_backward_reference(q, k, v, bias, seed, out, lse, do, rate=rate)
+    atol, rtol = BWD_TOL[dtype]
+    for name, a, w in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+        assert a.shape == w.shape and a.transpose(1, 2).is_contiguous(), name
+        torch.testing.assert_close(a.float(), w.float(), atol=atol, rtol=rtol, msg=name)
+    torch.testing.assert_close(got[3], want[3], atol=1e-3, rtol=0.0)
+    again = flash_mod.flash_backward(q, k, v, bias, seed, out, lse, do, rate=rate)
+    for a, w in zip(got, again):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.cuda
+def test_flash_backward_copies_a_dout_it_cannot_read(cuda_device):
+    """The stride-0 grad of ``out.sum()`` is copied once, counted, and the
+    gradients still match the plain version."""
+    q, k, v, _, bias, _ = _inputs(cuda_device, 2, 72, torch.bfloat16, 23)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    copies = flash_mod.BWD_DO_COPIES
+    flash_mod.flash_attention(*leaves, bias).sum().backward()
+    torch.cuda.synchronize()
+    assert flash_mod.BWD_DO_COPIES == copies + 1
+    out, lse = flash_mod.flash_forward(q, k, v, bias)
+    want = flash_mod.flash_backward_reference(q, k, v, bias, None, out, lse, torch.ones_like(q))
+    atol, rtol = BWD_TOL[torch.bfloat16]
+    for t, w in zip(leaves, want[:3]):
+        torch.testing.assert_close(t.grad.float(), w.float(), atol=atol, rtol=rtol)
 
 
 def _numpy_fold(leaves, weights):
