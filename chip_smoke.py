@@ -47,7 +47,8 @@ Phases; any failure exits non-zero before the last line is printed:
             bound;
 5. path   — full-width DistilBERT-base (6 layers, dim 768, 12 heads,
             L=128, flash attention, bf16) with seeded random weights,
-            written as a registry artifact and served by the port's
+            added to the port's registry and promoted to serving through
+            its ``registry`` verb, and served by the port's
             ``infer-serve`` on the card; a few dozen concurrent text and
             features requests through the port's client. Every prob must
             be finite in [0, 1] and match the same weights through
@@ -59,13 +60,30 @@ Phases; any failure exits non-zero before the last line is printed:
             the port's parser. K1 with dropout, K2 and K3 must launch once
             per layer of every step (and the backward copy no dO), K1 at
             rate 0 once per layer of every eval batch; every loss and the
-            metrics CSV must be finite.
+            metrics CSV must be finite. ``--checkpoint-dir`` saves the
+            state once (params and Adam moments): its seconds and bytes.
             Then 108 more steps (the epoch's 9 batches 12 times) time the
             steady training samples/s. Then one fp32 step
             with dropout off: gradients through flash against the dot path
             on the card (atol 1e-4 + rtol 1e-3); and 20 steps on one fixed
             batch with dropout off must bring the loss below its first
             value;
+   lifecycle — at full width on the card: (a) 4 steps, save, warm start
+            into a fresh trainer, 5 more steps, dropout on, against 9
+            uninterrupted steps: losses and params within the trajectory
+            bound (atol 2e-6 / rtol 1e-5), printed whether bit-equal, with
+            the save's and the restore's seconds; (b) ``predict`` on 512
+            synthetic flows from phase 6's checkpoint, and again from the
+            resumed state's: probs bit-equal to ``Trainer.evaluate`` on the
+            restored state, flows/s, K1 once per layer of every batch;
+            (c) ``infer-serve --checkpoint-dir`` while the resumed state is
+            finalized as a new step, and ``infer-serve --registry-dir``
+            while it is promoted as a second artifact: replies after the
+            swap name the new round, their probs within bf16's bound (atol
+            1e-2) of ``predict`` on the new weights, which must differ
+            from the old ones by more than 10 x that bound on some served
+            text, so a stale serve fails; the seconds from the swap to the
+            first reply the new model scored;
 7. kernel-fold — the fold kernel K4 against its plain version on the
             card and against numpy's ``acc += float32(w) * x`` on the
             host, with no tolerance (``array_equal``): K in {1, 2, 8} over
@@ -86,7 +104,9 @@ Phases; any failure exits non-zero before the last line is printed:
             layer of every step of both clients; both aggregated metrics
             CSVs finite. Prints the round's time split;
 9. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
-   serving shape and dropout at the training shape, then K2, K3 and K4),
+   serving shape and dropout at the training shape, then K2, K3 and K4;
+   K1's rate-0 launches count phase 5, phase 6's evaluation, and the
+   lifecycle's predict and reload serving),
    then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -97,6 +117,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import csv
 import dataclasses
 import json
 import os
@@ -120,6 +141,9 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.local import (
     run_local,
 )
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.predict import (
+    run_predict,
+)
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.comm import (
     wire,
 )
@@ -135,10 +159,18 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     default_tokenizer,
     flow_to_text,
 )
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.data.cicids import (
+    frame_texts,
+    load_flow_csv,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.data.pipeline import (
+    TokenizedSplit,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.data.synthetic import (
+    make_synthetic_flows,
+)
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.models import (
-    flatten_tree,
     init_params,
-    params_to_jax,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.models.distilbert import (
     build_trainable_params,
@@ -152,9 +184,17 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.ops.attention import (
     make_attention_bias,
 )
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.registry import (
+    ModelRegistry,
+)
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.serving import (
     ScoreEngine,
     ScoringClient,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.checkpoint import (
+    STATE_FILE,
+    Checkpointer,
+    maybe_warm_start,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.engine import (
     Trainer,
@@ -593,26 +633,13 @@ def flow_records(seed: int, n: int) -> list[dict]:
     return recs
 
 
-def write_artifact(root: str, cfg: ModelConfig, params: dict, round_id: int) -> None:
-    """The registry layout the JAX package's ModelRegistry writes."""
-    aid = f"chip-smoke-r{round_id}"
-    art = os.path.join(root, "artifacts", aid)
-    os.makedirs(art)
-    flat = flatten_tree(params_to_jax(params))
-    with open(os.path.join(art, "params.npz"), "wb") as f:
-        np.savez(f, **flat)
-    manifest = {
-        "id": aid,
-        "state": "serving",
-        "round": round_id,
-        "model_config": dataclasses.asdict(cfg),
-        "n_tensors": len(flat),
-        "n_params": int(sum(v.size for v in flat.values())),
-    }
-    with open(os.path.join(art, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    with open(os.path.join(root, "serving.json"), "w") as f:
-        json.dump({"artifact": aid, "round": round_id}, f)
+def publish(root: str, params: dict, round_id: int, cfg: ModelConfig) -> str:
+    """Add ``params`` to the port's registry at ``root`` and promote them
+    to serving through the ``registry`` verb; returns the artifact id."""
+    aid = ModelRegistry(root).add(params, round_index=round_id, model_config=cfg)
+    args = build_parser().parse_args(["registry", "promote", "--registry-dir", root, "--artifact", aid, "--to", "serving"])
+    check(args.fn(args) == 0, f"registry promote {aid} failed")
+    return aid
 
 
 def path_phase(seed: int, device_name: str) -> int:
@@ -626,7 +653,7 @@ def path_phase(seed: int, device_name: str) -> int:
     texts = [flow_to_text(r) for r in records]
     enc = tok.batch_encode(texts, max_len=cfg.max_len)
     with tempfile.TemporaryDirectory() as reg:
-        write_artifact(reg, cfg, params, round_id=1)
+        publish(reg, params, 1, cfg)
         args = build_parser().parse_args(
             ["infer-serve", "--registry-dir", reg, "--host", "127.0.0.1",
              "--port", "0", "--max-wait-ms", "10"]
@@ -702,15 +729,16 @@ def path_phase(seed: int, device_name: str) -> int:
     return launches
 
 
-def train_phase(seed: int, card: str) -> dict[str, int]:
+def train_phase(seed: int, card: str, ckpt_dir: str) -> tuple[dict[str, int], dict]:
     """Phase 6: ``local`` at full width on the card (``card``: its name and
-    power limit, as nvidia-smi gives them). Returns each kernel's
-    launches during it."""
+    power limit, as nvidia-smi gives them), saving its state to
+    ``ckpt_dir``. Returns each kernel's launches during it and what
+    ``run_local`` returned."""
     with tempfile.TemporaryDirectory() as out_dir:
         args = build_parser().parse_args(
             ["local", "--preset", "distilbert", "--attention-impl", "flash",
              "--synthetic", "2400", "--epochs", "1", "--seed", str(seed),
-             "--output-dir", out_dir]
+             "--output-dir", out_dir, "--checkpoint-dir", ckpt_dir]
         )
         flash_mod.FWD_LAUNCHES = flash_mod.FWD_DROPOUT_LAUNCHES = 0
         flash_mod.DKDV_LAUNCHES = flash_mod.DQ_LAUNCHES = flash_mod.BWD_DO_COPIES = 0
@@ -742,6 +770,9 @@ def train_phase(seed: int, card: str) -> dict[str, int]:
     check(header == "Accuracy,Loss,Precision,Recall,F1-Score", f"metrics CSV header {header!r}")
     check(all(np.isfinite(float(v)) for v in values.split(",")), f"metrics CSV {values!r}")
     print(f"train: test metrics {header} = {values}", flush=True)
+    check(os.listdir(ckpt_dir) == [str(steps)], f"checkpoint steps {os.listdir(ckpt_dir)}, want [{steps}]")
+    nbytes = os.path.getsize(os.path.join(ckpt_dir, str(steps), STATE_FILE))
+    print(f"train: {card}: saved step {steps} (params + Adam moments) in {res['save_seconds']:.3f} s, {nbytes / 1e6:.1f} MB", flush=True)
 
     # Steady-state rate: the epoch's batches 12 times again, after the fit.
     batches = list(trainer.epoch_batches(res["client"].train, 1, cfg.data.batch_size))
@@ -791,7 +822,215 @@ def train_phase(seed: int, card: str) -> dict[str, int]:
     losses = [float(learner.train_step(lstate, batch)[1]) for _ in range(20)]
     print(f"train: 20 steps on one batch: loss {losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
     check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    return launches, res
+
+
+def resume_check(seed: int, card: str, res: dict, ckpt_dir: str):
+    """Lifecycle (a): 4 steps, save, warm start into a fresh ``Trainer``,
+    5 more steps, dropout on, against 9 uninterrupted steps. Returns the
+    resumed state (its weights are not phase 6's: another seed)."""
+    cfg, tok_pad = res["config"], res["trainer"].pad_id
+    train_cfg = dataclasses.replace(cfg.train, seed=seed + 1)
+    trainer = Trainer(cfg.model, train_cfg, pad_id=tok_pad, device="cuda")
+    batches = list(trainer.epoch_batches(res["client"].train, 0, cfg.data.batch_size))
+    check(len(batches) == 9, f"{len(batches)} batches, want 9")
+    flash_mod.FWD_DROPOUT_LAUNCHES = flash_mod.DKDV_LAUNCHES = flash_mod.DQ_LAUNCHES = 0
+    whole = trainer.init_state()
+    whole_losses = [trainer.train_step(whole, b)[1] for b in batches]
+    part = trainer.init_state()
+    losses = [trainer.train_step(part, b)[1] for b in batches[:4]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Checkpointer(ckpt_dir) as ckpt:
+        ckpt.save(part.step, part)
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(os.path.join(ckpt_dir, str(part.step), STATE_FILE))
+    fresh = Trainer(cfg.model, train_cfg, pad_id=tok_pad, device="cuda")
+    template = fresh.init_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed, step = maybe_warm_start(ckpt_dir, template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(resumed is not None and step == 4 and resumed.step == 4, f"warm start gave step {step}")
+    check(resumed.generator.device.type == "cuda", "the restored generator is not the card's")
+    losses += [fresh.train_step(resumed, b)[1] for b in batches[4:]]
+    torch.cuda.synchronize()
+    launches = (flash_mod.FWD_DROPOUT_LAUNCHES, flash_mod.DKDV_LAUNCHES, flash_mod.DQ_LAUNCHES)
+    check(launches == (cfg.model.n_layers * 18,) * 3, f"K1-dropout/K2/K3 launches {launches} for 18 steps")
+    got, want = torch.stack(losses).cpu().numpy(), torch.stack(whole_losses).cpu().numpy()
+    loss_bits = np.array_equal(got, want)
+    worst, ok, bits = 0.0, bool(np.allclose(got, want, atol=2e-6, rtol=1e-5)), loss_bits
+    for n, t in whole.params.items():
+        e, good = max_excess(resumed.params[n].detach(), t.detach(), 2e-6, 1e-5)
+        worst, ok = max(worst, e), ok and good
+        bits = bits and torch.equal(resumed.params[n], t)
+    print(
+        f"lifecycle: {card}: resume check, 4 steps + save ({save_s:.3f} s, {nbytes / 1e6:.1f} MB) + warm start "
+        f"({restore_s:.3f} s) + 5 steps vs 9 steps, dropout {cfg.model.attention_dropout}: losses bit-equal {loss_bits}, "
+        f"max|param diff| {worst:.3e} (atol 2e-6 + rtol 1e-5), everything bit-equal {bits}",
+        flush=True,
+    )
+    check(ok, f"resumed training left the uninterrupted trajectory: max {worst}, losses {got} vs {want}")
+    return resumed
+
+
+def write_flows_csv(path: str, n: int, seed: int) -> None:
+    """``n`` synthetic CICIDS2017 flows as a CSV with a Label column."""
+    frame = make_synthetic_flows(n, seed=seed)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(list(frame))
+        for i in range(n):
+            w.writerow([frame[c][i] for c in frame])
+
+
+def predict_check(card: str, csv_path: str, ckpt_dir: str, out: str) -> tuple[np.ndarray, int]:
+    """Lifecycle (b): ``predict`` from the latest step of ``ckpt_dir``;
+    its probs must equal ``Trainer.evaluate`` on the restored state bit
+    for bit. Returns the probs and K1's launches during ``predict``."""
+    flash_mod.FWD_LAUNCHES = flash_mod.FWD_DROPOUT_LAUNCHES = 0
+    pred = run_predict(build_parser().parse_args(
+        ["predict", "--csv", csv_path, "--checkpoint-dir", ckpt_dir, "--output", out]
+    ))
+    torch.cuda.synchronize()
+    launches = flash_mod.FWD_LAUNCHES
+    check(flash_mod.FWD_DROPOUT_LAUNCHES == 0, "predict launched K1 with dropout")
+    trainer, probs = pred["trainer"], pred["probs"]
+    mcfg = trainer.model_cfg
+    check(trainer.device.type == "cuda" and mcfg.attention_impl == "flash" and mcfg.dim == 768, f"predict ran {mcfg} on {trainer.device}")
+    n = len(probs)
+    batches = -(-n // 16)
+    check(launches == mcfg.n_layers * batches, f"K1 launched {launches} times for {batches} predict batches")
+    with Checkpointer(ckpt_dir) as ckpt:
+        state = ckpt.restore(trainer.init_state())
+    tok = default_tokenizer()
+    enc = tok.batch_encode(frame_texts(load_flow_csv(csv_path)), max_len=mcfg.max_len)
+    split = TokenizedSplit(enc["input_ids"], enc["attention_mask"], np.zeros(n, np.int32))
+    want = trainer.evaluate(state.params, split, batch_size=16)["probs"]
+    same = np.array_equal(probs, want)
+    with open(out) as f:
+        rows = f.read().strip().splitlines()
+    print(
+        f"lifecycle: {card}: predict {n} flows in {pred['seconds']:.3f} s = {n / pred['seconds']:.1f} flows/s "
+        f"(tokenized rows in, probs out; K1 launches {launches}); probs bit-equal to Trainer.evaluate on the "
+        f"restored state: {same}; {int(pred['predictions'].sum())} flagged",
+        flush=True,
+    )
+    check(same, f"predict's probs differ from evaluate's: max {np.abs(probs - want).max()}")
+    check(len(rows) == n + 1 and rows[0] == "prob_attack,prediction,label_name", "predictions CSV malformed")
+    check(bool(np.isfinite(probs).all() and (probs >= 0).all() and (probs <= 1).all()), "predict probs not finite in [0, 1]")
+    return probs, launches
+
+
+def score_texts(port: int, texts: list[str], threads: int = 8) -> list[dict]:
+    """Score ``texts`` through the port's client on ``threads`` connections."""
+    replies: dict[int, dict] = {}
+    errors: list[BaseException] = []
+
+    def drive(rows):
+        try:
+            with ScoringClient("127.0.0.1", port, timeout=120) as c:
+                for i in rows:
+                    replies[i] = c.score(text=texts[i])
+        except BaseException as e:  # re-raised below, after the join
+            errors.append(e)
+
+    workers = [threading.Thread(target=drive, args=(range(t, len(texts), threads),)) for t in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=300)
+    check(not any(w.is_alive() for w in workers), "client threads hung")
+    if errors:
+        raise errors[0]
+    return [replies[i] for i in range(len(texts))]
+
+
+def reload_check(card: str, what: str, argv: list[str], swap, texts: list[str], want: np.ndarray, old_round: int, new_round: int) -> int:
+    """Lifecycle (c): ``infer-serve`` with ``argv`` serves ``old_round``;
+    ``swap()`` finalizes a step or promotes an artifact; replies must then
+    name ``new_round`` with probs within bf16's bound of ``want``
+    (``predict`` on the new weights). Returns K1's launches while
+    serving, after the warmup."""
+    server = build_server(build_parser().parse_args(
+        ["infer-serve", *argv, "--host", "127.0.0.1", "--port", "0", "--max-wait-ms", "5", "--reload-poll", "0.05"]
+    ))
+    check(server.engine.device.type == "cuda", f"engine on {server.engine.device}")
+    with server:
+        flash_mod.FWD_LAUNCHES = flash_mod.FWD_DROPOUT_LAUNCHES = 0
+        batches0 = server.stats()["batches"]
+        before = score_texts(server.port, texts)
+        check({r["round"] for r in before} == {old_round}, f"{what}: replies before the swap name rounds {sorted({r['round'] for r in before})}")
+        swap()
+        t_swap = time.perf_counter()
+        with ScoringClient("127.0.0.1", server.port, timeout=120) as c:
+            while True:
+                r = c.score(text=texts[0])
+                if r["round"] == new_round:
+                    break
+                check(time.perf_counter() - t_swap < 60, f"{what}: no reply from round {new_round} within 60 s")
+        first_s = time.perf_counter() - t_swap
+        after = score_texts(server.port, texts)
+        stats = server.stats()
+        launches = flash_mod.FWD_LAUNCHES
+        check(flash_mod.FWD_DROPOUT_LAUNCHES == 0, "serving launched K1 with dropout")
+    probs = np.array([r["prob"] for r in after])
+    diff = float(np.abs(probs - want).max())
+    batches = stats["batches"] - batches0
+    print(
+        f"lifecycle: {card}: {what}: {stats['reloads']} reload; first reply from round {new_round} "
+        f"{first_s:.3f} s after the swap; {len(after)} replies after it, max|prob - predict| {diff:.3e} "
+        f"(bf16 atol 1e-2); K1 launches {launches} for {batches} batches",
+        flush=True,
+    )
+    check(stats["reloads"] == 1 and {r["round"] for r in after} == {new_round}, f"{what}: replies after the swap name rounds {sorted({r['round'] for r in after})}")
+    check(diff <= 1e-2, f"{what}: served probs differ from predict's by {diff}")
+    n_layers = server.engine.model_cfg.n_layers
+    check(launches == n_layers * batches, f"{what}: K1 launched {launches} times for {batches} batches")
     return launches
+
+
+def lifecycle_phase(seed: int, card: str, res: dict, ckpt_dir: str, work: str) -> int:
+    """Resume, predict and both hot reloads at full width on the card.
+    Returns K1's rate-0 launches on these paths."""
+    resumed = resume_check(seed, card, res, os.path.join(work, "resume"))
+    csv_path = os.path.join(work, "flows.csv")
+    write_flows_csv(csv_path, 512, seed)
+    probs_old, k1_predict = predict_check(card, csv_path, ckpt_dir, os.path.join(work, "pred_old.csv"))
+    step = int(os.listdir(ckpt_dir)[0])
+    model_cfg = res["trainer"].model_cfg
+    # The new weights: the resumed state, as a checkpoint step and an artifact.
+    new_dir = os.path.join(work, "new")
+    with Checkpointer(new_dir) as ckpt:
+        ckpt.save(step + 1, resumed, meta={"kind": "local", "config": res["config"].to_dict()})
+    probs_new, k1 = predict_check(card, csv_path, new_dir, os.path.join(work, "pred_new.csv"))
+    k1_predict += k1
+    texts = frame_texts(load_flow_csv(csv_path))[:48]
+    # Stale weights must fail the served-probs check (atol 1e-2): on some
+    # served text the old and new weights must differ by far more.
+    gap = float(np.abs(probs_new[:48] - probs_old[:48]).max())
+    print(f"lifecycle: max|prob_new - prob_old| over the {len(texts)} served texts {gap:.3e} (must exceed 10 x 1e-2)", flush=True)
+    check(gap > 10 * 1e-2, f"the new weights score too like the old ones to tell a stale serve: {gap}")
+
+    def finalize():  # a new step appears in the served directory
+        os.rename(os.path.join(new_dir, str(step + 1)), os.path.join(ckpt_dir, str(step + 1)))
+
+    k1_serve = reload_check(card, "infer-serve --checkpoint-dir", ["--checkpoint-dir", ckpt_dir], finalize,
+                            texts, probs_new[:48], step, step + 1)
+    root = os.path.join(work, "registry")
+    with Checkpointer(ckpt_dir) as ckpt:
+        publish(root, ckpt.restore_params(step=step), 1, model_cfg)
+    new_aid = ModelRegistry(root).add(resumed.params, round_index=2, model_config=model_cfg)
+
+    def promote():
+        args = build_parser().parse_args(["registry", "promote", "--registry-dir", root, "--artifact", new_aid, "--to", "serving"])
+        check(args.fn(args) == 0, "registry promote failed")
+
+    k1_serve += reload_check(card, "infer-serve --registry-dir", ["--registry-dir", root], promote,
+                             texts, probs_new[:48], 1, 2)
+    print(f"lifecycle: K1 (rate 0) launches: predict {k1_predict}, serving around the reloads {k1_serve}", flush=True)
+    return k1_predict + k1_serve
 
 
 def numpy_fold(leaves: list[np.ndarray], weights: np.ndarray) -> np.ndarray:
@@ -1001,12 +1240,17 @@ def main() -> int:
     phase("path")
     serve_launches = path_phase(seed, device_name)
 
-    phase("train")
-    train_launches = train_phase(seed, card)
-    k1["launches"] = serve_launches + train_launches["flash_fwd"]
+    with tempfile.TemporaryDirectory() as work:
+        ckpt_dir = os.path.join(work, "ckpt")
+        phase("train")
+        train_launches, res = train_phase(seed, card, ckpt_dir)
+        phase("lifecycle")
+        life_launches = lifecycle_phase(seed, card, res, ckpt_dir, work)
+    del res
+    k1["launches"] = serve_launches + train_launches["flash_fwd"] + life_launches
     for row in (k1_drop, k2, k3):
         row["launches"] = train_launches[row["name"]]
-    print(f"launches: flash_fwd {serve_launches} (serving) + {train_launches['flash_fwd']} (evaluation)", flush=True)
+    print(f"launches: flash_fwd {serve_launches} (serving) + {train_launches['flash_fwd']} (evaluation) + {life_launches} (predict, reload serving)", flush=True)
 
     phase("kernel-fold")
     k4 = fold_kernel_phase(seed, card)

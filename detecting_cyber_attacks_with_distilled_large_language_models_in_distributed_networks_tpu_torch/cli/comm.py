@@ -49,8 +49,18 @@ def run_client(args) -> dict:
     after a failed exchange), ``uploaded`` and ``aggregate`` (the last
     round's params as sent and as received, JAX layout), ``seconds`` per
     phase of the last round (with the data and model set-up before the
-    first), ``exchange`` (the client's wire record of it) and
-    ``metrics_csvs``."""
+    first), ``exchange`` (the client's wire record of it),
+    ``metrics_csvs``, and with a checkpoint directory ``warm_step`` (the
+    step warm-started from, None for a fresh start) and ``saved_steps``.
+
+    With a checkpoint directory the client warm-starts from its latest
+    step and saves twice a round: after local training (the reference's
+    client1.py:388) and after adopting the aggregate (:403, meta
+    ``"aggregated": True``). The saves take their own step ids, seeded
+    past the directory's latest, since ``state.step`` alone can lag
+    them. Epoch offsets start from 0 on every launch, as in the JAX
+    package."""
+    from ..train.checkpoint import Checkpointer, maybe_warm_start
     from ..train.engine import Trainer
 
     t_start = time.perf_counter()
@@ -63,8 +73,27 @@ def run_client(args) -> dict:
         drop_remainder=cfg.data.drop_remainder, device=device,
     )
     state = trainer.init_state()
-    fed = FederatedClient(args.host, args.port, client_id=args.client_id, timeout=args.timeout)
     tag = f"[CLIENT {args.client_id}] "
+    ckpt = warm_step = None
+    saved_steps: list[int] = []
+    if cfg.checkpoint_dir:
+        restored, warm_step = maybe_warm_start(cfg.checkpoint_dir, state)
+        if restored is not None:
+            state = restored
+            log.info(f"{tag}warm start from {cfg.checkpoint_dir} (step {warm_step})")
+        ckpt = Checkpointer(cfg.checkpoint_dir)
+        save_seq = max(state.step, ckpt.latest_step() or 0)
+
+    def save(**extra) -> None:
+        nonlocal save_seq
+        save_seq += 1
+        ckpt.save(
+            save_seq, state,
+            meta={"client_id": args.client_id, "kind": "local", "config": cfg.to_dict(), **extra},
+        )
+        saved_steps.append(save_seq)
+
+    fed = FederatedClient(args.host, args.port, client_id=args.client_id, timeout=args.timeout)
     E = cfg.train.epochs_per_round
     eval_bs = cfg.data.eval_batch_size
     local = agg_metrics = uploaded = aggregated = None
@@ -78,9 +107,13 @@ def run_client(args) -> dict:
         t1 = time.perf_counter()
         local = trainer.evaluate_state(state, client.test, batch_size=eval_bs)
         t2 = time.perf_counter()
+        if ckpt is not None:
+            save()
+        t_saved = time.perf_counter()
         uploaded = trainer.host_params(state)
         t3 = time.perf_counter()
-        seconds = {"setup": setup_s, "train": t1 - t0, "eval_local": t2 - t1, "host_params": t3 - t2}
+        seconds = {"setup": setup_s, "train": t1 - t0, "eval_local": t2 - t1,
+                   "save": t_saved - t2, "host_params": t3 - t_saved}
         try:
             aggregated = fed.exchange(uploaded, n_samples=len(client.train))
         except OSError as e:  # ConnectionError included: the server is gone
@@ -97,12 +130,15 @@ def run_client(args) -> dict:
         # The next round trains FROM the aggregate with a fresh Adam and a
         # continuing step counter.
         state = trainer.adopt_aggregate(state, aggregated)
+        if ckpt is not None:
+            save(aggregated=True)
         seconds.update(exchange=t4 - t3, eval_aggregated=t5 - t4, adopt=time.perf_counter() - t5)
     paths = _write_reports(args.client_id, local, agg_metrics, cfg.output_dir)
     return {
         "config": cfg, "trainer": trainer, "state": state, "local": local,
         "aggregated": agg_metrics, "uploaded": uploaded, "aggregate": aggregated,
         "seconds": seconds, "exchange": fed.last_exchange, "metrics_csvs": paths,
+        "warm_step": warm_step, "saved_steps": saved_steps,
     }
 
 

@@ -1,7 +1,7 @@
 """Shared CLI plumbing of the ported commands: config resolution from
 flags, data loading and per-client report writing (the port's copy of
-the parts of the JAX package's ``cli/common.py`` that ``local`` and
-``client`` use)."""
+the parts of the JAX package's ``cli/common.py`` that ``local``,
+``client`` and ``predict`` use)."""
 
 from __future__ import annotations
 
@@ -60,6 +60,8 @@ def resolve_config(args: argparse.Namespace, *, vocab_size: int) -> ExperimentCo
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **train_kw))
     if getattr(args, "output_dir", None):
         cfg = dataclasses.replace(cfg, output_dir=args.output_dir)
+    if getattr(args, "checkpoint_dir", None):
+        cfg = dataclasses.replace(cfg, checkpoint_dir=args.checkpoint_dir)
     return cfg
 
 

@@ -17,8 +17,12 @@ def run_local(args) -> dict:
     """The ``local`` command's work; returns what it measured and wrote:
     ``config``, ``client`` (its token arrays), ``trainer``, ``state``,
     ``losses`` (per epoch), ``val``
-    and ``test`` metrics, ``train_samples``, ``train_seconds`` and
-    ``metrics_csv``."""
+    and ``test`` metrics, ``train_samples``, ``train_seconds``,
+    ``metrics_csv`` and, with a checkpoint directory, ``save_seconds``
+    (None without one). The state is saved once, after the reports, at
+    step ``state.step``; ``local`` never warm-starts (as in the JAX
+    package)."""
+    from ..train.checkpoint import Checkpointer
     from ..train.engine import Trainer
 
     device = resolve_device(args.device)  # raises before any work without CUDA
@@ -44,11 +48,21 @@ def run_local(args) -> dict:
         f"test acc {test['Accuracy']:.4f} f1 {test['F1-Score']:.4f}"
     )
     (path,) = _write_reports(args.client_id, test, None, cfg.output_dir)
+    save_seconds = None
+    if cfg.checkpoint_dir:
+        t0 = time.perf_counter()
+        with Checkpointer(cfg.checkpoint_dir) as ckpt:
+            ckpt.save(
+                state.step, state,
+                meta={"client_id": args.client_id, "kind": "local", "config": cfg.to_dict()},
+            )
+        save_seconds = time.perf_counter() - t0
+        log.info(f"{tag}saved step {state.step} to {cfg.checkpoint_dir} in {save_seconds:.3f} s")
     return {
         "config": cfg, "client": client, "trainer": trainer, "state": state,
         "losses": losses,
         "val": val, "test": test, "train_samples": steps * cfg.data.batch_size,
-        "train_seconds": train_seconds, "metrics_csv": path,
+        "train_seconds": train_seconds, "metrics_csv": path, "save_seconds": save_seconds,
     }
 
 

@@ -2,8 +2,10 @@
 
 The verbs and flags mirror the JAX package's ``cli/parser.py``; the port
 has ``local`` (single-client training), ``serve`` and ``client`` (a
-federated round over TCP) and ``infer-serve`` so far. Each runs on the
-card unless ``--device cpu`` is given.
+federated round over TCP), ``predict`` (batch inference from a
+checkpoint), ``infer-serve`` (online scoring with hot reload) and
+``registry`` (the model registry's operator commands) so far. Each that
+computes runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -14,7 +16,9 @@ import sys
 
 from ..models.presets import preset_names
 from .comm import cmd_client, cmd_serve
+from .control import cmd_registry
 from .local import cmd_local
+from .predict import cmd_predict
 from .serving import cmd_infer_serve
 
 
@@ -59,6 +63,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("local", help="single-client train/eval/report")
     _add_training(p)
     p.add_argument("--client-id", type=int, default=0)
+    p.add_argument("--checkpoint-dir", help="save the trained state here (step = its global step)")
     p.set_defaults(fn=cmd_local)
 
     p = sub.add_parser(
@@ -92,7 +97,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-clients", type=int, default=None, help="clients the data is split for (default 2)")
     p.add_argument("--rounds", type=int, default=1)
     p.add_argument("--timeout", type=float, default=300.0)
+    p.add_argument(
+        "--checkpoint-dir",
+        help="warm-start + save full state here (the reference's "
+        "client{N}_model.pth re-launch pattern, client1.py:375-377,388,403)",
+    )
     p.set_defaults(fn=cmd_client)
+
+    p = sub.add_parser(
+        "predict",
+        help="batch inference: flow CSV -> per-row attack probability CSV",
+    )
+    _add_training(p)  # --csv (required here), model and batch flags
+    p.add_argument("--output", default="predictions.csv", help="predictions CSV path")
+    p.add_argument("--checkpoint-dir", help="local training checkpoint (of `local` or `client`)")
+    p.add_argument(
+        "--threshold", type=float, default=0.5,
+        help="P(attack) decision threshold (default 0.5)",
+    )
+    p.set_defaults(fn=cmd_predict)
 
     p = sub.add_parser(
         "infer-serve",
@@ -105,9 +128,20 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--registry-dir",
-        required=True,
-        help="serve the model registry's PROMOTED artifact (the serving "
-        "pointer a JAX controller or `fedtpu registry promote` wrote)",
+        help="serve the model registry's PROMOTED artifact and follow the "
+        "serving pointer (hot swap on promotion or rollback)",
+    )
+    p.add_argument(
+        "--checkpoint-dir",
+        help="serve (and hot-reload) from this local training checkpoint; "
+        "new steps are picked up between batches",
+    )
+    p.add_argument(
+        "--reload-poll",
+        type=float,
+        default=2.0,
+        help="seconds between reload-source polls on the scorer's idle "
+        "tick (default 2)",
     )
     p.add_argument(
         "--preset",
@@ -156,6 +190,30 @@ def build_parser() -> argparse.ArgumentParser:
     )
     _add_device(p, "the model runs")
     p.set_defaults(fn=cmd_infer_serve)
+
+    p = sub.add_parser(
+        "registry",
+        help="model registry operations: list | promote | rollback | gc",
+    )
+    p.add_argument("action", choices=["list", "promote", "rollback", "gc"])
+    p.add_argument("--registry-dir", required=True)
+    p.add_argument("--artifact", help="artifact id (promote)")
+    p.add_argument(
+        "--to",
+        choices=["candidate", "shadow", "serving"],
+        default=None,
+        help="promotion target state (default: one rung up the "
+        "candidate -> shadow -> serving ladder)",
+    )
+    p.add_argument(
+        "--max-artifacts",
+        type=int,
+        default=None,
+        help="gc: prune oldest retired/rejected artifacts until at most "
+        "this many remain; the serving artifact, its rollback chain and "
+        "live candidate/shadow artifacts are never pruned",
+    )
+    p.set_defaults(fn=cmd_registry)
     return ap
 
 

@@ -1,8 +1,15 @@
-"""``infer-serve``: the online scoring service over a promoted artifact.
+"""``infer-serve``: the online scoring service.
 
-:func:`build_server` resolves the registry's serving artifact, builds the
-engine on the requested device and returns the (not yet started) server;
-:func:`cmd_infer_serve` runs it until interrupted.
+:func:`build_server` resolves the weights (the registry's serving
+artifact, or a training checkpoint's latest step), builds the engine on
+the requested device and returns the (not yet started) server with its
+reload watcher; :func:`cmd_infer_serve` runs it until interrupted.
+
+The two weight sources are exclusive, as in the JAX package:
+``--registry-dir`` follows the serving pointer (only what the control
+plane promoted is served, hot-swapped on promotion or rollback);
+``--checkpoint-dir`` follows the directory's latest finished step, the
+initial load and every reload through one restore path (``predict``'s).
 """
 
 from __future__ import annotations
@@ -16,7 +23,10 @@ from ..data.tokenizer import default_tokenizer
 from ..models.convert import params_from_jax
 from ..models.presets import model_preset
 from ..registry import ModelRegistry
-from ..serving import MicroBatcher, ScoreEngine, ScoringServer
+from ..serving import CheckpointWatcher, MicroBatcher, RegistryWatcher, ScoreEngine, ScoringServer
+from ..serving.reload import checkpoint_restorer
+from ..train.checkpoint import CheckpointError
+from .common import resolve_config
 
 log = logging.getLogger(__name__)
 
@@ -55,33 +65,61 @@ def build_server(args) -> ScoringServer:
             f"--max-queue {args.max_queue} is smaller than the largest "
             f"bucket {buckets[-1]}: the queue could never fill one batch"
         )
-    registry = ModelRegistry(args.registry_dir)
-    info = registry.serving_info()
-    if info is None:
+    if args.registry_dir and args.checkpoint_dir:
         raise SystemExit(
-            f"registry {args.registry_dir} has no serving artifact yet — "
-            "promote one first"
+            "--registry-dir and --checkpoint-dir are two different reload "
+            "sources (eval-gated pointer vs raw latest step); pass one"
         )
-    manifest = registry.manifest(info["artifact"])
-    model_cfg = _model_config(args, manifest, len(tok.vocab))
-    if model_cfg.vocab_size != len(tok.vocab):
+    if args.registry_dir:
+        registry = ModelRegistry(args.registry_dir)
+        info = registry.serving_info()
+        if info is None:
+            raise SystemExit(
+                f"registry {args.registry_dir} has no serving artifact yet — "
+                "promote one first"
+            )
+        manifest = registry.manifest(info["artifact"])
+        model_cfg = _model_config(args, manifest, len(tok.vocab))
+        if model_cfg.vocab_size != len(tok.vocab):
+            raise SystemExit(
+                f"serving artifact's model vocab ({model_cfg.vocab_size}) != "
+                f"tokenizer vocab ({len(tok.vocab)})"
+            )
+        params = params_from_jax(registry.load_params(info["artifact"]))
+        round_id = int(manifest.get("round", 0))
+        watcher = RegistryWatcher(registry, poll_interval_s=args.reload_poll)
+        watcher.prime(info["artifact"])
+        source = f"artifact {info['artifact']}"
+    elif args.checkpoint_dir:
+        cfg = resolve_config(args, vocab_size=len(tok.vocab))
+        restore = checkpoint_restorer(cfg.checkpoint_dir, cfg.model, device=args.device)
+        try:
+            model_cfg, params, round_id, step = restore(None)
+        except CheckpointError as e:
+            raise SystemExit(str(e)) from None
+        watcher = CheckpointWatcher(cfg.checkpoint_dir, restore, poll_interval_s=args.reload_poll)
+        # Primed with the step just restored, never a fresh scan: a step
+        # finished since then is new on the first poll.
+        watcher.prime(step)
+        source = f"checkpoint {cfg.checkpoint_dir} step {step}"
+    else:
         raise SystemExit(
-            f"serving artifact's model vocab ({model_cfg.vocab_size}) != "
-            f"tokenizer vocab ({len(tok.vocab)})"
+            "infer-serve needs trained weights: pass --registry-dir (the "
+            "registry's promoted artifact, hot-swapped on promotion) or "
+            "--checkpoint-dir (a local training checkpoint, hot-reloaded "
+            "on each new step)"
         )
-    params = params_from_jax(registry.load_params(info["artifact"]))
     engine = ScoreEngine(
         model_cfg,
         params,
         pad_id=tok.pad_id,
         buckets=buckets,
-        round_id=int(manifest.get("round", 0)),
+        round_id=round_id,
         device=args.device,
     )
     log.info(
-        f"[SERVE] serving artifact {info['artifact']} (round "
-        f"{engine.round_id}, attention {model_cfg.attention_impl}, "
-        f"{model_cfg.compute_dtype}) on {engine.device}"
+        f"[SERVE] serving {source} (round {engine.round_id}, attention "
+        f"{model_cfg.attention_impl}, {model_cfg.compute_dtype}) on {engine.device}"
     )
     return ScoringServer(
         engine,
@@ -99,6 +137,7 @@ def build_server(args) -> ScoringServer:
             if args.default_deadline_ms is not None
             else None
         ),
+        watcher=watcher,
     )
 
 
@@ -113,7 +152,8 @@ def cmd_infer_serve(args) -> int:
                 log.info(
                     f"[SERVE] {s['scored']} flows served "
                     f"({s['flows_per_sec']:.1f}/s), p50 {s['p50_ms']:.2f} ms "
-                    f"p99 {s['p99_ms']:.2f} ms, rejects {s['rejects']}"
+                    f"p99 {s['p99_ms']:.2f} ms, rejects {s['rejects']}, "
+                    f"round {s['round']} ({s['reloads']} reloads)"
                 )
         except KeyboardInterrupt:
             log.info("[SERVE] interrupted; draining")

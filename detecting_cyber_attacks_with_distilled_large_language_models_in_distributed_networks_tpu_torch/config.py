@@ -8,14 +8,15 @@ port has not reached yet (FedProx, gradient accumulation, the
 non-``sample`` partitions) are kept for compatibility and raise
 ``NotImplementedError`` when set away from their defaults, instead of
 being ignored. ``ExperimentConfig`` carries only the
-sections the ported commands read.
+sections the ported commands read; a checkpoint records it as
+``to_dict()`` and ``predict`` reads it back with ``from_dict``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Mapping
 
 
 @dataclass(frozen=True)
@@ -247,6 +248,9 @@ class ExperimentConfig:
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     fed: FedConfig = dataclasses.field(default_factory=FedConfig)
     output_dir: str = "outputs"
+    # Where ``local``/``client`` save (and ``client`` warm-starts from),
+    # and what ``predict``/``infer-serve`` restore.
+    checkpoint_dir: str | None = None
 
     def __post_init__(self) -> None:
         if self.data.max_len != self.model.max_len:
@@ -254,3 +258,26 @@ class ExperimentConfig:
                 f"data.max_len={self.data.max_len} != model.max_len="
                 f"{self.model.max_len}"
             )
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "ExperimentConfig":
+        """Inverse of :meth:`to_dict`; unknown sections or keys raise."""
+        sections = {"model": ModelConfig, "data": DataConfig, "train": TrainConfig, "fed": FedConfig}
+        scalars = ("output_dir", "checkpoint_dir")
+        unknown_top = set(d) - set(sections) - set(scalars)
+        if unknown_top:
+            raise ValueError(f"unknown config sections: {sorted(unknown_top)}")
+
+        def _mk(tp, key):
+            sub = dict(d.get(key, {}))
+            unknown = set(sub) - {f.name for f in dataclasses.fields(tp)}
+            if unknown:
+                raise ValueError(f"unknown {key} config keys: {sorted(unknown)}")
+            return tp(**sub)
+
+        kw: dict[str, Any] = {key: _mk(tp, key) for key, tp in sections.items()}
+        kw.update({k: d[k] for k in scalars if k in d})
+        return cls(**kw)

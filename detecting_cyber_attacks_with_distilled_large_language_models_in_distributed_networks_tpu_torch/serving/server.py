@@ -7,16 +7,18 @@ Port of the JAX package's ``serving/server.py`` core. Thread layout:
   WordPiece work runs in parallel across clients, off the scorer's path)
   and submits them to the micro-batcher; a full queue is answered with
   the explicit reject frame right there;
-* one **scorer** thread owns the device: coalesce, reject expired
-  requests, score the rest through the bucketed engine, queue replies;
+* one **scorer** thread owns the device: on each idle tick it polls the
+  reload watcher (``serving/reload.py``), so a reload never races a
+  batch; then coalesce, reject expired requests, score the rest through
+  the bucketed engine, queue replies;
 * one **writer** thread per connection drains a bounded outbound queue,
   so a client that stops reading stalls only its own writer.
 
 No ACK bytes ride the scoring sockets (framing ``await_ack=False`` both
 directions), so reader and writer writes cannot interleave.
 
-Not ported yet: the auth handshake, the stats and reload frames, the
-checkpoint/registry watchers, and the metrics, tracing and JSONL exports.
+Not ported yet: the auth handshake, the stats and reload frames, and the
+metrics, tracing and JSONL exports.
 """
 
 from __future__ import annotations
@@ -104,7 +106,9 @@ class ScoringServer:
     ``features`` requests render through the CICIDS2017 template (the same
     bytes ``predict`` feeds); ``text`` requests skip rendering.
     ``default_deadline_s`` applies to requests that name no budget (None =
-    wait forever)."""
+    wait forever). ``watcher``: a ``CheckpointWatcher`` or
+    ``RegistryWatcher`` polled on the scorer's idle tick (None: the
+    weights never change)."""
 
     def __init__(
         self,
@@ -116,8 +120,10 @@ class ScoringServer:
         threshold: float = 0.5,
         batcher: MicroBatcher | None = None,
         default_deadline_s: float | None = None,
+        watcher=None,
     ):
         self.engine = engine
+        self.watcher = watcher
         self.tok = tokenizer
         self.threshold = float(threshold)
         self.batcher = batcher or MicroBatcher(max_batch=engine.buckets[-1])
@@ -147,6 +153,8 @@ class ScoringServer:
     # ---------------------------------------------------------------- control
     def start(self) -> "ScoringServer":
         self.engine.warmup()
+        if self.watcher is not None and not self.watcher.primed:
+            self.watcher.prime()
         self._sock.listen(64)
         for target, name in (
             (self._accept_loop, "accept"),
@@ -211,6 +219,7 @@ class ScoringServer:
             "batches": batches,
             "rejects": rejects,
             "round": self.engine.round_id,
+            "reloads": getattr(self.watcher, "reload_count", 0),
             "uptime_s": uptime,
             "flows_per_sec": scored / uptime,
             **pct,
@@ -328,6 +337,8 @@ class ScoringServer:
 
     def _score_loop(self) -> None:
         while not self._closed.is_set():
+            if self.watcher is not None:
+                self.watcher.poll(self.engine)
             batch = self.batcher.next_batch(timeout=IDLE_TICK_S)
             if not batch:
                 continue

@@ -219,3 +219,56 @@ def test_port_serve_verb_against_a_jax_client(tmp_path):
     t.join(timeout=120)
     assert rc == 0 and rcs == [0] and not t.is_alive()
     _assert_reports(out, 0)
+
+
+def test_port_client_saves_twice_a_round_and_warm_starts(tmp_path):
+    """``client --checkpoint-dir``: a save after local training and one
+    after adopting the aggregate (meta ``aggregated``), numbered past the
+    directory's latest step; a re-launch warm-starts from the latest."""
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli import (
+        build_parser,
+    )
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.comm import (
+        build_server,
+        run_client,
+    )
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.checkpoint import (
+        Checkpointer,
+    )
+
+    ckpt_dir = str(tmp_path / "ck")
+
+    def launch(rounds):
+        server = build_server(build_parser().parse_args(
+            ["serve", "--host", "127.0.0.1", "--port", "0", "--num-clients", "1", "--timeout", "60", "--device", "cpu"]
+        ))
+        with server:
+            t = threading.Thread(target=server.serve, args=(rounds,), daemon=True)
+            t.start()
+            res = run_client(build_parser().parse_args([
+                "client", "--client-id", "0", "--host", "127.0.0.1", "--port", str(server.port),
+                "--preset", "tiny", "--synthetic", "300", "--epochs", "1", "--rounds", str(rounds),
+                "--device", "cpu", "--timeout", "60", "--output-dir", str(tmp_path / "out"),
+                "--checkpoint-dir", ckpt_dir,
+            ]))
+            t.join(timeout=60)
+        assert not t.is_alive()
+        return res
+
+    first = launch(2)
+    assert first["warm_step"] is None and first["saved_steps"] == [1, 2, 3, 4]
+    assert first["seconds"]["save"] >= 0
+    assert sorted(os.listdir(ckpt_dir), key=int) == ["2", "3", "4"]  # max_to_keep 3
+    with Checkpointer(ckpt_dir) as ckpt:
+        metas = {s: ckpt.restore_meta(step=s) for s in (2, 3, 4)}
+        last = ckpt.restore(first["trainer"].init_state())
+    assert [metas[s].get("aggregated", False) for s in (2, 3, 4)] == [True, False, True]
+    assert all(m["kind"] == "local" and m["client_id"] == 0 for m in metas.values())
+    # The last save is the adopted aggregate: a fresh Adam, the step going on.
+    assert last.opt_state.count == 0 and last.step == first["state"].step
+    for n, t in first["state"].params.items():
+        assert torch.equal(last.params[n].detach(), t.detach())
+    second = launch(1)
+    assert second["warm_step"] == 4 and second["saved_steps"] == [5, 6]
+    steps_per_epoch = first["state"].step // 2
+    assert second["state"].step == first["state"].step + steps_per_epoch

@@ -45,3 +45,39 @@ def test_local_without_cuda_raises_and_writes_nothing(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         args.fn(args)
     assert not os.path.exists(out)
+
+
+def test_local_saves_one_step_at_the_global_step(tmp_path):
+    """``local --checkpoint-dir`` saves the trained state once, as step
+    ``state.step``, with the JAX package's meta; it never warm-starts."""
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.local import (
+        run_local,
+    )
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.config import (
+        ExperimentConfig,
+    )
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.checkpoint import (
+        Checkpointer,
+    )
+
+    ckpt_dir = str(tmp_path / "ck")
+    argv = ["local", "--device", "cpu", "--preset", "tiny", "--synthetic", "600", "--epochs", "1",
+            "--checkpoint-dir", ckpt_dir, "--output-dir", str(tmp_path / "out")]
+    res = run_local(build_parser().parse_args(argv))
+    state = res["state"]
+    assert state.step > 0 and os.listdir(ckpt_dir) == [str(state.step)]
+    assert res["save_seconds"] is not None and res["save_seconds"] >= 0
+    with Checkpointer(ckpt_dir) as ckpt:
+        meta = ckpt.restore_meta()
+        restored = ckpt.restore(res["trainer"].init_state())
+    assert meta["client_id"] == 0 and meta["kind"] == "local"
+    assert ExperimentConfig.from_dict(meta["config"]) == res["config"]
+    assert res["config"].checkpoint_dir == ckpt_dir
+    for n, t in state.params.items():
+        assert torch.equal(restored.params[n].detach(), t.detach())
+    assert restored.step == state.step and restored.opt_state.count == state.opt_state.count
+    # A second run starts fresh (the same step again, which exists: kept).
+    again = run_local(build_parser().parse_args(argv))
+    for n, t in again["state"].params.items():
+        assert torch.equal(t.detach(), state.params[n].detach())
+    assert os.listdir(ckpt_dir) == [str(state.step)]
