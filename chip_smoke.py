@@ -93,6 +93,28 @@ Phases; any failure exits non-zero before the last line is printed:
             that leaf, beside the plain version's, ``torch.mv``'s (a
             yardstick the port never calls) and the bound, and the
             aggregator's host-to-device copies, kernel and copy back;
+   federated — the ``federated`` verb at full width (DistilBERT-base,
+            flash, bf16, dropout on, Adam 2e-5, bs16) with 4 clients on
+            1600 synthetic flows cut by ``--partition quantity`` into
+            shards of 644 / 386 / 414 / 156 rows (the shortest idles
+            through each epoch's tail), 2 epochs a round, ``--weighted``,
+            with ``--checkpoint-dir`` and ``--registry-dir``: round 1 as one
+            invocation, round 2 as a second that resumes from its
+            checkpoint. Checks: K1 with dropout, K2 and K3 once per layer
+            of every client-step that ran, K1 at rate 0 once per layer of
+            every eval client-batch; after each aggregation every client
+            row bit-equal to row 0 and row 0 within atol 1e-6 of the fp64
+            weighted mean of the rows before it; a client idling through a
+            gated step keeps its params, moments and Adam count bit for
+            bit; ``predict`` on round 2's checkpoint bit-equal to
+            ``evaluate_clients`` row 0; ``infer-serve --checkpoint-dir``
+            started on round 1 swaps to round 2 when the resumed run
+            finalizes it, its replies within bf16's bound of round 2's
+            ``predict``, which must differ from round 1's by more than 10 x
+            that bound on some served text; one registry artifact a round
+            with ``extra`` ``{"tier": "mesh", "clients": 4}``. Prints each
+            round's seconds by phase, samples/s over all clients and the
+            peak device memory;
 8. round    — one FedAvg round of full-width DistilBERT-base on loopback:
             the port's ``serve`` (2 clients, fold on the card) in a
             thread and two port ``client``s in threads (``--preset
@@ -105,8 +127,10 @@ Phases; any failure exits non-zero before the last line is printed:
             CSVs finite. Prints the round's time split;
 9. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
    serving shape and dropout at the training shape, then K2, K3 and K4;
-   K1's rate-0 launches count phase 5, phase 6's evaluation, and the
-   lifecycle's predict and reload serving),
+   K1's rate-0 launches count phase 5, phase 6's evaluation, the
+   lifecycle's predict and reload serving, and the federated phase's
+   evaluations, predicts and serving; K1 with dropout, K2 and K3 count
+   phase 6 and the federated phase),
    then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -137,6 +161,9 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.comm import (
     build_server as build_round_server,
     run_client,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.federated import (
+    run_federated,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.local import (
     run_local,
@@ -200,6 +227,9 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     Trainer,
     loss_fn,
 )
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.federated import (
+    FederatedTrainer,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
@@ -212,6 +242,15 @@ PORT = "detecting_cyber_attacks_with_distilled_large_language_models_in_distribu
 JAX_FLASH = "detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu/ops/flash_attention.py"
 JAX_FOLD = "detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu/ops/fold.py"
 EMBED_N = 30522 * 768  # the word-embedding leaf, DistilBERT-base's largest
+# The federated phase: 1600 synthetic flows cut by the quantity skew into
+# 4 disjoint shards of 644 / 386 / 414 / 156 rows (train 386 / 231 / 248 /
+# 93: 25 / 15 / 16 / 6 steps of bs16 an epoch), so the shortest client
+# idles through the tail of every epoch. Two epochs a round: after one,
+# round 1's model is still at chance and scores too like round 2's for the
+# stale-weights guard to tell them apart with room to spare.
+FED_CLIENTS = 4
+FED_ARGS = ["--synthetic", "1600", "--num-clients", str(FED_CLIENTS), "--partition", "quantity",
+            "--dirichlet-alpha", "2.0", "--data-fraction", "0.25", "--epochs", "2", "--weighted"]
 
 
 def fail(msg: str) -> None:
@@ -1033,6 +1072,252 @@ def lifecycle_phase(seed: int, card: str, res: dict, ckpt_dir: str, work: str) -
     return k1_predict + k1_serve
 
 
+def counts_zero() -> None:
+    flash_mod.FWD_LAUNCHES = flash_mod.FWD_DROPOUT_LAUNCHES = 0
+    flash_mod.DKDV_LAUNCHES = flash_mod.DQ_LAUNCHES = flash_mod.BWD_DO_COPIES = 0
+
+
+def counts_read() -> dict[str, int]:
+    torch.cuda.synchronize()
+    return {
+        "flash_fwd": flash_mod.FWD_LAUNCHES,
+        "flash_fwd_dropout": flash_mod.FWD_DROPOUT_LAUNCHES,
+        "flash_bwd_dkdv": flash_mod.DKDV_LAUNCHES,
+        "flash_bwd_dq": flash_mod.DQ_LAUNCHES,
+    }
+
+
+class FedWatch:
+    """Wraps the trainer's round boundary and lockstep step while the
+    federated phase runs: before each aggregation it copies the stacked
+    params on the card, after it checks that every client row equals row
+    0 and keeps row 0; at the first step where a client's batch is all
+    padding it copies that client's params and moments and checks them
+    after the step. The copies stay on the card (a few ms inside the
+    timed aggregate); the fp64 comparison runs after the invocation."""
+
+    def __init__(self):
+        self.aggs: list[tuple] = []
+        self.gated: tuple | None = None
+        self._orig = (FederatedTrainer.round_aggregate, FederatedTrainer.train_step)
+
+    def __enter__(self):
+        agg, step = self._orig
+        watch = self
+
+        def round_aggregate(trainer, state, **kw):
+            pre = {n: p.detach().clone() for n, p in state.params.items()}
+            out = agg(trainer, state, **kw)
+            rows_equal = all(torch.equal(p[c], p[0]) for p in out.params.values() for c in range(1, p.shape[0]))
+            watch.aggs.append((pre, {n: p[0].detach().clone() for n, p in out.params.items()}, kw.get("weights"), rows_equal))
+            return out
+
+        def train_step(trainer, state, batch, anchor=None):
+            idle = [c for c in range(trainer.C) if "valid" in batch and not batch["valid"][c].any()]
+            if not idle or watch.gated is not None:
+                return step(trainer, state, batch, anchor)
+            c = idle[0]
+            opt = state.opt_state
+            before = [{n: t[c].detach().clone() for n, t in d.items()} for d in (state.params, opt.mu, opt.nu)]
+            count = opt.count[c]
+            out = step(trainer, state, batch, anchor)
+            same = all(
+                torch.equal(now[n][c], t)
+                for now, was in zip((state.params, opt.mu, opt.nu), before)
+                for n, t in was.items()
+            ) and opt.count[c] == count
+            watch.gated = (c, state.step, same)
+            return out
+
+        FederatedTrainer.round_aggregate, FederatedTrainer.train_step = round_aggregate, train_step
+        return self
+
+    def __exit__(self, *exc):
+        FederatedTrainer.round_aggregate, FederatedTrainer.train_step = self._orig
+
+    def check_aggregates(self, card: str) -> None:
+        """Every aggregation this invocation made: rows bit-equal, and row
+        0 within atol 1e-6 of the fp64 weighted mean of the copies."""
+        for pre, post0, weights, rows_equal in self.aggs:
+            check(rows_equal, "after the aggregation some client row differs from row 0")
+            w = np.ones(FED_CLIENTS) if weights is None else np.asarray(weights, np.float64)
+            w = w / w.sum()
+            worst = 0.0
+            for n, x in pre.items():
+                mean = np.tensordot(w, x.cpu().numpy().astype(np.float64), axes=1)
+                worst = max(worst, float(np.abs(post0[n].cpu().numpy() - mean).max()))
+            print(f"federated: {card}: aggregate: every row bit-equal to row 0: {rows_equal}; max|row 0 - fp64 weighted mean| {worst:.3e} (atol 1e-6)", flush=True)
+            check(worst <= 1e-6, f"the aggregate is {worst} off the fp64 weighted mean")
+        self.aggs.clear()
+
+
+def eval_client_batches(prepared) -> int:
+    """Client-batches one evaluation over ``prepared`` runs: each client's
+    slices that hold a valid row (the stacked eval skips all-padding
+    ones)."""
+    bs, valid = prepared.batch_size, prepared.valid
+    return int(sum(valid[:, i : i + bs].any(axis=1).sum() for i in range(0, valid.shape[1], bs)))
+
+
+def federated_invocation(seed: int, card: str, rounds: int, ckpt_dir: str, reg_dir: str, out_dir: str) -> tuple[dict, dict[str, int]]:
+    """One ``federated`` run at full width through the parser, with the
+    launch counts and the checks of :class:`FedWatch`. Returns what
+    ``run_federated`` returned and the launches of this run."""
+    args = build_parser().parse_args(
+        ["federated", "--preset", "distilbert", "--attention-impl", "flash", *FED_ARGS,
+         "--rounds", str(rounds), "--seed", str(seed), "--checkpoint-dir", ckpt_dir,
+         "--registry-dir", reg_dir, "--output-dir", out_dir]
+    )
+    torch.cuda.reset_peak_memory_stats()
+    with FedWatch() as watch:
+        counts_zero()
+        t0 = time.perf_counter()
+        res = run_federated(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts_read()
+        do_copies = flash_mod.BWD_DO_COPIES
+    peak = torch.cuda.max_memory_allocated()
+    cfg, trainer = res["config"], res["trainer"]
+    mcfg = cfg.model
+    check(trainer.device.type == "cuda", f"federated trainer on {trainer.device}")
+    check((mcfg.dim, mcfg.n_layers, mcfg.n_heads, mcfg.hidden_dim, mcfg.max_len) == (768, 6, 12, 3072, 128), f"not full width: {mcfg}")
+    check(mcfg.compute_dtype == "bfloat16" and mcfg.attention_impl == "flash" and mcfg.attention_dropout == RATE, f"config {mcfg}")
+    n_rows = [int(n) for n in res["stacked_train"].n_rows]
+    bs = cfg.data.batch_size
+    ran = len(res["history"])
+    client_steps = ran * cfg.train.epochs_per_round * sum(-(-n // bs) for n in n_rows)
+    prepare = trainer.prepare_eval
+    val_cb = eval_client_batches(prepare([c.val for c in res["clients"]]))
+    test_cb = eval_client_batches(prepare([c.test for c in res["clients"]]))
+    eval_cb = ran * 2 * (val_cb + test_cb) + test_cb  # local + aggregated val/test a round, then the final test
+    print(
+        f"federated: {card}: rounds {res['start_round'] + 1}..{cfg.fed.rounds} of {FED_CLIENTS} clients, train rows {n_rows} "
+        f"(val {[len(c.val) for c in res['clients']]}, test {[len(c.test) for c in res['clients']]}); "
+        f"{client_steps} client-steps, {eval_cb} eval client-batches; launches {launches}, dO copies {do_copies}; "
+        f"wall {wall:.3f} s; torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB",
+        flush=True,
+    )
+    check(max(n_rows) >= 2 * min(n_rows) and -(-min(n_rows) // bs) < -(-max(n_rows) // bs),
+          f"client rows {n_rows}: want a 2x spread and an idle tail")
+    for row in ("flash_fwd_dropout", "flash_bwd_dkdv", "flash_bwd_dq"):
+        check(launches[row] == mcfg.n_layers * client_steps, f"{row} launched {launches[row]} times for {client_steps} client-steps")
+    check(launches["flash_fwd"] == mcfg.n_layers * eval_cb, f"K1 (rate 0) launched {launches['flash_fwd']} times for {eval_cb} eval client-batches")
+    check(do_copies == 0, f"the backward copied dO {do_copies} times")
+    samples = cfg.train.epochs_per_round * sum(n_rows)  # every real row once an epoch
+    for h in res["history"]:
+        s, r = h.seconds, h.round + 1
+        check(np.isfinite(h.epoch_losses).all(), f"round {r}: non-finite loss {h.epoch_losses}")
+        print(
+            f"federated: {card}: round {r}: fit {s['fit']:.3f} s ({samples / s['fit']:.1f} samples/s over all "
+            f"clients, {samples} samples), local eval {s['local_eval']:.3f} s, aggregate {s['aggregate']:.3f} s, "
+            f"aggregated eval {s['aggregated_eval']:.3f} s, save {s['save']:.3f} s; epoch losses {np.round(h.epoch_losses, 4).tolist()}; "
+            f"aggregated test acc {[round(m['Accuracy'], 2) for m in h.aggregated_metrics]}",
+            flush=True,
+        )
+    watch.check_aggregates(card)
+    check(len(res["artifacts"]) == ran, f"{len(res['artifacts'])} registry artifacts for {ran} rounds")
+    if ran:
+        check(watch.gated is not None, "no lockstep step gated an idle client")
+        c, step, same = watch.gated
+        print(f"federated: client {c} idled through step {step}: params, moments and count unchanged {same}", flush=True)
+        check(same, f"client {c}'s state changed on a step it idled through")
+    for path in res["metrics_csvs"]:
+        with open(path) as f:
+            header, values = f.read().strip().splitlines()
+        check(header == "Accuracy,Loss,Precision,Recall,F1-Score", f"{path} header {header!r}")
+        check(all(np.isfinite(float(v)) for v in values.split(",")), f"{path} {values!r}")
+    return res, launches
+
+
+def federated_phase(seed: int, card: str, work: str) -> dict[str, int]:
+    """The ``federated`` verb at full width, 4 clients, ragged: round 1 as
+    one invocation, round 2 as a second that resumes from its checkpoint,
+    with ``infer-serve --checkpoint-dir`` serving round 1 and swapping to
+    round 2 when the resumed run finalizes it. Returns each kernel's
+    launches on these paths."""
+    ckpt_dir, reg_dir, out_dir = (os.path.join(work, d) for d in ("fed_ckpt", "fed_registry", "fed_out"))
+    csv_path = os.path.join(work, "fed_flows.csv")
+    write_flows_csv(csv_path, 256, seed + 3)
+    texts = frame_texts(load_flow_csv(csv_path))[:48]
+    total = {k: 0 for k in ("flash_fwd", "flash_fwd_dropout", "flash_bwd_dkdv", "flash_bwd_dq")}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    res1, launches = federated_invocation(seed, card, 1, ckpt_dir, reg_dir, out_dir)
+    add(launches)
+    check(sorted(os.listdir(ckpt_dir)) == ["1"], f"checkpoint rounds {os.listdir(ckpt_dir)}")
+    counts_zero()
+    probs1 = run_predict(build_parser().parse_args(
+        ["predict", "--csv", csv_path, "--checkpoint-dir", ckpt_dir, "--output", os.path.join(work, "fed_p1.csv")]
+    ))["probs"]
+    add(counts_read())
+    del res1
+    server = build_server(build_parser().parse_args(
+        ["infer-serve", "--checkpoint-dir", ckpt_dir, "--host", "127.0.0.1", "--port", "0",
+         "--max-wait-ms", "5", "--reload-poll", "0.05"]
+    ))
+    check(server.engine.device.type == "cuda", f"engine on {server.engine.device}")
+    with server:
+        counts_zero()
+        before = score_texts(server.port, texts)
+        add(counts_read())
+        check({r["round"] for r in before} == {1}, f"replies before the resume name rounds {sorted({r['round'] for r in before})}")
+        res2, launches = federated_invocation(seed, card, 2, ckpt_dir, reg_dir, out_dir)
+        add(launches)
+        check(res2["start_round"] == 1 and len(res2["history"]) == 1, f"the second invocation started at round {res2['start_round']}")
+        t_fin = time.perf_counter()
+        counts_zero()
+        with ScoringClient("127.0.0.1", server.port, timeout=120) as c:
+            while c.score(text=texts[0])["round"] != 2:
+                check(time.perf_counter() - t_fin < 60, "no reply from round 2 within 60 s of the resumed run's end")
+        first_s = time.perf_counter() - t_fin
+        after = score_texts(server.port, texts)
+        add(counts_read())
+        stats = server.stats()
+    check(stats["reloads"] == 1 and {r["round"] for r in after} == {2}, f"replies after the swap name rounds {sorted({r['round'] for r in after})}")
+    counts_zero()
+    pred2 = run_predict(build_parser().parse_args(
+        ["predict", "--csv", csv_path, "--checkpoint-dir", ckpt_dir, "--output", os.path.join(work, "fed_p2.csv")]
+    ))
+    add(counts_read())
+    probs2 = pred2["probs"]
+    check(pred2["model_config"].dim == 768 and pred2["trainer"].device.type == "cuda", "predict did not run the full-width model on the card")
+
+    # predict on round 2 against the trainer's own stacked evaluation.
+    tok = default_tokenizer()
+    frame = load_flow_csv(csv_path)
+    enc = tok.batch_encode(frame_texts(frame), max_len=res2["config"].model.max_len)
+    split = TokenizedSplit(enc["input_ids"], enc["attention_mask"], np.zeros(len(probs2), np.int32))
+    rows = res2["trainer"].evaluate_clients(res2["state"].params, [split] * FED_CLIENTS, collect_probs=True)
+    same = np.array_equal(probs2, rows[0]["probs"])
+    print(f"federated: {card}: predict on round 2 ({len(probs2)} flows) bit-equal to evaluate_clients row 0: {same}", flush=True)
+    check(same, f"predict differs from evaluate_clients row 0 by {np.abs(probs2 - rows[0]['probs']).max()}")
+
+    gap = float(np.abs(probs2[:48] - probs1[:48]).max())
+    served = np.array([r["prob"] for r in after])
+    diff = float(np.abs(served - probs2[:48]).max())
+    print(
+        f"federated: {card}: infer-serve --checkpoint-dir: first reply from round 2 {first_s:.3f} s "
+        f"after the resumed run returned (it swapped while the run's final evaluation ran); max|served - predict| {diff:.3e} (bf16 atol 1e-2); "
+        f"max|prob_round2 - prob_round1| over the {len(texts)} served texts {gap:.3e} (must exceed 10 x 1e-2)",
+        flush=True,
+    )
+    check(diff <= 1e-2, f"served probs differ from round 2's predict by {diff}")
+    check(gap > 10 * 1e-2, f"round 2 scores too like round 1 to tell a stale serve: {gap}")
+
+    reg = ModelRegistry(reg_dir)
+    manifests = sorted((reg.manifest(a) for a in os.listdir(os.path.join(reg_dir, "artifacts")) if not a.startswith(".")), key=lambda m: m["round"])
+    print(f"federated: registry: {[(m['round'], m['id'], m.get('extra')) for m in manifests]}", flush=True)
+    check([m["round"] for m in manifests] == [1, 2], f"registry rounds {[m['round'] for m in manifests]}")
+    check(all(m.get("extra") == {"tier": "mesh", "clients": FED_CLIENTS} for m in manifests), "registry extra")
+    del res2, rows
+    print(f"federated: launches on these paths {total}", flush=True)
+    return total
+
+
 def numpy_fold(leaves: list[np.ndarray], weights: np.ndarray) -> np.ndarray:
     """The JAX package's ``fold_naive`` on the host: ``acc += float32(w) * x``."""
     acc = np.zeros(leaves[0].shape, np.float32)
@@ -1246,11 +1531,18 @@ def main() -> int:
         train_launches, res = train_phase(seed, card, ckpt_dir)
         phase("lifecycle")
         life_launches = lifecycle_phase(seed, card, res, ckpt_dir, work)
-    del res
-    k1["launches"] = serve_launches + train_launches["flash_fwd"] + life_launches
+        del res
+        phase("federated")
+        fed_launches = federated_phase(seed, card, work)
+    k1["launches"] = serve_launches + train_launches["flash_fwd"] + life_launches + fed_launches["flash_fwd"]
     for row in (k1_drop, k2, k3):
-        row["launches"] = train_launches[row["name"]]
-    print(f"launches: flash_fwd {serve_launches} (serving) + {train_launches['flash_fwd']} (evaluation) + {life_launches} (predict, reload serving)", flush=True)
+        row["launches"] = train_launches[row["name"]] + fed_launches[row["name"]]
+    print(
+        f"launches: flash_fwd {serve_launches} (serving) + {train_launches['flash_fwd']} (evaluation) + {life_launches} "
+        f"(predict, reload serving) + {fed_launches['flash_fwd']} (federated evaluation, predict, serving); "
+        f"K1 dropout / K2 / K3 {train_launches['flash_fwd_dropout']} (local) + {fed_launches['flash_fwd_dropout']} (federated)",
+        flush=True,
+    )
 
     phase("kernel-fold")
     k4 = fold_kernel_phase(seed, card)

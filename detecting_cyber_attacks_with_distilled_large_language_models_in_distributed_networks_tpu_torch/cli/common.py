@@ -43,10 +43,11 @@ def resolve_config(args: argparse.Namespace, *, vocab_size: int) -> ExperimentCo
         data_kw.update(batch_size=args.batch_size, eval_batch_size=args.batch_size)
     if getattr(args, "data_fraction", None):
         data_kw.update(data_fraction=args.data_fraction)
-    fed = FedConfig(
-        num_clients=getattr(args, "num_clients", None) or FedConfig.num_clients,
-        rounds=getattr(args, "rounds", None) or FedConfig.rounds,
-    )
+    if getattr(args, "partition", None):
+        data_kw.update(partition=args.partition)
+    if getattr(args, "dirichlet_alpha", None) is not None:
+        data_kw.update(dirichlet_alpha=args.dirichlet_alpha)
+    fed = _resolve_fed(args)
     cfg = ExperimentConfig(model=model, data=DataConfig(**data_kw), fed=fed)
 
     train_kw: dict[str, Any] = {}
@@ -65,9 +66,33 @@ def resolve_config(args: argparse.Namespace, *, vocab_size: int) -> ExperimentCo
     return cfg
 
 
+def _resolve_fed(args: argparse.Namespace) -> FedConfig:
+    """The FedConfig of the flags (the JAX package's precedence); the
+    untouched survivor floor is lowered to ``--participation``, as there."""
+    d = FedConfig()
+    kw: dict[str, Any] = dict(
+        num_clients=getattr(args, "num_clients", None) or d.num_clients,
+        rounds=getattr(args, "rounds", None) or d.rounds,
+    )
+    if getattr(args, "weighted", False):
+        kw.update(weighted=True)
+    elif getattr(args, "unweighted", False):
+        kw.update(weighted=False)
+    for name in ("prox_mu", "participation", "server_lr", "server_momentum"):
+        if getattr(args, name, None) is not None:
+            kw[name] = getattr(args, name)
+    for name in ("participation_mode", "server_opt"):
+        if getattr(args, name, None):
+            kw[name] = getattr(args, name)
+    if kw.get("participation", 1.0) < d.min_client_fraction:
+        kw.update(min_client_fraction=kw["participation"])
+    return FedConfig(**kw)
+
+
 def _load_clients(args, cfg: ExperimentConfig, tok, num_clients: int):
     """CSV or synthetic flows -> per-client splits -> token arrays."""
     from ..data.cicids import load_flow_csv, make_all_client_splits
+    from ..data.partition import MANIFEST_FILENAME
     from ..data.pipeline import tokenize_client
     from ..data.synthetic import make_synthetic_flows
 
@@ -78,21 +103,28 @@ def _load_clients(args, cfg: ExperimentConfig, tok, num_clients: int):
         n = getattr(args, "synthetic", None) or 2400
         log.info(f"[DATA] generating {n} synthetic {cfg.data.dataset} flows")
         frame = make_synthetic_flows(n, seed=cfg.data.seed_base)
-    splits = make_all_client_splits(frame, num_clients, cfg.data)
+    # The non-IID schemes record each client's label histogram next to
+    # the run outputs (data/partition.py).
+    manifest_path = (
+        os.path.join(cfg.output_dir, MANIFEST_FILENAME)
+        if cfg.data.partition != "sample" and cfg.output_dir
+        else None
+    )
+    splits = make_all_client_splits(frame, num_clients, cfg.data, manifest_path=manifest_path)
     return [tokenize_client(s, tok, max_len=cfg.model.max_len) for s in splits]
 
 
 def _write_reports(
-    client_id: int, local: dict, aggregated: dict | None, output_dir: str
+    client_id: int, local: dict | None, aggregated: dict | None, output_dir: str
 ) -> list[str]:
     """The reference's one-row metrics CSVs ``client{N}_local_metrics.csv``
-    and, after a round, ``client{N}_aggregated_metrics.csv``
-    (client1.py:386,401); returns their paths. The JAX package's plots are
-    not ported."""
+    and ``client{N}_aggregated_metrics.csv`` (client1.py:386,401), each
+    when its metrics are given; returns their paths. The JAX package's
+    plots are not ported."""
     from .. import reporting
 
     os.makedirs(output_dir, exist_ok=True)
-    phases = [("local", local)] + ([("aggregated", aggregated)] if aggregated is not None else [])
+    phases = [(p, m) for p, m in (("local", local), ("aggregated", aggregated)) if m is not None]
     paths = [
         reporting.save_metrics(
             metrics, os.path.join(output_dir, f"client{client_id}_{phase}_metrics.csv")

@@ -1,11 +1,13 @@
 """Command line of the port: ``python -m <package> <verb> ...``.
 
 The verbs and flags mirror the JAX package's ``cli/parser.py``; the port
-has ``local`` (single-client training), ``serve`` and ``client`` (a
-federated round over TCP), ``predict`` (batch inference from a
-checkpoint), ``infer-serve`` (online scoring with hot reload) and
-``registry`` (the model registry's operator commands) so far. Each that
-computes runs on the card unless ``--device cpu`` is given.
+has ``local`` (single-client training), ``federated`` (N clients in one
+process), ``serve`` and ``client`` (a federated round over TCP),
+``predict`` (batch inference from a checkpoint), ``infer-serve`` (online
+scoring with hot reload) and ``registry`` (the model registry's operator
+commands) so far. Each that computes runs on the card unless ``--device
+cpu`` is given. Flags of features the port has not reached are absent,
+so argparse refuses them.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import sys
 from ..models.presets import preset_names
 from .comm import cmd_client, cmd_serve
 from .control import cmd_registry
+from .federated import cmd_federated
 from .local import cmd_local
 from .predict import cmd_predict
 from .serving import cmd_infer_serve
@@ -67,6 +70,62 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_local)
 
     p = sub.add_parser(
+        "federated",
+        help="N clients in one process: lockstep local epochs + FedAvg, multi-round",
+        epilog="Writes client{N}_local_metrics.csv and "
+        "client{N}_aggregated_metrics.csv per client (and "
+        "partition_manifest.json for the non-IID partitions).",
+    )
+    _add_training(p)
+    p.add_argument("--num-clients", type=int, default=None, help="clients in the fleet (default 2)")
+    p.add_argument("--rounds", type=int)
+    g = p.add_mutually_exclusive_group()
+    g.add_argument(
+        "--weighted", action="store_true",
+        help="require sample-count FedAvg weights (the default already "
+        "weights by sample count)",
+    )
+    g.add_argument(
+        "--unweighted", action="store_true",
+        help="force the uniform mean (the reference's server.py:73-76)",
+    )
+    p.add_argument("--partition", choices=["sample", "disjoint", "dirichlet", "quantity"])
+    p.add_argument(
+        "--dirichlet-alpha", type=float,
+        help="skew concentration for --partition dirichlet (label skew) or "
+        "quantity (size skew); smaller = more non-IID (default 0.5)",
+    )
+    p.add_argument("--prox-mu", type=float, help="FedProx proximal weight (0 = plain FedAvg)")
+    p.add_argument(
+        "--participation", type=float,
+        help="fraction of clients aggregated per round (sampled, seeded); "
+        "1.0 = everyone (reference behavior)",
+    )
+    p.add_argument(
+        "--participation-mode", choices=["auto", "fixed", "poisson"],
+        help="cohort sampler under --participation < 1: an exact-size "
+        "cohort (fixed) or each client independently (poisson)",
+    )
+    p.add_argument(
+        "--server-opt", choices=["none", "momentum", "adam", "yogi"],
+        help="FedOpt server optimizer over the round's mean update: "
+        "momentum = FedAvgM, adam = FedAdam, yogi = FedYogi (default none)",
+    )
+    p.add_argument("--server-lr", type=float, help="server optimizer learning rate (default 1.0)")
+    p.add_argument("--server-momentum", type=float, help="FedAvgM momentum (default 0.9)")
+    p.add_argument(
+        "--checkpoint-dir",
+        help="save every round's state here (step = round) and resume from "
+        "the latest finished round",
+    )
+    p.add_argument(
+        "--registry-dir",
+        help="also publish every round's aggregate to this model registry "
+        "as a candidate artifact (fleet-mean validation metrics attached)",
+    )
+    p.set_defaults(fn=cmd_federated)
+
+    p = sub.add_parser(
         "serve",
         help="TCP aggregation server: one dense fp32 FedAvg fold per round",
         epilog="Clients upload single FTPW frames and get the aggregate back "
@@ -110,7 +169,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     _add_training(p)  # --csv (required here), model and batch flags
     p.add_argument("--output", default="predictions.csv", help="predictions CSV path")
-    p.add_argument("--checkpoint-dir", help="local training checkpoint (of `local` or `client`)")
+    p.add_argument(
+        "--checkpoint-dir",
+        help="training checkpoint (of `local`, `client` or `federated`; a "
+        "federated one scores its global model)",
+    )
     p.add_argument(
         "--threshold", type=float, default=0.5,
         help="P(attack) decision threshold (default 0.5)",

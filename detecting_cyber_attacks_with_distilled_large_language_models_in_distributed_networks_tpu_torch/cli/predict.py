@@ -1,5 +1,7 @@
 """``predict``: batch inference on new flows from a training checkpoint
-(the port of the JAX package's ``cli/predict.py``, local checkpoints).
+(the port of the JAX package's ``cli/predict.py``): a ``local`` or
+``client`` state, or a ``federated`` one, whose global model (client 0's
+row of the aggregate) scores.
 
 Reads a flow CSV (the label column is optional) and writes one row per
 flow: P(attack), the thresholded 0/1 prediction and its label name; logs
@@ -44,14 +46,14 @@ def run_predict(args) -> dict:
     cfg = resolve_config(args, vocab_size=len(tok.vocab))
     if not cfg.checkpoint_dir:
         raise SystemExit(
-            "predict needs trained weights: pass --checkpoint-dir (a local "
-            "training checkpoint of `local` or `client`)"
+            "predict needs trained weights: pass --checkpoint-dir (a "
+            "training checkpoint of `local`, `client` or `federated`)"
         )
     try:
-        model_cfg, params, step, _ = restore_for_inference(cfg.checkpoint_dir, cfg.model, device=device)
+        model_cfg, params, step, meta = restore_for_inference(cfg.checkpoint_dir, cfg.model, device=device)
     except CheckpointError as e:
         raise SystemExit(str(e)) from None
-    log.info(f"[PREDICT] restored local checkpoint (step {step})")
+    log.info(f"[PREDICT] restored {meta.get('kind', 'local')} checkpoint (step {step})")
     trainer = Trainer(model_cfg, cfg.train, pad_id=tok.pad_id, device=device)
 
     frame = load_flow_csv(args.csv)

@@ -2,14 +2,16 @@
 
 Copies of the JAX package's ``ModelConfig``, ``DataConfig`` and
 ``TrainConfig`` (fields, defaults, validation and presets unchanged) and
-the round fields of its ``FedConfig``, so a manifest or config written by
-either package means the same thing in both. Fields whose code paths the
-port has not reached yet (FedProx, gradient accumulation, the
-non-``sample`` partitions) are kept for compatibility and raise
-``NotImplementedError`` when set away from their defaults, instead of
-being ignored. ``ExperimentConfig`` carries only the
-sections the ported commands read; a checkpoint records it as
-``to_dict()`` and ``predict`` reads it back with ``from_dict``.
+its ``FedConfig``, so a manifest or config written by either package
+means the same thing in both. Fields whose code paths the port has not
+reached yet (the TCP client's FedProx, gradient accumulation, DP-FedAvg,
+personalization, relays and lossy wires, datasets other than cicids2017)
+are kept for compatibility and raise ``NotImplementedError`` when set
+away from their defaults, instead of being ignored. ``ExperimentConfig``
+carries only the sections the ported commands read; a checkpoint records
+it as ``to_dict()`` and ``predict`` reads it back with ``from_dict``,
+which also reads a config the JAX package wrote (the sections the port
+does not model are dropped).
 """
 
 from __future__ import annotations
@@ -146,10 +148,13 @@ class DataConfig:
     max_len: int = 128
     batch_size: int = 16
     eval_batch_size: int = 16
-    # "sample" — reference behavior: independent frac-sample per client
-    # seed. "disjoint" | "dirichlet" | "quantity" are the JAX package's
-    # other schemes, not ported yet.
+    # "sample"    — reference behavior: independent frac-sample per client
+    #               seed (overlap between clients possible).
+    # "disjoint"  — equal disjoint shards.
+    # "dirichlet" — non-IID label skew; "quantity" — disjoint IID shards
+    #               with Dirichlet(alpha) sizes (data/partition.py).
     partition: str = "sample"
+    # Concentration for both skewed schemes; smaller = more skewed.
     dirichlet_alpha: float = 0.5
     vocab_path: str | None = None
     # True drops each epoch's final short training batch (one batch shape);
@@ -165,10 +170,6 @@ class DataConfig:
             raise ValueError(
                 f"unknown partition scheme {self.partition!r} "
                 "(sample|disjoint|dirichlet|quantity)"
-            )
-        if self.partition != "sample":
-            raise NotImplementedError(
-                f"partition={self.partition!r} is not ported yet (sample only)"
             )
         if self.dataset != "cicids2017":
             raise NotImplementedError(
@@ -203,7 +204,8 @@ class TrainConfig:
     # "all" trains every parameter; "head" freezes the encoder and trains
     # only the classifier head.
     trainable: str = "all"
-    # FedProx proximal term of the TCP client loop (not ported yet).
+    # FedProx proximal term of the TCP client loop (not ported yet; the
+    # single-process federated trainer reads FedConfig.prox_mu).
     prox_mu: float = 0.0
 
     def __post_init__(self) -> None:
@@ -216,7 +218,10 @@ class TrainConfig:
         if self.prox_mu < 0.0:
             raise ValueError(f"prox_mu={self.prox_mu} must be >= 0")
         if self.prox_mu > 0.0:
-            raise NotImplementedError("prox_mu > 0 (FedProx) is not ported yet")
+            raise NotImplementedError(
+                "TrainConfig.prox_mu > 0 (the TCP client's FedProx) is not "
+                "ported yet; `federated` takes FedConfig.prox_mu"
+            )
         if self.grad_accum_steps != 1:
             raise NotImplementedError(
                 "grad_accum_steps > 1 (gradient accumulation) is not ported yet"
@@ -225,17 +230,176 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class FedConfig:
-    """Federated-round structure: the fields of the JAX package's
-    ``FedConfig`` that the TCP round reads (client count and rounds).
+    """Federated-round structure (the JAX package's ``FedConfig``: fields,
+    defaults and validation).
 
     The reference runs one FedAvg round per invocation with exactly two
-    clients (reference server.py:13); here both are first-class. The JAX
-    package's mesh-tier fields (participation, DP, server optimizers,
-    personalization, relays, wire dtypes) are not ported.
+    clients and an unweighted mean (reference server.py:13,67-79); here
+    rounds and client count are first-class, the mean may be weighted by
+    sample count, and dropped clients are masked out of it. DP-FedAvg,
+    personalization, relays' deadlines and lossy wires are not ported:
+    they raise ``NotImplementedError`` away from their defaults.
     """
 
     num_clients: int = 2
     rounds: int = 1
+    # None = auto: weight by sample count whenever the counts are known
+    # and DP is off; True requires the weights, False forces the uniform
+    # mean (the reference's server.py:73-76).
+    weighted: bool | None = None
+    # FedProx (Li et al.): local loss += mu/2 * ||w - w_round_start||^2.
+    prox_mu: float = 0.0
+    # Survivors (of crashes and empty shards) needed for a round to
+    # aggregate.
+    min_client_fraction: float = 1.0
+    # A fresh Adam each round, as every reference re-launch builds one
+    # (client1.py:380).
+    reset_optimizer_each_round: bool = True
+    # Fraction of clients aggregated per round (sampled, seeded).
+    participation: float = 1.0
+    # Cohort sampler under participation < 1: "fixed" (exactly
+    # cohort_size() clients), "poisson" (each client independently), or
+    # "auto" (poisson when DP is on, fixed otherwise).
+    participation_mode: str = "auto"
+    # DP-FedAvg (ROADMAP queue 1, item 9; not ported).
+    dp_clip: float = 0.0
+    dp_noise_multiplier: float = 0.0
+    dp_seed: int | None = None
+    # FedOpt server optimizer over the round's mean update: "none" (plain
+    # FedAvg), "momentum" (FedAvgM), "adam" (FedAdam), "yogi" (FedYogi).
+    # Its state persists across rounds.
+    server_opt: str = "none"
+    server_lr: float = 1.0
+    server_momentum: float = 0.9
+    # Personalization after the final round (not ported).
+    personalize_epochs: int = 0
+    personalize_scope: str = "full"
+    # Relay subtree deadline and the streamed-upload wire dtype (the TCP
+    # tier's relays and lossy wires; not ported).
+    subtree_deadline_factor: float = 0.5
+    wire_dtype: str = "fp32"
+
+    def server_opt_enabled(self) -> bool:
+        return self.server_opt != "none"
+
+    def resolve_weighted(self) -> bool:
+        """The effective weighting: auto (None) weights by sample count
+        unless DP needs its uniform mean."""
+        if self.weighted is None:
+            return self.dp_clip == 0.0
+        return self.weighted
+
+    def cohort_size(self) -> int:
+        """Clients sampled per round: ``ceil(C * participation)``, at
+        least 1 (ceil keeps a sampled round above min_client_fraction)."""
+        import math
+
+        if self.participation >= 1.0:
+            return self.num_clients
+        return min(
+            self.num_clients,
+            max(1, math.ceil(self.num_clients * self.participation)),
+        )
+
+    def effective_participation(self) -> float:
+        """The actual per-round sampling rate ``cohort_size / C``."""
+        return self.cohort_size() / self.num_clients
+
+    def dp_enabled(self) -> bool:
+        return self.dp_clip > 0.0 and self.dp_noise_multiplier > 0.0
+
+    def resolve_participation_mode(self) -> str:
+        """The effective cohort sampler ("fixed" when everyone takes
+        part; "auto" is poisson under DP, fixed otherwise)."""
+        if self.participation >= 1.0:
+            return "fixed"
+        if self.participation_mode == "auto":
+            return "poisson" if self.dp_enabled() else "fixed"
+        return self.participation_mode
+
+    def __post_init__(self) -> None:
+        if not 0.0 < self.participation <= 1.0:
+            raise ValueError(
+                f"participation={self.participation} must be in (0, 1]"
+            )
+        if self.participation_mode not in ("auto", "fixed", "poisson"):
+            raise ValueError(
+                f"participation_mode={self.participation_mode!r} must be "
+                "'auto', 'fixed' or 'poisson'"
+            )
+        if self.personalize_epochs < 0:
+            raise ValueError(
+                f"personalize_epochs={self.personalize_epochs} must be >= 0"
+            )
+        if self.personalize_scope not in ("full", "head"):
+            raise ValueError(
+                f"personalize_scope={self.personalize_scope!r} must be "
+                "'full' or 'head'"
+            )
+        if not 0.0 < self.subtree_deadline_factor < 1.0:
+            raise ValueError(
+                f"subtree_deadline_factor={self.subtree_deadline_factor} "
+                "must be in (0, 1)"
+            )
+        if self.wire_dtype not in ("fp32", "bf16", "int8"):
+            raise ValueError(
+                f"wire_dtype={self.wire_dtype!r} must be "
+                "'fp32', 'bf16' or 'int8'"
+            )
+        if self.participation < self.min_client_fraction:
+            raise ValueError(
+                f"participation={self.participation} below "
+                f"min_client_fraction={self.min_client_fraction}: every "
+                "round would fail its own survivor check"
+            )
+        if self.dp_clip < 0.0:
+            raise ValueError(f"dp_clip={self.dp_clip} must be >= 0")
+        if self.dp_noise_multiplier < 0.0:
+            raise ValueError(
+                f"dp_noise_multiplier={self.dp_noise_multiplier} must be >= 0"
+            )
+        if self.dp_noise_multiplier > 0.0 and self.dp_clip == 0.0:
+            raise ValueError(
+                "dp_noise_multiplier > 0 requires dp_clip > 0"
+            )
+        if self.dp_clip > 0.0 and self.weighted:
+            raise ValueError(
+                "dp_clip > 0 is incompatible with weighted FedAvg"
+            )
+        if self.server_opt not in ("none", "momentum", "adam", "yogi"):
+            raise ValueError(
+                f"unknown server_opt {self.server_opt!r} "
+                "(none|momentum|adam|yogi)"
+            )
+        if self.server_lr <= 0.0:
+            raise ValueError(f"server_lr={self.server_lr} must be > 0")
+        if not 0.0 <= self.server_momentum < 1.0:
+            raise ValueError(
+                f"server_momentum={self.server_momentum} must be in [0, 1)"
+            )
+        if self.dp_clip > 0.0 or self.dp_seed is not None:
+            raise NotImplementedError(
+                "DP-FedAvg (dp_clip, dp_noise_multiplier, dp_seed) is not "
+                "ported yet (ROADMAP queue 1, item 9)"
+            )
+        if self.personalize_epochs > 0 or self.personalize_scope != "full":
+            raise NotImplementedError(
+                "personalization (personalize_epochs, personalize_scope) is "
+                "not ported yet (ROADMAP queue 1, item 16)"
+            )
+        if self.subtree_deadline_factor != 0.5 or self.wire_dtype != "fp32":
+            raise NotImplementedError(
+                "relay deadlines and lossy wires (subtree_deadline_factor, "
+                "wire_dtype) are not ported yet (ROADMAP queue 1, items 7 and 11)"
+            )
+
+
+#: Sections of the JAX package's ``ExperimentConfig`` the port does not
+#: model (its mesh, distillation, control plane, observability, router,
+#: shadow and labels planes).
+_JAX_ONLY_SECTIONS = frozenset(
+    {"mesh", "distill", "control", "obs", "router", "shadow", "labels"}
+)
 
 
 @dataclass(frozen=True)
@@ -264,10 +428,13 @@ class ExperimentConfig:
 
     @classmethod
     def from_dict(cls, d: Mapping[str, Any]) -> "ExperimentConfig":
-        """Inverse of :meth:`to_dict`; unknown sections or keys raise."""
+        """Inverse of :meth:`to_dict`, and the reader of a config the JAX
+        package wrote: its sections the port does not model
+        (``_JAX_ONLY_SECTIONS``) are dropped; unknown sections or keys
+        raise."""
         sections = {"model": ModelConfig, "data": DataConfig, "train": TrainConfig, "fed": FedConfig}
         scalars = ("output_dir", "checkpoint_dir")
-        unknown_top = set(d) - set(sections) - set(scalars)
+        unknown_top = set(d) - set(sections) - set(scalars) - _JAX_ONLY_SECTIONS
         if unknown_top:
             raise ValueError(f"unknown config sections: {sorted(unknown_top)}")
 

@@ -1,14 +1,16 @@
-"""CICIDS2017 loading, imputation, per-client sampling and splits.
+"""CICIDS2017 loading, imputation, per-client partitioning and splits.
 
-The port's copy of the JAX package's ``data/cicids.py`` for the
-reference's own partition (``partition="sample"``), without pandas: a
-frame is a dict of equal-length numpy columns in CSV column order.
+The port's copy of the JAX package's ``data/cicids.py``, without pandas:
+a frame is a dict of equal-length numpy columns in CSV column order.
 
 * CSV load with headers stripped; ``±inf -> NaN``; NaN -> column mean
   (numeric columns only) — reference client1.py:86-88.
-* Per-client sample ``df.sample(frac, random_state=seed)``, which draws
+* The reference's partition (``partition="sample"``): a per-client
+  ``df.sample(frac, random_state=seed)``, which draws
   ``RandomState(seed).choice(n, round(frac * n), replace=False)``; client
-  i uses seed ``seed_base + i`` (42, 43, ... as in the reference).
+  i uses seed ``seed_base + i`` (42, 43, ... as in the reference). The
+  index-based schemes (``disjoint``, ``dirichlet``, ``quantity``) cut one
+  partition of the whole frame (data/partition.py).
 * 60/20/20 train/val/test via two chained shuffled splits with the same
   seed — reference client1.py:365-366.
 * Label map ``'DDoS' -> 1 else 0`` — reference client1.py:91.
@@ -23,6 +25,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..config import DataConfig
+from .partition import log_manifest, partition_indices, partition_manifest, save_manifest
 from .textualize import CICIDS_TEMPLATE, render_template
 
 #: ``{column name: values}``, every column the same length.
@@ -170,18 +173,42 @@ def _splits_from_frame(part: Frame, client_id: int, cfg: DataConfig) -> ClientSp
     return ClientSplits(client_id, _take(tr), _take(va), _take(te))
 
 
+def _all_client_frames(frame: Frame, num_clients: int, cfg: DataConfig) -> list[Frame]:
+    """Every client's rows: one sample per client seed, or one
+    index-based partition of the whole frame."""
+    if cfg.partition == "sample":
+        return [
+            sample_client_frame(frame, cfg.data_fraction, cfg.client_seed(cid))
+            for cid in range(num_clients)
+        ]
+    parts = partition_indices(frame_labels(frame, cfg), num_clients, cfg)
+    return [take_rows(frame, idx) for idx in parts]
+
+
 def make_client_splits(
     frame: Frame, client_id: int, num_clients: int, cfg: DataConfig
 ) -> ClientSplits:
-    """One client's path: sample -> textualize -> split."""
+    """One client's path: partition -> textualize -> split."""
     if not 0 <= client_id < num_clients:
         raise ValueError(f"client_id {client_id} outside [0, {num_clients})")
-    part = sample_client_frame(frame, cfg.data_fraction, cfg.client_seed(client_id))
+    if cfg.partition == "sample":
+        part = sample_client_frame(frame, cfg.data_fraction, cfg.client_seed(client_id))
+    else:
+        part = _all_client_frames(frame, num_clients, cfg)[client_id]
     return _splits_from_frame(part, client_id, cfg)
 
 
 def make_all_client_splits(
-    frame: Frame, num_clients: int, cfg: DataConfig
+    frame: Frame, num_clients: int, cfg: DataConfig, *, manifest_path: str | None = None
 ) -> list[ClientSplits]:
-    """Every client's splits, one independent sample per client seed."""
-    return [make_client_splits(frame, cid, num_clients, cfg) for cid in range(num_clients)]
+    """Every client's splits, the partition computed once. The
+    per-client label-histogram manifest is logged, and written as JSON
+    when ``manifest_path`` is given (data/partition.py)."""
+    frames = _all_client_frames(frame, num_clients, cfg)
+    manifest = partition_manifest(
+        [frame_labels(p, cfg) for p in frames], cfg=cfg, total_rows=frame_len(frame)
+    )
+    log_manifest(manifest)
+    if manifest_path:
+        save_manifest(manifest, manifest_path)
+    return [_splits_from_frame(p, cid, cfg) for cid, p in enumerate(frames)]

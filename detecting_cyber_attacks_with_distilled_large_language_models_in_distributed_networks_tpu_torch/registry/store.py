@@ -116,15 +116,19 @@ class ModelRegistry:
         round_index: int,
         metrics: Mapping[str, float] | None = None,
         model_config: Any | None = None,
+        extra: Mapping[str, Any] | None = None,
     ) -> str:
         """Register one finished round's params as an immutable candidate
         and return its id. Re-adding identical params returns the
         existing id (content addressing). ``params``: a port state dict or
         its flat '/'-keyed JAX form. ``model_config`` (a ModelConfig or
         its asdict) lets the serving tier refuse to hot-swap an
-        architecture mismatch. The manifest's ``parent`` and ``eval_hist``
-        (the JAX controller's lineage and drift reference) are written as
-        None, so the JAX package reads the artifact as its own."""
+        architecture mismatch. ``extra``: free-form provenance (the
+        ``federated`` verb writes its tier and client count), recorded
+        only when given, as the JAX package does. The manifest's
+        ``parent`` and ``eval_hist`` (the JAX controller's lineage and
+        drift reference) are written as None, so the JAX package reads
+        the artifact as its own."""
         flat = _flatten(params)
         aid = artifact_id(flat)
         final = os.path.join(self._artifacts, aid)
@@ -145,6 +149,8 @@ class ModelRegistry:
             "n_tensors": len(flat),
             "n_params": int(sum(v.size for v in flat.values())),
         }
+        if extra:
+            manifest["extra"] = dict(extra)
         tmp = os.path.join(self._artifacts, f".tmp-{aid}-{os.getpid()}")
         os.makedirs(tmp, exist_ok=True)  # creates the root on the first add
         try:

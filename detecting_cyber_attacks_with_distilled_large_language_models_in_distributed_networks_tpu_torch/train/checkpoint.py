@@ -4,15 +4,20 @@ package's ``train/checkpoint.py``).
 The reference saves ``model.state_dict()`` after local training and after
 adopting the aggregate, and loads it again on the next launch (reference
 client1.py:375-377,388,403): its only multi-round mechanism. Here the FULL
-:class:`~.engine.TrainState` is saved (params, Adam moments and count, the
-global step and the dropout generator), so a resumed run continues the
-uninterrupted one.
+state is saved, so a resumed run continues the uninterrupted one: a
+:class:`~.engine.TrainState` (params, Adam moments and count, the global
+step and the dropout generator) or a federated
+:class:`~.fedsteps.FedState` (stacked ``[C, ...]`` params and moments,
+one Adam count and one dropout generator per client, the lockstep step
+and the server optimizer's state).
 
 Layout, one directory a step (not orbax's: a JAX process cannot read it;
 the model registry is the format the two packages share)::
 
     <dir>/<step>/state.pt    torch.save of {"params", "mu", "nu", "count",
                              "step", "generator": {"device_type", "state"}}
+                             (federated: "count" is a [C] tensor,
+                             "generators" a list, plus "server_opt")
     <dir>/<step>/meta.json   the caller's meta + "_leaf_shapes"
 
 A step is written under ``<dir>/<step>.tmp-<pid>/`` and renamed to
@@ -45,6 +50,7 @@ import torch
 from ..config import ExperimentConfig, ModelConfig
 from ..models.distilbert import model_skeleton
 from .engine import AdamState, TrainState
+from .fedsteps import FedAdamState, FedState
 
 log = logging.getLogger(__name__)
 
@@ -71,18 +77,62 @@ def _finalized_steps(directory: str) -> list[int]:
     )
 
 
-def _leaf_shapes(state: TrainState) -> list[list[int]]:
+def _server_leaves(server_opt: Mapping[str, Any] | None) -> list[torch.Tensor]:
+    """The server optimizer state's tensors in a fixed order."""
+    if not server_opt:
+        return []
+    return [t for k in sorted(server_opt) if isinstance(server_opt[k], Mapping) for t in server_opt[k].values()]
+
+
+def _leaf_shapes(state: TrainState | FedState) -> list[list[int]]:
     """Per-leaf shapes in a fixed order: params, then Adam's mu and nu (in
-    the state's order), then the count and the step (scalars). A
-    positional list, so two tables swapping sizes still differ."""
+    the state's order), then the count (a scalar, or ``[C]`` for a
+    federated state) and the step, then a federated state's server
+    optimizer leaves. A positional list, so two tables swapping sizes
+    still differ."""
     tensors = [*state.params.values(), *state.opt_state.mu.values(), *state.opt_state.nu.values()]
-    return [[int(d) for d in t.shape] for t in tensors] + [[], []]
+    shapes = [[int(d) for d in t.shape] for t in tensors]
+    if isinstance(state, FedState):
+        return shapes + [[len(state.opt_state.count)], []] + [
+            [int(d) for d in t.shape] for t in _server_leaves(state.server_opt)
+        ]
+    return shapes + [[], []]
 
 
 def _shapes_match(a: Mapping[str, Any], b: Mapping[str, Any]) -> bool:
     """True when two flat leaf maps agree on names and per-leaf shapes —
     the compatibility a restore needs (dtypes are the template's)."""
     return a.keys() == b.keys() and all(tuple(a[n].shape) == tuple(b[n].shape) for n in a)
+
+
+def _payload(state: TrainState | FedState) -> dict:
+    """What ``state.pt`` holds for ``state``."""
+    opt = state.opt_state
+    payload = {
+        "params": {n: t.detach() for n, t in state.params.items()},
+        "mu": dict(opt.mu),
+        "nu": dict(opt.nu),
+        "step": int(state.step),
+    }
+    if isinstance(state, FedState):
+        payload["count"] = torch.tensor(opt.count, dtype=torch.int64)
+        payload["generators"] = [
+            {"device_type": g.device.type, "state": g.get_state()} for g in state.generators
+        ]
+        payload["server_opt"] = state.server_opt
+    else:
+        payload["count"] = int(opt.count)
+        payload["generator"] = {"device_type": state.generator.device.type, "state": state.generator.get_state()}
+    return payload
+
+
+def _to_device(tree: Any, device: torch.device) -> Any:
+    """A loaded (host, memory-mapped) tree's tensors copied onto ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device=device, copy=True)
+    if isinstance(tree, Mapping):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree
 
 
 def _generator(saved: Mapping[str, Any], template: torch.Generator) -> torch.Generator:
@@ -108,11 +158,13 @@ class CheckpointError(ValueError):
 
 
 class Checkpointer:
-    """Save and restore :class:`~.engine.TrainState` s under one directory.
+    """Save and restore :class:`~.engine.TrainState` s and
+    :class:`~.fedsteps.FedState` s under one directory.
 
-    The restore template, a fresh ``Trainer.init_state()``, gives the
-    device, the dtypes, which leaves train, and the generator's seed for
-    a generator that cannot be restored; the checkpoint gives the values.
+    The restore template, a fresh ``init_state()`` of the trainer, gives
+    the device, the dtypes, which leaves train, and the generators' seeds
+    for generators that cannot be restored; the checkpoint gives the
+    values.
     """
 
     def __init__(self, directory: str, *, max_to_keep: int = 3):
@@ -126,7 +178,7 @@ class Checkpointer:
         return os.path.join(self.directory, str(int(step)))
 
     # ------------------------------------------------------------------ save
-    def save(self, step: int, state: TrainState, *, meta: Mapping[str, Any] | None = None) -> None:
+    def save(self, step: int, state: TrainState | FedState, *, meta: Mapping[str, Any] | None = None) -> None:
         """Write ``state`` as step ``step`` (synchronous: the step is
         finished when this returns). A step that already exists is kept
         and this save skipped, as orbax does."""
@@ -137,20 +189,8 @@ class Checkpointer:
         tmp = f"{final}.tmp-{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        opt = state.opt_state
-        payload = {
-            "params": {n: t.detach() for n, t in state.params.items()},
-            "mu": dict(opt.mu),
-            "nu": dict(opt.nu),
-            "count": int(opt.count),
-            "step": int(state.step),
-            "generator": {
-                "device_type": state.generator.device.type,
-                "state": state.generator.get_state(),
-            },
-        }
         try:
-            torch.save(payload, os.path.join(tmp, STATE_FILE))
+            torch.save(_payload(state), os.path.join(tmp, STATE_FILE))
             with open(os.path.join(tmp, META_FILE), "w") as f:
                 json.dump({**(dict(meta) if meta else {}), "_leaf_shapes": _leaf_shapes(state)}, f)
             os.rename(tmp, final)
@@ -178,7 +218,7 @@ class Checkpointer:
         path = os.path.join(self._step_dir(self._resolve(step)), STATE_FILE)
         return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
 
-    def restore(self, template: TrainState, *, step: int | None = None) -> TrainState:
+    def restore(self, template: TrainState | FedState, *, step: int | None = None) -> TrainState | FedState:
         """The state saved at ``step`` (default: latest) on the template's
         device; leaf names or shapes unlike the template's raise
         ValueError."""
@@ -195,6 +235,17 @@ class Checkpointer:
             }
 
         opt = template.opt_state
+        if isinstance(template, FedState):
+            count = [int(c) for c in saved["count"].tolist()]
+            if len(count) != len(template.generators) or len(saved["generators"]) != len(count):
+                raise ValueError("checkpoint client count differs from the template's")
+            return FedState(
+                leaves("params", template.params),
+                FedAdamState(count, leaves("mu", opt.mu), leaves("nu", opt.nu)),
+                int(saved["step"]),
+                [_generator(g, t) for g, t in zip(saved["generators"], template.generators)],
+                _to_device(saved["server_opt"], device),
+            )
         return TrainState(
             leaves("params", template.params),
             AdamState(int(saved["count"]), leaves("mu", opt.mu), leaves("nu", opt.nu)),
@@ -202,7 +253,7 @@ class Checkpointer:
             _generator(saved["generator"], template.generator),
         )
 
-    def saved_compatible(self, template: TrainState, *, step: int | None = None) -> bool:
+    def saved_compatible(self, template: TrainState | FedState, *, step: int | None = None) -> bool:
         """Does the step's recorded ``_leaf_shapes`` list equal the
         template's? Checked before any tensor loads. Every step save()
         writes records the list, so a step without it is not one of
@@ -216,11 +267,18 @@ class Checkpointer:
             return False
         return [list(map(int, s)) for s in recorded] == _leaf_shapes(template)
 
-    def restore_params(self, *, step: int | None = None, device: str | torch.device = "cpu") -> dict[str, torch.Tensor]:
+    def restore_params(
+        self, *, step: int | None = None, device: str | torch.device = "cpu", client: int | None = None
+    ) -> dict[str, torch.Tensor]:
         """Only the params of a saved state, as fp32 copies on ``device``:
-        the file is memory-mapped, so the moments are never read."""
+        the file is memory-mapped, so the moments are never read.
+        ``client``: of a federated state, that client's row alone (the
+        other rows are not read either)."""
         saved = self._load(step)
-        return {n: t.to(device=device, dtype=torch.float32, copy=True) for n, t in saved["params"].items()}
+        return {
+            n: (t if client is None else t[client]).to(device=device, dtype=torch.float32, copy=True)
+            for n, t in saved["params"].items()
+        }
 
     def restore_meta(self, *, step: int | None = None) -> dict:
         """The caller's meta (the underscore keys save() adds stripped)."""
@@ -244,7 +302,9 @@ class Checkpointer:
         self.close()
 
 
-def maybe_warm_start(directory: str, template: TrainState) -> tuple[TrainState | None, int | None]:
+def maybe_warm_start(
+    directory: str, template: TrainState | FedState
+) -> tuple[TrainState | FedState | None, int | None]:
     """The reference's warm start (client1.py:375-377): the latest saved
     state in ``directory``, or ``(None, None)`` when there is none.
 
@@ -288,9 +348,11 @@ def restore_for_inference(
     The checkpoint's recorded model config wins over ``model_cfg`` (its
     gelu variant, say, changes no shape, so a wrong preset would restore
     fine and then run the wrong activation); ``model_cfg`` gives the
-    tokenizer's vocab size it must agree with. Raises CheckpointError
-    instead of predicting from random weights, and never creates
-    ``directory``; a federated checkpoint raises NotImplementedError."""
+    tokenizer's vocab size it must agree with. A federated checkpoint
+    (meta ``kind == "federated"``) gives client 0's row of the stacked
+    params, the global model (FedAvg writes the mean into every row), and
+    reads nothing else. Raises CheckpointError instead of predicting from
+    random weights, and never creates ``directory``."""
     if not os.path.isdir(directory):
         raise CheckpointError(f"checkpoint dir {directory} does not exist")
     with Checkpointer(directory) as ckpt:
@@ -298,11 +360,6 @@ def restore_for_inference(
         if step is None:
             raise CheckpointError(f"no checkpoint found in {directory}")
         meta = ckpt.restore_meta(step=step)
-        if meta.get("kind") == "federated":
-            raise NotImplementedError(
-                f"{directory} holds a federated (FedState) checkpoint; the port "
-                "restores local TrainState checkpoints only (ROADMAP queue 1, item 6)"
-            )
         if "config" in meta:
             saved = ExperimentConfig.from_dict(meta["config"]).model
             if saved.vocab_size != model_cfg.vocab_size:
@@ -311,7 +368,8 @@ def restore_for_inference(
                     f"tokenizer vocab ({model_cfg.vocab_size})"
                 )
             model_cfg = saved
-        params = ckpt.restore_params(step=step, device=device)
+        federated = meta.get("kind") == "federated"
+        params = ckpt.restore_params(step=step, device=device, client=0 if federated else None)
     if not _shapes_match(params, model_skeleton(model_cfg).state_dict()):
         raise CheckpointError(
             f"checkpoint at {directory} (step {step}) does not match the "

@@ -8,7 +8,7 @@ the same batch:
 * ``clip_by_global_norm``: ``g`` if ``norm < max`` else ``(g / norm) * max``;
 * ``scale_by_adam``: ``mu = (1-b1)·g + b1·mu``, ``nu = (1-b2)·g² + b2·nu``,
   count ``t += 1``, ``mu / (1 - b1^t)`` and ``nu / (1 - b2^t)`` (the powers
-  by fp32 square-and-multiply, as XLA computes them), then
+  rounded once to fp32, as XLA's ``pow`` computes them), then
   ``mu_hat / (sqrt(nu_hat) + eps)``;
 * AdamW adds ``weight_decay · param``; the learning rate scales by ``-lr``;
 * the linear warmup multiplies the update by a factor of the GLOBAL step.
@@ -78,15 +78,11 @@ def warmup_factor(step: int, warmup_steps: int) -> float:
 
 
 def _pow_f32(x: float, n: int) -> np.float32:
-    """``x ** n`` for an int ``n`` by square-and-multiply in fp32 — the
-    bits XLA gives ``decay ** count`` in optax's bias correction."""
-    acc, base = np.float32(1.0), np.float32(x)
-    while n:
-        if n & 1:
-            acc = np.float32(acc * base)
-        base = np.float32(base * base)
-        n >>= 1
-    return acc
+    """``x ** n`` for an int ``n``, rounded once to fp32: the bits XLA's
+    ``pow`` gives ``decay ** count`` in optax's bias correction (fp64 holds
+    the power to well under an fp32 ulp; a subnormal result, which XLA
+    flushes to 0, leaves ``1 - x**n`` at 1 either way)."""
+    return np.float32(np.float64(np.float32(x)) ** int(n))
 
 
 def bias_correction(decay: float, count: int) -> float:
@@ -96,6 +92,54 @@ def bias_correction(decay: float, count: int) -> float:
 def loss_fn(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean softmax cross-entropy over fp32 logits."""
     return F.cross_entropy(logits.float(), labels.long())
+
+
+def masked_loss_fn(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Softmax cross-entropy averaged over the ``valid`` rows only (0 for
+    an all-padding batch): :func:`loss_fn` on the valid subset, the
+    ragged federated step's objective."""
+    per_example = F.cross_entropy(logits.float(), labels.long(), reduction="none")
+    v = valid.to(torch.float32)
+    return (per_example * v).sum() / torch.clamp(v.sum(), min=1.0)
+
+
+def prox_sq(params: list[torch.Tensor], anchor: list[torch.Tensor]) -> torch.Tensor:
+    """FedProx squared distance ``sum ||p - anchor||^2`` over paired leaves."""
+    return sum(torch.sum(torch.square(p - a)) for p, a in zip(params, anchor))
+
+
+def adam_update(
+    cfg: TrainConfig,
+    params: list[torch.Tensor],
+    mus: list[torch.Tensor],
+    nus: list[torch.Tensor],
+    grads: list[torch.Tensor],
+    count: int,
+    warmup_step: int,
+) -> None:
+    """One optax clip -> Adam(W) -> lr -> warmup step, in place on
+    ``params``, ``mus`` and ``nus`` (call under ``no_grad``). ``count``
+    is Adam's incremented count (its bias corrections); ``warmup_step``
+    the step the warmup factor reads."""
+    if cfg.max_grad_norm is not None:
+        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        keep = g_norm < cfg.max_grad_norm
+        grads = [torch.where(keep, g, (g / g_norm) * cfg.max_grad_norm) for g in grads]
+    torch._foreach_mul_(mus, cfg.b1)
+    torch._foreach_add_(mus, torch._foreach_mul(grads, 1 - cfg.b1))
+    torch._foreach_mul_(nus, cfg.b2)
+    torch._foreach_add_(nus, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - cfg.b2))
+    mu_hat = torch._foreach_div(mus, bias_correction(cfg.b1, count))
+    nu_hat = torch._foreach_div(nus, bias_correction(cfg.b2, count))
+    den = torch._foreach_sqrt(nu_hat)
+    torch._foreach_add_(den, cfg.eps)
+    updates = torch._foreach_div(mu_hat, den)
+    if cfg.weight_decay > 0.0:
+        torch._foreach_add_(updates, torch._foreach_mul(params, cfg.weight_decay))
+    torch._foreach_mul_(updates, -cfg.learning_rate)
+    if cfg.warmup_steps > 0:
+        torch._foreach_mul_(updates, warmup_factor(warmup_step, cfg.warmup_steps))
+    torch._foreach_add_(params, updates)
 
 
 def eval_counts(
@@ -184,31 +228,14 @@ class Trainer:
         return state, loss.detach()
 
     def _apply(self, state: TrainState, names: list[str], grads: list) -> AdamState:
-        cfg = self.train_cfg
-        params = [state.params[n] for n in names]
-        mus = [state.opt_state.mu[n] for n in names]
-        nus = [state.opt_state.nu[n] for n in names]
-        if cfg.max_grad_norm is not None:
-            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            keep = g_norm < cfg.max_grad_norm
-            grads = [torch.where(keep, g, (g / g_norm) * cfg.max_grad_norm) for g in grads]
-        torch._foreach_mul_(mus, cfg.b1)
-        torch._foreach_add_(mus, torch._foreach_mul(grads, 1 - cfg.b1))
-        torch._foreach_mul_(nus, cfg.b2)
-        torch._foreach_add_(nus, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - cfg.b2))
         count = state.opt_state.count + 1
-        mu_hat = torch._foreach_div(mus, bias_correction(cfg.b1, count))
-        nu_hat = torch._foreach_div(nus, bias_correction(cfg.b2, count))
-        den = torch._foreach_sqrt(nu_hat)
-        torch._foreach_add_(den, cfg.eps)
-        updates = torch._foreach_div(mu_hat, den)
-        if cfg.weight_decay > 0.0:
-            torch._foreach_add_(updates, torch._foreach_mul(params, cfg.weight_decay))
-        torch._foreach_mul_(updates, -cfg.learning_rate)
-        w = warmup_factor(state.step, cfg.warmup_steps)
-        if cfg.warmup_steps > 0:
-            torch._foreach_mul_(updates, w)
-        torch._foreach_add_(params, updates)
+        adam_update(
+            self.train_cfg,
+            [state.params[n] for n in names],
+            [state.opt_state.mu[n] for n in names],
+            [state.opt_state.nu[n] for n in names],
+            grads, count, state.step,
+        )
         return AdamState(count, state.opt_state.mu, state.opt_state.nu)
 
     def epoch_batches(self, split: TokenizedSplit, epoch: int, batch_size: int) -> Iterator[dict]:

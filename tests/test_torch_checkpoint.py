@@ -13,7 +13,11 @@ on the CPU.
   atol 2e-6 / rtol 1e-5);
 * the generator rule across device types: a state saved with a
   generator of another device type restores its params, moments and
-  step, and the trainer's freshly seeded generator, with a warning.
+  step, and the trainer's freshly seeded generator, with a warning;
+* the federated state: a ``FedState`` round trip (stacked params and
+  moments, per-client counts and generators, the server optimizer), and
+  ``federated`` run as 1 + 1 rounds with a warm start giving the bits of
+  2 uninterrupted rounds, dropout on.
 """
 
 import dataclasses
@@ -283,3 +287,104 @@ def test_generator_from_another_device_type_reseeds_with_a_warning(tmp_path, cap
     g = ckpt_mod._generator({"device_type": "cpu", "state": state.generator.get_state()}, template.generator)
     assert "dropout stream restarts" not in caplog.text
     assert torch.equal(g.get_state(), state.generator.get_state())
+
+
+# ------------------------------------------------------------ federated
+def _fed_trainer(C=3, **fed_kw):
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.federated import (
+        FederatedTrainer,
+    )
+
+    m = pcfg.ModelConfig.tiny()
+    cfg = pcfg.ExperimentConfig(
+        model=m, data=pcfg.DataConfig(max_len=m.max_len, batch_size=4), fed=pcfg.FedConfig(num_clients=C, **fed_kw)
+    )
+    return FederatedTrainer(cfg, device="cpu")
+
+
+def _assert_fed_state_equal(a, b):
+    for x, y in ((a.params, b.params), (a.opt_state.mu, b.opt_state.mu), (a.opt_state.nu, b.opt_state.nu)):
+        assert x.keys() == y.keys() and all(torch.equal(x[n].detach(), y[n].detach()) for n in x)
+    assert a.opt_state.count == b.opt_state.count and a.step == b.step
+    assert len(a.generators) == len(b.generators)
+    assert all(torch.equal(g.get_state(), h.get_state()) for g, h in zip(a.generators, b.generators))
+    assert (a.server_opt is None) == (b.server_opt is None)
+    if a.server_opt is not None:
+        assert a.server_opt.keys() == b.server_opt.keys()
+        for k, v in a.server_opt.items():
+            if isinstance(v, dict):
+                assert all(torch.equal(v[n], b.server_opt[k][n]) for n in v), k
+            else:
+                assert v == b.server_opt[k], k
+
+
+def test_fed_state_roundtrip(tmp_path):
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.data.pipeline import (
+        TokenizedSplit,
+        stack_clients_ragged,
+    )
+
+    trainer = _fed_trainer(server_opt="adam")
+    state = trainer.init_state(seed=1)
+    cfg = trainer.cfg.model
+    splits = []
+    for n, b in zip((9, 5, 2), _batches(cfg, 3, seed=2, bs=9)):
+        splits.append(TokenizedSplit(b["input_ids"][:n], b["attention_mask"][:n], b["labels"][:n]))
+    anchor = trainer.round_anchor(state)
+    state, _ = trainer.fit_local(state, stack_clients_ragged(splits), epochs=1)
+    state = trainer.round_aggregate(state, round_index=0, weights=np.array([9.0, 5.0, 2.0]), anchor=anchor)
+    assert state.opt_state.count == [3, 2, 1] and state.server_opt["count"] == 1
+    with Checkpointer(str(tmp_path / "f")) as ckpt:
+        ckpt.save(1, state, meta={"round": 1, "kind": "federated"})
+        restored = ckpt.restore(trainer.init_state(seed=9))
+        assert ckpt.restore_meta() == {"round": 1, "kind": "federated"}
+        row = ckpt.restore_params(client=1)
+    _assert_fed_state_equal(restored, state)
+    assert all(p.requires_grad for p in restored.params.values())
+    assert all(torch.equal(row[n], t[1].detach()) for n, t in state.params.items())
+    # Another client count or server optimizer is another layout: fresh.
+    for other in (_fed_trainer(C=2, server_opt="adam"), _fed_trainer(server_opt="none")):
+        assert maybe_warm_start(str(tmp_path / "f"), other.init_state()) == (None, None)
+    state2, step = maybe_warm_start(str(tmp_path / "f"), trainer.init_state(seed=9))
+    assert step == 1
+    _assert_fed_state_equal(state2, state)
+
+
+def test_federated_resume_equals_uninterrupted_bit_for_bit_with_dropout(tmp_path):
+    """``federated --rounds 1`` then ``--rounds 2`` on one checkpoint
+    directory: the state and the CSVs of ``--rounds 2`` in one go."""
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli import (
+        build_parser,
+    )
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.federated import (
+        run_federated,
+    )
+
+    def run(rounds, tag):
+        return run_federated(build_parser().parse_args([
+            "federated", "--device", "cpu", "--preset", "tiny", "--attention-impl", "flash",
+            "--synthetic", "500", "--num-clients", "3", "--partition", "quantity", "--rounds", str(rounds),
+            "--epochs", "1", "--server-opt", "momentum", "--seed", "5",
+            "--checkpoint-dir", str(tmp_path / tag / "ck"), "--output-dir", str(tmp_path / tag / "out"),
+        ]))
+
+    whole = run(2, "whole")
+    assert whole["config"].model.dropout > 0 and whole["start_round"] == 0
+    first = run(1, "split")
+    assert sorted(os.listdir(tmp_path / "split" / "ck")) == ["1"]
+    resumed = run(2, "split")
+    assert resumed["start_round"] == 1 and len(resumed["history"]) == 1
+    assert sorted(os.listdir(tmp_path / "split" / "ck")) == ["1", "2"]
+    _assert_fed_state_equal(resumed["state"], whole["state"])
+    np.testing.assert_array_equal(resumed["history"][0].epoch_losses, whole["history"][1].epoch_losses)
+    for name in os.listdir(tmp_path / "whole" / "out"):
+        with open(tmp_path / "whole" / "out" / name) as f, open(tmp_path / "split" / "out" / name) as g:
+            assert f.read() == g.read(), name
+    assert first["state"].step < resumed["state"].step
+    with Checkpointer(str(tmp_path / "split" / "ck")) as ckpt:
+        meta = ckpt.restore_meta(step=2)
+    assert meta["round"] == 2 and meta["kind"] == "federated"
+    assert pcfg.ExperimentConfig.from_dict(meta["config"]) == resumed["config"]
+    # A finished run relaunched trains nothing and reports the aggregate.
+    again = run(2, "split")
+    assert again["history"] == [] and all(p.endswith("_aggregated_metrics.csv") for p in again["metrics_csvs"])

@@ -63,8 +63,13 @@ print(" ".join(names))
     counts, imported = res.stdout.splitlines()
     n, leaked = counts.split(" ", 1)
     assert int(n) >= 20 and leaked.strip() == "[]", res.stdout
-    # The federated round's modules are among them.
-    for mod in ("ops.fold", "comm.wire", "comm.stream_agg", "comm.server", "comm.client", "cli.comm"):
+    # The federated round's and the single-process federation's modules
+    # are among them.
+    for mod in (
+        "ops.fold", "comm.wire", "comm.stream_agg", "comm.server", "comm.client", "cli.comm",
+        "data.partition", "train.batches", "train.fedsteps", "train.fedeval", "train.federated",
+        "parallel.fedavg", "cli.federated",
+    ):
         assert f"{PORT_PKG}.{mod}" in imported.split(), mod
 
 
@@ -166,3 +171,4 @@ def test_round_entry_points_raise_without_cuda(monkeypatch):
     parser = build_parser()
     assert parser.parse_args(["serve"]).device == "cuda"
     assert parser.parse_args(["client", "--client-id", "0"]).device == "cuda"
+    assert parser.parse_args(["federated"]).device == "cuda"

@@ -6,8 +6,9 @@ Both ``predict`` runs read one synthetic flow CSV; ``prob_attack`` agrees
 at the model-parity bound (atol 2e-5 / rtol 1e-4,
 tests/test_torch_model.py), ``prediction`` and ``label_name`` wherever
 the prob is more than 2e-5 from the threshold. Then the error cases of
-tests/test_predict.py on the port, and its refusal of a federated
-checkpoint.
+tests/test_predict.py on the port, and a federated checkpoint: its
+global model (client 0's row) scores, and ``predict``'s probs equal
+``FederatedTrainer.evaluate_clients`` row 0 on the same flows.
 """
 
 import csv
@@ -187,13 +188,37 @@ def test_predict_rejects_training_data_flags(flows_csv, tmp_path):
               "--checkpoint-dir", str(tmp_path), "--output", str(tmp_path / "x.csv")])
 
 
-def test_predict_refuses_a_federated_checkpoint(flows_csv, tmp_path):
-    trainer = Trainer(pcfg.ModelConfig.tiny(vocab_size=VOCAB), pcfg.TrainConfig(), device="cpu")
-    with Checkpointer(str(tmp_path / "fed")) as ckpt:
-        ckpt.save(1, trainer.init_state(), meta={"kind": "federated", "round": 1})
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        main(["predict", "--device", "cpu", "--csv", flows_csv, "--checkpoint-dir", str(tmp_path / "fed"),
-              "--output", str(tmp_path / "x.csv")])
+def test_predict_reads_a_federated_checkpoint(flows_csv, tmp_path):
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.federated import (
+        run_federated,
+    )
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.data.cicids import (
+        frame_labels,
+        frame_texts,
+        load_flow_csv,
+    )
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.data.pipeline import (
+        TokenizedSplit,
+    )
+
+    ckpt_dir = str(tmp_path / "fed")
+    res = run_federated(build_parser().parse_args([
+        "federated", "--device", "cpu", "--preset", "tiny", "--attention-impl", "flash", "--synthetic", "400",
+        "--num-clients", "3", "--partition", "dirichlet", "--rounds", "2", "--epochs", "1",
+        "--checkpoint-dir", ckpt_dir, "--output-dir", str(tmp_path / "out"),
+    ]))
+    pred = run_predict(build_parser().parse_args(
+        ["predict", "--device", "cpu", "--csv", flows_csv, "--checkpoint-dir", ckpt_dir, "--output", str(tmp_path / "p.csv")]
+    ))
+    assert pred["model_config"] == res["config"].model
+    frame = load_flow_csv(flows_csv)
+    tok = default_tokenizer()
+    enc = tok.batch_encode(frame_texts(frame), max_len=res["config"].model.max_len)
+    split = TokenizedSplit(enc["input_ids"], enc["attention_mask"], frame_labels(frame, res["config"].data))
+    trainer = res["trainer"]
+    rows = trainer.evaluate_clients(res["state"].params, [split] * 3, collect_probs=True)
+    np.testing.assert_array_equal(pred["probs"], rows[0]["probs"])
+    assert all(np.array_equal(r["probs"], rows[0]["probs"]) for r in rows)  # every row holds the aggregate
 
 
 def test_predict_refuses_a_checkpoint_of_another_shape(flows_csv, tmp_path):

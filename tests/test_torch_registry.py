@@ -7,6 +7,7 @@
   ``ModelConfig`` the manifest records;
 * promote, reject, rollback and gc interleaved between the packages on
   one root leave the pointer and the events the JAX package alone leaves;
+* ``add(extra=)`` writes the JAX package's manifest byte for byte;
 * tests/test_registry.py's cases that need no controller, on the port.
 """
 
@@ -97,6 +98,35 @@ def test_same_weights_same_id_and_arrays_in_both_packages(tmp_path):
         for k in a.files:
             assert a[k].dtype == b[k].dtype == np.float32
             np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_add_with_extra_writes_the_jax_manifest_byte_for_byte(tmp_path, monkeypatch):
+    """The ``federated`` verb's artifact: metrics, model config and
+    ``extra``; without ``extra`` the key is absent in both."""
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu.registry import (
+        store as jax_store,
+    )
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.registry import (
+        store as port_store,
+    )
+
+    monkeypatch.setattr(jax_store.time, "time", lambda: 1234.5)
+    monkeypatch.setattr(port_store.time, "time", lambda: 1234.5)
+    jcfg = JaxModelConfig.tiny()
+    tree = jax.tree.map(np.asarray, jax_init_params(JaxClassifier(jcfg), jcfg, jax.random.key(5)))
+    metrics = {"Accuracy": 91.25, "Loss": 0.25, "Precision": 0.5, "Recall": 1.0, "F1-Score": 0.6666666666666666}
+    for extra in ({"tier": "mesh", "clients": 4}, None):
+        kw = dict(round_index=3, metrics=metrics, extra=extra)
+        port = ModelRegistry(str(tmp_path / f"port{extra is None}")).add(
+            params_from_jax(tree), model_config=ModelConfig.tiny(), **kw
+        )
+        jax_id = JaxRegistry(str(tmp_path / f"jax{extra is None}")).add(tree, model_config=jcfg, **kw)
+        assert port == jax_id
+        with open(tmp_path / f"port{extra is None}" / "artifacts" / port / "manifest.json", "rb") as f, \
+                open(tmp_path / f"jax{extra is None}" / "artifacts" / jax_id / "manifest.json", "rb") as g:
+            got, want = f.read(), g.read()
+        assert got == want
+        assert (b'"extra"' in got) is (extra is not None)
 
 
 def test_each_package_reads_the_others_artifacts(tmp_path):

@@ -6,7 +6,10 @@
   tests/test_torch_model.py: the two batch the rows differently);
 * ``--registry-dir``: a live server swaps on a promotion, whether the
   port's or the JAX package's registry promoted; a rollback swaps back;
-* an architecture change is refused and the old model keeps serving.
+* an architecture change is refused and the old model keeps serving;
+* a federated checkpoint: a server started on round 1 swaps to round 2
+  when a resumed ``federated`` run finalizes it, and serves its global
+  model.
 """
 
 import dataclasses
@@ -244,3 +247,34 @@ def test_checkpoint_restorer_restores_the_step_it_is_given(tmp_path):
             assert all(torch.equal(got[n], want[n]) for n in want)
     assert not torch.equal(p4["classifier.weight"], p8["classifier.weight"])
 
+
+
+def test_checkpoint_watcher_swaps_on_a_new_federated_round(flows, tmp_path):
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.federated import (
+        run_federated,
+    )
+
+    csv_path, texts = flows
+    ckpt_dir = str(tmp_path / "fed")
+
+    def federated(rounds):
+        return run_federated(build_parser().parse_args([
+            "federated", "--device", "cpu", "--preset", "tiny", "--synthetic", "400", "--num-clients", "2",
+            "--rounds", str(rounds), "--epochs", "1", "--learning-rate", "1e-3",
+            "--checkpoint-dir", ckpt_dir, "--output-dir", str(tmp_path / "out"),
+        ]))
+
+    federated(1)
+    before = _predict(csv_path, ckpt_dir, str(tmp_path / "p1.csv"))
+    with build_server(_serve_args("--checkpoint-dir", ckpt_dir)) as server:
+        old = _score_all(server, texts)
+        assert {r["round"] for r in old} == {1}
+        np.testing.assert_allclose([r["prob"] for r in old], before, atol=2e-5)
+        res = federated(2)  # resumes round 1's state and finalizes round 2
+        assert res["start_round"] == 1
+        assert _wait_reloads(server, 1) == 1
+        new = _score_all(server, texts)
+    after = _predict(csv_path, ckpt_dir, str(tmp_path / "p2.csv"))
+    assert {r["round"] for r in new} == {2}
+    np.testing.assert_allclose([r["prob"] for r in new], after, atol=2e-5)
+    assert np.abs(after - before).max() > 1e-3  # round 2's weights differ

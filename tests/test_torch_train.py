@@ -257,11 +257,11 @@ def test_unported_config_paths_raise():
         pcfg.TrainConfig(prox_mu=0.1)
     with pytest.raises(NotImplementedError, match="accumulation"):
         pcfg.TrainConfig(grad_accum_steps=2)
-    with pytest.raises(NotImplementedError, match="sample only"):
-        pcfg.DataConfig(partition="dirichlet")
+    with pytest.raises(NotImplementedError, match="cicids2017 only"):
+        pcfg.DataConfig(dataset="unswnb15")
     with pytest.raises(ValueError, match="unknown partition"):
         pcfg.DataConfig(partition="bogus")
     # Every field of the JAX configs exists in the port's.
-    for port_cls, jax_cls in ((pcfg.TrainConfig, jcfg.TrainConfig), (pcfg.DataConfig, jcfg.DataConfig)):
+    for port_cls, jax_cls in ((pcfg.TrainConfig, jcfg.TrainConfig), (pcfg.DataConfig, jcfg.DataConfig), (pcfg.FedConfig, jcfg.FedConfig)):
         assert {f.name for f in dataclasses.fields(port_cls)} == {f.name for f in dataclasses.fields(jax_cls)}
         assert dataclasses.asdict(port_cls()) == dataclasses.asdict(jax_cls())
