@@ -125,12 +125,40 @@ Phases; any failure exits non-zero before the last line is printed:
             the two uploads as sent; K1 with dropout, K2 and K3 once per
             layer of every step of both clients; both aggregated metrics
             CSVs finite. Prints the round's time split;
-9. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
+9. rounds   — the streamed round over 3 rounds at full width (phase 8's
+            clients with ``--rounds 3``; the stream offer rides the
+            reply, so round 1 is dense and rounds 2-3 stream), in two
+            invocations of ``serve`` + two ``client``s, fold on the card:
+            (a) FEDTPU_SECRET set, the default 4 MB chunks, ``--strategy
+            fedprox:mu=0.01`` and ``--prox-mu 0.01`` on both clients:
+            round 1 dense and rounds 2-3 streamed per client by the
+            server's record, every reply carrying the nonce and the
+            fedprox stamp, each round's aggregate crc equal to
+            ``fold_reference`` over the uploads as sent; (b) ``--reply-dtype
+            bf16 --strategy fedopt:opt=adam,lr=0.1``, client 0 ``--wire-dtype
+            int8`` (int8c streams from round 2, bf16 streamed replies),
+            client 1 ``--compression topk:0.01 --no-stream-upload`` (sparse
+            deltas from round 2; its dense fp32 replies keep its base
+            exact): the mean bit-equal to ``fold_reference`` over the
+            uploads as decoded (int8c dequantized, base + densified top-k,
+            replayed with the client's error feedback), each int8c value
+            within half its chunk's step (plus two fp32 ulps), top-k keeping
+            ``max(1, round(0.01·n))`` entries a leaf, the bf16 reply within
+            2^-8 relative of the server's global, and that global equal to
+            ``ServerOptimizer`` run on the card over the same means. Both:
+            K4 once per leaf a round (102) on ``cuda``; K1 with dropout, K2
+            and K3 once per layer of every step; K1 at rate 0 once per layer
+            of every eval batch; no dO copy. Prints a line per round with
+            the card: bytes and seconds of each upload and reply, the
+            fold's early and late bytes and seconds, K4's launches and
+            time, the server's phases and the round's wall;
+10. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
    serving shape and dropout at the training shape, then K2, K3 and K4;
    K1's rate-0 launches count phase 5, phase 6's evaluation, the
-   lifecycle's predict and reload serving, and the federated phase's
-   evaluations, predicts and serving; K1 with dropout, K2 and K3 count
-   phase 6 and the federated phase),
+   lifecycle's predict and reload serving, the federated phase's
+   evaluations, predicts and serving, and the rounds phase's
+   evaluations; K1 with dropout, K2 and K3 count phase 6, the federated
+   phase and the rounds phase; K4 phases 8 and 9),
    then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -174,6 +202,11 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.comm import (
     wire,
 )
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.comm.quant import (
+    QUANT_CHUNK_ELEMS,
+    dequantize_int8c,
+    quantize_int8c,
+)
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.serving import (
     build_server,
 )
@@ -210,6 +243,9 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.ops.attention import (
     make_attention_bias,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.parallel.fedavg import (
+    ServerOptimizer,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.registry import (
     ModelRegistry,
@@ -251,6 +287,11 @@ EMBED_N = 30522 * 768  # the word-embedding leaf, DistilBERT-base's largest
 FED_CLIENTS = 4
 FED_ARGS = ["--synthetic", "1600", "--num-clients", str(FED_CLIENTS), "--partition", "quantity",
             "--dirichlet-alpha", "2.0", "--data-fraction", "0.25", "--epochs", "2", "--weighted"]
+# The rounds phase: the round phase's clients over 3 rounds, so the stream
+# offer (one reply behind) is taken from round 2 on.
+ROUNDS = 3
+ROUND_CLIENT_ARGS = ["--preset", "distilbert", "--attention-impl", "flash", "--synthetic", "2400",
+                     "--epochs", "1", "--rounds", str(ROUNDS), "--timeout", "600"]
 
 
 def fail(msg: str) -> None:
@@ -1493,6 +1534,236 @@ def round_phase(seed: int, card: str) -> int:
     return launches
 
 
+def rounds_invocation(seed: int, card: str, name: str, serve_flags: list[str], client_flags: list[list[str]],
+                      secret: str | None = None) -> tuple[list[dict], dict[int, dict]]:
+    """One ``serve`` + two ``client``s over ROUNDS rounds on loopback, all
+    through the port's parser, the fold on the card. Returns the server's
+    per-round record (the previous global, the folded mean, the new global,
+    what arrived, fold stats, K4 launches, the round's seconds) and each
+    client's ``run_client`` result."""
+    old_secret = os.environ.pop("FEDTPU_SECRET", None)
+    if secret is not None:
+        os.environ["FEDTPU_SECRET"] = secret
+    records: list[dict] = []
+    results: dict[int, dict] = {}
+    errors: list[BaseException] = []
+    try:
+        with tempfile.TemporaryDirectory() as out_dir:
+            server = build_round_server(build_parser().parse_args(
+                ["serve", "--host", "127.0.0.1", "--port", "0", "--num-clients", "2", "--timeout", "600",
+                 "--device", "cuda", *serve_flags]
+            ))
+            check(server.device.type == "cuda", f"server folds on {server.device}")
+
+            def serve() -> None:
+                try:
+                    for _ in range(ROUNDS):
+                        prev, k4, t0 = server._last_agg, fold_mod.FOLD_LAUNCHES, time.perf_counter()
+                        ph0 = dict(server.phase_seconds)
+                        agg = server.serve_round()
+                        records.append({
+                            "prev": prev, "mean": server.last_mean, "global": agg,
+                            "uploads": dict(server.last_uploads), "fold": dict(server.last_fold_stats),
+                            "k4": fold_mod.FOLD_LAUNCHES - k4, "wall": time.perf_counter() - t0,
+                            "phases": {k: server.phase_seconds[k] - ph0[k] for k in ph0},
+                        })
+                except BaseException as e:  # re-raised below, after the join
+                    errors.append(e)
+
+            def client(i: int) -> None:
+                try:
+                    results[i] = run_client(build_parser().parse_args(
+                        ["client", "--client-id", str(i), "--host", "127.0.0.1", "--port", str(server.port),
+                         *ROUND_CLIENT_ARGS, "--seed", str(seed), "--output-dir", out_dir, *client_flags[i]]
+                    ))
+                except BaseException as e:  # re-raised below, after the join
+                    errors.append(e)
+
+            with server:
+                threads = [threading.Thread(target=serve)] + [threading.Thread(target=client, args=(i,)) for i in range(2)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=900)
+            check(not any(t.is_alive() for t in threads), f"rounds ({name}) threads hung")
+    finally:
+        os.environ.pop("FEDTPU_SECRET", None)
+        if old_secret is not None:
+            os.environ["FEDTPU_SECRET"] = old_secret
+    if errors:
+        raise errors[0]
+    check(len(records) == ROUNDS and all(len(results[i]["rounds"]) == ROUNDS for i in range(2)),
+          f"rounds ({name}): {len(records)} server rounds, clients {[len(results[i]['rounds']) for i in range(2)]}")
+    for r, rec in enumerate(records):
+        fold = rec["fold"]
+        check(fold["fold_engine"] == "cuda", f"rounds ({name}) round {r + 1} folded on {fold['fold_engine']}")
+        check(rec["k4"] == 102, f"rounds ({name}) round {r + 1}: K4 launched {rec['k4']} times (want one per leaf, 102)")
+        for i in range(2):
+            x = results[i]["rounds"][r]["exchange"]
+            sec = results[i]["rounds"][r]["seconds"]
+            up = rec["uploads"][i]
+            print(
+                f"rounds ({name}) round {r + 1} {card}: client {i}: upload {x['upload_shape']} {x['wire_dtype']} "
+                f"{x['upload_bytes'] / 1e6:.2f} MB in {x['upload_s']:.3f} s (server saw {up['shape']} {up['wire_dtype']} "
+                f"{up['bytes'] / 1e6:.2f} MB), reply {x['reply_shape']} {x['reply_bytes'] / 1e6:.2f} MB "
+                f"{x['reply_wait_s']:.3f} s after the upload; train {sec['train']:.3f} s, eval {sec['eval_local']:.3f} s, "
+                f"exchange {sec['exchange']:.3f} s (next round's prefetch {sec.get('prefetch', 0.0):.3f} s under it), "
+                f"re-evaluation {sec['eval_aggregated']:.3f} s, adopt {sec['adopt']:.3f} s",
+                flush=True,
+            )
+        ph = rec["phases"]
+        print(
+            f"rounds ({name}) round {r + 1} {card}: fold early {fold['early_bytes'] / 1e6:.1f} MB in "
+            f"{fold['early_s']:.3f} s, late {fold['late_bytes'] / 1e6:.1f} MB in {fold['late_s']:.3f} s "
+            f"(overlap {fold['overlap_frac']:.3f}); K4 {rec['k4']} launches, launch + kernel "
+            f"{fold['fold_kernel_ms']:.3f} ms, H2D {fold['fold_h2d_ms']:.2f} ms, D2H {fold['fold_d2h_ms']:.2f} ms "
+            f"(CUDA events); server wait {ph['wait']:.3f} s, agg {ph['agg']:.3f} s, reply {ph['reply']:.3f} s; "
+            f"round wall {rec['wall']:.3f} s",
+            flush=True,
+        )
+    return records, results
+
+
+def plain_mean(decoded: list[dict[str, np.ndarray]]) -> dict[str, np.ndarray]:
+    """fold_reference over the uploads as the server decoded them
+    (unweighted, ascending client id), on the host."""
+    w = [np.float32(x) for x in np.ones(len(decoded), np.float64) / len(decoded)]
+    return {
+        key: fold_mod.fold_reference([torch.from_numpy(np.ascontiguousarray(d[key])) for d in decoded], w).numpy()
+        for key in decoded[0]
+    }
+
+
+def check_int8c_step(got: np.ndarray, x: np.ndarray, what: str) -> float:
+    """int8c: each value within half its chunk's scale (max|chunk| / 127);
+    returns the largest error as a fraction of that half-step."""
+    flat = np.ascontiguousarray(x, np.float32).reshape(-1)
+    n = flat.size
+    pad = -n % QUANT_CHUNK_ELEMS
+    chunks = np.pad(np.abs(flat), (0, pad)).reshape(-1, QUANT_CHUNK_ELEMS)
+    half = np.repeat(chunks.max(axis=1) / np.float32(127.0) / 2, QUANT_CHUNK_ELEMS)[:n]
+    err = np.abs(np.asarray(got, np.float32).reshape(-1) - flat)
+    ratio = float((err / np.maximum(half, np.float32(1e-30))).max())
+    # A value on a half-step tie lands half a step away; the division by
+    # the fp32 scale and the dequantizing product add an ulp or two.
+    slack = 2 * np.spacing(np.abs(flat)) + half * np.float32(1e-5)
+    check(bool((err <= half + slack).all()), f"{what}: int8c error beyond half a step ({ratio:.6f})")
+    return ratio
+
+
+def rounds_phase(seed: int, card: str) -> dict[str, int]:
+    """Phase 9: several rounds of the streamed round at full width, in two
+    invocations: (a) the JAX package's default shape made authenticated
+    (FEDTPU_SECRET, 4 MB stream chunks, FedProx on the server and both
+    clients); (b) the lossy wires (int8c streams, a bf16 streamed reply,
+    top-k sparse deltas, FedAdam on the server). Returns the phase's
+    launches of each kernel."""
+    counts_zero()
+    fold_mod.FOLD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    # (a) ------------------------------------------------------------------
+    recs, res = rounds_invocation(
+        seed, card, "a", ["--strategy", "fedprox:mu=0.01"], [["--prox-mu", "0.01"]] * 2,
+        secret=f"smoke-{seed}-shared-secret",
+    )
+    for r, rec in enumerate(recs):
+        shapes = [rec["uploads"][i]["shape"] for i in range(2)]
+        check(shapes == (["dense"] * 2 if r == 0 else ["stream"] * 2), f"rounds (a) round {r + 1} arrived as {shapes}")
+        uploads = [wire.flatten_params(res[i]["rounds"][r]["uploaded"]) for i in range(2)]
+        crc, want = wire.flat_crc32(rec["mean"]), wire.flat_crc32(plain_mean(uploads))
+        print(f"rounds (a) round {r + 1}: aggregate crc {crc:#010x}, fold_reference over the uploads {want:#010x}", flush=True)
+        check(crc == want, f"rounds (a) round {r + 1}: the aggregate differs from the plain fold of the uploads")
+        check(wire.flat_crc32(rec["global"]) == crc, "fedprox changed the server's global")
+        for i in range(2):
+            meta = res[i]["rounds"][r]["exchange"]["meta"]
+            check(meta["strategy"] == {"name": "fedprox", "params": {"mu": 0.01}} and "nonce" in meta,
+                  f"rounds (a) client {i} round {r + 1} reply meta {sorted(meta)}")
+            got = wire.flatten_params(res[i]["rounds"][r]["aggregate"])
+            check(wire.flat_crc32(got) == crc, f"rounds (a) client {i} received another aggregate in round {r + 1}")
+    check(all(res[i]["config"].train.prox_mu == 0.01 for i in range(2)), "the clients do not train with FedProx")
+    a_steps = sum(res[i]["state"].step for i in range(2))
+    a_evals = sum(2 * -(-res[i]["local"]["n"] // res[i]["config"].data.eval_batch_size) for i in range(2)) * ROUNDS
+    # (b) ------------------------------------------------------------------
+    recs_b, res_b = rounds_invocation(
+        seed + 1, card, "b", ["--reply-dtype", "bf16", "--strategy", "fedopt:opt=adam,lr=0.1"],
+        [["--wire-dtype", "int8"], ["--compression", "topk:0.01", "--no-stream-upload"]],
+    )
+    opt = ServerOptimizer("adam", 0.1)
+    opt_state = None
+    residual = None
+    int8c_worst = bf16_worst = 0.0
+    for r, rec in enumerate(recs_b):
+        arrived = [(rec["uploads"][i]["shape"], rec["uploads"][i]["wire_dtype"]) for i in range(2)]
+        want_arrived = [("dense", "fp32") if r == 0 else ("stream", "int8"), ("dense", "fp32")]
+        check(arrived == want_arrived, f"rounds (b) round {r + 1} arrived as {arrived}")
+        x0 = wire.flatten_params(res_b[0]["rounds"][r]["uploaded"])
+        x1 = wire.flatten_params(res_b[1]["rounds"][r]["uploaded"])
+        if r == 0:
+            d0, d1 = x0, x1
+        else:
+            d0 = {k: dequantize_int8c(quantize_int8c(v), v.shape) for k, v in x0.items()}
+            for k in x0:
+                int8c_worst = max(int8c_worst, check_int8c_step(d0[k], x0[k], f"rounds (b) round {r + 1} {k}"))
+            # Client 1's sparse delta, replayed: its base is the previous
+            # global (its exact fp32 reply), its error feedback the residual.
+            base = recs_b[r - 1]["global"]
+            delta = {k: x1[k] - base[k] + (residual[k] if residual else np.float32(0)) for k in base}
+            dense = {}
+            for k, v in delta.items():
+                payload = wire.sparsify_topk(v, 0.01)
+                kept = int(np.frombuffer(payload[:4], np.uint32)[0])
+                check(kept == max(1, round(0.01 * v.size)), f"top-k kept {kept} of {v.size} entries of {k}")
+                dense[k] = wire.densify_topk(payload, v.shape)
+            residual = {k: delta[k] - dense[k] for k in delta}
+            d1 = {k: base[k] + dense[k] for k in base}
+        crc, want = wire.flat_crc32(rec["mean"]), wire.flat_crc32(plain_mean([d0, d1]))
+        print(f"rounds (b) round {r + 1}: mean crc {crc:#010x}, fold_reference over the decoded uploads {want:#010x}", flush=True)
+        check(crc == want, f"rounds (b) round {r + 1}: the mean differs from the plain fold of the decoded uploads")
+        # The post-strategy global: ServerOptimizer on the card, same mean.
+        if rec["prev"] is None:
+            ref = rec["mean"]
+        else:
+            keys = sorted(rec["mean"])
+            prev = {k: torch.tensor(rec["prev"][k], device="cuda") for k in keys}
+            grad = {k: prev[k] - torch.tensor(rec["mean"][k], device="cuda") for k in keys}
+            opt_state = opt.init(prev) if opt_state is None else opt_state
+            updates, opt_state = opt.update(grad, opt_state)
+            ref = {k: (prev[k] + updates[k]).cpu().numpy() for k in keys}
+        check(all(np.array_equal(rec["global"][k], ref[k]) for k in ref),
+              f"rounds (b) round {r + 1}: the server's FedAdam global differs from ServerOptimizer on the card")
+        g = rec["global"]
+        got0 = wire.flatten_params(res_b[0]["rounds"][r]["aggregate"])
+        got1 = wire.flatten_params(res_b[1]["rounds"][r]["aggregate"])
+        check(wire.flat_crc32(got1) == wire.flat_crc32(g), f"rounds (b) round {r + 1}: client 1's dense reply is not exact")
+        for k in g:
+            err = np.abs(got0[k] - g[k])
+            bound = np.abs(g[k]) * np.float32(2.0**-8)
+            check(bool((err <= bound).all()), f"rounds (b) round {r + 1} {k}: bf16 reply beyond 2^-8 relative")
+            nz = g[k] != 0
+            if nz.any():
+                bf16_worst = max(bf16_worst, float((err[nz] / np.abs(g[k][nz])).max()))
+        ups = [res_b[i]["rounds"][r]["exchange"]["upload_bytes"] for i in range(2)]
+        print(f"rounds (b) round {r + 1}: upload bytes {ups[0] / 1e6:.3f} MB ({'int8c' if r else 'fp32'}) and "
+              f"{ups[1] / 1e6:.3f} MB ({'top-k 0.01' if r else 'fp32'})", flush=True)
+    check(res_b[1]["rounds"][-1]["exchange"]["upload_bytes"] < 0.1 * res_b[1]["rounds"][0]["exchange"]["upload_bytes"],
+          "client 1's sparse uploads are not sparse")
+    print(f"rounds (b): worst int8c error {int8c_worst:.4f} of half a chunk step; worst bf16 reply error "
+          f"{bf16_worst:.3e} relative (bound 2^-8 = {2.0**-8:.3e})", flush=True)
+    b_steps = sum(res_b[i]["state"].step for i in range(2))
+    b_evals = sum(2 * -(-res_b[i]["local"]["n"] // res_b[i]["config"].data.eval_batch_size) for i in range(2)) * ROUNDS
+    launches = counts_read()
+    launches["fold"] = fold_mod.FOLD_LAUNCHES
+    n_layers = res[0]["config"].model.n_layers
+    steps = a_steps + b_steps
+    check(launches["flash_fwd_dropout"] == launches["flash_bwd_dkdv"] == launches["flash_bwd_dq"] == n_layers * steps,
+          f"rounds: K1-dropout/K2/K3 launches {launches} for {steps} steps")
+    check(launches["flash_fwd"] == n_layers * (a_evals + b_evals), f"rounds: K1 (rate 0) launches {launches['flash_fwd']} for {a_evals + b_evals} eval batches")
+    check(flash_mod.BWD_DO_COPIES == 0, f"the clients' backward copied dO {flash_mod.BWD_DO_COPIES} times")
+    check(launches["fold"] == 2 * ROUNDS * 102, f"rounds: K4 launched {launches['fold']} times")
+    print(f"rounds: launches {launches}; {steps} client steps; phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1549,6 +1820,12 @@ def main() -> int:
 
     phase("round")
     k4["launches"] = round_phase(seed, card)
+
+    phase("rounds")
+    rounds_launches = rounds_phase(seed, card)
+    k4["launches"] += rounds_launches["fold"]
+    for row in (k1, k1_drop, k2, k3):
+        row["launches"] += rounds_launches[row["name"]]
 
     print(json.dumps({"kernels": [k1, k1_drop, k2, k3, k4]}), flush=True)
     print(json.dumps({

@@ -1,17 +1,21 @@
 """``serve`` / ``client``: the federated round over TCP (the reference's
 socket deployment, server.py + client1.py end to end; the port of the JAX
-package's ``cli/comm.py`` for the dense fp32 FedAvg round).
+package's ``cli/comm.py`` for the plain round: dense or streamed uploads
+and replies, the bf16/int8/top-k wires, HMAC, server strategies and the
+client's FedProx).
 
 Both run on the card unless ``--device cpu`` is given. A JAX ``serve`` or
-``client`` interoperates with these on the dense fp32 wire.
+``client`` interoperates with these. The HMAC key comes from the
+``FEDTPU_SECRET`` environment variable, never from argv.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 
-from ..comm import AggregationServer, FederatedClient
+from ..comm import AggregationServer, FederatedClient, wire
 from ..data.tokenizer import default_tokenizer
 from ..device import resolve_device
 from .common import _load_clients, _write_reports, resolve_config
@@ -19,9 +23,28 @@ from .common import _load_clients, _write_reports, resolve_config
 log = logging.getLogger(__name__)
 
 
+def _auth_key() -> bytes | None:
+    """The shared HMAC key of the TCP round, from FEDTPU_SECRET (never
+    argv: process listings leak flags). Unset, the round is the
+    reference's open protocol."""
+    secret = os.environ.get("FEDTPU_SECRET")
+    return secret.encode() if secret else None
+
+
+def _refuse_identity_keys(name: str) -> None:
+    """Per-client identity keys (the JAX secure tier's DH binding, from
+    ``name`` in the environment) are not ported: refused, never ignored."""
+    if os.environ.get(name):
+        raise wire.ModeError(
+            f"{name} is set: per-client identity keys (secure aggregation's "
+            "key binding) are not ported"
+        )
+
+
 def build_server(args) -> AggregationServer:
     """The aggregation server the ``serve`` flags describe, bound and
     listening (``server.port`` is the bound port), not yet serving."""
+    _refuse_identity_keys("FEDTPU_CLIENT_SECRETS")
     return AggregationServer(
         host=args.host,
         port=args.port,
@@ -29,6 +52,12 @@ def build_server(args) -> AggregationServer:
         weighted=args.weighted,
         min_clients=args.min_clients,
         timeout=args.timeout,
+        compression=args.compression,
+        auth_key=_auth_key(),
+        stream_chunk_bytes=wire.stream_chunk_bytes_from_mb(args.stream_chunk_mb),
+        strategy=args.strategy,
+        strategy_state_path=args.strategy_state_file,
+        reply_dtype=args.reply_dtype,
         device=args.device,
     )
 
@@ -44,14 +73,18 @@ def run_client(args) -> dict:
     """The ``client`` command's work: (train -> evaluate -> exchange ->
     evaluate the aggregate -> adopt it) per round, then the metrics CSVs;
     degrades to local-only reports when an exchange fails
-    (client1.py:405-410). Returns what it measured and wrote: ``config``,
-    ``trainer``, ``state``, ``local`` and ``aggregated`` metrics (None
-    after a failed exchange), ``uploaded`` and ``aggregate`` (the last
-    round's params as sent and as received, JAX layout), ``seconds`` per
-    phase of the last round (with the data and model set-up before the
-    first), ``exchange`` (the client's wire record of it),
-    ``metrics_csvs``, and with a checkpoint directory ``warm_step`` (the
-    step warm-started from, None for a fresh start) and ``saved_steps``.
+    (client1.py:405-410). While the exchange waits for the aggregate, the
+    next round's first batches are built on a thread (``prefetch_epoch``;
+    the same batches either way). Returns what it measured and wrote:
+    ``config``, ``trainer``, ``state``, ``local`` and ``aggregated``
+    metrics (None after a failed exchange), ``rounds`` (per round: the
+    params as sent, JAX layout, whose leaves are host arrays once sent;
+    the aggregate as received; the metrics; the seconds per phase; and
+    ``exchange``, the client's wire record), ``uploaded``, ``aggregate``,
+    ``seconds`` and ``exchange`` of the last round (with the data and
+    model set-up before the first in ``seconds``), ``metrics_csvs``, and
+    with a checkpoint directory ``warm_step`` (the step warm-started
+    from, None for a fresh start) and ``saved_steps``.
 
     With a checkpoint directory the client warm-starts from its latest
     step and saves twice a round: after local training (the reference's
@@ -65,6 +98,14 @@ def run_client(args) -> dict:
 
     t_start = time.perf_counter()
     device = resolve_device(args.device)  # raises before any work without CUDA
+    # Refuses what the JAX client refuses (--wire-dtype with --compression)
+    # before any data is loaded.
+    _refuse_identity_keys("FEDTPU_CLIENT_SECRET")
+    fed = FederatedClient(
+        args.host, args.port, client_id=args.client_id, timeout=args.timeout,
+        compression=args.compression, auth_key=_auth_key(), stream=args.stream_upload,
+        wire_dtype=args.wire_dtype,
+    )
     tok = default_tokenizer()
     cfg = resolve_config(args, vocab_size=len(tok.vocab))
     client = _load_clients(args, cfg, tok, cfg.fed.num_clients)[args.client_id]
@@ -93,13 +134,14 @@ def run_client(args) -> dict:
         )
         saved_steps.append(save_seq)
 
-    fed = FederatedClient(args.host, args.port, client_id=args.client_id, timeout=args.timeout)
     E = cfg.train.epochs_per_round
     eval_bs = cfg.data.eval_batch_size
+    rounds = cfg.fed.rounds
     local = agg_metrics = uploaded = aggregated = None
     setup_s = time.perf_counter() - t_start
     seconds: dict[str, float] = {}
-    for r in range(cfg.fed.rounds):
+    records: list[dict] = []
+    for r in range(rounds):
         t0 = time.perf_counter()
         state, _ = trainer.fit(
             state, client.train, batch_size=cfg.data.batch_size, epoch_offset=r * E, tag=tag
@@ -110,10 +152,16 @@ def run_client(args) -> dict:
         if ckpt is not None:
             save()
         t_saved = time.perf_counter()
-        uploaded = trainer.host_params(state)
+        # Lazy: each leaf comes off the card when the upload packs it.
+        uploaded = trainer.host_params(state, lazy=True)
         t3 = time.perf_counter()
         seconds = {"setup": setup_s, "train": t1 - t0, "eval_local": t2 - t1,
                    "save": t_saved - t2, "host_params": t3 - t_saved}
+        prefetch = (
+            trainer.prefetch_epoch(client.train, (r + 1) * E, cfg.data.batch_size)
+            if r + 1 < rounds
+            else None
+        )
         try:
             aggregated = fed.exchange(uploaded, n_samples=len(client.train))
         except OSError as e:  # ConnectionError included: the server is gone
@@ -121,6 +169,9 @@ def run_client(args) -> dict:
             log.info(f"{tag}round {r + 1} exchange failed ({e}); local-only reports")
             break
         t4 = time.perf_counter()
+        if prefetch is not None and prefetch.ready():
+            # The input-pipeline seconds hidden behind the reply wait.
+            seconds["prefetch"] = prefetch.busy_s
         agg_metrics = trainer.evaluate(aggregated, client.test, batch_size=eval_bs)
         t5 = time.perf_counter()
         log.info(
@@ -133,10 +184,14 @@ def run_client(args) -> dict:
         if ckpt is not None:
             save(aggregated=True)
         seconds.update(exchange=t4 - t3, eval_aggregated=t5 - t4, adopt=time.perf_counter() - t5)
+        records.append({
+            "uploaded": uploaded, "aggregate": aggregated, "local": local,
+            "aggregated": agg_metrics, "seconds": dict(seconds), "exchange": fed.last_exchange,
+        })
     paths = _write_reports(args.client_id, local, agg_metrics, cfg.output_dir)
     return {
         "config": cfg, "trainer": trainer, "state": state, "local": local,
-        "aggregated": agg_metrics, "uploaded": uploaded, "aggregate": aggregated,
+        "aggregated": agg_metrics, "rounds": records, "uploaded": uploaded, "aggregate": aggregated,
         "seconds": seconds, "exchange": fed.last_exchange, "metrics_csvs": paths,
         "warm_step": warm_step, "saved_steps": saved_steps,
     }

@@ -57,6 +57,10 @@ def resolve_config(args: argparse.Namespace, *, vocab_size: int) -> ExperimentCo
         train_kw.update(learning_rate=args.learning_rate)
     if getattr(args, "seed", None) is not None:
         train_kw.update(seed=args.seed)
+    if getattr(args, "prox_mu", None) is not None:
+        # The TCP client's local phase reads TrainConfig.prox_mu, the
+        # federated trainer FedConfig.prox_mu: one flag feeds both.
+        train_kw.update(prox_mu=args.prox_mu)
     if train_kw:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **train_kw))
     if getattr(args, "output_dir", None):

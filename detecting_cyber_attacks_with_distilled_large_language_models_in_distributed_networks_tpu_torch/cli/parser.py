@@ -25,6 +25,29 @@ from .predict import cmd_predict
 from .serving import cmd_infer_serve
 
 
+def _wire_compression(spec: str) -> str:
+    """argparse type of the client's --compression: none|bf16|int8|topk[:frac]."""
+    from ..comm import wire
+
+    try:
+        wire.parse_compression(spec)
+    except wire.WireError as e:
+        raise argparse.ArgumentTypeError(str(e)) from None
+    return spec
+
+
+def _reply_compression(spec: str) -> str:
+    """argparse type of the server's --compression: as the client's, but
+    topk is refused (the reply is an absolute aggregate)."""
+    spec = _wire_compression(spec)
+    if spec.startswith("topk"):
+        raise argparse.ArgumentTypeError(
+            "topk is an upload-side (sparse round-delta) compression; "
+            "the reply is an absolute aggregate — use none/bf16/int8"
+        )
+    return spec
+
+
 def _add_device(p: argparse.ArgumentParser, what: str) -> None:
     p.add_argument(
         "--device",
@@ -127,10 +150,13 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser(
         "serve",
-        help="TCP aggregation server: one dense fp32 FedAvg fold per round",
-        epilog="Clients upload single FTPW frames and get the aggregate back "
-        "on the same connection; a JAX client interoperates. The fold runs "
-        "on the card (the hand-written K4 kernel) unless --device cpu.",
+        help="TCP aggregation server: dense or streamed FedAvg rounds, folded on the card",
+        epilog="Clients upload single FTPW frames (round 1) or leaf-by-leaf "
+        "streams (once a reply offered them) and get the aggregate back on the "
+        "same connection; a JAX client interoperates. The fold runs on the card "
+        "(the hand-written K4 kernel) unless --device cpu. Set FEDTPU_SECRET "
+        "(env var, same value on the server and every client) to require "
+        "HMAC-SHA256-authenticated, replay-protected exchanges.",
     )
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=12345)
@@ -139,6 +165,44 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--min-clients", type=int, default=None)
     p.add_argument("--weighted", action="store_true", help="weight the mean by n_samples")
     p.add_argument("--timeout", type=float, default=300.0)
+    p.add_argument(
+        "--compression",
+        default="none",
+        type=_reply_compression,
+        help="reply encoding: none|bf16|int8 (topk is upload-side only)",
+    )
+    p.add_argument(
+        "--reply-dtype",
+        choices=["fp32", "bf16", "int8"],
+        default="fp32",
+        help="wire dtype of the STREAMED reply, for the clients that advertise "
+        "it (everyone else, and dense replies, stay fp32); a lossy dtype is "
+        "refused with --compression",
+    )
+    p.add_argument(
+        "--stream-chunk-mb",
+        type=float,
+        default=None,
+        help="offer chunk-streamed uploads at this chunk size (MB, default 4): "
+        "clients stream leaf by leaf from their next upload on and the server "
+        "folds each leaf as every client's copy arrives, bit-exact with the "
+        "barrier mean. 0 turns the offer and the early folds off",
+    )
+    p.add_argument(
+        "--strategy",
+        default=None,
+        help="server strategy applied to the folded mean, NAME[:k=v,...]: "
+        "fedavg (default), fedprox[:mu=0.01] (advertises mu to the clients), "
+        "fedopt[:opt=adam|yogi,lr=0.1], momentum[:lr=1.0,momentum=0.9], "
+        "headboost[:gamma=1.5,match=classifier]",
+    )
+    p.add_argument(
+        "--strategy-state-file",
+        default=None,
+        help="keep the last post-strategy global and the strategy's optimizer "
+        "state in this npz file (the JAX package's layout) and resume from it "
+        "on start; ignored when it holds another strategy",
+    )
     _add_device(p, "the fold runs")
     p.set_defaults(fn=cmd_serve)
 
@@ -147,7 +211,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="TCP federated client: train -> exchange -> adopt, per round",
         epilog="Writes client{N}_local_metrics.csv and, after a round, "
         "client{N}_aggregated_metrics.csv; a failed exchange leaves the "
-        "local report only. A JAX server interoperates.",
+        "local report only. A JAX server interoperates. Set FEDTPU_SECRET "
+        "to authenticate the exchange.",
     )
     _add_training(p)
     p.add_argument("--host", default="127.0.0.1")
@@ -156,6 +221,40 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-clients", type=int, default=None, help="clients the data is split for (default 2)")
     p.add_argument("--rounds", type=int, default=1)
     p.add_argument("--timeout", type=float, default=300.0)
+    p.add_argument(
+        "--compression",
+        default="none",
+        type=_wire_compression,
+        help="upload encoding: none|bf16|int8|topk[:frac]. topk switches the "
+        "exchange to sparse round deltas with client-side error feedback "
+        "after the first, dense round",
+    )
+    p.add_argument(
+        "--wire-dtype",
+        choices=["fp32", "bf16", "int8"],
+        default="fp32",
+        help="quantize STREAMED upload chunks to this dtype once the server "
+        "offers it (round 1 goes fp32); int8 carries an fp32 scale per 4096 "
+        "elements. Refused with --compression",
+    )
+    p.add_argument(
+        "--no-stream-upload",
+        dest="stream_upload",
+        action="store_false",
+        default=True,
+        help="never chunk-stream uploads nor ask for a streamed reply, even "
+        "when the server offers them: every upload and reply is one dense "
+        "frame (a topk client keeps an exact base against a server with a "
+        "lossy --reply-dtype)",
+    )
+    p.add_argument(
+        "--prox-mu",
+        type=float,
+        default=None,
+        help="FedProx proximal weight of the local phase: each step adds "
+        "mu/2 * ||params - round-start aggregate||^2 (pairs with the "
+        "server's --strategy fedprox); 0/unset = plain local training",
+    )
     p.add_argument(
         "--checkpoint-dir",
         help="warm-start + save full state here (the reference's "

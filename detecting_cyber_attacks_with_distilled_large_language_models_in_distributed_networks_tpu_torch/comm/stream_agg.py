@@ -1,29 +1,40 @@
-"""One round's weighted-mean state (the port of ``comm/stream_agg.py``).
+"""One round's incremental weighted-mean state (the port of ``comm/stream_agg.py``).
 
-Uploads register an *intent* (key set + sample count), hand over their
-leaves, and each key is **folded** into the round's mean the moment every
-fold-set member's copy of it is present. The port's server receives dense
-single-frame uploads only and freezes the fold set at round close, so
-every key folds in :meth:`StreamAgg.finalize`, one ``fold_ordered`` call
-per key: one launch of the fold kernel (K4) per parameter leaf when the
+Uploads register an *intent* (key set + sample count, from a stream
+header or a dense frame) and hand over their leaves: all at once
+(:meth:`StreamAgg.add_dense`) or one by one as a stream's bytes arrive
+(:meth:`StreamAgg.add_leaf`). Once every expected client's intent is in,
+the server freezes the fold set, and each key is **folded** into the
+round's mean the moment every member's copy of it is present, while the
+slower clients are still on the wire. Each fold is one ``fold_ordered``
+call: one launch of the fold kernel (K4) per parameter leaf when the
 server runs on the card.
 
 Bit-exactness contract: the result equals ``comm.server.aggregate_flat``,
-the barrier mean, BIT-EXACTLY. The fold replays the identical fp32
-arithmetic in the identical order: per key ``acc = zeros; acc +=
-float32(w_i) * leaf_i`` over clients in ascending id order, with the
-weights normalized in float64 and then cast to fp32, exactly as the
-barrier does. fp32 addition is not associative, so the ascending-id order
-is what keeps every crc replay of the round unchanged.
+the barrier mean, BIT-EXACTLY, whatever the arrival order. The fold
+replays the identical fp32 arithmetic in the identical order: per key
+``acc = zeros; acc += float32(w_i) * leaf_i`` over clients in ascending
+id order, with the weights normalized in float64 and then cast to fp32,
+exactly as the barrier does. Quantized leaves arrive dequantized (fp32),
+and a sparse-delta upload folds as ``base[key] + float32(delta)``, the
+barrier's absolute reconstruction (its shapes are checked against the
+base when it arrives).
 
-A client that dies or re-uploads after folds began poisons the round:
-its folded leaves cannot be subtracted back out. The round then fails
-with the reason attached, as does a fold that raises (a kernel that does
-not build or launch, for instance).
+Consequences of folding early:
 
-Not ported (they come with streamed uploads): ``admit``,
-``scale_client``, ``add_leaf``, ``mark_complete`` and sparse-delta
-uploads against a base.
+* the fold set must be frozen before the first fold (the weights are
+  normalized over it). Before any fold a frozen set may still change (a
+  member died between its intent and its first complete leaf, or a new
+  contributor is admitted): it is re-frozen over the final set;
+* a fold set that changes after its first fold, or a member that dies
+  or re-uploads after folds began, poisons the round: its folded leaves
+  cannot be subtracted back out. The round then fails with the reason
+  attached, as does a fold that raises (a kernel that does not build or
+  launch, for instance).
+
+Folds run under the state's lock on the server's connection threads; a
+fold on the card runs on the server's device (``fold_ordered`` enters
+it), and its CUDA-event timings are taken per call.
 """
 
 from __future__ import annotations
@@ -47,13 +58,25 @@ class StreamAggPoisoned(RuntimeError):
 class StreamAgg:
     """One round's incremental weighted-mean state, folded on ``device``.
 
+    ``eager=False`` never freezes before :meth:`finalize`: every upload is
+    held and the barrier mean is folded at close. ``base`` is the last
+    aggregate, the base of sparse-delta uploads.
+
     Thread-safety: one internal lock serializes every mutation; folds run
     under it, which also serializes the fp32 accumulation."""
 
-    def __init__(self, *, device: str | torch.device):
+    def __init__(
+        self,
+        *,
+        device: str | torch.device,
+        eager: bool = True,
+        base: Mapping[str, np.ndarray] | None = None,
+    ):
         self.device = torch.device(device)
+        self.eager = bool(eager)
+        self.base = base
         self._lock = threading.Lock()
-        #: cid -> {"keys": tuple, "n_samples": float}
+        #: cid -> {"keys": tuple, "n_samples": float, "delta": bool}
         self.intents: dict[int, dict] = {}
         self._pending: dict[str, dict[int, np.ndarray]] = {}
         self._acc: dict[str, np.ndarray] = {}
@@ -65,8 +88,9 @@ class StreamAgg:
         #: cids whose upload fully arrived: a fold only counts as
         #: "overlapped" while some member's bytes are still in flight.
         self._complete: set[int] = set()
-        #: Per-client fold stats, cid -> {"weight", "bytes"};
-        #: an entry lives exactly as long as the client's intent.
+        #: Per-client fold stats the round's strategy is handed, cid ->
+        #: {"weight", "bytes", "scale"}; an entry lives exactly as long as
+        #: the client's intent.
         self._client_stats: dict[int, dict[str, float]] = {}
         self._cur_bytes = 0
         self.peak_bytes = 0
@@ -78,10 +102,24 @@ class StreamAgg:
         self._fold_ms: dict[str, float] = {}
 
     # ------------------------------------------------------------ intents
-    def register(self, cid: int, *, keys: tuple, n_samples: float) -> None:
+    def register(self, cid: int, *, keys: tuple, n_samples: float, delta: bool = False) -> None:
         with self._lock:
-            self.intents[cid] = {"keys": tuple(keys), "n_samples": float(n_samples)}
-            self._client_stats[cid] = {"weight": float(n_samples), "bytes": 0.0}
+            self.intents[cid] = {"keys": tuple(keys), "n_samples": float(n_samples), "delta": bool(delta)}
+            self._client_stats[cid] = {"weight": float(n_samples), "bytes": 0.0, "scale": 1.0}
+
+    def admit(self, cid: int) -> bool:
+        """Take a NEW contributor into the round's fold. Before any fold a
+        frozen set is un-frozen (the next freeze re-normalizes over the
+        grown set); once folds consumed the frozen weights no correct mean
+        including ``cid`` exists: returns False and the caller refuses."""
+        with self._lock:
+            if self.fold_ids is None or cid in self.fold_ids:
+                return True
+            if self._folded:
+                return False
+            self.fold_ids = None
+            self._weights = None
+            return True
 
     def drop_client(self, cid: int, *, poison: bool = True) -> bool:
         """Forget a client's unfolded state (a death, a duplicate upload).
@@ -114,22 +152,43 @@ class StreamAgg:
                     self._cur_bytes -= arr.nbytes
             return True
 
+    def mark_complete(self, cid: int) -> None:
+        """The client's upload fully arrived (trailer verified): later
+        folds no longer overlap ITS wire time."""
+        with self._lock:
+            self._complete.add(cid)
+
     # ------------------------------------------------------------- leaves
+    def _put(self, cid: int, key: str, arr: np.ndarray) -> None:
+        """Caller holds the lock; a re-supplied leaf replaces, not adds."""
+        prev = self._pending.setdefault(key, {}).get(cid)
+        if prev is not None:
+            self._cur_bytes -= prev.nbytes
+        self._pending[key][cid] = arr
+        self._cur_bytes += arr.nbytes
+        if cid in self._client_stats:
+            self._client_stats[cid]["bytes"] += float(arr.nbytes)
+
+    def add_leaf(self, cid: int, key: str, arr: np.ndarray) -> None:
+        """One leaf of a streamed upload, decoded as its bytes completed."""
+        with self._lock:
+            if key in self._folded:
+                # Only a non-member's late leaf: a member's were all
+                # present before the key folded.
+                return
+            self._put(cid, key, arr)
+            self.peak_bytes = max(self.peak_bytes, self._cur_bytes)
+            if self.fold_ids is not None:
+                self._maybe_fold(key)
+
     def add_dense(self, cid: int, flat: Mapping[str, np.ndarray]) -> None:
-        """A single-frame upload: all of a client's leaves at once."""
+        """A single-frame upload: all of a client's leaves at once (dense
+        and streamed clients mix in one fold)."""
         with self._lock:
             self._complete.add(cid)
             for key, arr in flat.items():
-                if key in self._folded:
-                    continue
-                arr = np.asarray(arr)
-                prev = self._pending.setdefault(key, {}).get(cid)
-                if prev is not None:
-                    self._cur_bytes -= prev.nbytes
-                self._pending[key][cid] = arr
-                self._cur_bytes += arr.nbytes
-                if cid in self._client_stats:
-                    self._client_stats[cid]["bytes"] += float(arr.nbytes)
+                if key not in self._folded:
+                    self._put(cid, key, np.asarray(arr))
             self.peak_bytes = max(self.peak_bytes, self._cur_bytes)
             if self.fold_ids is not None:
                 for key in list(self._pending):
@@ -178,7 +237,10 @@ class StreamAgg:
         try:
             ordered: list[np.ndarray] = []
             for cid in self.fold_ids:
-                arr = np.asarray(leaves[cid], np.float32)
+                arr = leaves[cid]
+                if self.intents[cid]["delta"]:
+                    arr = self.base[key] + np.asarray(arr, np.float32)
+                arr = np.asarray(arr, np.float32)
                 if ordered and arr.shape != ordered[0].shape:
                     raise wire.WireError(f"shape mismatch for {key!r}")
                 ordered.append(arr)
@@ -198,9 +260,7 @@ class StreamAgg:
         self.peak_bytes = max(self.peak_bytes, self._cur_bytes)
         self._folded.add(key)
         dur = time.monotonic() - t0
-        overlapped = not self._wait_over and any(
-            c not in self._complete for c in self.fold_ids
-        )
+        overlapped = not self._wait_over and any(c not in self._complete for c in self.fold_ids)
         if overlapped:
             self.early_bytes += freed
             self.early_s += dur
@@ -219,7 +279,8 @@ class StreamAgg:
         self, ids: list[int], weights: list[float] | None
     ) -> dict[str, np.ndarray]:
         """Fold whatever is left over the FINAL contributor set and return
-        the mean (sorted by key). ``ids`` must match a prior freeze."""
+        the mean (sorted by key). With a prior freeze, ``ids`` must match
+        it: a divergence after folds began poisons the round."""
         if self.poisoned:
             raise StreamAggPoisoned(self.poisoned)
         self.freeze(ids, weights)
@@ -242,7 +303,7 @@ class StreamAgg:
 
     # -------------------------------------------------------------- stats
     def client_stats(self) -> dict[int, dict[str, float]]:
-        """Per-client fold stats (a snapshot copy)."""
+        """Per-client fold stats for the round's strategy (a snapshot)."""
         with self._lock:
             return {cid: dict(self._client_stats[cid]) for cid in sorted(self._client_stats)}
 

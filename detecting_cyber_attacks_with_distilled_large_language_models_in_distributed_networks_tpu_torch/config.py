@@ -4,8 +4,8 @@ Copies of the JAX package's ``ModelConfig``, ``DataConfig`` and
 ``TrainConfig`` (fields, defaults, validation and presets unchanged) and
 its ``FedConfig``, so a manifest or config written by either package
 means the same thing in both. Fields whose code paths the port has not
-reached yet (the TCP client's FedProx, gradient accumulation, DP-FedAvg,
-personalization, relays and lossy wires, datasets other than cicids2017)
+reached yet (gradient accumulation, DP-FedAvg, personalization, relays'
+deadlines, datasets other than cicids2017)
 are kept for compatibility and raise ``NotImplementedError`` when set
 away from their defaults, instead of being ignored. ``ExperimentConfig``
 carries only the sections the ported commands read; a checkpoint records
@@ -204,8 +204,8 @@ class TrainConfig:
     # "all" trains every parameter; "head" freezes the encoder and trains
     # only the classifier head.
     trainable: str = "all"
-    # FedProx proximal term of the TCP client loop (not ported yet; the
-    # single-process federated trainer reads FedConfig.prox_mu).
+    # FedProx proximal term of the TCP client loop (train/engine.py); the
+    # single-process federated trainer reads FedConfig.prox_mu.
     prox_mu: float = 0.0
 
     def __post_init__(self) -> None:
@@ -217,11 +217,6 @@ class TrainConfig:
             )
         if self.prox_mu < 0.0:
             raise ValueError(f"prox_mu={self.prox_mu} must be >= 0")
-        if self.prox_mu > 0.0:
-            raise NotImplementedError(
-                "TrainConfig.prox_mu > 0 (the TCP client's FedProx) is not "
-                "ported yet; `federated` takes FedConfig.prox_mu"
-            )
         if self.grad_accum_steps != 1:
             raise NotImplementedError(
                 "grad_accum_steps > 1 (gradient accumulation) is not ported yet"
@@ -237,8 +232,8 @@ class FedConfig:
     clients and an unweighted mean (reference server.py:13,67-79); here
     rounds and client count are first-class, the mean may be weighted by
     sample count, and dropped clients are masked out of it. DP-FedAvg,
-    personalization, relays' deadlines and lossy wires are not ported:
-    they raise ``NotImplementedError`` away from their defaults.
+    personalization and relays' deadlines are not ported: they raise
+    ``NotImplementedError`` away from their defaults.
     """
 
     num_clients: int = 2
@@ -274,8 +269,9 @@ class FedConfig:
     # Personalization after the final round (not ported).
     personalize_epochs: int = 0
     personalize_scope: str = "full"
-    # Relay subtree deadline and the streamed-upload wire dtype (the TCP
-    # tier's relays and lossy wires; not ported).
+    # Relay subtree deadline (the TCP tier's relays; not ported) and the
+    # streamed-upload wire dtype (validated and kept so configs load, as in
+    # the JAX package; the client's --wire-dtype flag drives the client).
     subtree_deadline_factor: float = 0.5
     wire_dtype: str = "fp32"
 
@@ -387,10 +383,10 @@ class FedConfig:
                 "personalization (personalize_epochs, personalize_scope) is "
                 "not ported yet (ROADMAP queue 1, item 16)"
             )
-        if self.subtree_deadline_factor != 0.5 or self.wire_dtype != "fp32":
+        if self.subtree_deadline_factor != 0.5:
             raise NotImplementedError(
-                "relay deadlines and lossy wires (subtree_deadline_factor, "
-                "wire_dtype) are not ported yet (ROADMAP queue 1, items 7 and 11)"
+                "relay deadlines (subtree_deadline_factor) are not ported yet "
+                "(ROADMAP queue 1, item 11)"
             )
 
 

@@ -1,6 +1,7 @@
-"""Lockstep batch iterators of the federated trainer (the port of the JAX
-package's ``train/batches.py``: ``federated_batches`` and
-``federated_batches_ragged``).
+"""Batch iterators of the trainers (the port of the JAX package's
+``train/batches.py``): the TCP client's one-slot epoch prefetch
+(``EpochPrefetcher``, ``PrefetchSlot``) and the federated trainer's
+lockstep ``federated_batches`` and ``federated_batches_ragged``.
 
 Every client's rows are permuted independently per epoch with the JAX
 package's keying, ``default_rng((seed·100003 + epoch)·1000003 +
@@ -10,11 +11,96 @@ batches in the same order.
 
 from __future__ import annotations
 
-from typing import Iterator
+import threading
+import time
+from typing import Any, Callable, Iterator
 
 import numpy as np
 
 from ..data.pipeline import StackedClients, TokenizedSplit
+
+
+#: Batches an armed prefetch builds ahead (the JAX package's default).
+PREFETCH_BATCHES = 2
+
+
+class EpochPrefetcher:
+    """Background materialization of an epoch's first PREFETCH_BATCHES
+    batches.
+
+    The TCP client's round is serial: train, upload, wait for the
+    aggregate, train again. The wait is spent on the NEXT round's input
+    pipeline instead: the epoch's permutation and its first batches' row
+    gathers run on a thread. The factory builds the exact iterator
+    the epoch loop would have built, so :meth:`batches` yields the same
+    batches as iterating it directly."""
+
+    def __init__(self, factory: Callable[[], Iterator[Any]]):
+        self._buf: list[Any] = []
+        self._it: Iterator[Any] | None = None
+        self._err: BaseException | None = None
+        self._factory = factory
+        #: Seconds the background work ran (the input-pipeline time hidden
+        #: behind the reply wait).
+        self.busy_s = 0.0
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        t0 = time.monotonic()
+        try:
+            it = self._factory()
+            for _ in range(PREFETCH_BATCHES):
+                try:
+                    self._buf.append(next(it))
+                except StopIteration:
+                    it = iter(())
+                    break
+            self._it = it
+        except BaseException as e:  # raised on consume, not on a daemon thread
+            self._err = e
+        finally:
+            self.busy_s = time.monotonic() - t0
+
+    def ready(self) -> bool:
+        return not self._thread.is_alive()
+
+    def batches(self) -> Iterator[Any]:
+        self._thread.join()
+        if self._err is not None:
+            raise self._err
+        yield from self._buf
+        if self._it is not None:
+            yield from self._it
+
+
+class PrefetchSlot:
+    """One armed :class:`EpochPrefetcher` keyed by the epoch it was built
+    for. ``consume`` is one-shot: a mismatched key drops the armed
+    buffer and the caller builds its live iterator."""
+
+    def __init__(self) -> None:
+        self._armed: tuple[tuple, EpochPrefetcher] | None = None
+
+    @property
+    def armed(self) -> bool:
+        return self._armed is not None
+
+    def arm(self, key: tuple, factory: Callable[[], Iterator[Any]]) -> EpochPrefetcher:
+        pf = EpochPrefetcher(factory)
+        self._armed = (tuple(key), pf)
+        return pf
+
+    def consume(self, key: tuple) -> Iterator[Any] | None:
+        """The armed prefetcher's ``batches()`` when ``key`` matches the
+        armed epoch, else None."""
+        if self._armed is None:
+            return None
+        armed_key, pf = self._armed
+        self._armed = None
+        if armed_key == tuple(key):
+            return pf.batches()
+        return None
 
 
 def _perm_seed(seed: int, epoch: int, client: int) -> int:

@@ -13,6 +13,12 @@ the same batch:
 * AdamW adds ``weight_decay · param``; the learning rate scales by ``-lr``;
 * the linear warmup multiplies the update by a factor of the GLOBAL step.
 
+With ``TrainConfig.prox_mu > 0`` (FedProx, the TCP client's local phase)
+the step's loss adds ``0.5 · mu · ||params - anchor||²``, the anchor being
+the round's start: the last adopted aggregate, or the fit-entry params
+before any round. The proximal term is plain torch, as it is plain XLA in
+the JAX engine.
+
 ``trainable="head"`` is ``optax.multi_transform``: the encoder's leaves
 are frozen (no gradient, no moments, no update) and the clip norm covers
 the head alone. Parameters are updated in place under ``no_grad``: the
@@ -49,6 +55,7 @@ from ..ops.metrics import (
     finalize_class_metrics,
     finalize_metrics,
 )
+from .batches import EpochPrefetcher, PrefetchSlot
 
 log = logging.getLogger(__name__)
 
@@ -181,6 +188,13 @@ class Trainer:
         # The module holds no storage (meta device): every call passes the
         # state's leaves through functional_call.
         self.model = model_skeleton(model_cfg)
+        # One-slot epoch prefetch: the TCP round loop arms it before the
+        # exchange, so the next epoch's first batches are built while the
+        # client waits for the aggregate.
+        self._prefetch = PrefetchSlot()
+        # FedProx anchor (prox_mu > 0): copies of the trainable leaves at
+        # the round's start.
+        self._prox_anchor: dict[str, torch.Tensor] | None = None
 
     # ------------------------------------------------------------ state
     def init_state(self, seed: int | None = None, params=None) -> TrainState:
@@ -215,12 +229,19 @@ class Trainer:
             {"deterministic": generator is None, "generator": generator},
         )
 
-    def train_step(self, state: TrainState, batch: dict) -> tuple[TrainState, torch.Tensor]:
+    def train_step(
+        self, state: TrainState, batch: dict, anchor: Mapping[str, torch.Tensor] | None = None
+    ) -> tuple[TrainState, torch.Tensor]:
         """One SGD step on a host batch; returns the state (updated in
-        place) and the batch's loss as a device scalar."""
+        place) and the batch's loss as a device scalar. With ``anchor``
+        (FedProx) the loss adds ``0.5 · prox_mu · ||params - anchor||²``
+        over the trainable leaves."""
         ids, mask, labels = self._batch(batch)
         names = list(state.opt_state.mu)
         loss = loss_fn(self._logits(state.params, ids, mask, generator=state.generator), labels)
+        if anchor is not None:
+            mu = float(self.train_cfg.prox_mu)
+            loss = loss + 0.5 * mu * prox_sq([state.params[n] for n in names], [anchor[n] for n in names])
         grads = torch.autograd.grad(loss, [state.params[n] for n in names])
         with torch.no_grad():
             state.opt_state = self._apply(state, names, list(grads))
@@ -239,7 +260,15 @@ class Trainer:
         return AdamState(count, state.opt_state.mu, state.opt_state.nu)
 
     def epoch_batches(self, split: TokenizedSplit, epoch: int, batch_size: int) -> Iterator[dict]:
-        """The epoch's shuffled batches, seeded as the JAX engine seeds them."""
+        """The epoch's shuffled batches, seeded as the JAX engine seeds
+        them; a matching armed prefetch (:meth:`prefetch_epoch`) serves
+        the head, so the sequence is the same either way."""
+        it = self._prefetch.consume((id(split), int(epoch), int(batch_size)))
+        if it is not None:
+            return it
+        return self._epoch_iterator(split, epoch, batch_size)
+
+    def _epoch_iterator(self, split: TokenizedSplit, epoch: int, batch_size: int) -> Iterator[dict]:
         return batch_iterator(
             split,
             batch_size,
@@ -247,6 +276,24 @@ class Trainer:
             seed=self.train_cfg.seed * 100_003 + epoch,
             drop_remainder=self.drop_remainder,
         )
+
+    def prefetch_epoch(self, split: TokenizedSplit, epoch: int, batch_size: int) -> EpochPrefetcher:
+        """Arm the one-slot prefetch for ``epoch``: its permutation and
+        first batches are built on a thread now (the TCP client arms it
+        right before it blocks on the exchange). The next matching
+        :meth:`epoch_batches` consumes it."""
+        return self._prefetch.arm(
+            (id(split), int(epoch), int(batch_size)),
+            lambda: self._epoch_iterator(split, epoch, batch_size),
+        )
+
+    def _round_anchor(self, state: TrainState) -> dict[str, torch.Tensor]:
+        """The FedProx anchor of this fit: the last adopted aggregate, or
+        (before any round) a copy of the fit-entry params, where the
+        proximal term starts at zero."""
+        if self._prox_anchor is None:
+            self._prox_anchor = {n: state.params[n].detach().clone() for n in state.opt_state.mu}
+        return self._prox_anchor
 
     def fit(
         self,
@@ -263,13 +310,14 @@ class Trainer:
         ``epoch_offset`` shifts the shuffle seeds (a round loop passes
         ``round * E``), so every round draws new batch permutations."""
         epochs = self.train_cfg.epochs_per_round if epochs is None else epochs
+        anchor = self._round_anchor(state) if self.train_cfg.prox_mu > 0.0 else None
         log_every = self.train_cfg.log_every
         epoch_losses: list[float] = []
         steps, samples, t0 = 0, 0, time.perf_counter()
         for epoch in range(epoch_offset, epoch_offset + epochs):
             losses: list[torch.Tensor] = []
             for batch in self.epoch_batches(split, epoch, batch_size):
-                state, loss = self.train_step(state, batch)
+                state, loss = self.train_step(state, batch, anchor)
                 losses.append(loss)
                 steps += 1
                 samples += len(batch["labels"])
@@ -332,18 +380,23 @@ class Trainer:
         return self.evaluate(state.params, split, **kw)
 
     # ------------------------------------------------------------ rounds
-    def host_params(self, state: TrainState) -> dict:
+    def host_params(self, state: TrainState, *, lazy: bool = False) -> dict:
         """The state's params as the JAX-layout nested tree of host numpy
         fp32 arrays (flax names, dense kernels ``[in, out]``): the upload
-        form ``FederatedClient.exchange`` sends. The arrays are copies."""
-        return params_to_jax(state.params)
+        form ``FederatedClient.exchange`` sends. The arrays are copies;
+        ``lazy`` returns ``HostLeaf`` leaves, each copied off the card when
+        first read (the streamed upload gathers leaf by leaf)."""
+        return params_to_jax(state.params, lazy=lazy)
 
     def adopt_aggregate(self, state: TrainState, aggregated: Mapping[str, Any]) -> TrainState:
         """Continue the next round FROM a received aggregate (JAX layout)
         with a fresh Adam (every reference re-launch builds a new
         optimizer, client1.py:380) and a continuing step counter, so the
         LR warmup does not restart: the JAX package's
-        ``adopt_aggregate_with_fresh_opt``."""
+        ``adopt_aggregate_with_fresh_opt``. Under FedProx the adopted
+        aggregate is the next round's anchor."""
         new = self.init_state(params=params_from_jax(aggregated))
         new.step = state.step
+        if self.train_cfg.prox_mu > 0.0:
+            self._prox_anchor = {n: new.params[n].detach().clone() for n in new.opt_state.mu}
         return new

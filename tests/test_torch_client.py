@@ -272,3 +272,30 @@ def test_port_client_saves_twice_a_round_and_warm_starts(tmp_path):
     assert second["warm_step"] == 4 and second["saved_steps"] == [5, 6]
     steps_per_epoch = first["state"].step // 2
     assert second["state"].step == first["state"].step + steps_per_epoch
+
+
+def test_lazy_host_params_gather_on_first_read():
+    """``host_params(lazy=True)``: the JAX layout's shapes before any
+    gather, the same bits as the eager copies once read, one cached host
+    copy per leaf that later training does not touch."""
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.models.convert import (
+        HostLeaf,
+    )
+
+    port_cfg, _ = _cfgs()
+    trainer = Trainer(port_cfg, pcfg.TrainConfig(seed=2), device="cpu")
+    state = trainer.init_state()
+    eager = flatten_tree(trainer.host_params(state))
+    lazy = flatten_tree(trainer.host_params(state, lazy=True))
+    assert lazy.keys() == eager.keys()
+    assert all(isinstance(v, HostLeaf) for v in lazy.values())
+    assert {k: v.shape for k, v in lazy.items()} == {k: v.shape for k, v in eager.items()}
+    for k, v in lazy.items():
+        got = np.asarray(v)
+        assert got is np.asarray(v) and got.dtype == np.float32
+        np.testing.assert_array_equal(got, eager[k])
+        assert not np.shares_memory(np.array(v, copy=True), got)
+    batch = next(batch_iterator(_split(port_cfg, 8, seed=3), 8, shuffle=False, seed=0))
+    trainer.train_step(state, batch)
+    for k, v in lazy.items():
+        np.testing.assert_array_equal(np.asarray(v), eager[k])

@@ -3,8 +3,9 @@
 * ``encode`` returns the JAX package's bytes for the same params and meta,
   each side's ``decode`` reads the other's bytes exactly, and
   ``flat_crc32`` agrees;
-* what the port does not speak (bf16/int8/topk wires, HMAC) raises
-  ``ModeError`` on both ends of the port;
+* what the port's server does not fold (secure aggregation, central DP,
+  relay and re-homing uploads) raises ``ModeError``, and a sparse delta
+  without a base ``WireError``;
 * mixed rounds on loopback, bit for bit (crc-equal) with JAX
   ``aggregate_flat``: (a) a JAX server (dense, ``stream_chunk_bytes=0``)
   with a JAX and a port client; (b) the port's server on ``device="cpu"``
@@ -81,19 +82,27 @@ def test_each_side_decodes_the_others_bytes():
 
 
 def test_unported_modes_raise_mode_error():
+    """What the port's server still refuses: an upload in a JAX mode it
+    does not fold (secure aggregation, central DP, a relay's subtree
+    upload, a re-homed client, a relay's strategy claim) raises
+    ModeError, and a sparse delta without a base raises WireError (the
+    JAX server's refusal: the client then resends dense)."""
     rng = np.random.default_rng(3)
-    p = _params(rng)
-    for compression in ("bf16", "int8", "topk"):
-        with pytest.raises(ModeError, match="not ported"):
-            pwire.encode(p, compression=compression)
-        with pytest.raises(ModeError, match="not ported"):
-            pwire.decode(jwire.encode(p, compression=compression))
-    with pytest.raises(ModeError, match="HMAC"):
-        pwire.encode(p, auth_key=b"k")
-    with pytest.raises(ModeError, match="HMAC"):
-        pwire.decode(pwire.encode(p), auth_key=b"k")
-    with pytest.raises(ModeError, match="authenticat"):
-        pwire.decode(jwire.encode(p, auth_key=b"k"))
+    flat = pwire.flatten_params(_params(rng))
+    with AggregationServer(port=0, num_clients=1, timeout=5, device="cpu") as server:
+        for key, value, what in (
+            ("secure", True, "secure aggregation"),
+            ("dp", True, "central DP"),
+            ("subtree_ids", [0, 1], "relay"),
+            ("rehomed", 1, "re-homing"),
+            ("strategy", {"name": "fedavg"}, "relay"),
+        ):
+            with pytest.raises(ModeError, match=f"{what}.* not ported"):
+                server._validate_upload({"client_id": 0, key: value}, None)
+        assert server._validate_upload({"client_id": 4, "dp": False}, None) == 4
+        for meta in ({"delta": True, "base_agg_round": 0}, {"delta": True}):
+            with pytest.raises(WireError, match="base is absent"):
+                server._check_delta(flat, meta)
     # ModeError is not a WireError: the client does not retry it.
     assert not issubclass(ModeError, WireError)
 
@@ -206,3 +215,51 @@ def test_port_server_refuses_modes_it_does_not_fold():
         t.join(timeout=30)
     assert not t.is_alive()
     assert len(raised) == 1 and isinstance(raised[0], ConnectionError)
+
+
+def test_cli_refuses_what_the_jax_cli_refuses(monkeypatch):
+    """The combinations the JAX CLI refuses are refused here the same way
+    (argparse, or ValueError from the server and the client), unported
+    flags are unknown to argparse, and per-client identity keys raise
+    ModeError instead of being ignored."""
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu.cli import (
+        build_parser as jax_parser,
+    )
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli import (
+        build_parser,
+    )
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.comm import (
+        build_server,
+        run_client,
+    )
+
+    for parser in (build_parser(), jax_parser()):
+        with pytest.raises(SystemExit):
+            parser.parse_args(["serve", "--compression", "topk:0.1"])
+        with pytest.raises(SystemExit):
+            parser.parse_args(["client", "--client-id", "0", "--compression", "int4"])
+    with pytest.raises(ValueError, match="reply_dtype"):
+        build_server(build_parser().parse_args(
+            ["serve", "--port", "0", "--reply-dtype", "bf16", "--compression", "int8", "--device", "cpu"]
+        ))
+    with pytest.raises(ValueError, match="reply_dtype"):
+        JaxServer(port=0, reply_dtype="bf16", compression="int8")
+    for cls in (FederatedClient, JaxClient):
+        with pytest.raises(ValueError, match="wire_dtype"):
+            cls("127.0.0.1", 1, client_id=0, wire_dtype="int8", compression="bf16")
+    args = build_parser().parse_args(
+        ["client", "--client-id", "0", "--wire-dtype", "int8", "--compression", "topk", "--device", "cpu"]
+    )
+    with pytest.raises(ValueError, match="wire_dtype"):
+        run_client(args)
+    for argv in (["serve", "--secure-agg"], ["serve", "--dp-clip", "1"], ["client", "--client-id", "0", "--dp"],
+                 ["client", "--client-id", "0", "--parent", "h:1"], ["client", "--client-id", "0", "--secure-agg"]):
+        with pytest.raises(SystemExit):
+            build_parser().parse_args(argv)
+        jax_parser().parse_args(argv)  # valid in the JAX package
+    monkeypatch.setenv("FEDTPU_CLIENT_SECRETS", "0:a,1:b")
+    with pytest.raises(ModeError, match="identity keys"):
+        build_server(build_parser().parse_args(["serve", "--port", "0", "--device", "cpu"]))
+    monkeypatch.setenv("FEDTPU_CLIENT_SECRET", "a")
+    with pytest.raises(ModeError, match="identity keys"):
+        run_client(build_parser().parse_args(["client", "--client-id", "0", "--device", "cpu"]))

@@ -533,7 +533,9 @@ def test_federated_flags_resolve_and_personalize_raises():
         participation_mode="poisson", min_client_fraction=0.5, server_opt="yogi",
         server_lr=0.1, server_momentum=0.5,
     )
-    assert cfg.train.prox_mu == 0.0  # the TCP client's FedProx stays unported
+    # One flag feeds whichever tier runs, as in the JAX package: the TCP
+    # client's local phase reads TrainConfig.prox_mu.
+    assert cfg.train.prox_mu == 0.01
     assert (cfg.data.partition, cfg.data.dirichlet_alpha) == ("dirichlet", 0.2)
     with pytest.raises(SystemExit):
         build_parser().parse_args(["federated", "--weighted", "--unweighted"])

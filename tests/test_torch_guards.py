@@ -1,14 +1,17 @@
 """Boundaries of the PyTorch port.
 
-* The port and chip_smoke.py import with JAX, flax, optax, orbax, pandas,
-  matplotlib and the JAX package blocked (the card's machine has neither
-  JAX nor pandas nor matplotlib), and no file of theirs imports any of
-  them.
+* The port and chip_smoke.py import with JAX, flax, optax, orbax,
+  ml_dtypes, pandas, matplotlib and the JAX package blocked (the card's
+  machine has none of them), and no file of theirs imports any of them;
+  the port's strategies and int8c codec import only numpy, torch and the
+  port itself.
 * Entry points run on the card unless the caller asks for the CPU: with
   no CUDA they raise instead of falling back.
 * The static checker still resolves its path-suffix rules inside the JAX
-  package (the port's name sorts after it), and the port's only checker
-  pragmas are the reasoned ones on its copies of the wire magics.
+  package (the port's name sorts after it); a directory rule also covers
+  the port's copy of that directory (``strategies/``), which passes it;
+  the port's only checker pragmas are the reasoned ones on its copies of
+  the wire magics, and every copied magic carries one.
 """
 
 import ast
@@ -31,7 +34,9 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PKG = "detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu"
 PORT_PKG = JAX_PKG + "_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "matplotlib", JAX_PKG)
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "pandas", "matplotlib", JAX_PKG)
+#: The frame magics the port's wire copies from the JAX package.
+PORT_MAGICS = {"SCRQ", "SCRP", "SCRJ", "FTPW", "NONC", "STRH", "STRC", "STRT"}
 
 
 def _port_files():
@@ -66,7 +71,8 @@ print(" ".join(names))
     # The federated round's and the single-process federation's modules
     # are among them.
     for mod in (
-        "ops.fold", "comm.wire", "comm.stream_agg", "comm.server", "comm.client", "cli.comm",
+        "ops.fold", "comm.wire", "comm.quant", "comm.framing", "comm.stream_agg", "comm.server",
+        "comm.client", "cli.comm", "strategies", "strategies.core",
         "data.partition", "train.batches", "train.fedsteps", "train.fedeval", "train.federated",
         "parallel.fedavg", "cli.federated",
     ):
@@ -127,8 +133,12 @@ def test_checker_suffixes_resolve_inside_the_jax_package():
     assert any(m.rel.startswith(PORT_PKG + "/") for m in project.modules)
     for suffix in (*determinism_rules.SCOPE, *wire_rules.WIRE_LAYER_RELS):
         if suffix.endswith("/"):
-            for m in project.select([suffix]):
-                assert m.rel.startswith(JAX_PKG + "/"), (suffix, m.rel)
+            selected = project.select([suffix])
+            assert any(m.rel.startswith(f"{JAX_PKG}/{suffix}") for m in selected), suffix
+            for m in selected:
+                # A directory rule covers the port's copy of the directory
+                # too (strategies/), and nothing else of the port.
+                assert m.rel.startswith((JAX_PKG + "/", f"{PORT_PKG}/{suffix}")), (suffix, m.rel)
         else:
             m = project.module(suffix)
             assert m is not None and m.rel.startswith(JAX_PKG + "/"), suffix
@@ -148,6 +158,41 @@ def test_only_pragmas_are_the_wire_magic_copies():
         f"{PORT_PKG}/comm/framing.py",
         f"{PORT_PKG}/comm/wire.py",
     ]
+    # Every magic the port's wire copies carries the reasoned pragma.
+    with open(os.path.join(REPO_ROOT, PORT_PKG, "comm", "wire.py")) as f:
+        lines = [ln for ln in f if ln.startswith(tuple("ABCDEFGHIJKLMNOPQRSTUVWXYZ")) and '= b"' in ln]
+    magics = {ln.split('= b"')[1][:4]: ln for ln in lines if ln.split('= b"')[1][4] == '"'}
+    assert set(magics) == PORT_MAGICS
+    for magic, ln in magics.items():
+        assert "# fedtpu: allow(wire-magic-coverage): the JAX package's" in ln, magic
+
+
+def test_strategies_and_quant_import_only_numpy_torch_and_the_port():
+    root = os.path.join(REPO_ROOT, PORT_PKG)
+    paths = [os.path.join(root, "comm", "quant.py")] + [
+        os.path.join(root, "strategies", f) for f in sorted(os.listdir(os.path.join(root, "strategies")))
+        if f.endswith(".py")
+    ]
+    assert len(paths) == 3
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            for mod in mods:
+                assert mod.split(".")[0] in ("__future__", "typing", "numpy", "torch"), (path, mod)
+    # The determinism rule covers the port's strategies/ and finds nothing.
+    project = Project(REPO_ROOT)
+    assert {m.rel for m in project.select(determinism_rules.SCOPE)} >= {
+        f"{PORT_PKG}/strategies/core.py", f"{PORT_PKG}/strategies/__init__.py"
+    }
+    findings = determinism_rules.check_determinism(project)
+    assert [f.render() for f in findings if f.path.startswith(PORT_PKG)] == []
 
 
 def test_round_entry_points_raise_without_cuda(monkeypatch):

@@ -215,14 +215,20 @@ def test_fed_config_fields_and_validation_match_jax():
         (dict(dp_seed=3), "item 9"),
         (dict(personalize_epochs=1), "item 16"),
         (dict(personalize_scope="head"), "item 16"),
-        (dict(subtree_deadline_factor=0.25), "items 7 and 11"),
-        (dict(wire_dtype="int8"), "items 7 and 11"),
+        (dict(subtree_deadline_factor=0.25), "item 11"),
     ],
 )
 def test_unported_fed_options_raise(kw, item):
     jcfg.FedConfig(**kw)  # valid in the JAX package
     with pytest.raises(NotImplementedError, match=item):
         pcfg.FedConfig(**kw)
+
+
+@pytest.mark.parametrize("wire_dtype", ["fp32", "bf16", "int8"])
+def test_fed_config_wire_dtype_is_ported(wire_dtype):
+    assert dataclasses.asdict(pcfg.FedConfig(wire_dtype=wire_dtype)) == dataclasses.asdict(
+        jcfg.FedConfig(wire_dtype=wire_dtype)
+    )
 
 
 def test_from_dict_reads_a_config_the_jax_package_wrote():

@@ -253,8 +253,6 @@ def test_load_flow_csv_matches_jax(synthetic_csv):
 
 
 def test_unported_config_paths_raise():
-    with pytest.raises(NotImplementedError, match="FedProx"):
-        pcfg.TrainConfig(prox_mu=0.1)
     with pytest.raises(NotImplementedError, match="accumulation"):
         pcfg.TrainConfig(grad_accum_steps=2)
     with pytest.raises(NotImplementedError, match="cicids2017 only"):
