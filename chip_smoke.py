@@ -152,13 +152,43 @@ Phases; any failure exits non-zero before the last line is printed:
             the card: bytes and seconds of each upload and reply, the
             fold's early and late bytes and seconds, K4's launches and
             time, the server's phases and the round's wall;
-10. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
+10. serving — at full width on the card, through the port's parser:
+            (a) ``infer-serve --registry-dir --auth --reload-poll 3600``
+            with FEDTPU_SECRET set: a client with no key and one with a
+            wrong key are dropped (``rejects["auth"]`` 2); 64 sync
+            requests (a lone one first: bucket 1), then ``run_load``
+            closed loop (16 connections x 8 in flight, 2048 requests over
+            256 flows, half text, half features), open loop at half the
+            closed loop's flows/s (1024), the arrival trace
+            tests/data/arrival_bursty.trace (512), and 64 concurrent
+            ``AsyncScoringClient`` scores on one connection; prints each
+            mode's flows/s, p50/p95/p99 ms and batch sizes. Checks: the
+            server's ``scored`` equals the replies counted, ``score_hist``
+            sums to it, buckets 1/8/32/128 all hit, K1 at rate 0 once per
+            layer of every batch and never with dropout, the sampled and
+            asyncio replies within bf16 atol 1e-2 of the dot path; (b) a
+            second artifact (the classifier bias moved by +-2) promoted and
+            one reload frame sent: the reply says reloaded, round 2, with
+            no wait for the poll; the next replies name round 2 and lie
+            within atol 1e-2 of the dot path on the new weights, which
+            differ from the old ones by more than 10 x that bound; (c)
+            ``local --dataset unswnb15`` (9 steps; K1 with dropout, K2, K3
+            once per layer of every step, a finite metrics CSV), its
+            checkpoint served with ``--dataset unswnb15`` (64 UNSW features
+            replies within atol 1e-2 of the dot path on the same texts), and
+            a K=7 artifact served with ``--dataset cicddos2019-mc`` (7
+            class_probs summing to 1 within 1e-5, prob = 1 - class_probs[0]
+            within 1e-6, within atol 1e-2 of the dot path); (d) the native
+            WordPiece encoder active, its ids on every served text equal
+            to the Python encoder's, microseconds a flow for both;
+11. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
    serving shape and dropout at the training shape, then K2, K3 and K4;
    K1's rate-0 launches count phase 5, phase 6's evaluation, the
    lifecycle's predict and reload serving, the federated phase's
-   evaluations, predicts and serving, and the rounds phase's
-   evaluations; K1 with dropout, K2 and K3 count phase 6, the federated
-   phase and the rounds phase; K4 phases 8 and 9),
+   evaluations, predicts and serving, the rounds phase's evaluations and
+   the serving phase; K1 with dropout, K2 and K3 count phase 6, the
+   federated phase, the rounds phase and the serving phase's ``local``;
+   K4 phases 8 and 9),
    then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -169,6 +199,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import csv
 import dataclasses
 import json
@@ -202,6 +233,9 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.comm import (
     wire,
 )
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.comm.wire import (
+    WireError,
+)
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.comm.quant import (
     QUANT_CHUNK_ELEMS,
     dequantize_int8c,
@@ -226,7 +260,11 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.data.pipeline import (
     TokenizedSplit,
 )
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.data.datasets import (
+    get_dataset,
+)
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.data.synthetic import (
+    make_synthetic,
     make_synthetic_flows,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.models import (
@@ -251,8 +289,12 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     ModelRegistry,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.serving import (
+    AsyncScoringClient,
     ScoreEngine,
     ScoringClient,
+    fetch_stats,
+    load_arrival_trace,
+    run_load,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.checkpoint import (
     STATE_FILE,
@@ -265,6 +307,9 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.federated import (
     FederatedTrainer,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.utils import (
+    native,
 )
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -1764,6 +1809,282 @@ def rounds_phase(seed: int, card: str) -> dict[str, int]:
     return launches
 
 
+# The serving phase's load: 256 distinct flows, half sent as text and half
+# as features; the closed loop 16 connections x 8 in flight.
+SERVE_FLOWS = 256
+SERVE_SECRET = "chip-smoke-scoring-secret"
+ARRIVAL_TRACE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "arrival_bursty.trace")
+
+
+def served_buckets(stats: dict, before: dict) -> list[int]:
+    """The engine buckets the batches since ``before`` landed in."""
+    sizes = [int(n) for n, c in stats["batch_size_hist"].items() if c > before["batch_size_hist"].get(n, 0)]
+    return sorted({next(b for b in BUCKETS if b >= n) for n in sizes})
+
+
+def load_line(card: str, mode: str, res: dict) -> None:
+    sizes = np.asarray(res["batch_sizes"])
+    print(
+        f"serving: {card}: {mode}: {res['scored']} replies in {res['wall_s']:.3f} s = {res['flows_per_sec']:.1f} flows/s; "
+        f"client latency p50 {res['p50_ms']:.2f} p95 {res['p95_ms']:.2f} p99 {res['p99_ms']:.2f} ms; "
+        f"batch size per reply mean {res['mean_batch']:.1f} max {res['max_batch']} "
+        f"(p50 {np.percentile(sizes, 50):.0f}); rejected {res['rejected']}",
+        flush=True,
+    )
+
+
+def dot_probs(cfg: ModelConfig, params: dict, texts: list[str]) -> tuple[np.ndarray, np.ndarray]:
+    """P(attack) and class probs of ``texts`` through attention_impl="dot" on the card."""
+    tok = default_tokenizer()
+    enc = tok.batch_encode(texts, max_len=cfg.max_len)
+    dot = ScoreEngine(dataclasses.replace(cfg, attention_impl="dot"), params, pad_id=tok.pad_id)
+    out = [dot.score(enc["input_ids"][i : i + 128], enc["attention_mask"][i : i + 128]) for i in range(0, len(texts), 128)]
+    return np.concatenate([o[0] for o in out]), np.concatenate([o[1] for o in out])
+
+
+def serve_args(*argv: str) -> list[str]:
+    return ["infer-serve", *argv, "--host", "127.0.0.1", "--port", "0", "--max-wait-ms", "5"]
+
+
+def auth_and_load(seed: int, card: str, reg: str, cfg: ModelConfig, params: dict) -> tuple[int, int, list[str]]:
+    """Serving (a) and (b). Returns K1's rate-0 launches, the batches they
+    served and every text the server rendered."""
+    key = SERVE_SECRET.encode()
+    records = flow_records(seed + 30, SERVE_FLOWS)
+    texts = [flow_to_text(r) for r in records]
+    flows = [texts[i] if i % 2 else records[i] for i in range(SERVE_FLOWS)]
+    server = build_server(build_parser().parse_args(serve_args("--registry-dir", reg, "--auth", "--reload-poll", "3600")))
+    check(server.engine.device.type == "cuda" and server.auth_key == key, f"engine on {server.engine.device}, auth {server.auth_key}")
+    replies = 0
+    with server:
+        counts_zero()
+        base = fetch_stats("127.0.0.1", server.port, auth_key=key)
+        replies_base = base["scored"]
+        for bad in (None, b"wrong-key"):
+            try:
+                with ScoringClient("127.0.0.1", server.port, auth_key=bad, timeout=10) as c:
+                    c.score(text=texts[0])
+                fail(f"a client with key {bad!r} was answered")
+            except (WireError, OSError):
+                pass
+        t_wait = time.perf_counter()
+        while fetch_stats("127.0.0.1", server.port, auth_key=key)["rejects"]["auth"] < 2 and time.perf_counter() - t_wait < 10:
+            time.sleep(0.05)
+        rejects = fetch_stats("127.0.0.1", server.port, auth_key=key)["rejects"]
+        print(f"serving: no key and a wrong key both dropped: rejects {rejects}", flush=True)
+        check(rejects["auth"] == 2 and sum(rejects.values()) == 2, f"auth rejects {rejects}, want 2")
+        with ScoringClient("127.0.0.1", server.port, auth_key=key) as c:  # a lone request: bucket 1
+            sampled = [c.score(**({"text": f} if isinstance(f, str) else {"features": f})) for f in flows[:64]]
+        replies += len(sampled)
+        closed = run_load("127.0.0.1", server.port, flows, concurrency=16, pipeline=8, requests=2048, auth_key=key, timeout=120)
+        load_line(card, "closed loop (16 connections x 8 in flight, 2048 requests)", closed)
+        qps = closed["flows_per_sec"] / 2
+        open_ = run_load("127.0.0.1", server.port, flows, concurrency=4, target_qps=qps, requests=1024, auth_key=key, timeout=120)
+        load_line(card, f"open loop at {qps:.1f} flows/s (half the closed loop's; 1024 requests)", open_)
+        trace = run_load("127.0.0.1", server.port, flows, concurrency=4, requests=512, auth_key=key, timeout=120,
+                         arrival_trace=load_arrival_trace(ARRIVAL_TRACE))
+        load_line(card, f"arrival trace tests/data/arrival_bursty.trace ({trace['arrival_trace_len']} gaps, "
+                        f"{trace['arrival_cycle_s']:.3f} s a cycle; 512 requests)", trace)
+
+        async def async_scores():
+            c = await AsyncScoringClient.connect("127.0.0.1", server.port, auth_key=key)
+            try:
+                t0 = time.perf_counter()
+                out = await asyncio.gather(*(c.score(text=t) for t in texts[:64]))
+                return out, time.perf_counter() - t0
+            finally:
+                await c.close()
+
+        async_replies, async_s = asyncio.run(async_scores())
+        print(f"serving: {card}: asyncio client: 64 concurrent scores on one connection in {async_s * 1e3:.1f} ms, "
+              f"batch sizes {sorted({r['batch_size'] for r in async_replies})}", flush=True)
+        for res in (closed, open_, trace):
+            check(res["scored"] == len(res["batch_sizes"]) and res["rejected"] == 0, f"run_load {res['scored']} scored, {res['rejected']} rejected")
+            replies += res["scored"]
+        replies += len(async_replies)
+        check(closed["scored"] == 2048 and open_["scored"] == 1024 and trace["scored"] == 512, "run_load lost replies")
+        stats = fetch_stats("127.0.0.1", server.port, auth_key=key)
+        torch.cuda.synchronize()
+        launches = flash_mod.FWD_LAUNCHES
+        check(flash_mod.FWD_DROPOUT_LAUNCHES == 0, "serving launched K1 with dropout")
+        scored = stats["scored"] - replies_base
+        batches = stats["batches"] - base["batches"]
+        buckets = served_buckets(stats, base)
+        print(f"serving: {scored} flows in {batches} batches (mean {scored / batches:.1f}), buckets hit {buckets}, "
+              f"K1 launches {launches}; server p50 {stats['p50_ms']:.2f} p95 {stats['p95_ms']:.2f} p99 {stats['p99_ms']:.2f} ms", flush=True)
+        check(scored == replies, f"the server scored {scored} flows, the clients counted {replies} replies")
+        check(sum(stats["score_hist"]) == stats["scored"], f"score_hist sums to {sum(stats['score_hist'])}, scored {stats['scored']}")
+        check(buckets == list(BUCKETS), f"buckets hit {buckets}, want {list(BUCKETS)}")
+        check(launches == cfg.n_layers * batches, f"K1 launched {launches} times for {batches} batches")
+        # flows[i] is texts[i] or the record it renders to.
+        want, _ = dot_probs(cfg, params, texts[:64])
+        diff = float(np.abs(np.array([r["prob"] for r in sampled]) - want).max())
+        diff_async = float(np.abs(np.array([r["prob"] for r in async_replies]) - want).max())
+        print(f"serving: 64 sampled replies (32 text, 32 features) and the 64 asyncio replies vs the dot path on the "
+              f"card: max|diff| {diff:.3e} and {diff_async:.3e} (bf16 atol 1e-2)", flush=True)
+        check(diff <= 1e-2 and diff_async <= 1e-2, f"served probs differ from the dot path by {diff} / {diff_async}")
+        check(server.tok.native_active, f"the server tokenized without the native encoder: {native.build_error('wordpiece.cpp')}")
+
+        # (b) Promote a second artifact and send one reload frame.
+        new_params = {n: t.clone() for n, t in params.items()}
+        new_params["classifier.bias"] = new_params["classifier.bias"] + torch.tensor([2.0, -2.0])
+        counts_zero()
+        batches0 = fetch_stats("127.0.0.1", server.port, auth_key=key)["batches"]
+        publish(reg, new_params, 2, cfg)
+        with ScoringClient("127.0.0.1", server.port, auth_key=key) as c:
+            t0 = time.perf_counter()
+            reload = c.reload()
+            reload_s = time.perf_counter() - t0
+            after = [c.score(text=t) for t in texts[:64]]
+        want_new, _ = dot_probs(cfg, new_params, texts[:64])
+        want_old, _ = dot_probs(cfg, params, texts[:64])
+        stats = fetch_stats("127.0.0.1", server.port, auth_key=key)
+        torch.cuda.synchronize()
+        launches += flash_mod.FWD_LAUNCHES
+        batches += stats["batches"] - batches0
+        probs = np.array([r["prob"] for r in after])
+        diff, gap = float(np.abs(probs - want_new).max()), float(np.abs(want_new - want_old).max())
+        print(f"serving: {card}: reload frame answered in {reload_s:.3f} s: {reload}; {len(after)} replies after it name rounds "
+              f"{sorted({r['round'] for r in after})}, max|prob - dot on the new weights| {diff:.3e} (bf16 atol 1e-2); "
+              f"new vs old weights differ by up to {gap:.3e} (must exceed 10 x 1e-2)", flush=True)
+        check(reload["reloaded"] is True and reload["round"] == 2, f"reload reply {reload}")
+        check({r["round"] for r in after} == {2}, "replies after the reload frame name another round")
+        check(diff <= 1e-2 and gap > 10 * 1e-2, f"reloaded probs off by {diff} (weights gap {gap})")
+        check(stats["reload_frames"] == 1 and stats["reloads"] == 1, f"reload_frames {stats['reload_frames']}, reloads {stats['reloads']}")
+        check(launches == cfg.n_layers * batches, f"K1 launched {launches} times for {batches} batches")
+    return launches, batches, [flow_to_text(r) for r in records]
+
+
+def schemas(seed: int, card: str, work: str) -> tuple[dict[str, int], list[str]]:
+    """Serving (c): ``local`` on UNSW-NB15 at full width, that checkpoint
+    served with ``--dataset unswnb15``, and a K=7 artifact served with
+    ``--dataset cicddos2019-mc``. Returns the kernels' launches and the
+    texts the servers rendered."""
+    ckpt = os.path.join(work, "unsw_ckpt")
+    counts_zero()
+    res = run_local(build_parser().parse_args(
+        ["local", "--dataset", "unswnb15", "--preset", "distilbert", "--attention-impl", "flash", "--synthetic", "2400",
+         "--epochs", "1", "--seed", str(seed), "--output-dir", os.path.join(work, "unsw_out"), "--checkpoint-dir", ckpt]
+    ))
+    launches = counts_read()
+    cfg = res["config"]
+    n_layers, steps = cfg.model.n_layers, res["state"].step
+    eval_batches = sum(-(-res[s]["n"] // cfg.data.eval_batch_size) for s in ("val", "test"))
+    with open(res["metrics_csv"]) as f:
+        header, values = f.read().strip().splitlines()
+    print(f"serving: {card}: local --dataset unswnb15: {steps} steps, losses {res['losses']}, launches {launches}; test {header} = {values}", flush=True)
+    check(cfg.data.dataset == "unswnb15" and cfg.model.dim == 768 and steps == 9, f"local ran {cfg.data.dataset} at {cfg.model.dim} for {steps} steps")
+    check(launches["flash_fwd_dropout"] == launches["flash_bwd_dkdv"] == launches["flash_bwd_dq"] == n_layers * steps,
+          f"K1-dropout/K2/K3 launches {launches} for {steps} steps")
+    check(launches["flash_fwd"] == n_layers * eval_batches, f"K1 (rate 0) launches {launches['flash_fwd']} for {eval_batches} eval batches")
+    check(all(np.isfinite(float(v)) for v in values.split(",")) and all(np.isfinite(res["losses"])), f"metrics {values}, losses {res['losses']}")
+    served: list[str] = []
+
+    unsw = make_synthetic("unswnb15", 64, seed=seed + 31)
+    spec = get_dataset("unswnb15")
+    records = [{c: unsw[c][i].item() for c in spec.feature_columns} for i in range(64)]
+    texts = spec.render_texts(unsw)
+    server = build_server(build_parser().parse_args(serve_args("--checkpoint-dir", ckpt, "--dataset", "unswnb15")))
+    with server:
+        counts_zero()
+        batches0 = server.stats()["batches"]
+        with ScoringClient("127.0.0.1", server.port) as c:
+            replies = [c.score(features=r) for r in records]
+        k1 = counts_read()["flash_fwd"]
+        batches = server.stats()["batches"] - batches0
+    with Checkpointer(ckpt) as ck:
+        trained = ck.restore_params(step=steps)
+    want, _ = dot_probs(server.engine.model_cfg, trained, texts)
+    diff = float(np.abs(np.array([r["prob"] for r in replies]) - want).max())
+    print(f"serving: infer-serve --checkpoint-dir --dataset unswnb15: 64 UNSW features replies vs the dot path on the same "
+          f"rendered texts: max|diff| {diff:.3e} (bf16 atol 1e-2)", flush=True)
+    check(diff <= 1e-2, f"UNSW replies differ from the dot path by {diff}")
+    check(k1 == n_layers * batches, f"K1 launched {k1} times for {batches} batches")
+    launches["flash_fwd"] += k1
+    served += texts
+
+    tok = default_tokenizer()
+    cfg7 = ModelConfig.distilbert_base(vocab_size=len(tok.vocab), attention_impl="flash", compute_dtype="bfloat16", n_classes=7)
+    params7 = init_params(cfg7, torch.Generator().manual_seed(seed + 32))
+    reg7 = os.path.join(work, "registry_mc")
+    publish(reg7, params7, 1, cfg7)
+    ddos = make_synthetic("cicddos2019", 64, seed=seed + 33)
+    mc = get_dataset("cicddos2019-mc")
+    records = [{c: ddos[c][i].item() for c in mc.feature_columns} for i in range(64)]
+    texts = mc.render_texts(ddos)
+    server = build_server(build_parser().parse_args(serve_args("--registry-dir", reg7, "--dataset", "cicddos2019-mc")))
+    with server:
+        counts_zero()
+        batches0 = server.stats()["batches"]
+        res = run_load("127.0.0.1", server.port, records, concurrency=8, timeout=120)
+        with ScoringClient("127.0.0.1", server.port) as c:
+            replies = [c.score(features=r) for r in records]
+        k1 = counts_read()["flash_fwd"]
+        batches = server.stats()["batches"] - batches0
+    cp = np.array([r["class_probs"] for r in replies], np.float64)
+    prob = np.array([r["prob"] for r in replies], np.float64)
+    want_p, want_cp = dot_probs(cfg7, params7, texts)
+    sums = float(np.abs(cp.sum(1) - 1).max())
+    head = float(np.abs(prob - (1 - cp[:, 0])).max())
+    diff = float(np.abs(cp - want_cp).max())
+    print(f"serving: {card}: K=7 artifact (cicddos2019-mc): {res['scored'] + len(replies)} replies, class_probs {cp.shape}, "
+          f"max|sum - 1| {sums:.2e} (1e-5), max|prob - (1 - class_probs[0])| {head:.2e} (1e-6), max|class_probs - dot| "
+          f"{diff:.3e} (bf16 atol 1e-2)", flush=True)
+    check(res["scored"] == 64 and cp.shape == (64, 7) and sums <= 1e-5 and head <= 1e-6, f"K=7 replies: shape {cp.shape}, sums {sums}, head {head}")
+    check(diff <= 1e-2 and float(np.abs(prob - want_p).max()) <= 1e-2, f"K=7 class_probs differ from the dot path by {diff}")
+    check(k1 == cfg7.n_layers * batches, f"K1 launched {k1} times for {batches} batches")
+    launches["flash_fwd"] += k1
+    served += texts
+    return launches, served
+
+
+def tokenizer_check(card: str, texts: list[str]) -> None:
+    """Serving (d): the native encoder is active here, its ids on every
+    served text equal the Python encoder's; µs per flow for both."""
+    tok = default_tokenizer()
+    err = native.build_error("wordpiece.cpp")
+    got = tok.batch_encode(texts, max_len=128)
+    check(tok.native_active, f"the native WordPiece encoder is not active on this machine: {err}")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        got = tok.batch_encode(texts, max_len=128)
+    t_native = (time.perf_counter() - t0) / 5
+    t0 = time.perf_counter()
+    want = tok.batch_encode_python(texts, max_len=128)
+    t_python = time.perf_counter() - t0
+    same = all(np.array_equal(got[k], want[k]) for k in ("input_ids", "attention_mask"))
+    print(f"serving: {card}: tokenizer over {len(texts)} served texts: native {t_native / len(texts) * 1e6:.2f} us/flow, "
+          f"Python {t_python / len(texts) * 1e6:.2f} us/flow; ids array-equal: {same} (library {native.library_path('wordpiece.cpp')})", flush=True)
+    check(same, "the native encoder's ids differ from the Python encoder's")
+
+
+def serving_phase(seed: int, card: str) -> dict[str, int]:
+    """Auth, load, reload frame, schemas and tokenizer at full width on
+    the card. Returns each flash kernel's launches during it."""
+    t0 = time.perf_counter()
+    tok = default_tokenizer()
+    cfg = ModelConfig.distilbert_base(vocab_size=len(tok.vocab), attention_impl="flash", compute_dtype="bfloat16")
+    params = init_params(cfg, torch.Generator().manual_seed(seed + 29))
+    old_secret = os.environ.get("FEDTPU_SECRET")
+    os.environ["FEDTPU_SECRET"] = SERVE_SECRET
+    try:
+        with tempfile.TemporaryDirectory() as work:
+            reg = os.path.join(work, "registry")
+            publish(reg, params, 1, cfg)
+            k1_serve, _, served = auth_and_load(seed, card, reg, cfg, params)
+            del os.environ["FEDTPU_SECRET"]
+            launches, more = schemas(seed, card, work)
+    finally:
+        if old_secret is None:
+            os.environ.pop("FEDTPU_SECRET", None)
+        else:
+            os.environ["FEDTPU_SECRET"] = old_secret
+    tokenizer_check(card, served + more)
+    launches["flash_fwd"] += k1_serve
+    print(f"serving: launches {launches}; phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1826,6 +2147,11 @@ def main() -> int:
     k4["launches"] += rounds_launches["fold"]
     for row in (k1, k1_drop, k2, k3):
         row["launches"] += rounds_launches[row["name"]]
+
+    phase("serving")
+    serving_launches = serving_phase(seed, card)
+    for row in (k1, k1_drop, k2, k3):
+        row["launches"] += serving_launches[row["name"]]
 
     print(json.dumps({"kernels": [k1, k1_drop, k2, k3, k4]}), flush=True)
     print(json.dumps({

@@ -1,7 +1,8 @@
 """Shared CLI plumbing of the ported commands: config resolution from
-flags, data loading and per-client report writing (the port's copy of
-the parts of the JAX package's ``cli/common.py`` that ``local``,
-``client`` and ``predict`` use)."""
+flags, data loading (a CSV, a mixed ``--source`` corpus or synthetic
+flows of the ``--dataset`` schema) and per-client report writing (the
+port's copy of the parts of the JAX package's ``cli/common.py`` that
+``local``, ``client``, ``federated`` and ``predict`` use)."""
 
 from __future__ import annotations
 
@@ -39,6 +40,8 @@ def resolve_config(args: argparse.Namespace, *, vocab_size: int) -> ExperimentCo
         raise SystemExit(str(e)) from None
 
     data_kw: dict[str, Any] = {"max_len": model.max_len}
+    if getattr(args, "dataset", None):
+        data_kw.update(dataset=args.dataset)
     if getattr(args, "batch_size", None):
         data_kw.update(batch_size=args.batch_size, eval_batch_size=args.batch_size)
     if getattr(args, "data_fraction", None):
@@ -93,20 +96,18 @@ def _resolve_fed(args: argparse.Namespace) -> FedConfig:
     return FedConfig(**kw)
 
 
-def _load_clients(args, cfg: ExperimentConfig, tok, num_clients: int):
-    """CSV or synthetic flows -> per-client splits -> token arrays."""
-    from ..data.cicids import load_flow_csv, make_all_client_splits
+def _load_client_splits(args, cfg: ExperimentConfig, num_clients: int):
+    """CSV, mixed corpus (``--source``) or synthetic flows -> per-client
+    text splits, as the JAX package's ``cli/common.py`` loads them."""
+    from ..data.cicids import (
+        load_flow_csv,
+        make_all_client_splits,
+        make_all_client_splits_from_corpus,
+    )
+    from ..data.datasets import load_mixed_corpus, parse_source_arg
     from ..data.partition import MANIFEST_FILENAME
-    from ..data.pipeline import tokenize_client
-    from ..data.synthetic import make_synthetic_flows
+    from ..data.synthetic import make_synthetic
 
-    if getattr(args, "csv", None):
-        log.info(f"[DATA] loading {args.csv}")
-        frame = load_flow_csv(args.csv)
-    else:
-        n = getattr(args, "synthetic", None) or 2400
-        log.info(f"[DATA] generating {n} synthetic {cfg.data.dataset} flows")
-        frame = make_synthetic_flows(n, seed=cfg.data.seed_base)
     # The non-IID schemes record each client's label histogram next to
     # the run outputs (data/partition.py).
     manifest_path = (
@@ -114,7 +115,41 @@ def _load_clients(args, cfg: ExperimentConfig, tok, num_clients: int):
         if cfg.data.partition != "sample" and cfg.output_dir
         else None
     )
-    splits = make_all_client_splits(frame, num_clients, cfg.data, manifest_path=manifest_path)
+    if getattr(args, "source", None):
+        if getattr(args, "csv", None):
+            raise SystemExit("--csv and --source are mutually exclusive")
+        # --dataset pins the schema of unprefixed --source entries; an
+        # entry with neither is sniffed (datasets.detect_dataset).
+        try:
+            entries = [
+                (name or getattr(args, "dataset", None), path)
+                for name, path in map(parse_source_arg, args.source)
+            ]
+        except ValueError as e:
+            raise SystemExit(f"--source: {e}") from None
+        log.info(f"[DATA] loading a {len(entries)}-source mixed corpus")
+        corpus = load_mixed_corpus(entries)
+        return make_all_client_splits_from_corpus(
+            corpus, num_clients, cfg.data, manifest_path=manifest_path
+        )
+    if getattr(args, "csv", None):
+        log.info(f"[DATA] loading {args.csv}")
+        frame = load_flow_csv(args.csv)
+    else:
+        n = getattr(args, "synthetic", None) or 2400
+        log.info(f"[DATA] generating {n} synthetic {cfg.data.dataset} flows")
+        try:
+            frame = make_synthetic(cfg.data.dataset, n, seed=cfg.data.seed_base)
+        except ValueError as e:
+            raise SystemExit(f"--synthetic: {e}") from None
+    return make_all_client_splits(frame, num_clients, cfg.data, manifest_path=manifest_path)
+
+
+def _load_clients(args, cfg: ExperimentConfig, tok, num_clients: int):
+    """Per-client text splits -> token arrays."""
+    from ..data.pipeline import tokenize_client
+
+    splits = _load_client_splits(args, cfg, num_clients)
     return [tokenize_client(s, tok, max_len=cfg.model.max_len) for s in splits]
 
 

@@ -16,6 +16,7 @@ import argparse
 import logging
 import sys
 
+from ..data.datasets import DATASETS
 from ..models.presets import preset_names
 from .comm import cmd_client, cmd_serve
 from .control import cmd_registry
@@ -57,13 +58,31 @@ def _add_device(p: argparse.ArgumentParser, what: str) -> None:
     )
 
 
+def _add_dataset(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--dataset",
+        choices=sorted(DATASETS),
+        help="registered dataset schema: its text template and label "
+        "semantics (default cicids2017)",
+    )
+
+
 def _add_training(p: argparse.ArgumentParser) -> None:
     """The data, model and training flags ``local`` and ``client`` share."""
     p.add_argument(
         "--preset", default="tiny", help=f"{'|'.join(preset_names())}"
     )
-    p.add_argument("--csv", help="CICIDS2017-style flow CSV path")
-    p.add_argument("--synthetic", type=int, metavar="N", help="use N synthetic flows")
+    p.add_argument("--csv", help="flow CSV path (schema set by --dataset)")
+    _add_dataset(p)
+    p.add_argument(
+        "--source",
+        action="append",
+        metavar="[DATASET=]PATH",
+        help="mixed-corpus CSV source (repeatable, exclusive with --csv); "
+        "the dataset is --dataset's, else detected from the schema, when "
+        "the entry names none",
+    )
+    p.add_argument("--synthetic", type=int, metavar="N", help="use N synthetic flows of --dataset's schema")
     p.add_argument("--output-dir", default=None)
     p.add_argument("--batch-size", type=int)
     p.add_argument("--epochs", type=int, help="epochs per round")
@@ -283,10 +302,12 @@ def build_parser() -> argparse.ArgumentParser:
         "infer-serve",
         help="online inference: dynamic-batching TCP scoring service",
         epilog="Requests are one frame each (serving/protocol.py): "
-        '{"id": N, "text": "..."} or {"id": N, "features": {...}} with an '
-        "optional per-request deadline_ms; replies carry P(attack) plus "
-        "telemetry (model round, batch size, queue wait). A full queue or "
-        "a blown deadline gets an explicit reject frame, never a hang.",
+        '{"id": N, "text": "..."} or {"id": N, "features": {...}} (rendered '
+        "through --dataset's template) with an optional per-request "
+        "deadline_ms; replies carry P(attack) plus telemetry (model round, "
+        "batch size, queue wait). A full queue or a blown deadline gets an "
+        "explicit reject frame, never a hang. Stats probes and reload-now "
+        "frames ride the same connection.",
     )
     p.add_argument(
         "--registry-dir",
@@ -316,6 +337,14 @@ def build_parser() -> argparse.ArgumentParser:
         choices=["dot", "flash"],
         help="attention path: dot (plain PyTorch) or flash (the CUDA "
         "kernel); the artifact manifest's model_config wins",
+    )
+    _add_dataset(p)
+    p.add_argument(
+        "--auth",
+        action="store_true",
+        help="require the HMAC challenge-response on every scoring "
+        "connection (shared secret from FEDTPU_SECRET; the SDK passes "
+        "auth_key). Default: open port, like the reference",
     )
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=12380)

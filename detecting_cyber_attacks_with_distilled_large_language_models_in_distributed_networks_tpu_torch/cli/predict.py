@@ -3,10 +3,11 @@
 ``client`` state, or a ``federated`` one, whose global model (client 0's
 row of the aggregate) scores.
 
-Reads a flow CSV (the label column is optional) and writes one row per
-flow: P(attack), the thresholded 0/1 prediction and its label name; logs
-the thresholded metrics when the CSV has labels. Runs on the card unless
-``--device cpu``.
+Reads a flow CSV of the ``--dataset`` schema (the label column is
+optional), renders it through that dataset's template and writes one row
+per flow: P(attack), the thresholded 0/1 prediction and its label name;
+logs the thresholded metrics against the dataset's binary labels when
+the CSV has them. Runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -30,17 +31,19 @@ def run_predict(args) -> dict:
     column), ``model_config``, ``trainer``, ``seconds`` (the scoring
     alone, tokenized rows in, probs on the host out) and ``output``."""
     from ..data.cicids import frame_labels, frame_texts, load_flow_csv
+    from ..data.datasets import get_dataset
     from ..data.pipeline import TokenizedSplit
     from ..train.checkpoint import CheckpointError, restore_for_inference
     from ..train.engine import Trainer
 
     if not args.csv:
         raise SystemExit("predict needs --csv (the flows to classify)")
-    if args.synthetic:
-        raise SystemExit(
-            "--synthetic is a training-data option; predict reads the flows "
-            "to classify from --csv only"
-        )
+    for flag in ("source", "synthetic"):
+        if getattr(args, flag, None):
+            raise SystemExit(
+                f"--{flag} is a training-data option; predict reads the "
+                "flows to classify from --csv only"
+            )
     device = resolve_device(args.device)  # raises before any work without CUDA
     tok = default_tokenizer()
     cfg = resolve_config(args, vocab_size=len(tok.vocab))
@@ -56,11 +59,13 @@ def run_predict(args) -> dict:
     log.info(f"[PREDICT] restored {meta.get('kind', 'local')} checkpoint (step {step})")
     trainer = Trainer(model_cfg, cfg.train, pad_id=tok.pad_id, device=device)
 
+    spec = get_dataset(cfg.data.dataset)
     frame = load_flow_csv(args.csv)
-    texts = frame_texts(frame)
+    texts = frame_texts(frame, spec)
     if not texts:
         raise SystemExit(f"--csv {args.csv} has no data rows")
-    labels = frame_labels(frame, cfg.data) if cfg.data.label_column in frame else None
+    label_col = cfg.data.label_column if spec.label_kind == "positive" else spec.label_column
+    labels = frame_labels(frame, cfg.data) if label_col in frame else None
     enc = tok.batch_encode(texts, max_len=model_cfg.max_len)
     split = TokenizedSplit(
         enc["input_ids"],
@@ -73,7 +78,7 @@ def run_predict(args) -> dict:
     probs = trainer.evaluate(params, split, batch_size=cfg.data.eval_batch_size)["probs"]
     seconds = time.perf_counter() - t0
     preds = (probs >= args.threshold).astype(np.int32)
-    positive = cfg.data.positive_label
+    positive = cfg.data.positive_label if spec.label_kind == "positive" else "attack"
     with open(args.output, "w", newline="") as f:
         w = csv.writer(f)
         w.writerow(["prob_attack", "prediction", "label_name"])

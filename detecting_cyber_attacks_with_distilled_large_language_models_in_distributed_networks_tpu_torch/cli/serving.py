@@ -10,6 +10,8 @@ The two weight sources are exclusive, as in the JAX package:
 plane promoted is served, hot-swapped on promotion or rollback);
 ``--checkpoint-dir`` follows the directory's latest finished step, the
 initial load and every reload through one restore path (``predict``'s).
+``features`` requests render through ``--dataset``'s template; ``--auth``
+requires the HMAC challenge on every connection, keyed by FEDTPU_SECRET.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import dataclasses
 import logging
 import time
 
-from ..config import ModelConfig
+from ..config import DataConfig, ModelConfig
+from ..data.datasets import get_dataset
 from ..data.tokenizer import default_tokenizer
 from ..models.convert import params_from_jax
 from ..models.presets import model_preset
@@ -26,6 +29,7 @@ from ..registry import ModelRegistry
 from ..serving import CheckpointWatcher, MicroBatcher, RegistryWatcher, ScoreEngine, ScoringServer
 from ..serving.reload import checkpoint_restorer
 from ..train.checkpoint import CheckpointError
+from .comm import _auth_key
 from .common import resolve_config
 
 log = logging.getLogger(__name__)
@@ -65,6 +69,14 @@ def build_server(args) -> ScoringServer:
             f"--max-queue {args.max_queue} is smaller than the largest "
             f"bucket {buckets[-1]}: the queue could never fill one batch"
         )
+    auth_key = None
+    if args.auth:
+        auth_key = _auth_key()
+        if auth_key is None:
+            raise SystemExit(
+                "--auth needs the shared secret in the FEDTPU_SECRET env "
+                "var (same value on the server and every scoring client)"
+            )
     if args.registry_dir and args.checkpoint_dir:
         raise SystemExit(
             "--registry-dir and --checkpoint-dir are two different reload "
@@ -117,15 +129,18 @@ def build_server(args) -> ScoringServer:
         round_id=round_id,
         device=args.device,
     )
+    dataset = args.dataset or DataConfig.dataset
     log.info(
         f"[SERVE] serving {source} (round {engine.round_id}, attention "
-        f"{model_cfg.attention_impl}, {model_cfg.compute_dtype}) on {engine.device}"
+        f"{model_cfg.attention_impl}, {model_cfg.compute_dtype}) on {engine.device}; "
+        f"{dataset} features; auth {'on' if auth_key else 'off (open port)'}"
     )
     return ScoringServer(
         engine,
         tok,
         host=args.host,
         port=args.port,
+        spec=get_dataset(dataset),
         threshold=args.threshold,
         batcher=MicroBatcher(
             max_batch=buckets[-1],
@@ -138,6 +153,7 @@ def build_server(args) -> ScoringServer:
             else None
         ),
         watcher=watcher,
+        auth_key=auth_key,
     )
 
 

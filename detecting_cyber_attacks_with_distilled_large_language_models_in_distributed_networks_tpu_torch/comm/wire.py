@@ -2,8 +2,9 @@
 
 Three vocabularies of the JAX package's ``comm/wire.py``:
 
-* the scoring frames' three magics (request, reply, reject), which the
-  scoring service speaks;
+* the scoring frames' magics (request, reply, reject, stats, reload and
+  the auth proof, with the proof's HMAC domain), which the scoring
+  service speaks;
 * the model-weight message of a federated round (``FTPW``)::
 
       MAGIC 'FTPW' | u32 version | u32 header_len | header JSON | payload
@@ -66,6 +67,17 @@ SCORE_REQ_MAGIC = b"SCRQ"  # fedtpu: allow(wire-magic-coverage): the JAX package
 SCORE_REP_MAGIC = b"SCRP"  # fedtpu: allow(wire-magic-coverage): the JAX package's scoring magic, copied byte for byte so both packages speak one protocol
 #: The explicit 503/504-style refusal (admission control, deadline).
 SCORE_REJ_MAGIC = b"SCRJ"  # fedtpu: allow(wire-magic-coverage): the JAX package's scoring magic, copied byte for byte so both packages speak one protocol
+#: The client's answer to an authenticated scoring server's NONCE
+#: challenge: SCORE_AUTH_MAGIC + HMAC-SHA256(key, SCORE_AUTH_DOMAIN + nonce).
+SCORE_AUTH_MAGIC = b"SCAU"  # fedtpu: allow(wire-magic-coverage): the JAX package's scoring magic, copied byte for byte so both packages speak one protocol
+SCORE_AUTH_DOMAIN = b"fedtpu-score-auth-v1"
+#: The in-band stats probe and its reply (the server's stats() snapshot).
+SCORE_STAT_MAGIC = b"SCST"  # fedtpu: allow(wire-magic-coverage): the JAX package's scoring magic, copied byte for byte so both packages speak one protocol
+SCORE_STATR_MAGIC = b"SCSR"  # fedtpu: allow(wire-magic-coverage): the JAX package's scoring magic, copied byte for byte so both packages speak one protocol
+#: Reload now: a forced watcher poll at the next batch boundary, answered
+#: once the adoption attempt finished.
+SCORE_RELOAD_MAGIC = b"SCRL"  # fedtpu: allow(wire-magic-coverage): the JAX package's scoring magic, copied byte for byte so both packages speak one protocol
+SCORE_RELOADR_MAGIC = b"SCRD"  # fedtpu: allow(wire-magic-coverage): the JAX package's scoring magic, copied byte for byte so both packages speak one protocol
 
 #: A model-weight message (a client's upload, the server's aggregate).
 MAGIC = b"FTPW"  # fedtpu: allow(wire-magic-coverage): the JAX package's weight-message magic, copied byte for byte so both packages exchange rounds

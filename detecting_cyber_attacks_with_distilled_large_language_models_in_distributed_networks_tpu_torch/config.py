@@ -137,7 +137,9 @@ class DataConfig:
     """
 
     csv_path: str = "CICIDS2017.csv"
-    # Registered dataset schema; the port renders cicids2017 only so far.
+    # Registered dataset schema: cicids2017 | cicddos2019 | unswnb15 |
+    # cicddos2019-mc (data/datasets.py). Governs the text template and the
+    # label semantics.
     dataset: str = "cicids2017"
     data_fraction: float = 0.1
     seed_base: int = 42  # client i uses seed_base + i  (42, 43, ... — matches reference)
@@ -171,10 +173,9 @@ class DataConfig:
                 f"unknown partition scheme {self.partition!r} "
                 "(sample|disjoint|dirichlet|quantity)"
             )
-        if self.dataset != "cicids2017":
-            raise NotImplementedError(
-                f"dataset={self.dataset!r} is not ported yet (cicids2017 only)"
-            )
+        from .data.datasets import get_dataset
+
+        get_dataset(self.dataset)  # an unknown name raises ValueError
 
     def client_seed(self, client_id: int) -> int:
         return self.seed_base + client_id

@@ -1,4 +1,4 @@
-"""CICIDS2017 loading, imputation, per-client partitioning and splits.
+"""Flow CSV loading, imputation, per-client partitioning and splits.
 
 The port's copy of the JAX package's ``data/cicids.py``, without pandas:
 a frame is a dict of equal-length numpy columns in CSV column order.
@@ -13,7 +13,11 @@ a frame is a dict of equal-length numpy columns in CSV column order.
   partition of the whole frame (data/partition.py).
 * 60/20/20 train/val/test via two chained shuffled splits with the same
   seed — reference client1.py:365-366.
-* Label map ``'DDoS' -> 1 else 0`` — reference client1.py:91.
+* Texts and labels through the configured dataset's spec
+  (data/datasets.py): for CICIDS2017 the template of reference
+  client1.py:68-81 and ``'DDoS' -> 1 else 0`` (client1.py:91).
+* A schema-erased :class:`~.datasets.Corpus` (``--source``, possibly
+  several datasets) partitions by row index the same way.
 """
 
 from __future__ import annotations
@@ -25,8 +29,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..config import DataConfig
+from .datasets import CICIDS2017, Corpus, DatasetSpec, get_dataset
 from .partition import log_manifest, partition_indices, partition_manifest, save_manifest
-from .textualize import CICIDS_TEMPLATE, render_template
 
 #: ``{column name: values}``, every column the same length.
 Frame = dict[str, np.ndarray]
@@ -145,24 +149,27 @@ class ClientSplits:
         return len(self.train)
 
 
-def frame_texts(frame: Frame) -> list[str]:
-    """The CICIDS2017 template over every row (reference client1.py:90)."""
-    missing = [c for _, c, _ in CICIDS_TEMPLATE if c not in frame]
-    if missing:
-        raise KeyError(f"flow frame is missing template columns {missing}")
-    return render_template(frame, CICIDS_TEMPLATE)
+def frame_texts(frame: Frame, spec: DatasetSpec = CICIDS2017) -> list[str]:
+    """The dataset's template over every row (for CICIDS2017, reference
+    client1.py:90)."""
+    return spec.render_texts(frame)
 
 
 def frame_labels(frame: Frame, cfg: DataConfig) -> np.ndarray:
-    """Binary labels: ``positive_label -> 1 else 0`` (reference
-    client1.py:91)."""
-    if cfg.label_column not in frame:
-        raise KeyError(f"flow frame has no label column {cfg.label_column!r}")
-    return (frame[cfg.label_column] == cfg.positive_label).astype(np.int32)
+    """Binary labels under the configured dataset's spec; for a
+    positive-match spec (CICIDS2017) the config's ``label_column`` and
+    ``positive_label`` apply (reference client1.py:91)."""
+    spec = get_dataset(cfg.dataset)
+    if spec.label_kind == "positive":
+        return spec.binary_labels(
+            frame, label_column=cfg.label_column, positive_value=cfg.positive_label
+        )
+    return spec.binary_labels(frame)
 
 
-def _splits_from_frame(part: Frame, client_id: int, cfg: DataConfig) -> ClientSplits:
-    texts, labels = frame_texts(part), frame_labels(part, cfg)
+def _splits_from_arrays(
+    texts: list[str], labels: np.ndarray, client_id: int, cfg: DataConfig
+) -> ClientSplits:
     tr, va, te = train_val_test_split(
         len(texts), cfg.client_seed(client_id), cfg.val_fraction, cfg.test_fraction
     )
@@ -171,6 +178,11 @@ def _splits_from_frame(part: Frame, client_id: int, cfg: DataConfig) -> ClientSp
         return SplitArrays([texts[i] for i in idx], labels[idx])
 
     return ClientSplits(client_id, _take(tr), _take(va), _take(te))
+
+
+def _splits_from_frame(part: Frame, client_id: int, cfg: DataConfig) -> ClientSplits:
+    texts = frame_texts(part, get_dataset(cfg.dataset))
+    return _splits_from_arrays(texts, frame_labels(part, cfg), client_id, cfg)
 
 
 def _all_client_frames(frame: Frame, num_clients: int, cfg: DataConfig) -> list[Frame]:
@@ -212,3 +224,31 @@ def make_all_client_splits(
     if manifest_path:
         save_manifest(manifest, manifest_path)
     return [_splits_from_frame(p, cid, cfg) for cid, p in enumerate(frames)]
+
+
+def make_all_client_splits_from_corpus(
+    corpus: Corpus, num_clients: int, cfg: DataConfig, *, manifest_path: str | None = None
+) -> list[ClientSplits]:
+    """Every client's splits over a schema-erased (possibly mixed) corpus.
+
+    ``sample`` takes the first ``round(n * data_fraction)`` rows of a
+    ``RandomState(client seed)`` permutation per client; the index-based
+    schemes cut :func:`partition_indices` over the corpus labels. A
+    client's shard can span source datasets."""
+    n = len(corpus)
+    if cfg.partition == "sample":
+        per_client = max(1, int(round(n * cfg.data_fraction)))
+        parts = [
+            np.random.RandomState(cfg.client_seed(cid)).permutation(n)[:per_client]
+            for cid in range(num_clients)
+        ]
+    else:
+        parts = partition_indices(corpus.labels, num_clients, cfg)
+    manifest = partition_manifest([corpus.labels[idx] for idx in parts], cfg=cfg, total_rows=n)
+    log_manifest(manifest)
+    if manifest_path:
+        save_manifest(manifest, manifest_path)
+    return [
+        _splits_from_arrays([corpus.texts[i] for i in idx], corpus.labels[idx], cid, cfg)
+        for cid, idx in enumerate(parts)
+    ]

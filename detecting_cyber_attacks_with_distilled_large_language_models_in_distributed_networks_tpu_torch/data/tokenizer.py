@@ -3,9 +3,11 @@
 The port's copy of the JAX package's ``data/tokenizer.py``: BasicTokenizer
 (clean, lowercase, accent-strip, punctuation split) + greedy longest-match
 WordPiece with ``##`` continuations, and the same vocab functions, so both
-packages turn a flow sentence into the same ids. The native C++ batch
-encoder of the JAX package is not ported yet; ``batch_encode`` here is the
-pure-Python path, whose output the native one matches bit for bit.
+packages turn a flow sentence into the same ids. ``batch_encode`` sends
+pure-ASCII batches to the native C++ encoder built from the repository's
+``native/wordpiece.cpp`` (``data/native_tokenizer.py``) when the vocab
+allows it, and every other batch through the Python path here; both give
+the same ids.
 
 Because there is no pretrained vocab offline, the default vocab is
 *domain-complete*: every sentence the flow template can emit tokenizes
@@ -15,6 +17,7 @@ with zero ``[UNK]``s.
 from __future__ import annotations
 
 import string
+import threading
 import unicodedata
 from collections import Counter
 from typing import Iterable, Mapping, Sequence
@@ -188,6 +191,10 @@ class WordPieceTokenizer:
         self.cls_id = self.vocab[CLS]
         self.sep_id = self.vocab[SEP]
         self._word_cache: dict[str, list[int]] = {}
+        self._native = None  # bound lazily by the first batch_encode
+        self._native_tried = False
+        self._native_lock = threading.Lock()
+        self._last_native = False
 
     def __len__(self) -> int:
         return len(self.vocab)
@@ -238,11 +245,56 @@ class WordPieceTokenizer:
             ids = ids[: max_len - 2]
         return [self.cls_id, *ids, self.sep_id]
 
+    def _native_encoder(self):
+        """This vocab bound into the native batch encoder, or None: only a
+        dense (ids 0..n-1), newline-free vocab with no empty token and the
+        default word-length cap takes it, else the Python path is the
+        authority (the JAX package's conditions)."""
+        with self._native_lock:
+            if self._native_tried:
+                return self._native
+            self._native_tried = True
+            if self.max_input_chars_per_word != 100:
+                return None
+            tokens: list[str | None] = [None] * len(self.vocab)
+            for tok, i in self.vocab.items():
+                # An empty token would vanish from the '\n'-joined vocab
+                # blob and shift every later id.
+                if not tok or "\n" in tok or not 0 <= i < len(tokens) or tokens[i] is not None:
+                    return None
+                tokens[i] = tok
+            if any(t is None for t in tokens):
+                return None
+            from .native_tokenizer import NativeWordPiece
+
+            self._native = NativeWordPiece.create(tokens)
+            return self._native
+
+    @property
+    def native_active(self) -> bool:
+        """Whether the last ``batch_encode`` ran on the native encoder."""
+        return self._last_native
+
     def batch_encode(
         self, texts: Sequence[str], max_len: int = 128
     ) -> dict[str, np.ndarray]:
         """Static-shape ``[N, max_len]`` int32 ``input_ids`` + ``attention_mask``
-        (equivalent to HF ``padding='max_length'``)."""
+        (equivalent to HF ``padding='max_length'``). Pure-ASCII batches
+        take the native encoder when it is available; anything else runs
+        :meth:`batch_encode_python`, with the same ids."""
+        native = self._native_encoder()
+        if native is not None:
+            out = native.encode_batch(texts, max_len, lowercase=self.lowercase)
+            if out is not None:
+                self._last_native = True
+                return out
+        self._last_native = False
+        return self.batch_encode_python(texts, max_len)
+
+    def batch_encode_python(
+        self, texts: Sequence[str], max_len: int = 128
+    ) -> dict[str, np.ndarray]:
+        """:meth:`batch_encode` on the Python path alone."""
         n = len(texts)
         input_ids = np.full((n, max_len), self.pad_id, dtype=np.int32)
         attention_mask = np.zeros((n, max_len), dtype=np.int32)

@@ -1,11 +1,18 @@
 """Online scoring service on the port: protocol, batcher, engine, server,
-client, reload watchers (see each module)."""
+clients and load generator, reload watchers (see each module)."""
 
-from .batcher import MicroBatcher, ScoreRequest  # noqa: F401
-from .client import ScoreRejected, ScoringClient  # noqa: F401
-from .engine import DEFAULT_BUCKETS, ScoreEngine  # noqa: F401
-from .reload import CheckpointWatcher, RegistryWatcher  # noqa: F401
-from .protocol import (  # noqa: F401
+from .batcher import MicroBatcher, ScoreRequest
+from .client import (
+    AsyncScoringClient,
+    PipelinedScoringClient,
+    ScoreRejected,
+    ScoringClient,
+    fetch_stats,
+    load_arrival_trace,
+    run_load,
+)
+from .engine import DEFAULT_BUCKETS, ScoreEngine
+from .protocol import (
     build_reject,
     build_reply,
     build_request,
@@ -13,4 +20,28 @@ from .protocol import (  # noqa: F401
     parse_reply,
     parse_request,
 )
-from .server import ScoringServer  # noqa: F401
+from .reload import CheckpointWatcher, RegistryWatcher
+from .server import ScoringServer
+
+__all__ = [
+    "AsyncScoringClient",
+    "CheckpointWatcher",
+    "DEFAULT_BUCKETS",
+    "MicroBatcher",
+    "PipelinedScoringClient",
+    "RegistryWatcher",
+    "ScoreEngine",
+    "ScoreRejected",
+    "ScoreRequest",
+    "ScoringClient",
+    "ScoringServer",
+    "build_reject",
+    "build_reply",
+    "build_request",
+    "fetch_stats",
+    "load_arrival_trace",
+    "parse_reject",
+    "parse_reply",
+    "parse_request",
+    "run_load",
+]

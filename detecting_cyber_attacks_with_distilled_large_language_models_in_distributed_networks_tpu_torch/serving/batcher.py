@@ -85,6 +85,9 @@ class MicroBatcher:
         except queue.Full:
             return False
 
+    def qsize(self) -> int:
+        return self._q.qsize()
+
     def next_batch(self, timeout: float | None = 0.1) -> list[ScoreRequest]:
         """Blocking coalesce: wait up to ``timeout`` for the first request
         (empty list on timeout — the scorer's idle tick, where reload

@@ -3,37 +3,42 @@
 Port of the JAX package's ``serving/server.py`` core. Thread layout:
 
 * one **accept** thread hands each connection to a reader thread;
-* one **reader** thread per connection parses and tokenizes requests (the
+* one **reader** thread per connection runs the auth handshake first
+  when the server has a key, then parses and tokenizes requests (the
   WordPiece work runs in parallel across clients, off the scorer's path)
   and submits them to the micro-batcher; a full queue is answered with
-  the explicit reject frame right there;
-* one **scorer** thread owns the device: on each idle tick it polls the
-  reload watcher (``serving/reload.py``), so a reload never races a
-  batch; then coalesce, reject expired requests, score the rest through
-  the bucketed engine, queue replies;
+  the explicit reject frame right there. Stats probes are answered on
+  this thread (a probe must not queue behind scoring); reload-now frames
+  are queued for the scorer;
+* one **scorer** thread owns the device: at each batch boundary it
+  answers queued reload frames after one forced watcher poll, and polls
+  the reload watcher (``serving/reload.py``) on its interval, so a reload
+  never races a batch; then coalesce, reject expired requests, score the
+  rest through the bucketed engine, queue replies;
 * one **writer** thread per connection drains a bounded outbound queue,
   so a client that stops reading stalls only its own writer.
 
 No ACK bytes ride the scoring sockets (framing ``await_ack=False`` both
 directions), so reader and writer writes cannot interleave.
 
-Not ported yet: the auth handshake, the stats and reload frames, and the
-metrics, tracing and JSONL exports.
+Not ported: the metrics registry, tracing and the JSONL exports.
 """
 
 from __future__ import annotations
 
 import collections
 import logging
+import os
 import queue
 import socket
 import threading
 import time
+
 import numpy as np
 
 from ..comm import framing
-from ..comm.wire import WireError
-from ..data.textualize import CICIDS_TEMPLATE, render_row
+from ..comm.wire import NONCE_LEN, NONCE_MAGIC, WireError
+from ..data.textualize import render_row
 from . import protocol
 from .batcher import MicroBatcher, ScoreRequest
 
@@ -46,6 +51,10 @@ MAX_REQUEST_FRAME = 1 << 20  # 1 MB
 IDLE_TICK_S = 0.05
 #: Requests whose latency the percentiles in stats() cover.
 LATENCY_WINDOW = 100_000
+#: How long an unauthenticated connection may hold a reader thread.
+AUTH_TIMEOUT_S = 10.0
+#: Fixed [0, 1] bins of stats()["score_hist"] (the JAX package's default).
+SCORE_BINS = 10
 
 
 class _ConnWriter:
@@ -103,12 +112,14 @@ class _ConnWriter:
 class ScoringServer:
     """TCP scoring service over a :class:`~.engine.ScoreEngine`.
 
-    ``features`` requests render through the CICIDS2017 template (the same
-    bytes ``predict`` feeds); ``text`` requests skip rendering.
-    ``default_deadline_s`` applies to requests that name no budget (None =
-    wait forever). ``watcher``: a ``CheckpointWatcher`` or
-    ``RegistryWatcher`` polled on the scorer's idle tick (None: the
-    weights never change)."""
+    ``spec`` (a ``data.datasets.DatasetSpec``) renders ``features``
+    requests through the dataset's template, the same bytes ``predict``
+    feeds; without one, ``features`` requests get a 400 and only ``text``
+    is scored. ``default_deadline_s`` applies to requests that name no
+    budget (None = wait forever). ``watcher``: a ``CheckpointWatcher`` or
+    ``RegistryWatcher`` polled by the scorer (None: the weights never
+    change). ``auth_key``: every connection must answer the HMAC nonce
+    challenge before its first request is read (None: an open port)."""
 
     def __init__(
         self,
@@ -117,14 +128,17 @@ class ScoringServer:
         *,
         host: str = "127.0.0.1",
         port: int = 0,
+        spec=None,
         threshold: float = 0.5,
         batcher: MicroBatcher | None = None,
         default_deadline_s: float | None = None,
         watcher=None,
+        auth_key: bytes | None = None,
     ):
         self.engine = engine
         self.watcher = watcher
         self.tok = tokenizer
+        self.spec = spec
         self.threshold = float(threshold)
         self.batcher = batcher or MicroBatcher(max_batch=engine.buckets[-1])
         if self.batcher.max_batch > engine.buckets[-1]:
@@ -133,6 +147,7 @@ class ScoringServer:
                 f"largest engine bucket {engine.buckets[-1]}"
             )
         self.default_deadline_s = default_deadline_s
+        self.auth_key = auth_key
         self._closed = threading.Event()
         self._threads: list[threading.Thread] = []
         self._conns: set[socket.socket] = set()
@@ -140,7 +155,16 @@ class ScoringServer:
         self._stats_lock = threading.Lock()
         self._scored = 0
         self._batches = 0
-        self._rejects = {"deadline": 0, "overloaded": 0, "bad_request": 0, "error": 0}
+        self._rejects = {
+            "deadline": 0, "overloaded": 0, "bad_request": 0, "error": 0, "auth": 0,
+        }
+        # Reload-now frames: reader threads queue (id, writer); the scorer
+        # answers after a forced watcher poll at its next batch boundary.
+        self._reload_q: collections.deque = collections.deque()
+        self._reload_frames = 0
+        self._hist_edges = np.linspace(0.0, 1.0, SCORE_BINS + 1)
+        self._score_hist = np.zeros(SCORE_BINS, np.int64)
+        self._batch_hist: collections.Counter[int] = collections.Counter()
         self._latencies: collections.deque[float] = collections.deque(
             maxlen=LATENCY_WINDOW
         )
@@ -204,22 +228,33 @@ class ScoringServer:
         self.close()
 
     def stats(self) -> dict:
-        """Counters and server-side latency percentiles (enqueue to scored)."""
+        """Counters, histograms and server-side latency percentiles
+        (enqueue to scored): the JAX package's key set."""
         with self._stats_lock:
             lat = np.asarray(self._latencies, np.float64) * 1e3
             scored, batches = self._scored, self._batches
             rejects = dict(self._rejects)
+            batch_hist = dict(sorted(self._batch_hist.items()))
+            score_hist = self._score_hist.tolist()
+            reload_frames = self._reload_frames
         uptime = max(time.monotonic() - self._t_start, 1e-9)
         pct = {
             f"p{p}_ms": float(np.percentile(lat, p)) if lat.size else 0.0
             for p in (50, 95, 99)
         }
         return {
+            "replica": None,  # a fleet's replica id; the port has no fleet tier
             "scored": scored,
             "batches": batches,
+            "mean_batch": scored / batches if batches else 0.0,
+            "batch_size_hist": batch_hist,
+            "score_hist": score_hist,
             "rejects": rejects,
-            "round": self.engine.round_id,
+            "rejects_total": sum(rejects.values()),
+            "queue_depth": self.batcher.qsize(),
             "reloads": getattr(self.watcher, "reload_count", 0),
+            "reload_frames": reload_frames,
+            "round": self.engine.round_id,
             "uptime_s": uptime,
             "flows_per_sec": scored / uptime,
             **pct,
@@ -245,58 +280,29 @@ class ScoringServer:
             ).start()
 
     def _reader_loop(self, conn: socket.socket) -> None:
+        if self.auth_key is not None and not self._auth_handshake(conn):
+            with self._conn_lock:
+                self._conns.discard(conn)
+            try:
+                conn.close()
+            except OSError:
+                pass
+            return
         writer = _ConnWriter(conn)
-        seq_len = self.engine.seq_len
         try:
             while not self._closed.is_set():
                 try:
-                    frame = framing.recv_frame(
+                    frame = bytes(framing.recv_frame(
                         conn, send_ack=False, max_frame=MAX_REQUEST_FRAME
-                    )
+                    ))
                 except (ConnectionError, OSError):
                     return
                 except WireError as e:
                     # Oversized/corrupt frame: the stream is desynced.
                     log.warning(f"[SERVE] dropping connection: {e}")
                     return
-                try:
-                    body = protocol.parse_request(bytes(frame))
-                except WireError as e:
-                    log.warning(f"[SERVE] dropping connection: {e}")
+                if not self._handle_frame(frame, writer):
                     return
-                req_id = body["id"]  # parse_request pinned the type
-                req_trace = body.get("trace")
-                reject = self._make_reject(writer, req_id)
-                if "features" in body:
-                    try:
-                        text = render_row(body["features"], CICIDS_TEMPLATE)
-                    except KeyError as e:
-                        self._count_reject("bad_request")
-                        reject(400, f"features missing template column {e}")
-                        continue
-                else:
-                    text = body["text"]
-                enc = self.tok.batch_encode([text], max_len=seq_len)
-                deadline_ms = body.get("deadline_ms")
-                req = ScoreRequest(
-                    req_id=req_id,
-                    input_ids=enc["input_ids"][0],
-                    attention_mask=enc["attention_mask"][0],
-                    reply=self._make_reply(writer, req_id, req_trace),
-                    reject=reject,
-                    deadline_s=(
-                        float(deadline_ms) / 1e3
-                        if deadline_ms is not None
-                        else self.default_deadline_s
-                    ),
-                    trace=req_trace,
-                )
-                if not self.batcher.submit(req):
-                    self._count_reject("overloaded")
-                    reject(
-                        protocol.REJECT_OVERLOADED,
-                        f"queue full ({self.batcher.max_queue} pending)",
-                    )
         finally:
             with self._conn_lock:
                 self._conns.discard(conn)
@@ -305,6 +311,95 @@ class ScoringServer:
                 conn.close()
             except OSError:
                 pass
+
+    def _handle_frame(self, frame: bytes, writer: _ConnWriter) -> bool:
+        """One frame off a connection; False drops the connection."""
+        try:
+            if protocol.is_stats_request(frame):
+                sid = protocol.parse_stats_request(frame)["id"]
+                writer.send(protocol.build_stats_reply(sid, self.stats()))
+                return True
+            if protocol.is_reload_request(frame):
+                rid = protocol.parse_reload_request(frame)["id"]
+                with self._stats_lock:
+                    self._reload_frames += 1
+                self._reload_q.append((rid, writer))
+                return True
+            body = protocol.parse_request(frame)
+        except WireError as e:
+            # A whole frame arrived: if it still names an id, answer a 400
+            # instead of dropping (a shared connection keeps its peers).
+            try:
+                bad_id = protocol.frame_id(frame)
+            except WireError:
+                log.warning(f"[SERVE] dropping connection: {e}")
+                return False
+            self._count_reject("bad_request")
+            writer.send(protocol.build_reject(bad_id, code=400, reason=str(e)))
+            return True
+        req_id = body["id"]  # parse_request pinned the type
+        req_trace = body.get("trace")
+        reject = self._make_reject(writer, req_id)
+        if "features" in body:
+            if self.spec is None:
+                self._count_reject("bad_request")
+                reject(400, "this server accepts text requests only (no dataset spec configured)")
+                return True
+            try:
+                text = render_row(body["features"], self.spec.template)
+            except KeyError as e:
+                self._count_reject("bad_request")
+                reject(400, f"features missing template column {e}")
+                return True
+        else:
+            text = body["text"]
+        enc = self.tok.batch_encode([text], max_len=self.engine.seq_len)
+        deadline_ms = body.get("deadline_ms")
+        req = ScoreRequest(
+            req_id=req_id,
+            input_ids=enc["input_ids"][0],
+            attention_mask=enc["attention_mask"][0],
+            reply=self._make_reply(writer, req_id, req_trace),
+            reject=reject,
+            deadline_s=(
+                float(deadline_ms) / 1e3
+                if deadline_ms is not None
+                else self.default_deadline_s
+            ),
+            trace=req_trace,
+        )
+        if not self.batcher.submit(req):
+            self._count_reject("overloaded")
+            reject(
+                protocol.REJECT_OVERLOADED,
+                f"queue full ({self.batcher.max_queue} pending)",
+            )
+        return True
+
+    def _auth_handshake(self, conn: socket.socket) -> bool:
+        """The challenge before the first request is read: send
+        NONCE_MAGIC + a fresh nonce, require SCORE_AUTH_MAGIC + HMAC(key,
+        domain + nonce). It runs before the writer thread exists, so its
+        writes are the connection's only ones; a failure counts as
+        ``rejects["auth"]``."""
+        nonce = os.urandom(NONCE_LEN)
+        try:
+            conn.settimeout(AUTH_TIMEOUT_S)
+            framing.send_frame(conn, NONCE_MAGIC + nonce, await_ack=False)
+            proof = framing.recv_frame(conn, send_ack=False, max_frame=MAX_REQUEST_FRAME)
+            conn.settimeout(None)
+        except (OSError, ConnectionError, WireError) as e:
+            self._count_reject("auth")
+            log.warning(f"[SERVE] auth handshake failed: {e}")
+            return False
+        if not protocol.check_auth_response(proof, self.auth_key, nonce):
+            self._count_reject("auth")
+            log.warning(
+                "[SERVE] dropping connection: bad or missing auth proof "
+                "(the client must score with the matching key)"
+            )
+            return False
+        return True
 
     def _make_reply(self, writer: _ConnWriter, req_id: int, trace: str | None):
         def _reply(*, prob, round_id, batch_size, bucket, queue_ms, class_probs=None):
@@ -335,8 +430,26 @@ class ScoringServer:
         with self._stats_lock:
             self._rejects[kind] += 1
 
+    def _drain_reload_requests(self) -> None:
+        """Answer the queued reload frames: one forced watcher poll covers
+        every frame that arrived since the last batch, then each reply
+        names the round serving after it (no watcher: reloaded false)."""
+        if not self._reload_q:
+            return
+        reloaded = False
+        if self.watcher is not None:
+            try:
+                reloaded = bool(self.watcher.poll(self.engine, force=True))
+            except Exception as e:  # the scorer thread must survive it
+                log.warning(f"[SERVE] forced reload poll failed (non-fatal): {e}")
+        round_id = self.engine.round_id
+        while self._reload_q:
+            req_id, writer = self._reload_q.popleft()
+            writer.send(protocol.build_reload_reply(req_id, reloaded=reloaded, round_id=round_id))
+
     def _score_loop(self) -> None:
         while not self._closed.is_set():
+            self._drain_reload_requests()
             if self.watcher is not None:
                 self.watcher.poll(self.engine)
             batch = self.batcher.next_batch(timeout=IDLE_TICK_S)
@@ -374,11 +487,17 @@ class ScoringServer:
                 continue
             done = time.monotonic()
             n = len(live)
+            # The batch's score histogram over the fixed [0, 1] bins.
+            batch_hist, _ = np.histogram(
+                np.clip(np.asarray(probs[:n], np.float64), 0.0, 1.0), bins=self._hist_edges
+            )
             # Count before replying: a client that got its reply may read
             # stats() at once, and its flow must already be counted.
             with self._stats_lock:
                 self._scored += n
                 self._batches += 1
+                self._batch_hist[n] += 1
+                self._score_hist += batch_hist
                 self._latencies.extend(done - r.t_enqueue for r in live)
             kclass = class_probs.shape[1] > 2
             for i, (r, p) in enumerate(zip(live, probs)):

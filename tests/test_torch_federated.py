@@ -506,7 +506,7 @@ def test_federated_cli_matches_the_jax_cli(tmp_path, monkeypatch):
         ["--data-parallel", "2"], ["--seq-parallel", "2"], ["--personalize-epochs", "1"],
         ["--personalize-scope", "head"], ["--dp-clip", "1.0"], ["--dp-noise-multiplier", "1.0"],
         ["--coordinator", "localhost:1"], ["--num-processes", "2"], ["--process-id", "0"],
-        ["--stream"], ["--source", "x.csv"], ["--metrics-jsonl", "m.jsonl"], ["--profile-dir", "p"],
+        ["--stream"], ["--config", "c.json"], ["--metrics-jsonl", "m.jsonl"], ["--profile-dir", "p"],
     ],
 )
 def test_unported_federated_flags_are_refused(flag, capsys):

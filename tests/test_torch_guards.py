@@ -36,7 +36,9 @@ JAX_PKG = "detecting_cyber_attacks_with_distilled_large_language_models_in_distr
 PORT_PKG = JAX_PKG + "_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "pandas", "matplotlib", JAX_PKG)
 #: The frame magics the port's wire copies from the JAX package.
-PORT_MAGICS = {"SCRQ", "SCRP", "SCRJ", "FTPW", "NONC", "STRH", "STRC", "STRT"}
+PORT_MAGICS = {
+    "SCRQ", "SCRP", "SCRJ", "SCAU", "SCST", "SCSR", "SCRL", "SCRD", "FTPW", "NONC", "STRH", "STRC", "STRT",
+}
 
 
 def _port_files():
@@ -74,7 +76,8 @@ print(" ".join(names))
         "ops.fold", "comm.wire", "comm.quant", "comm.framing", "comm.stream_agg", "comm.server",
         "comm.client", "cli.comm", "strategies", "strategies.core",
         "data.partition", "train.batches", "train.fedsteps", "train.fedeval", "train.federated",
-        "parallel.fedavg", "cli.federated",
+        "parallel.fedavg", "cli.federated", "data.datasets", "data.native_tokenizer", "utils.native",
+        "serving.client", "serving.protocol", "serving.server",
     ):
         assert f"{PORT_PKG}.{mod}" in imported.split(), mod
 

@@ -255,8 +255,12 @@ def test_load_flow_csv_matches_jax(synthetic_csv):
 def test_unported_config_paths_raise():
     with pytest.raises(NotImplementedError, match="accumulation"):
         pcfg.TrainConfig(grad_accum_steps=2)
-    with pytest.raises(NotImplementedError, match="cicids2017 only"):
-        pcfg.DataConfig(dataset="unswnb15")
+    # Every registered dataset is ported; an unknown name raises, as the
+    # JAX package's get_dataset does.
+    with pytest.raises(ValueError, match="unknown dataset 'bogus'"):
+        pcfg.DataConfig(dataset="bogus")
+    for name in ("cicids2017", "cicddos2019", "unswnb15", "cicddos2019-mc"):
+        assert pcfg.DataConfig(dataset=name).dataset == name
     with pytest.raises(ValueError, match="unknown partition"):
         pcfg.DataConfig(partition="bogus")
     # Every field of the JAX configs exists in the port's.
