@@ -115,6 +115,28 @@ Phases; any failure exits non-zero before the last line is printed:
             with ``extra`` ``{"tier": "mesh", "clients": 4}``. Prints each
             round's seconds by phase, samples/s over all clients and the
             peak device memory;
+   train-options — ``local --remat`` with a ``--config`` file written by
+            the port's ``export-config`` with ``train.grad_accum_steps``
+            3: 9 micro steps, Adam's count 3, K1 with dropout twice per
+            layer of every step (remat's recompute) and K2, K3 once; one
+            step from one state with and without remat (loss, params and
+            the dropout generator compared: the largest difference is
+            printed, atol 2e-6 + rtol 1e-5); the peak device memory of one
+            bs64 step with and without remat (remat's must be lower);
+   distill — ``distill`` with a fresh 12-layer teacher (9 steps) and a
+            6-layer student (9 KD steps, the teacher at rate 0 in each):
+            student layer i equal to teacher layer 2i at init, the teacher
+            unchanged after distillation, launches as predicted, the card's
+            KD loss within rtol 1e-5 of float64 on the same logits; then
+            ``--teacher-checkpoint`` (phase 6's directory) ``--student-layers
+            3`` and ``predict`` on the student's checkpoint;
+   migrate — ``export-hf`` of phase 6's directory; ``predict --hf-dir``
+            against ``predict --checkpoint-dir`` (the same model config,
+            atol 1e-6, the largest difference printed); a reference-style
+            ``.pth`` from the export, ``predict --hf-dir --pth`` and
+            ``export-hf --pth`` (the same ``model.safetensors`` bytes);
+            ``local --hf-dir`` (9 steps); ``infer-serve --hf-dir --pth``
+            answering 32 flows within bf16 atol 1e-2 of ``predict``;
 8. round    — one FedAvg round of full-width DistilBERT-base on loopback:
             the port's ``serve`` (2 clients, fold on the card) in a
             thread and two port ``client``s in threads (``--preset
@@ -151,7 +173,11 @@ Phases; any failure exits non-zero before the last line is printed:
             of every eval batch; no dO copy. Prints a line per round with
             the card: bytes and seconds of each upload and reply, the
             fold's early and late bytes and seconds, K4's launches and
-            time, the server's phases and the round's wall;
+            time, the server's phases and the round's wall. The native wire
+            (``comm/native.py`` over ``native/fedwire.cpp``) must be
+            active; on a full-width upload its CRC equals zlib's and its
+            bf16 pack the numpy twin's; prints the host seconds of the
+            CRC and of a bf16 upload's encode, native and numpy;
 10. serving — at full width on the card, through the port's parser:
             (a) ``infer-serve --registry-dir --auth --reload-poll 3600``
             with FEDTPU_SECRET set: a client with no key and one with a
@@ -185,9 +211,10 @@ Phases; any failure exits non-zero before the last line is printed:
    serving shape and dropout at the training shape, then K2, K3 and K4;
    K1's rate-0 launches count phase 5, phase 6's evaluation, the
    lifecycle's predict and reload serving, the federated phase's
-   evaluations, predicts and serving, the rounds phase's evaluations and
-   the serving phase; K1 with dropout, K2 and K3 count phase 6, the
-   federated phase, the rounds phase and the serving phase's ``local``;
+   evaluations, predicts and serving, the train-options, distill and
+   migrate phases, the rounds phase's evaluations and the serving phase;
+   K1 with dropout, K2 and K3 count phase 6, the federated, train-options,
+   distill, migrate and rounds phases and the serving phase's ``local``;
    K4 phases 8 and 9),
    then the result line
    ``{"ok": true, "device": {...}}``.
@@ -200,8 +227,10 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import csv
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -209,6 +238,7 @@ import sys
 import tempfile
 import threading
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -221,6 +251,9 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     build_server as build_round_server,
     run_client,
 )
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.distill import (
+    run_distill,
+)
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.federated import (
     run_federated,
 )
@@ -228,9 +261,11 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     run_local,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.predict import (
+    run_export_hf,
     run_predict,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.comm import (
+    native as wire_native,
     wire,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.comm.wire import (
@@ -274,6 +309,12 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     build_trainable_params,
     model_skeleton,
 )
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.models.hf_convert import (
+    hf_dir_has_head,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.models.safetensors import (
+    load_file as load_safetensors,
+)
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.ops import (
     _build,
     flash_attention as flash_mod,
@@ -300,6 +341,10 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     STATE_FILE,
     Checkpointer,
     maybe_warm_start,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.distill import (
+    DistillTrainer,
+    distillation_loss,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.engine import (
     Trainer,
@@ -348,8 +393,12 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+_T0 = time.monotonic()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    """Announce a phase, with the seconds since the script started."""
+    print(f"== {name} (at {time.monotonic() - _T0:.1f} s)", flush=True)
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1158,6 +1207,309 @@ def lifecycle_phase(seed: int, card: str, res: dict, ckpt_dir: str, work: str) -
     return k1_predict + k1_serve
 
 
+def _src_layer(name: str, stride: int) -> str:
+    """The teacher leaf a student leaf starts from: layer i <- i * stride."""
+    parts = name.split(".")
+    if parts[1].startswith("layer_"):
+        parts[1] = f"layer_{int(parts[1][len('layer_'):]) * stride}"
+    return ".".join(parts)
+
+
+def train_options_phase(seed: int, card: str, work: str) -> dict[str, int]:
+    """Remat and gradient accumulation at full width: ``local --remat``
+    with a ``--config`` file the port's own ``export-config`` wrote
+    (``train.grad_accum_steps`` 3): 9 micro steps, Adam's count 3, K1 with
+    dropout twice per layer a step (the forward and remat's recompute),
+    K2 and K3 once. Then one step from one state with and without remat
+    (loss and params compared), and the peak device memory of one bs64
+    step each way. Returns the phase's launches."""
+    args = build_parser().parse_args(["export-config", "--preset", "distilbert", "--attention-impl", "flash"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        check(args.fn(args) == 0, "export-config failed")
+    d = json.loads(out.getvalue())
+    d["train"]["grad_accum_steps"] = 3
+    cfg_path = os.path.join(work, "accum.json")
+    with open(cfg_path, "w") as f:
+        json.dump(d, f)
+    counts_zero()
+    res = run_local(build_parser().parse_args(
+        ["local", "--config", cfg_path, "--remat", "--synthetic", "2400", "--epochs", "1", "--seed", str(seed),
+         "--output-dir", os.path.join(work, "opts")]
+    ))
+    local = counts_read()
+    cfg, state, trainer = res["config"], res["state"], res["trainer"]
+    mcfg = cfg.model
+    L = mcfg.n_layers
+    check((mcfg.dim, L, mcfg.max_len, mcfg.attention_impl, mcfg.compute_dtype) == (768, 6, 128, "flash", "bfloat16"), f"not full width: {mcfg}")
+    check(mcfg.remat and cfg.train.grad_accum_steps == 3, f"remat {mcfg.remat}, grad_accum_steps {cfg.train.grad_accum_steps}")
+    check((state.step, state.opt_state.count, state.mini_step) == (9, 3, 0),
+          f"step {state.step}, Adam count {state.opt_state.count}, mini_step {state.mini_step}: want 9, 3, 0")
+    eval_batches = sum(-(-res[s]["n"] // cfg.data.eval_batch_size) for s in ("val", "test"))
+    print(f"train-options: local --remat --config (grad_accum_steps 3): {state.step} micro steps, Adam count "
+          f"{state.opt_state.count}, epoch losses {res['losses']}, launches {local}", flush=True)
+    check(local["flash_fwd_dropout"] == 2 * L * 9 and local["flash_bwd_dkdv"] == local["flash_bwd_dq"] == L * 9,
+          f"K1-dropout/K2/K3 launches {local}: want {2 * L * 9}/{L * 9}/{L * 9} (remat recomputes K1)")
+    check(local["flash_fwd"] == L * eval_batches, f"K1 (rate 0) launches {local['flash_fwd']} for {eval_batches} eval batches")
+    check(flash_mod.BWD_DO_COPIES == 0, "the backward copied dO under remat")
+    check(all(np.isfinite(res["losses"])), f"non-finite loss {res['losses']}")
+
+    # One step from one state (dropout on, plain Adam), with and without remat.
+    batches = list(trainer.epoch_batches(res["client"].train, 0, cfg.data.batch_size))
+    steps = {}
+    for remat in (False, True):
+        t = Trainer(dataclasses.replace(mcfg, remat=remat), TrainConfig(seed=seed), pad_id=trainer.pad_id, device="cuda")
+        st = t.init_state()
+        st, loss = t.train_step(st, batches[0])
+        steps[remat] = (loss.item(), st.params, st.generator.get_state())
+    (l0, p0, g0), (l1, p1, g1) = steps[False], steps[True]
+    worst, ok, bits = abs(l1 - l0), True, l1 == l0
+    for n, t in p0.items():
+        e, good = max_excess(p1[n].detach(), t.detach(), 2e-6, 1e-5)
+        worst, ok, bits = max(worst, e), ok and good, bits and torch.equal(p1[n], t)
+    print(f"train-options: {card}: one step with remat vs without, dropout {mcfg.attention_dropout}: loss {l1!r} vs "
+          f"{l0!r}, largest difference {worst:.3e} (atol 2e-6 + rtol 1e-5), everything bit-equal {bits}, generator "
+          f"states equal {torch.equal(g0, g1)}", flush=True)
+    check(ok and abs(l1 - l0) <= 1e-6 and torch.equal(g0, g1), f"remat changed the step: {worst}")
+
+    # Peak memory of one bs64 step.
+    big = {k: np.concatenate([b[k] for b in batches[:4]]) for k in batches[0]}
+    peaks = {}
+    for remat in (False, True):
+        t = Trainer(dataclasses.replace(mcfg, remat=remat), TrainConfig(seed=seed), pad_id=trainer.pad_id, device="cuda")
+        st = t.init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t.train_step(st, big)
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated(), before)
+        del t, st
+        torch.cuda.empty_cache()
+    print(f"train-options: {card}: peak device memory of one bs{len(big['labels'])} step: without remat "
+          f"{peaks[False][0] / 2**20:.1f} MiB, with remat {peaks[True][0] / 2**20:.1f} MiB (state before the step "
+          f"{peaks[False][1] / 2**20:.1f} MiB)", flush=True)
+    check(peaks[True][0] < peaks[False][0], "remat did not lower the step's peak memory")
+    launches = counts_read()
+    extra = {"flash_fwd_dropout": 2 * (L + 2 * L), "flash_bwd_dkdv": 2 * 2 * L, "flash_bwd_dq": 2 * 2 * L, "flash_fwd": 0}
+    check(all(launches[k] == local[k] + extra[k] for k in extra), f"launches {launches} after {local} + {extra}")
+    return launches
+
+
+def distill_phase(seed: int, card: str, work: str, ckpt_dir: str, csv_path: str) -> dict[str, int]:
+    """``distill`` at full width: a fresh 12-layer teacher trained 9 steps,
+    then a 6-layer student distilled 9 steps (teacher at rate 0 in every
+    step); student layer i is teacher layer 2i at init, bit for bit, and
+    the teacher is unchanged after distillation; the card's KD loss held
+    against a float64 one on the same logits. Then ``--teacher-checkpoint``
+    (phase 6's) with ``--student-layers 3``, and ``predict`` on that
+    student's checkpoint. Returns the phase's launches."""
+    counts_zero()
+    seen = {}
+    orig = DistillTrainer.distill
+
+    def watched(self, state, teacher_params, split, **kw):
+        seen["teacher"] = {n: t.detach().clone() for n, t in teacher_params.items()}
+        return orig(self, state, teacher_params, split, **kw)
+
+    DistillTrainer.distill = watched
+    try:
+        res = run_distill(build_parser().parse_args(
+            ["distill", "--preset", "distilbert", "--attention-impl", "flash", "--synthetic", "2400", "--epochs", "1",
+             "--seed", str(seed), "--output-dir", os.path.join(work, "distill"),
+             "--checkpoint-dir", os.path.join(work, "student")]
+        ))
+    finally:
+        DistillTrainer.distill = orig
+    fresh = counts_read()
+    tcfg, scfg = res["teacher_config"], res["config"].model
+    check((tcfg.n_layers, scfg.n_layers, scfg.dim, scfg.attention_impl, scfg.compute_dtype) == (12, 6, 768, "flash", "bfloat16"),
+          f"teacher {tcfg.n_layers} layers, student {scfg}")
+    t_steps, s_steps = res["teacher_steps"], res["state"].step
+    test_b = -(-len(res["client"].test) // 16)
+    check(t_steps == s_steps == 9, f"teacher {t_steps} steps, student {s_steps}: want 9 each")
+    same_init = all(torch.equal(t, seen["teacher"][_src_layer(n, 2)]) for n, t in res["initial"].items())
+    unchanged = all(torch.equal(res["teacher_params"][n], t) for n, t in seen["teacher"].items())
+    want = {
+        "flash_fwd": 12 * s_steps + 12 * test_b + 6 * test_b,
+        "flash_fwd_dropout": 12 * t_steps + 6 * s_steps,
+        "flash_bwd_dkdv": 12 * t_steps + 6 * s_steps,
+        "flash_bwd_dq": 12 * t_steps + 6 * s_steps,
+    }
+    print(f"distill: {card}: 12-layer teacher {t_steps} steps (losses {res['teacher_losses']}) -> 6-layer student "
+          f"{s_steps} KD steps (losses {res['losses']}); student layer i == teacher layer 2i at init: {same_init}; "
+          f"teacher unchanged: {unchanged}; test acc teacher {res['teacher_metrics']['Accuracy']:.4f} student "
+          f"{res['student_metrics']['Accuracy']:.4f}; launches {fresh}, predicted {want}", flush=True)
+    check(same_init, "the student did not start from every other teacher layer")
+    check(unchanged, "distillation changed the teacher")
+    check(fresh == want, f"distill launches {fresh}, predicted {want}")
+    check(all(np.isfinite(res["losses"])) and all(np.isfinite(res["teacher_losses"])), "non-finite distill loss")
+
+    # The KD loss on the card against float64 on the host, same logits.
+    trainer, dcfg = res["trainer"], res["config"].distill
+    batch = next(iter(trainer.epoch_batches(res["client"].train, 0, 16)))
+    ids, mask, labels = (torch.from_numpy(batch[k]).cuda() for k in ("input_ids", "attention_mask", "labels"))
+    with torch.no_grad():
+        s_logits = trainer._logits(res["state"].params, ids, mask)
+        t_logits = trainer.teacher_logits(res["teacher_params"], ids, mask)
+        kd = distillation_loss(s_logits, t_logits, labels, temperature=dcfg.temperature, alpha=dcfg.alpha).item()
+    s64, t64 = s_logits.double().cpu().numpy(), t_logits.double().cpu().numpy()
+    y = batch["labels"]
+
+    def log_softmax(x):
+        m = x.max(-1, keepdims=True)
+        return x - m - np.log(np.exp(x - m).sum(-1, keepdims=True))
+
+    lt, ls = log_softmax(t64 / dcfg.temperature), log_softmax(s64 / dcfg.temperature)
+    kl = (np.exp(lt) * (lt - ls)).sum(-1).mean()
+    ce = -log_softmax(s64)[np.arange(len(y)), y].mean()
+    ref = dcfg.alpha * dcfg.temperature**2 * kl + (1 - dcfg.alpha) * ce
+    print(f"distill: {card}: KD loss on the card {kd!r}, float64 on the host {ref!r} (rtol 1e-5)", flush=True)
+    check(abs(kd - ref) <= 1e-5 * abs(ref), f"the card's KD loss {kd} is off the float64 one {ref}")
+
+    # --teacher-checkpoint: phase 6's model into 3 layers, then predict.
+    counts_zero()
+    student = os.path.join(work, "student3")
+    res3 = run_distill(build_parser().parse_args(
+        ["distill", "--preset", "distilbert", "--attention-impl", "flash", "--synthetic", "2400", "--epochs", "1",
+         "--seed", str(seed), "--teacher-checkpoint", ckpt_dir, "--student-layers", "3",
+         "--output-dir", os.path.join(work, "distill3"), "--checkpoint-dir", student]
+    ))
+    ckpt3 = counts_read()
+    check((res3["teacher_config"].n_layers, res3["config"].model.n_layers, res3["teacher_steps"]) == (6, 3, 0),
+          f"teacher {res3['teacher_config'].n_layers} layers, student {res3['config'].model.n_layers}")
+    same3 = all(torch.equal(t, res3["teacher_params"][_src_layer(n, 2)]) for n, t in res3["initial"].items())
+    s3 = res3["state"].step
+    want3 = {"flash_fwd": 6 * s3 + 6 * test_b + 3 * test_b, "flash_fwd_dropout": 3 * s3, "flash_bwd_dkdv": 3 * s3, "flash_bwd_dq": 3 * s3}
+    check(same3 and ckpt3 == want3, f"--teacher-checkpoint: init from layers 0/2/4 {same3}, launches {ckpt3}, predicted {want3}")
+    counts_zero()
+    pred = run_predict(build_parser().parse_args(
+        ["predict", "--csv", csv_path, "--checkpoint-dir", student, "--output", os.path.join(work, "pred3.csv")]
+    ))
+    predicted = counts_read()
+    probs = pred["probs"]
+    check(pred["model_config"].n_layers == 3 and bool(np.isfinite(probs).all() and (probs >= 0).all() and (probs <= 1).all()),
+          "predict on the 3-layer student: wrong depth or probs not in [0, 1]")
+    check(predicted["flash_fwd"] == 3 * -(-len(probs) // 16), f"predict K1 launches {predicted}")
+    print(f"distill: {card}: --teacher-checkpoint (6 layers) -> 3-layer student: {s3} steps, init from teacher "
+          f"layers 0/2/4 {same3}, launches {ckpt3}; predict on its checkpoint: {len(probs)} flows, "
+          f"{int(pred['predictions'].sum())} flagged, K1 launches {predicted['flash_fwd']}", flush=True)
+    return {k: fresh[k] + ckpt3[k] + predicted[k] for k in fresh}
+
+
+def migrate_phase(seed: int, card: str, work: str, ckpt_dir: str, csv_path: str) -> dict[str, int]:
+    """The pretrained start and the way back out at full width:
+    ``export-hf`` of phase 6's checkpoint directory; ``predict --hf-dir``
+    against ``predict --checkpoint-dir``; a reference-style ``.pth`` from
+    the export, ``predict --hf-dir --pth`` and ``export-hf --pth`` (the
+    same ``model.safetensors`` bytes); ``local --hf-dir`` (9 steps); and
+    ``infer-serve --hf-dir --pth`` answering 32 flows within bf16's bound
+    of ``predict``. Returns the phase's launches."""
+    flags = ["--preset", "distilbert", "--attention-impl", "flash"]
+    hf, hf2 = os.path.join(work, "hf"), os.path.join(work, "hf2")
+    counts_zero()
+    t0 = time.perf_counter()
+    exp = run_export_hf(build_parser().parse_args(["export-hf", *flags, "--checkpoint-dir", ckpt_dir, "--out", hf]))
+    export_s = time.perf_counter() - t0
+    check(sorted(os.listdir(hf)) == ["config.json", "model.safetensors", "vocab.txt"] and hf_dir_has_head(hf), f"export wrote {os.listdir(hf)}")
+
+    def predict(*argv):
+        return run_predict(build_parser().parse_args(["predict", *flags, "--csv", csv_path, *argv]))
+
+    p_ckpt = predict("--checkpoint-dir", ckpt_dir, "--output", os.path.join(work, "m_ckpt.csv"))
+    p_hf = predict("--hf-dir", hf, "--output", os.path.join(work, "m_hf.csv"))
+    diff = float(np.abs(p_hf["probs"] - p_ckpt["probs"]).max())
+    same_cfg = p_hf["model_config"] == p_ckpt["model_config"]
+    pth = os.path.join(work, "client1_model.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in load_safetensors(os.path.join(hf, "model.safetensors")).items()}, pth)
+    p_pth = predict("--hf-dir", hf, "--pth", pth, "--output", os.path.join(work, "m_pth.csv"))
+    diff_pth = float(np.abs(p_pth["probs"] - p_hf["probs"]).max())
+    run_export_hf(build_parser().parse_args(["export-hf", *flags, "--hf-dir", hf, "--pth", pth, "--out", hf2]))
+    with open(os.path.join(hf, "model.safetensors"), "rb") as a, open(os.path.join(hf2, "model.safetensors"), "rb") as b:
+        same_bytes = a.read() == b.read()
+    nbytes = os.path.getsize(os.path.join(hf, "model.safetensors"))
+    print(f"migrate: {card}: export-hf of {ckpt_dir} ({len(exp['tensors'])} tensors, {nbytes / 1e6:.1f} MB, "
+          f"{export_s:.3f} s); predict --hf-dir vs --checkpoint-dir on {len(p_hf['probs'])} flows: max|diff| "
+          f"{diff:.3e} (same model config {same_cfg}); predict --hf-dir --pth vs --hf-dir: max|diff| {diff_pth:.3e}; "
+          f"export-hf --pth gives the same model.safetensors bytes: {same_bytes}", flush=True)
+    a, b = dataclasses.asdict(p_hf["model_config"]), dataclasses.asdict(p_ckpt["model_config"])
+    check(same_cfg, f"--hf-dir resolves another model: {[(k, a[k], b[k]) for k in a if a[k] != b[k]]}")
+    check(diff <= 1e-6 and diff_pth <= 1e-6, f"the migrated model scores differently: {diff}, {diff_pth}")
+    check(same_bytes, "export-hf --pth wrote other bytes than the checkpoint's export")
+    L = p_hf["model_config"].n_layers
+    check(counts_read()["flash_fwd"] == 3 * L * -(-len(p_hf["probs"]) // 16), "predict K1 launches")
+
+    res = run_local(build_parser().parse_args(
+        ["local", *flags, "--hf-dir", hf, "--synthetic", "2400", "--epochs", "1", "--seed", str(seed),
+         "--output-dir", os.path.join(work, "m_local")]
+    ))
+    steps = res["state"].step
+    check(steps == 9 and all(np.isfinite(res["losses"])), f"local --hf-dir: {steps} steps, losses {res['losses']}")
+    eval_b = sum(-(-res[s]["n"] // 16) for s in ("val", "test"))
+
+    server = build_server(build_parser().parse_args(
+        ["infer-serve", *flags, "--hf-dir", hf, "--pth", pth, "--host", "127.0.0.1", "--port", "0", "--max-wait-ms", "5"]
+    ))
+    check(server.engine.device.type == "cuda", f"engine on {server.engine.device}")
+    texts = frame_texts(load_flow_csv(csv_path))[:32]
+    trained = counts_read()
+    want = {
+        "flash_fwd": 3 * L * -(-len(p_hf["probs"]) // 16) + L * eval_b,
+        "flash_fwd_dropout": L * steps, "flash_bwd_dkdv": L * steps, "flash_bwd_dq": L * steps,
+    }
+    check(trained == want, f"migrate launches {trained} through local --hf-dir, predicted {want}")
+    with server:  # the warmup (one batch a bucket) runs on entry
+        warm = counts_read()
+        batches0 = server.stats()["batches"]
+        replies = score_texts(server.port, texts)
+        batches = server.stats()["batches"] - batches0
+        launches = counts_read()
+    served = np.array([r["prob"] for r in replies])
+    sdiff = float(np.abs(served - p_pth["probs"][:32]).max())
+    print(f"migrate: {card}: local --hf-dir {steps} steps, losses {res['losses']}, test acc "
+          f"{res['test']['Accuracy']:.4f}; infer-serve --hf-dir --pth: {len(replies)} replies in {batches} batches, "
+          f"max|prob - predict| {sdiff:.3e} (bf16 atol 1e-2); launches {launches}", flush=True)
+    check(sdiff <= 1e-2, f"infer-serve --hf-dir --pth differs from predict by {sdiff}")
+    check(launches["flash_fwd"] - warm["flash_fwd"] == L * batches and launches["flash_fwd_dropout"] == trained["flash_fwd_dropout"],
+          f"serving K1 launches {launches['flash_fwd'] - warm['flash_fwd']} for {batches} batches")
+    return launches
+
+
+def native_wire_check(card: str, upload: dict) -> None:
+    """The wire's native byte path on a full-width upload: built and
+    active, its CRC equal to zlib's, its bf16 pack equal to the numpy
+    twin's, and the host seconds of a bf16 upload's encode both ways."""
+    check(wire_native.have_native(), f"the native wire is not active: {native.build_error('fedwire.cpp')}")
+    blob = wire.encode(upload, meta={"client_id": 0})
+    t0 = time.perf_counter()
+    crc = wire_native.crc32(blob)
+    crc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = zlib.crc32(blob)
+    zlib_s = time.perf_counter() - t0
+    check(crc == want, f"native crc {crc:#010x} != zlib's {want:#010x}")
+    flat = wire.flatten_params(upload)
+    same_pack = all(np.array_equal(wire_native.pack_bf16(v), wire_native.pack_bf16_numpy(v)) for v in flat.values() if v.dtype == np.float32)
+    check(same_pack, "the native bf16 pack differs from the numpy twin's")
+    t0 = time.perf_counter()
+    nat = wire.encode(upload, meta={"client_id": 0}, compression="bf16")
+    nat_s = time.perf_counter() - t0
+    lib = wire_native.lib
+    wire_native.lib = lambda: None
+    try:
+        t0 = time.perf_counter()
+        ref = wire.encode(upload, meta={"client_id": 0}, compression="bf16")
+        np_s = time.perf_counter() - t0
+    finally:
+        wire_native.lib = lib
+    check(nat == ref, "the bf16 upload's bytes differ between the native and numpy paths")
+    print(f"rounds: {card}: native wire active; upload of {len(blob) / 1e6:.1f} MB: crc {crc:#010x} == zlib's, "
+          f"host seconds native {crc_s:.4f} vs zlib {zlib_s:.4f}; bf16 pack == numpy over {len(flat)} leaves; "
+          f"bf16 upload encode ({len(nat) / 1e6:.1f} MB) host seconds native {nat_s:.4f} vs numpy {np_s:.4f} "
+          "(the card's machine's host CPU)", flush=True)
+
+
+
 def counts_zero() -> None:
     flash_mod.FWD_LAUNCHES = flash_mod.FWD_DROPOUT_LAUNCHES = 0
     flash_mod.DKDV_LAUNCHES = flash_mod.DQ_LAUNCHES = flash_mod.BWD_DO_COPIES = 0
@@ -1726,6 +2078,7 @@ def rounds_phase(seed: int, card: str) -> dict[str, int]:
             got = wire.flatten_params(res[i]["rounds"][r]["aggregate"])
             check(wire.flat_crc32(got) == crc, f"rounds (a) client {i} received another aggregate in round {r + 1}")
     check(all(res[i]["config"].train.prox_mu == 0.01 for i in range(2)), "the clients do not train with FedProx")
+    native_wire_check(card, res[0]["rounds"][0]["uploaded"])
     a_steps = sum(res[i]["state"].step for i in range(2))
     a_evals = sum(2 * -(-res[i]["local"]["n"] // res[i]["config"].data.eval_batch_size) for i in range(2)) * ROUNDS
     # (b) ------------------------------------------------------------------
@@ -2126,13 +2479,24 @@ def main() -> int:
         del res
         phase("federated")
         fed_launches = federated_phase(seed, card, work)
-    k1["launches"] = serve_launches + train_launches["flash_fwd"] + life_launches + fed_launches["flash_fwd"]
+        csv_path = os.path.join(work, "flows.csv")  # the lifecycle's 512 flows
+        phase("train-options")
+        opt_launches = train_options_phase(seed, card, work)
+        phase("distill")
+        distill_launches = distill_phase(seed, card, work, ckpt_dir, csv_path)
+        phase("migrate")
+        migrate_launches = migrate_phase(seed, card, work, ckpt_dir, csv_path)
+    slice_launches = {k: opt_launches[k] + distill_launches[k] + migrate_launches[k] for k in opt_launches}
+    k1["launches"] = serve_launches + train_launches["flash_fwd"] + life_launches + fed_launches["flash_fwd"] + slice_launches["flash_fwd"]
     for row in (k1_drop, k2, k3):
-        row["launches"] = train_launches[row["name"]] + fed_launches[row["name"]]
+        row["launches"] = train_launches[row["name"]] + fed_launches[row["name"]] + slice_launches[row["name"]]
     print(
         f"launches: flash_fwd {serve_launches} (serving) + {train_launches['flash_fwd']} (evaluation) + {life_launches} "
-        f"(predict, reload serving) + {fed_launches['flash_fwd']} (federated evaluation, predict, serving); "
-        f"K1 dropout / K2 / K3 {train_launches['flash_fwd_dropout']} (local) + {fed_launches['flash_fwd_dropout']} (federated)",
+        f"(predict, reload serving) + {fed_launches['flash_fwd']} (federated evaluation, predict, serving) + "
+        f"{slice_launches['flash_fwd']} (train-options, distill, migrate); K1 dropout / K2 / K3 "
+        f"{train_launches['flash_fwd_dropout']} (local) + {fed_launches['flash_fwd_dropout']} (federated) + "
+        f"{slice_launches['flash_fwd_dropout']} / {slice_launches['flash_bwd_dkdv']} / {slice_launches['flash_bwd_dq']} "
+        "(train-options, distill, migrate)",
         flush=True,
     )
 

@@ -16,9 +16,8 @@ import os
 import time
 
 from ..comm import AggregationServer, FederatedClient, wire
-from ..data.tokenizer import default_tokenizer
 from ..device import resolve_device
-from .common import _load_clients, _write_reports, resolve_config
+from .common import _load_clients, _resolve_with_pretrained, _write_reports
 
 log = logging.getLogger(__name__)
 
@@ -106,14 +105,13 @@ def run_client(args) -> dict:
         compression=args.compression, auth_key=_auth_key(), stream=args.stream_upload,
         wire_dtype=args.wire_dtype,
     )
-    tok = default_tokenizer()
-    cfg = resolve_config(args, vocab_size=len(tok.vocab))
+    tok, cfg, pretrained = _resolve_with_pretrained(args)
     client = _load_clients(args, cfg, tok, cfg.fed.num_clients)[args.client_id]
     trainer = Trainer(
         cfg.model, cfg.train, pad_id=tok.pad_id,
         drop_remainder=cfg.data.drop_remainder, device=device,
     )
-    state = trainer.init_state()
+    state = trainer.init_state(params=pretrained)
     tag = f"[CLIENT {args.client_id}] "
     ckpt = warm_step = None
     saved_steps: list[int] = []

@@ -1,13 +1,17 @@
-"""Shared CLI plumbing of the ported commands: config resolution from
-flags, data loading (a CSV, a mixed ``--source`` corpus or synthetic
+"""Shared CLI plumbing of the ported commands: config resolution
+(defaults <- ``--config`` <- flags), the pretrained start (``--hf-dir``,
+``--pth``), data loading (a CSV, a mixed ``--source`` corpus or synthetic
 flows of the ``--dataset`` schema) and per-client report writing (the
 port's copy of the parts of the JAX package's ``cli/common.py`` that
-``local``, ``client``, ``federated`` and ``predict`` use)."""
+``local``, ``client``, ``federated``, ``distill``, ``predict`` and
+``infer-serve`` use)."""
 
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
+import json
 import logging
 import os
 from typing import Any
@@ -27,18 +31,35 @@ def _preset_model(preset: str, vocab_size: int) -> ModelConfig:
 
 
 def resolve_config(args: argparse.Namespace, *, vocab_size: int) -> ExperimentConfig:
-    """The preset's defaults <- flags (the JAX package's precedence)."""
-    model = _preset_model(getattr(args, "preset", "tiny"), vocab_size)
+    """defaults <- ``--config`` file <- flags (the JAX package's
+    precedence): the file, when given, replaces the preset."""
+    if getattr(args, "config", None):
+        with open(args.config) as f:
+            cfg = ExperimentConfig.from_dict(json.load(f))
+    else:
+        model = _preset_model(getattr(args, "preset", "tiny"), vocab_size)
+        cfg = ExperimentConfig(model=model, data=DataConfig(max_len=model.max_len))
+
     model_kw: dict[str, Any] = {}
     if getattr(args, "max_len", None):
         model_kw.update(max_len=args.max_len)
+    if getattr(args, "gelu", None):
+        model_kw.update(gelu=args.gelu)
     if getattr(args, "attention_impl", None):
         model_kw.update(attention_impl=args.attention_impl)
+    if getattr(args, "attention_dropout", None) is not None:
+        # An explicit 0 must reach the config.
+        model_kw.update(attention_dropout=args.attention_dropout)
+    if getattr(args, "remat", None) is not None:
+        # Three-way: --remat / --no-remat / absent (the config wins).
+        model_kw.update(remat=args.remat)
     try:
-        model = model.replace(**model_kw) if model_kw else model
+        model = cfg.model.replace(**model_kw) if model_kw else cfg.model
     except ValueError as e:
         raise SystemExit(str(e)) from None
 
+    # The model and the data change together: ExperimentConfig checks
+    # data.max_len == model.max_len on every replace.
     data_kw: dict[str, Any] = {"max_len": model.max_len}
     if getattr(args, "dataset", None):
         data_kw.update(dataset=args.dataset)
@@ -50,14 +71,15 @@ def resolve_config(args: argparse.Namespace, *, vocab_size: int) -> ExperimentCo
         data_kw.update(partition=args.partition)
     if getattr(args, "dirichlet_alpha", None) is not None:
         data_kw.update(dirichlet_alpha=args.dirichlet_alpha)
-    fed = _resolve_fed(args)
-    cfg = ExperimentConfig(model=model, data=DataConfig(**data_kw), fed=fed)
+    cfg = dataclasses.replace(cfg, model=model, data=dataclasses.replace(cfg.data, **data_kw))
 
     train_kw: dict[str, Any] = {}
     if getattr(args, "epochs", None):
         train_kw.update(epochs_per_round=args.epochs)
     if getattr(args, "learning_rate", None):
         train_kw.update(learning_rate=args.learning_rate)
+    if getattr(args, "warmup_steps", None) is not None:
+        train_kw.update(warmup_steps=args.warmup_steps)
     if getattr(args, "seed", None) is not None:
         train_kw.update(seed=args.seed)
     if getattr(args, "prox_mu", None) is not None:
@@ -66,6 +88,8 @@ def resolve_config(args: argparse.Namespace, *, vocab_size: int) -> ExperimentCo
         train_kw.update(prox_mu=args.prox_mu)
     if train_kw:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **train_kw))
+    if hasattr(args, "num_clients"):
+        cfg = dataclasses.replace(cfg, fed=_resolve_fed(args, cfg.fed))
     if getattr(args, "output_dir", None):
         cfg = dataclasses.replace(cfg, output_dir=args.output_dir)
     if getattr(args, "checkpoint_dir", None):
@@ -73,13 +97,13 @@ def resolve_config(args: argparse.Namespace, *, vocab_size: int) -> ExperimentCo
     return cfg
 
 
-def _resolve_fed(args: argparse.Namespace) -> FedConfig:
-    """The FedConfig of the flags (the JAX package's precedence); the
-    untouched survivor floor is lowered to ``--participation``, as there."""
-    d = FedConfig()
+def _resolve_fed(args: argparse.Namespace, fed: FedConfig) -> FedConfig:
+    """``fed`` (the file's or the defaults) <- the flags; the untouched
+    default survivor floor is lowered to ``--participation``, as in the
+    JAX package (an explicitly configured floor still collides)."""
     kw: dict[str, Any] = dict(
-        num_clients=getattr(args, "num_clients", None) or d.num_clients,
-        rounds=getattr(args, "rounds", None) or d.rounds,
+        num_clients=getattr(args, "num_clients", None) or fed.num_clients,
+        rounds=getattr(args, "rounds", None) or fed.rounds,
     )
     if getattr(args, "weighted", False):
         kw.update(weighted=True)
@@ -91,9 +115,100 @@ def _resolve_fed(args: argparse.Namespace) -> FedConfig:
     for name in ("participation_mode", "server_opt"):
         if getattr(args, name, None):
             kw[name] = getattr(args, name)
-    if kw.get("participation", 1.0) < d.min_client_fraction:
-        kw.update(min_client_fraction=kw["participation"])
-    return FedConfig(**kw)
+    participation = kw.get("participation", fed.participation)
+    if participation < fed.min_client_fraction and fed.min_client_fraction == FedConfig().min_client_fraction:
+        kw.update(min_client_fraction=participation)
+    return dataclasses.replace(fed, **kw)
+
+
+def _resolve_with_pretrained(args: argparse.Namespace, *, load_weights: bool = True):
+    """``(tokenizer, config, initial params or None)``.
+
+    Without ``--hf-dir``: the domain tokenizer, the resolved config and no
+    params (a seeded init). With it (the reference's required
+    ``./distilbert-base-uncased``, client1.py:357,360-361): the vocabulary
+    from its ``vocab.txt``, the architecture from its ``config.json``,
+    every other model knob from the resolved config, and the encoder's
+    weights with a fresh head drawn from the train seed, or with ``--pth``
+    the reference's own trained state dict (client1.py:374-377).
+    ``load_weights=False`` resolves tokenizer and architecture alone.
+    ``--gelu`` follows the flag, then a config file that names ``gelu``,
+    then the checkpoint's ``activation``; ``--max-len`` is checked against
+    the checkpoint's position table, not the preset's."""
+    hf_dir = getattr(args, "hf_dir", None)
+    if getattr(args, "pth", None) and not hf_dir:
+        raise SystemExit(
+            "--pth needs --hf-dir alongside it: the .pth holds only weights; "
+            "the tokenizer and architecture come from the HF checkpoint dir "
+            "(the reference requires the same directory, client1.py:357)"
+        )
+    if not hf_dir:
+        from ..data.tokenizer import default_tokenizer
+
+        tok = default_tokenizer()
+        return tok, resolve_config(args, vocab_size=len(tok.vocab)), None
+
+    import numpy as np
+
+    from ..data.tokenizer import WordPieceTokenizer
+    from ..models.hf_convert import config_from_hf_dir, load_hf_dir
+
+    tok = WordPieceTokenizer.from_vocab_file(os.path.join(hf_dir, "vocab.txt"))
+    # Resolved WITHOUT --max-len: the preset model is discarded below, and
+    # its position table is not the checkpoint's.
+    args_sans_len = copy.copy(args)
+    args_sans_len.max_len = None
+    cfg = resolve_config(args_sans_len, vocab_size=len(tok.vocab))
+    m = cfg.model
+    overrides: dict[str, Any] = dict(
+        dropout=m.dropout,
+        attention_dropout=m.attention_dropout,
+        head_dropout=m.head_dropout,
+        n_classes=m.n_classes,
+        compute_dtype=m.compute_dtype,
+        param_dtype=m.param_dtype,
+        attention_impl=m.attention_impl,
+        ring_axis=m.ring_axis,
+        remat=m.remat,
+        fused_qkv=m.fused_qkv,
+    )
+    if getattr(args, "gelu", None):
+        overrides["gelu"] = args.gelu
+    elif getattr(args, "config", None):
+        with open(args.config) as f:
+            if "gelu" in json.load(f).get("model", {}):
+                overrides["gelu"] = m.gelu
+    if getattr(args, "max_len", None):
+        overrides["max_len"] = args.max_len
+    model_cfg = config_from_hf_dir(hf_dir, **overrides)
+    if len(tok.vocab) != model_cfg.vocab_size:
+        raise SystemExit(
+            f"--hf-dir vocab.txt has {len(tok.vocab)} entries but config.json "
+            f"says vocab_size={model_cfg.vocab_size}"
+        )
+    cfg = dataclasses.replace(
+        cfg, model=model_cfg, data=dataclasses.replace(cfg.data, max_len=model_cfg.max_len)
+    )
+    if not load_weights:
+        return tok, cfg, None
+    if getattr(args, "pth", None):
+        from ..models.hf_convert import load_reference_pth
+
+        log.info(f"[MODEL] loading reference .pth {args.pth}")
+        try:
+            params = load_reference_pth(args.pth, model_cfg)
+        except Exception as e:
+            # KeyError: another architecture than --hf-dir's; FileNotFoundError:
+            # a bad path; ValueError: a headless dict. Operator errors all.
+            raise SystemExit(
+                f"--pth {args.pth}: {type(e).__name__}: {e} — expected "
+                "the reference's DDoSClassifier state dict matching "
+                "--hf-dir's architecture (client1.py:53-58,388)"
+            ) from None
+        return tok, cfg, params
+    log.info(f"[MODEL] loading HF checkpoint {hf_dir}")
+    params, _ = load_hf_dir(hf_dir, cfg=model_cfg, head_rng=np.random.default_rng(cfg.train.seed))
+    return tok, cfg, params
 
 
 def _load_client_splits(args, cfg: ExperimentConfig, num_clients: int):

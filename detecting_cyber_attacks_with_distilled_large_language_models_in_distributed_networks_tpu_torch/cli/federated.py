@@ -10,10 +10,9 @@ import logging
 
 import numpy as np
 
-from ..data.tokenizer import default_tokenizer
 from ..device import resolve_device
 from ..reporting import METRIC_COLUMNS
-from .common import _load_clients, _write_reports, resolve_config
+from .common import _load_clients, _resolve_with_pretrained, _write_reports
 
 log = logging.getLogger(__name__)
 
@@ -36,8 +35,7 @@ def run_federated(args) -> dict:
     from ..train.federated import FederatedTrainer
 
     device = resolve_device(args.device)  # raises before any work without CUDA
-    tok = default_tokenizer()
-    cfg = resolve_config(args, vocab_size=len(tok.vocab))
+    tok, cfg, pretrained = _resolve_with_pretrained(args)
     C = cfg.fed.num_clients
     clients = _load_clients(args, cfg, tok, C)
     # Ragged stack to the fleet-max row count: no client's rows are
@@ -46,7 +44,7 @@ def run_federated(args) -> dict:
     trainer = FederatedTrainer(cfg, pad_id=tok.pad_id, device=device)
     log.info(f"[FED] {C} clients on {device}, train rows {[len(c.train) for c in clients]}")
 
-    state = trainer.init_state()
+    state = trainer.init_state(params=pretrained)
     start_round = 0
     ckpt = None
     if cfg.checkpoint_dir:

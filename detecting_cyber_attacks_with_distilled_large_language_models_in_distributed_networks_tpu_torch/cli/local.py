@@ -6,9 +6,8 @@ from __future__ import annotations
 import logging
 import time
 
-from ..data.tokenizer import default_tokenizer
 from ..device import resolve_device
-from .common import _load_clients, _write_reports, resolve_config
+from .common import _load_clients, _resolve_with_pretrained, _write_reports
 
 log = logging.getLogger(__name__)
 
@@ -20,20 +19,20 @@ def run_local(args) -> dict:
     and ``test`` metrics, ``train_samples``, ``train_seconds``,
     ``metrics_csv`` and, with a checkpoint directory, ``save_seconds``
     (None without one). The state is saved once, after the reports, at
-    step ``state.step``; ``local`` never warm-starts (as in the JAX
-    package)."""
+    step ``state.step``; ``local`` never warm-starts from it (as in the
+    JAX package). With ``--hf-dir`` training starts from the checkpoint's
+    encoder (and ``--pth``'s weights), else from a seeded init."""
     from ..train.checkpoint import Checkpointer
     from ..train.engine import Trainer
 
     device = resolve_device(args.device)  # raises before any work without CUDA
-    tok = default_tokenizer()
-    cfg = resolve_config(args, vocab_size=len(tok.vocab))
+    tok, cfg, pretrained = _resolve_with_pretrained(args)
     client = _load_clients(args, cfg, tok, max(args.client_id + 1, 1))[args.client_id]
     trainer = Trainer(
         cfg.model, cfg.train, pad_id=tok.pad_id,
         drop_remainder=cfg.data.drop_remainder, device=device,
     )
-    state = trainer.init_state()
+    state = trainer.init_state(params=pretrained)
     tag = f"[CLIENT {args.client_id}] "
     t0 = time.perf_counter()
     state, losses = trainer.fit(

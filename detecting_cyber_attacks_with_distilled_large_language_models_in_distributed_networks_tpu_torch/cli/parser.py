@@ -3,26 +3,32 @@
 The verbs and flags mirror the JAX package's ``cli/parser.py``; the port
 has ``local`` (single-client training), ``federated`` (N clients in one
 process), ``serve`` and ``client`` (a federated round over TCP),
-``predict`` (batch inference from a checkpoint), ``infer-serve`` (online
-scoring with hot reload) and ``registry`` (the model registry's operator
-commands) so far. Each that computes runs on the card unless ``--device
-cpu`` is given. Flags of features the port has not reached are absent,
-so argparse refuses them.
+``distill`` (teacher -> student), ``predict`` (batch inference),
+``infer-serve`` (online scoring with hot reload), ``export-hf`` (weights
+to the HF layout), ``export-config`` (the resolved config as JSON) and
+``registry`` (the model registry's operator commands) so far. Each that
+computes runs on the card unless ``--device cpu`` is given. Flags of
+features the port has not reached (``--stream``, ``--metrics-jsonl``,
+``--profile-dir``, ``--trace-jsonl``) are absent, so argparse refuses
+them.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import sys
 
 from ..data.datasets import DATASETS
 from ..models.presets import preset_names
 from .comm import cmd_client, cmd_serve
+from .common import resolve_config
 from .control import cmd_registry
+from .distill import cmd_distill
 from .federated import cmd_federated
 from .local import cmd_local
-from .predict import cmd_predict
+from .predict import cmd_export_hf, cmd_predict
 from .serving import cmd_infer_serve
 
 
@@ -49,6 +55,16 @@ def _reply_compression(spec: str) -> str:
     return spec
 
 
+def cmd_export_config(args) -> int:
+    """Print the resolved config (defaults <- --config <- flags) as JSON."""
+    from ..data.tokenizer import default_tokenizer
+
+    cfg = resolve_config(args, vocab_size=len(default_tokenizer().vocab))
+    json.dump(cfg.to_dict(), sys.stdout, indent=2)
+    sys.stdout.write("\n")
+    return 0
+
+
 def _add_device(p: argparse.ArgumentParser, what: str) -> None:
     p.add_argument(
         "--device",
@@ -67,11 +83,57 @@ def _add_dataset(p: argparse.ArgumentParser) -> None:
     )
 
 
-def _add_training(p: argparse.ArgumentParser) -> None:
-    """The data, model and training flags ``local`` and ``client`` share."""
+def _add_model_source(p: argparse.ArgumentParser) -> None:
+    """Where the config and the initial weights come from, and the model
+    knobs the JAX package's ``_add_common`` gives every such verb."""
+    p.add_argument("--config", help="JSON config file (ExperimentConfig.to_dict shape)")
+    p.add_argument(
+        "--gelu",
+        choices=["exact", "tanh"],
+        help="FFN activation: tanh (the preset default, within a few bf16 "
+        "ulps of erf) or exact (HF's erf form, fp32 parity)",
+    )
+    p.add_argument(
+        "--hf-dir",
+        help="HF DistilBERT checkpoint dir (config.json + vocab.txt + "
+        "model.safetensors|pytorch_model.bin) — the reference's required "
+        "./distilbert-base-uncased; pretrained encoder + fresh head",
+    )
+    p.add_argument(
+        "--pth",
+        help="a reference-run .pth state dict (its DDoSClassifier / "
+        "aggregated model) as the weights, with --hf-dir supplying "
+        "tokenizer + architecture — direct migration of a model the "
+        "reference trained",
+    )
+    p.add_argument(
+        "--warmup-steps",
+        type=int,
+        help="linear LR warmup steps (global step count; 0 = constant)",
+    )
+    p.add_argument(
+        "--attention-dropout",
+        type=float,
+        help="attention-weight dropout rate (default from the preset/config)",
+    )
+    p.add_argument(
+        "--remat",
+        action=argparse.BooleanOptionalAction,
+        default=None,
+        help="recompute each transformer block's activations in the "
+        "backward (trade FLOPs for activation memory); --no-remat "
+        "overrides a config file's remat=true",
+    )
+
+
+def _add_training(p: argparse.ArgumentParser, *, device: bool = True) -> None:
+    """The data, model and training flags ``local``, ``client``,
+    ``federated``, ``distill``, ``predict`` and the export verbs share
+    (``export-config`` computes nothing, so it takes no ``--device``)."""
     p.add_argument(
         "--preset", default="tiny", help=f"{'|'.join(preset_names())}"
     )
+    _add_model_source(p)
     p.add_argument("--csv", help="flow CSV path (schema set by --dataset)")
     _add_dataset(p)
     p.add_argument(
@@ -96,7 +158,8 @@ def _add_training(p: argparse.ArgumentParser) -> None:
     p.add_argument("--max-len", type=int)
     p.add_argument("--data-fraction", type=float)
     p.add_argument("--seed", type=int)
-    _add_device(p, "training and evaluation run")
+    if device:
+        _add_device(p, "training and evaluation run")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -338,6 +401,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="attention path: dot (plain PyTorch) or flash (the CUDA "
         "kernel); the artifact manifest's model_config wins",
     )
+    _add_model_source(p)
     _add_dataset(p)
     p.add_argument(
         "--auth",
@@ -405,6 +469,51 @@ def build_parser() -> argparse.ArgumentParser:
         "live candidate/shadow artifacts are never pruned",
     )
     p.set_defaults(fn=cmd_registry)
+
+    p = sub.add_parser("distill", help="teacher -> student knowledge distillation")
+    _add_training(p)
+    p.add_argument("--teacher-layers", type=int, help="default: 2x student layers")
+    p.add_argument(
+        "--teacher-checkpoint",
+        help="distill FROM this trained checkpoint (local or federated — "
+        "e.g. a federated fleet's aggregate) instead of training a fresh "
+        "teacher; --pth + --hf-dir similarly supplies a reference-trained "
+        "teacher",
+    )
+    p.add_argument(
+        "--student-layers",
+        type=int,
+        help="student depth (default: the resolved model's) — e.g. distill "
+        "a migrated 6-layer model into 3 layers",
+    )
+    p.add_argument("--distill-epochs", type=int, help="default: train epochs")
+    p.add_argument("--temperature", type=float, help="KD softmax temperature")
+    p.add_argument("--alpha", type=float, help="KD loss weight in [0,1]")
+    p.add_argument(
+        "--no-teacher-init",
+        action="store_true",
+        help="skip the every-other-layer student init",
+    )
+    p.add_argument("--checkpoint-dir", help="save the student's state here (its architecture recorded)")
+    p.set_defaults(fn=cmd_distill)
+
+    p = sub.add_parser(
+        "export-hf",
+        help="export a trained checkpoint to the HF DistilBERT layout "
+        "(config.json + model.safetensors + vocab.txt)",
+    )
+    _add_training(p)
+    # Not required: --pth + --hf-dir is the other weight source (checked
+    # when the command runs).
+    p.add_argument("--checkpoint-dir")
+    p.add_argument("--out", required=True, help="output HF checkpoint dir")
+    p.set_defaults(fn=cmd_export_hf)
+
+    p = sub.add_parser("export-config", help="print the resolved config as JSON")
+    _add_training(p, device=False)
+    p.add_argument("--num-clients", type=int)
+    p.add_argument("--rounds", type=int)
+    p.set_defaults(fn=cmd_export_config)
     return ap
 
 

@@ -1,13 +1,22 @@
-"""``predict``: batch inference on new flows from a training checkpoint
-(the port of the JAX package's ``cli/predict.py``): a ``local`` or
-``client`` state, or a ``federated`` one, whose global model (client 0's
-row of the aggregate) scores.
+"""``predict`` and ``export-hf`` (the port of the JAX package's
+``cli/predict.py``).
+
+``predict``: batch inference on new flows from a training checkpoint (a
+``local``, ``client`` or ``distill`` state, or a ``federated`` one, whose
+global model, client 0's row of the aggregate, scores), or from an HF
+checkpoint directory with a trained head (``--hf-dir``, or ``--hf-dir``
+with the reference's ``--pth``).
 
 Reads a flow CSV of the ``--dataset`` schema (the label column is
 optional), renders it through that dataset's template and writes one row
 per flow: P(attack), the thresholded 0/1 prediction and its label name;
 logs the thresholded metrics against the dataset's binary labels when
 the CSV has them. Runs on the card unless ``--device cpu``.
+
+``export-hf``: a checkpoint's (or ``--pth``'s) weights in the HF
+DistilBERT layout (``config.json``, ``model.safetensors``, ``vocab.txt``)
+that a reference client loads with ``from_pretrained`` and ``--hf-dir``
+reads back.
 """
 
 from __future__ import annotations
@@ -18,11 +27,25 @@ import time
 
 import numpy as np
 
-from ..data.tokenizer import default_tokenizer
 from ..device import resolve_device
-from .common import resolve_config
+from .common import _resolve_with_pretrained
 
 log = logging.getLogger(__name__)
+
+
+def restore_inference(cfg, device, ckpt_dir: str | None = None):
+    """``(model_cfg, params)`` of ``ckpt_dir`` (default
+    ``cfg.checkpoint_dir``)'s latest step on ``device``, or SystemExit
+    with the reason, never random weights."""
+    from ..train.checkpoint import CheckpointError, restore_for_inference
+
+    ckpt_dir = cfg.checkpoint_dir if ckpt_dir is None else ckpt_dir
+    try:
+        model_cfg, params, step, meta = restore_for_inference(ckpt_dir, cfg.model, device=device)
+    except CheckpointError as e:
+        raise SystemExit(str(e)) from None
+    log.info(f"[PREDICT] restored {meta.get('kind', 'local')} checkpoint {ckpt_dir} (step {step})")
+    return model_cfg, params
 
 
 def run_predict(args) -> dict:
@@ -33,7 +56,6 @@ def run_predict(args) -> dict:
     from ..data.cicids import frame_labels, frame_texts, load_flow_csv
     from ..data.datasets import get_dataset
     from ..data.pipeline import TokenizedSplit
-    from ..train.checkpoint import CheckpointError, restore_for_inference
     from ..train.engine import Trainer
 
     if not args.csv:
@@ -45,18 +67,32 @@ def run_predict(args) -> dict:
                 "flows to classify from --csv only"
             )
     device = resolve_device(args.device)  # raises before any work without CUDA
-    tok = default_tokenizer()
-    cfg = resolve_config(args, vocab_size=len(tok.vocab))
-    if not cfg.checkpoint_dir:
+    if not args.checkpoint_dir and args.hf_dir and not args.pth:
+        # Before the weight conversion: a bare encoder's head is random
+        # noise, so predicting from it means nothing (--pth brings a head).
+        from ..models.hf_convert import hf_dir_has_head
+
+        if not hf_dir_has_head(args.hf_dir):
+            raise SystemExit(
+                f"--hf-dir {args.hf_dir} is a bare encoder (no classifier.* "
+                "weights): its head would be random noise. Train it first "
+                "(local/federated, then --checkpoint-dir), or point --hf-dir "
+                "at a checkpoint fine-tuned with this head architecture"
+            )
+    tok, cfg, pretrained = _resolve_with_pretrained(args)
+    if cfg.checkpoint_dir and args.pth:
+        # On the resolved config: a --config file can name the directory.
+        raise SystemExit("--pth and a checkpoint_dir are both weight sources; pass one")
+    if not cfg.checkpoint_dir and pretrained is None:
         raise SystemExit(
-            "predict needs trained weights: pass --checkpoint-dir (a "
-            "training checkpoint of `local`, `client` or `federated`)"
+            "predict needs trained weights: pass --checkpoint-dir (a local "
+            "or federated training checkpoint) or --hf-dir (a fine-tuned "
+            "classifier checkpoint)"
         )
-    try:
-        model_cfg, params, step, meta = restore_for_inference(cfg.checkpoint_dir, cfg.model, device=device)
-    except CheckpointError as e:
-        raise SystemExit(str(e)) from None
-    log.info(f"[PREDICT] restored {meta.get('kind', 'local')} checkpoint (step {step})")
+    if cfg.checkpoint_dir:
+        model_cfg, params = restore_inference(cfg, device)
+    else:
+        model_cfg, params = cfg.model, {n: t.to(device) for n, t in pretrained.items()}
     trainer = Trainer(model_cfg, cfg.train, pad_id=tok.pad_id, device=device)
 
     spec = get_dataset(cfg.data.dataset)
@@ -111,4 +147,40 @@ def run_predict(args) -> dict:
 
 def cmd_predict(args) -> int:
     run_predict(args)
+    return 0
+
+
+def run_export_hf(args) -> dict:
+    """The ``export-hf`` command's work: the weights of ``--checkpoint-dir``
+    (the latest step; a federated one's global model) or of ``--pth`` with
+    ``--hf-dir``, written under ``--out``. Returns ``model_config``,
+    ``tensors`` (the exported HF-keyed arrays) and ``out``. A checkpoint
+    restores onto the card unless ``--device cpu``, as ``predict``'s does."""
+    from ..models.hf_convert import write_hf_dir
+
+    device = resolve_device(args.device)  # raises before any work without CUDA
+    tok, cfg, pretrained = _resolve_with_pretrained(args)
+    if args.pth and cfg.checkpoint_dir:
+        raise SystemExit("--pth and a checkpoint_dir are both weight sources; pass one")
+    if cfg.checkpoint_dir:
+        model_cfg, params = restore_inference(cfg, device)
+    elif args.pth:
+        model_cfg, params = cfg.model, pretrained
+    else:
+        raise SystemExit(
+            "export-hf needs trained weights: --checkpoint-dir, or "
+            "--pth + --hf-dir (a reference-trained model)"
+        )
+    if model_cfg.n_classes != 2:
+        raise SystemExit("checkpoint does not hold a classifier params tree")
+    sd = write_hf_dir(args.out, params, model_cfg, tok)
+    log.info(
+        f"[EXPORT] wrote HF checkpoint ({len(sd)} tensors, "
+        f"{sum(v.nbytes for v in sd.values()) / 1e6:.1f} MB) to {args.out}"
+    )
+    return {"model_config": model_cfg, "tensors": sd, "out": args.out}
+
+
+def cmd_export_hf(args) -> int:
+    run_export_hf(args)
     return 0

@@ -5,32 +5,33 @@ artifact, or a training checkpoint's latest step), builds the engine on
 the requested device and returns the (not yet started) server with its
 reload watcher; :func:`cmd_infer_serve` runs it until interrupted.
 
-The two weight sources are exclusive, as in the JAX package:
-``--registry-dir`` follows the serving pointer (only what the control
-plane promoted is served, hot-swapped on promotion or rollback);
-``--checkpoint-dir`` follows the directory's latest finished step, the
-initial load and every reload through one restore path (``predict``'s).
+The weight sources, as in the JAX package: ``--registry-dir`` follows
+the serving pointer (only what the control plane promoted is served,
+hot-swapped on promotion or rollback); ``--checkpoint-dir`` follows the
+directory's latest finished step, the initial load and every reload
+through one restore path (``predict``'s); ``--hf-dir`` (with the
+reference's ``--pth``, or a checkpoint with a trained head) serves fixed
+weights. The first two are exclusive. The tokenizer is ``--hf-dir``'s
+vocabulary when given, and the model config the registry manifest's,
+else the checkpoint's, else ``--config``/``--preset`` with the flags.
 ``features`` requests render through ``--dataset``'s template; ``--auth``
 requires the HMAC challenge on every connection, keyed by FEDTPU_SECRET.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import logging
 import time
 
-from ..config import DataConfig, ModelConfig
+from ..config import ModelConfig
 from ..data.datasets import get_dataset
-from ..data.tokenizer import default_tokenizer
 from ..models.convert import params_from_jax
-from ..models.presets import model_preset
 from ..registry import ModelRegistry
 from ..serving import CheckpointWatcher, MicroBatcher, RegistryWatcher, ScoreEngine, ScoringServer
 from ..serving.reload import checkpoint_restorer
 from ..train.checkpoint import CheckpointError
 from .comm import _auth_key
-from .common import resolve_config
+from .common import _resolve_with_pretrained
 
 log = logging.getLogger(__name__)
 
@@ -48,21 +49,8 @@ def _parse_buckets(spec: str) -> tuple[int, ...]:
     return buckets
 
 
-def _model_config(args, manifest: dict, vocab_size: int) -> ModelConfig:
-    """The manifest's model_config wins; else the preset plus flags."""
-    if manifest.get("model_config"):
-        return ModelConfig(**manifest["model_config"])
-    try:
-        cfg = model_preset(args.preset, vocab_size=vocab_size)
-    except ValueError as e:
-        raise SystemExit(f"--preset: {e}") from None
-    if args.attention_impl:
-        cfg = dataclasses.replace(cfg, attention_impl=args.attention_impl)
-    return cfg
-
-
 def build_server(args) -> ScoringServer:
-    tok = default_tokenizer()
+    tok, cfg, pretrained = _resolve_with_pretrained(args)
     buckets = _parse_buckets(args.buckets)
     if args.max_queue < buckets[-1]:
         raise SystemExit(
@@ -77,7 +65,7 @@ def build_server(args) -> ScoringServer:
                 "--auth needs the shared secret in the FEDTPU_SECRET env "
                 "var (same value on the server and every scoring client)"
             )
-    if args.registry_dir and args.checkpoint_dir:
+    if args.registry_dir and cfg.checkpoint_dir:
         raise SystemExit(
             "--registry-dir and --checkpoint-dir are two different reload "
             "sources (eval-gated pointer vs raw latest step); pass one"
@@ -91,7 +79,7 @@ def build_server(args) -> ScoringServer:
                 "promote one first"
             )
         manifest = registry.manifest(info["artifact"])
-        model_cfg = _model_config(args, manifest, len(tok.vocab))
+        model_cfg = ModelConfig(**manifest["model_config"]) if manifest.get("model_config") else cfg.model
         if model_cfg.vocab_size != len(tok.vocab):
             raise SystemExit(
                 f"serving artifact's model vocab ({model_cfg.vocab_size}) != "
@@ -102,8 +90,7 @@ def build_server(args) -> ScoringServer:
         watcher = RegistryWatcher(registry, poll_interval_s=args.reload_poll)
         watcher.prime(info["artifact"])
         source = f"artifact {info['artifact']}"
-    elif args.checkpoint_dir:
-        cfg = resolve_config(args, vocab_size=len(tok.vocab))
+    elif cfg.checkpoint_dir:
         restore = checkpoint_restorer(cfg.checkpoint_dir, cfg.model, device=args.device)
         try:
             model_cfg, params, round_id, step = restore(None)
@@ -114,12 +101,16 @@ def build_server(args) -> ScoringServer:
         # finished since then is new on the first poll.
         watcher.prime(step)
         source = f"checkpoint {cfg.checkpoint_dir} step {step}"
+    elif pretrained is not None:
+        model_cfg, params, round_id, watcher = cfg.model, pretrained, 0, None
+        source = f"HF checkpoint {args.hf_dir}" + (f" with {args.pth}" if args.pth else "")
     else:
         raise SystemExit(
             "infer-serve needs trained weights: pass --registry-dir (the "
-            "registry's promoted artifact, hot-swapped on promotion) or "
+            "registry's promoted artifact, hot-swapped on promotion), "
             "--checkpoint-dir (a local training checkpoint, hot-reloaded "
-            "on each new step)"
+            "on each new step) or --hf-dir (a fine-tuned classifier "
+            "checkpoint)"
         )
     engine = ScoreEngine(
         model_cfg,
@@ -129,7 +120,7 @@ def build_server(args) -> ScoringServer:
         round_id=round_id,
         device=args.device,
     )
-    dataset = args.dataset or DataConfig.dataset
+    dataset = cfg.data.dataset
     log.info(
         f"[SERVE] serving {source} (round {engine.round_id}, attention "
         f"{model_cfg.attention_impl}, {model_cfg.compute_dtype}) on {engine.device}; "

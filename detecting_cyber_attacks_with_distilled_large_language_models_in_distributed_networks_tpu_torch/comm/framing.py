@@ -20,10 +20,9 @@ import socket
 import struct
 import threading
 import time
-import zlib
 from typing import Callable
 
-from . import wire
+from . import native, wire
 from .wire import WireError
 
 FRAME_MAGIC = b"FTPF"  # fedtpu: allow(wire-magic-coverage): the JAX package's transport magic, copied byte for byte so both packages share one framing
@@ -52,7 +51,7 @@ def send_frame(
     """Send one CRC'd frame in 1 MB chunks; wait for the receiver's ACK
     unless ``await_ack=False`` (the scoring protocol: the reply itself is
     the acknowledgment)."""
-    crc = zlib.crc32(payload)
+    crc = native.crc32(payload)
     sock.sendall(FRAME_MAGIC + struct.pack("<QI", len(payload), crc))
     view = memoryview(payload)
     for start in range(0, len(view), SEND_CHUNK):
@@ -82,7 +81,7 @@ def recv_frame(
             f"frame length {length} exceeds {min(max_frame, MAX_FRAME)}"
         )
     payload = recv_exact(sock, length)
-    got = zlib.crc32(payload)
+    got = native.crc32(payload)
     if got != crc:
         raise WireError(f"frame CRC mismatch (got {got:#010x}, want {crc:#010x})")
     if send_ack:

@@ -30,10 +30,11 @@ advertises that it decodes streamed replies (``META_STREAM_REPLY``) and
 which lossy reply encodings (``META_REPLY_DTYPES``) in every upload.
 
 For the same inputs, nonce and key every encoder here returns the JAX
-package's bytes, so a JAX peer and a port peer exchange rounds. The bf16
-pack is ``native/fedwire.cpp``'s (round to nearest even; a NaN keeps
-its payload with the quiet bit forced), written out in numpy uint32
-arithmetic. The JAX package's static checker tracks the uniqueness of
+package's bytes, so a JAX peer and a port peer exchange rounds. The CRCs
+and the bf16 pack run on ``native/fedwire.cpp`` (:mod:`.native`, round
+to nearest even; a NaN keeps its payload with the quiet bit forced)
+where the JAX wire calls it, and on their byte-equal numpy twins when it
+did not build. The JAX package's static checker tracks the uniqueness of
 the magics and domains there, not here.
 """
 
@@ -43,11 +44,12 @@ import hashlib
 import hmac as hmac_mod
 import json
 import struct
-import zlib
 from typing import Any, Mapping
 
 import numpy as np
 
+from . import native
+from .native import pack_bf16, unpack_bf16
 from .quant import dequantize_int8c, int8c_nbytes, quantize_int8c
 
 
@@ -155,26 +157,6 @@ def _stream_domains(direction: str) -> tuple[bytes, bytes, bytes]:
         return _STREAM_DOMAINS[direction]
     except KeyError:
         raise WireError(f"unknown stream direction {direction!r}") from None
-
-
-# ------------------------------------------------------------- bf16 pack
-def pack_bf16(x: np.ndarray) -> np.ndarray:
-    """fp32 array -> uint16 bf16 bits, ``native/fedwire.cpp``'s
-    ``fedwire_pack_bf16`` in uint32 arithmetic: round to nearest even by
-    ``(x + 0x7FFF + lsb) >> 16``, and a NaN keeps its sign and top payload
-    bits with the quiet bit forced (``(x >> 16) | 0x40``), so rounding
-    never carries a NaN into inf."""
-    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
-    nan = (u & np.uint32(0x7FFFFFFF)) > np.uint32(0x7F800000)
-    rounded = (u + (np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1)))) >> np.uint32(16)
-    quiet = (u >> np.uint32(16)) | np.uint32(0x40)
-    return np.where(nan, quiet, rounded).astype(np.uint16)
-
-
-def unpack_bf16(x: np.ndarray, shape=None) -> np.ndarray:
-    """uint16 bf16 bits -> fp32 (exact: the low 16 bits are zero)."""
-    out = (np.ascontiguousarray(x, np.uint16).astype(np.uint32) << np.uint32(16)).view(np.float32)
-    return out.reshape(shape) if shape is not None else out
 
 
 # --------------------------------------------------- int8 row quantization
@@ -297,7 +279,7 @@ def flat_crc32(flat: Mapping[str, Any]) -> int:
     crc = 0
     for key in sorted(flat):
         arr = np.ascontiguousarray(np.asarray(flat[key], np.float32))
-        crc = zlib.crc32(arr, crc)
+        crc = native.crc32(arr, crc)
     return crc & 0xFFFFFFFF
 
 
@@ -386,7 +368,7 @@ def encode(
     header = {
         "tensors": tensors,
         "payload_nbytes": len(payload),
-        "payload_crc32": zlib.crc32(payload),
+        "payload_crc32": native.crc32(payload),
         "meta": dict(meta or {}),
     }
     if auth_key is not None:
@@ -460,7 +442,7 @@ def decode(
         raise WireError(
             f"payload length {len(payload)} != declared {header.get('payload_nbytes')}"
         )
-    crc = zlib.crc32(payload)
+    crc = native.crc32(payload)
     if crc != header.get("payload_crc32"):
         raise WireError(
             f"payload CRC mismatch (got {crc:#010x}, "

@@ -2,12 +2,12 @@
 
 Copies of the JAX package's ``ModelConfig``, ``DataConfig`` and
 ``TrainConfig`` (fields, defaults, validation and presets unchanged) and
-its ``FedConfig``, so a manifest or config written by either package
-means the same thing in both. Fields whose code paths the port has not
-reached yet (gradient accumulation, DP-FedAvg, personalization, relays'
-deadlines, datasets other than cicids2017)
-are kept for compatibility and raise ``NotImplementedError`` when set
-away from their defaults, instead of being ignored. ``ExperimentConfig``
+its ``FedConfig`` and ``DistillConfig``, so a manifest or config
+written by either package means the same thing in both. Fields whose
+code paths the port has not reached yet (DP-FedAvg, personalization,
+relays' deadlines) are kept for compatibility and raise
+``NotImplementedError`` when set away from their defaults, instead of
+being ignored. ``ExperimentConfig``
 carries only the sections the ported commands read; a checkpoint records
 it as ``to_dict()`` and ``predict`` reads it back with ``from_dict``,
 which also reads a config the JAX package wrote (the sections the port
@@ -190,6 +190,8 @@ class TrainConfig:
     warmup_steps: int = 0
     epochs_per_round: int = 3
     weight_decay: float = 0.0
+    # optax.MultiSteps over this many micro steps (train/engine.py): one
+    # optimizer update per k batches, on the running mean of their grads.
     grad_accum_steps: int = 1
     max_grad_norm: float | None = None
     b1: float = 0.9
@@ -218,10 +220,6 @@ class TrainConfig:
             )
         if self.prox_mu < 0.0:
             raise ValueError(f"prox_mu={self.prox_mu} must be >= 0")
-        if self.grad_accum_steps != 1:
-            raise NotImplementedError(
-                "grad_accum_steps > 1 (gradient accumulation) is not ported yet"
-            )
 
 
 @dataclass(frozen=True)
@@ -391,11 +389,33 @@ class FedConfig:
             )
 
 
+@dataclass(frozen=True)
+class DistillConfig:
+    """Knowledge distillation, teacher -> student (train/distill.py).
+
+    Loss = alpha * T^2 * KL(teacher_T || student_T) + (1 - alpha) *
+    CE(labels); with ``init_from_teacher`` the student starts from
+    evenly strided teacher layers (the DistilBERT init: 12 -> 6 takes
+    every other one). The stride is ``teacher_layers // student_layers``;
+    widths must match (depth-only distillation).
+    """
+
+    temperature: float = 2.0
+    alpha: float = 0.5
+    init_from_teacher: bool = True
+
+    def __post_init__(self) -> None:
+        if not 0.0 <= self.alpha <= 1.0:
+            raise ValueError(f"alpha={self.alpha} must be in [0, 1]")
+        if self.temperature <= 0.0:
+            raise ValueError(f"temperature={self.temperature} must be > 0")
+
+
 #: Sections of the JAX package's ``ExperimentConfig`` the port does not
-#: model (its mesh, distillation, control plane, observability, router,
-#: shadow and labels planes).
+#: model (its mesh, control plane, observability, router, shadow and
+#: labels planes).
 _JAX_ONLY_SECTIONS = frozenset(
-    {"mesh", "distill", "control", "obs", "router", "shadow", "labels"}
+    {"mesh", "control", "obs", "router", "shadow", "labels"}
 )
 
 
@@ -408,6 +428,7 @@ class ExperimentConfig:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     fed: FedConfig = dataclasses.field(default_factory=FedConfig)
+    distill: DistillConfig = dataclasses.field(default_factory=DistillConfig)
     output_dir: str = "outputs"
     # Where ``local``/``client`` save (and ``client`` warm-starts from),
     # and what ``predict``/``infer-serve`` restore.
@@ -429,7 +450,10 @@ class ExperimentConfig:
         package wrote: its sections the port does not model
         (``_JAX_ONLY_SECTIONS``) are dropped; unknown sections or keys
         raise."""
-        sections = {"model": ModelConfig, "data": DataConfig, "train": TrainConfig, "fed": FedConfig}
+        sections = {
+            "model": ModelConfig, "data": DataConfig, "train": TrainConfig,
+            "fed": FedConfig, "distill": DistillConfig,
+        }
         scalars = ("output_dir", "checkpoint_dir")
         unknown_top = set(d) - set(sections) - set(scalars) - _JAX_ONLY_SECTIONS
         if unknown_top:
@@ -445,3 +469,13 @@ class ExperimentConfig:
         kw: dict[str, Any] = {key: _mk(tp, key) for key, tp in sections.items()}
         kw.update({k: d[k] for k in scalars if k in d})
         return cls(**kw)
+
+    @classmethod
+    def from_checkpoint_dict(cls, d: Mapping[str, Any]) -> "ExperimentConfig":
+        """:meth:`from_dict` of a checkpoint's recorded config, with the
+        defaults in force when it was saved: a config without a ``gelu``
+        field predates it and was trained under the erf GELU, so the
+        absent key means "exact", not today's "tanh"."""
+        model = dict(d.get("model", {}))
+        model.setdefault("gelu", "exact")
+        return cls.from_dict({**d, "model": model})

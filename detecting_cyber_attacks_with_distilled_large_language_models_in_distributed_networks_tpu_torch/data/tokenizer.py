@@ -199,6 +199,21 @@ class WordPieceTokenizer:
     def __len__(self) -> int:
         return len(self.vocab)
 
+    @classmethod
+    def from_vocab_file(cls, path: str, **kw) -> "WordPieceTokenizer":
+        """An HF ``vocab.txt``: one token a line, the id its line number
+        (blank lines skipped, as the JAX package reads it)."""
+        with open(path, encoding="utf-8") as f:
+            tokens = [line.rstrip("\n") for line in f if line.rstrip("\n")]
+        return cls(tokens, **kw)
+
+    def save_vocab(self, path: str) -> None:
+        """Write ``vocab.txt`` in id order (the inverse of
+        :meth:`from_vocab_file`)."""
+        with open(path, "w", encoding="utf-8") as f:
+            for tok, _ in sorted(self.vocab.items(), key=lambda kv: kv[1]):
+                f.write(tok + "\n")
+
     def _wordpiece(self, word: str) -> list[int]:
         # Flow text is dominated by unique numeric strings — caching those
         # would grow without bound at near-zero hit rate. Cache only

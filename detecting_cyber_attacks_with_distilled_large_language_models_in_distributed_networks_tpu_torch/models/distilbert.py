@@ -20,8 +20,16 @@ output (``dropout``), the attention weights (``attention_dropout``; in
 the flash kernels on the flash path) and the pooled CLS vector
 (``head_dropout``). Masks come from the explicit ``generator`` passed to
 ``forward``, never from torch's global generator, so they match the JAX
-package's in distribution, not in bits. ``remat`` and the ring attention
-path arrive with later slices.
+package's in distribution, not in bits.
+
+``remat`` (``nn.remat`` in the JAX model) wraps each block in
+non-reentrant ``torch.utils.checkpoint``: the block's activations are
+dropped after the forward and recomputed in the backward. The recompute
+must draw the same dropout masks and K1 seed words as the forward, and
+``checkpoint`` replays only torch's global RNGs, so the block's
+generator state is captured before it runs and the recompute draws from
+a copy set to that state; the caller's generator advances once, as
+without remat. The ring attention path arrives with a later slice.
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from ..device import torch_dtype
@@ -134,6 +144,36 @@ class TransformerBlock(nn.Module):
         return _layer_norm(x + h, self.out_ln, cd)
 
 
+def _remat_block(
+    block: TransformerBlock, x: torch.Tensor, bias: torch.Tensor,
+    deterministic: bool, generator: torch.Generator | None,
+) -> torch.Tensor:
+    """``block(x, ...)`` with its activations recomputed in the backward.
+
+    The recompute runs after the caller's ``functional_call`` has put the
+    module's own (meta) leaves back, so the leaves this call sees are
+    captured and passed in again. Its first run draws from ``generator``;
+    a recompute draws from a fresh generator set to the state the first
+    run started from, so it sees the same masks and seed words and leaves
+    ``generator`` where the forward left it."""
+    leaves = dict(block.named_parameters())
+    start = generator.get_state() if generator is not None else None
+    runs = 0
+
+    def run(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        nonlocal runs
+        runs += 1
+        g = generator
+        if runs > 1 and g is not None:
+            g = torch.Generator(device=generator.device)
+            g.set_state(start)
+        return functional_call(block, leaves, (x, bias, deterministic, g))
+
+    # Every random draw comes from the replayed generator above, so
+    # torch's global RNG states need no stashing.
+    return checkpoint(run, x, bias, use_reentrant=False, preserve_rng_state=False)
+
+
 class Embeddings(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -164,11 +204,6 @@ class DistilBertEncoder(nn.Module):
                 "attention_impl='ring' (sequence parallel) arrives with the "
                 "port's sequence-parallel slice"
             )
-        if cfg.remat:
-            raise NotImplementedError(
-                "remat (activation recompute in the backward) is not ported: "
-                "the training slice runs without it"
-            )
         self.cfg = cfg
         self.embeddings = Embeddings(cfg)
         for i in range(cfg.n_layers):
@@ -180,8 +215,13 @@ class DistilBertEncoder(nn.Module):
     ) -> torch.Tensor:
         x = self.embeddings(input_ids, deterministic, generator)
         bias = make_attention_bias(attention_mask)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for i in range(self.cfg.n_layers):
-            x = getattr(self, f"layer_{i}")(x, bias, deterministic, generator)
+            block = getattr(self, f"layer_{i}")
+            if remat:
+                x = _remat_block(block, x, bias, deterministic, generator)
+            else:
+                x = block(x, bias, deterministic, generator)
         return x
 
 

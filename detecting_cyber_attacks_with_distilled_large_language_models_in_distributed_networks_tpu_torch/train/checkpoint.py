@@ -16,8 +16,10 @@ the model registry is the format the two packages share)::
 
     <dir>/<step>/state.pt    torch.save of {"params", "mu", "nu", "count",
                              "step", "generator": {"device_type", "state"}}
-                             (federated: "count" is a [C] tensor,
-                             "generators" a list, plus "server_opt")
+                             (with gradient accumulation also "acc" and
+                             "mini_step", so a run saved mid-window resumes
+                             inside it; federated: "count" is a [C]
+                             tensor, "generators" a list, plus "server_opt")
     <dir>/<step>/meta.json   the caller's meta + "_leaf_shapes"
 
 A step is written under ``<dir>/<step>.tmp-<pid>/`` and renamed to
@@ -88,15 +90,16 @@ def _leaf_shapes(state: TrainState | FedState) -> list[list[int]]:
     """Per-leaf shapes in a fixed order: params, then Adam's mu and nu (in
     the state's order), then the count (a scalar, or ``[C]`` for a
     federated state) and the step, then a federated state's server
-    optimizer leaves. A positional list, so two tables swapping sizes
-    still differ."""
+    optimizer leaves, or a single state's gradient accumulator. A
+    positional list, so two tables swapping sizes still differ."""
     tensors = [*state.params.values(), *state.opt_state.mu.values(), *state.opt_state.nu.values()]
     shapes = [[int(d) for d in t.shape] for t in tensors]
     if isinstance(state, FedState):
         return shapes + [[len(state.opt_state.count)], []] + [
             [int(d) for d in t.shape] for t in _server_leaves(state.server_opt)
         ]
-    return shapes + [[], []]
+    acc = [[int(d) for d in t.shape] for t in (state.acc or {}).values()]
+    return shapes + [[], []] + acc
 
 
 def _shapes_match(a: Mapping[str, Any], b: Mapping[str, Any]) -> bool:
@@ -123,6 +126,9 @@ def _payload(state: TrainState | FedState) -> dict:
     else:
         payload["count"] = int(opt.count)
         payload["generator"] = {"device_type": state.generator.device.type, "state": state.generator.get_state()}
+        if state.acc is not None:
+            payload["acc"] = dict(state.acc)
+            payload["mini_step"] = int(state.mini_step)
     return payload
 
 
@@ -246,11 +252,15 @@ class Checkpointer:
                 [_generator(g, t) for g, t in zip(saved["generators"], template.generators)],
                 _to_device(saved["server_opt"], device),
             )
+        if (template.acc is None) != ("acc" not in saved):
+            raise ValueError("checkpoint gradient accumulation differs from the template's")
         return TrainState(
             leaves("params", template.params),
             AdamState(int(saved["count"]), leaves("mu", opt.mu), leaves("nu", opt.nu)),
             int(saved["step"]),
             _generator(saved["generator"], template.generator),
+            None if template.acc is None else leaves("acc", template.acc),
+            int(saved.get("mini_step", 0)),
         )
 
     def saved_compatible(self, template: TrainState | FedState, *, step: int | None = None) -> bool:
@@ -361,11 +371,12 @@ def restore_for_inference(
             raise CheckpointError(f"no checkpoint found in {directory}")
         meta = ckpt.restore_meta(step=step)
         if "config" in meta:
-            saved = ExperimentConfig.from_dict(meta["config"]).model
+            saved = ExperimentConfig.from_checkpoint_dict(meta["config"]).model
             if saved.vocab_size != model_cfg.vocab_size:
                 raise CheckpointError(
                     f"checkpoint model vocab ({saved.vocab_size}) != "
-                    f"tokenizer vocab ({model_cfg.vocab_size})"
+                    f"tokenizer vocab ({model_cfg.vocab_size}); pass the "
+                    "matching --hf-dir / vocab"
                 )
             model_cfg = saved
         federated = meta.get("kind") == "federated"

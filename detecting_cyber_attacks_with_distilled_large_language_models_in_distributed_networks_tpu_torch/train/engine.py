@@ -13,6 +13,14 @@ the same batch:
 * AdamW adds ``weight_decay · param``; the learning rate scales by ``-lr``;
 * the linear warmup multiplies the update by a factor of the GLOBAL step.
 
+With ``TrainConfig.grad_accum_steps = k > 1`` the chain runs inside
+``optax.MultiSteps``: every micro step folds its gradients into a running
+mean, ``acc + (g - acc) / (mini_step + 1)``, and only the k-th applies
+clip -> Adam(W) -> warmup to that mean (Adam's count advances there
+alone; the warmup reads the emitting micro step's global step). The
+global step advances every micro step, and the accumulator and
+``mini_step`` carry across epoch ends, as MultiSteps' state does.
+
 With ``TrainConfig.prox_mu > 0`` (FedProx, the TCP client's local phase)
 the step's loss adds ``0.5 · mu · ||params - anchor||²``, the anchor being
 the round's start: the last adopted aggregate, or the fit-entry params
@@ -72,8 +80,13 @@ class AdamState(NamedTuple):
 class TrainState:
     params: dict[str, torch.Tensor]  # every leaf, fp32; trainable ones require grad
     opt_state: AdamState
-    step: int  # global step: the warmup factor reads it
+    step: int  # global step (every micro step): the warmup factor reads it
     generator: torch.Generator  # the dropout stream, on the training device
+    # optax.MultiSteps' state under grad_accum_steps > 1: the running mean
+    # of the window's gradients (trainable leaves) and the micro steps it
+    # holds. None and 0 without accumulation.
+    acc: dict[str, torch.Tensor] | None = None
+    mini_step: int = 0
 
 
 def warmup_factor(step: int, warmup_steps: int) -> float:
@@ -214,7 +227,10 @@ class Trainer:
             {n: torch.zeros_like(leaves[n]) for n in names},
         )
         generator = torch.Generator(device=self.device).manual_seed(seed + 1)
-        return TrainState(leaves, opt, 0, generator)
+        acc = None
+        if self.train_cfg.grad_accum_steps > 1:
+            acc = {n: torch.zeros_like(leaves[n]) for n in names}
+        return TrainState(leaves, opt, 0, generator, acc)
 
     # ------------------------------------------------------------ steps
     def _batch(self, batch: dict) -> tuple[torch.Tensor, ...]:
@@ -229,6 +245,11 @@ class Trainer:
             {"deterministic": generator is None, "generator": generator},
         )
 
+    def _loss(self, logits: torch.Tensor, ids, mask, labels) -> torch.Tensor:
+        """The step's objective on the student's logits (the distillation
+        trainer puts its KD loss here)."""
+        return loss_fn(logits, labels)
+
     def train_step(
         self, state: TrainState, batch: dict, anchor: Mapping[str, torch.Tensor] | None = None
     ) -> tuple[TrainState, torch.Tensor]:
@@ -238,15 +259,32 @@ class Trainer:
         over the trainable leaves."""
         ids, mask, labels = self._batch(batch)
         names = list(state.opt_state.mu)
-        loss = loss_fn(self._logits(state.params, ids, mask, generator=state.generator), labels)
+        logits = self._logits(state.params, ids, mask, generator=state.generator)
+        loss = self._loss(logits, ids, mask, labels)
         if anchor is not None:
             mu = float(self.train_cfg.prox_mu)
             loss = loss + 0.5 * mu * prox_sq([state.params[n] for n in names], [anchor[n] for n in names])
         grads = torch.autograd.grad(loss, [state.params[n] for n in names])
         with torch.no_grad():
-            state.opt_state = self._apply(state, names, list(grads))
+            self._update(state, names, list(grads))
         state.step += 1
         return state, loss.detach()
+
+    def _update(self, state: TrainState, names: list[str], grads: list) -> None:
+        """Apply one micro step's gradients: directly, or (accumulation)
+        into the running mean, applied on the window's last micro step."""
+        k = self.train_cfg.grad_accum_steps
+        if k <= 1:
+            state.opt_state = self._apply(state, names, grads)
+            return
+        acc = [state.acc[n] for n in names]
+        torch._foreach_add_(acc, torch._foreach_div(torch._foreach_sub(grads, acc), float(state.mini_step + 1)))
+        if state.mini_step < k - 1:
+            state.mini_step += 1
+            return
+        state.opt_state = self._apply(state, names, acc)
+        torch._foreach_zero_(acc)
+        state.mini_step = 0
 
     def _apply(self, state: TrainState, names: list[str], grads: list) -> AdamState:
         count = state.opt_state.count + 1

@@ -62,6 +62,13 @@ class FederatedTrainer:
     is given (no CUDA raises)."""
 
     def __init__(self, cfg: ExperimentConfig, *, pad_id: int = 0, device: str | torch.device | None = None):
+        if cfg.train.grad_accum_steps > 1:
+            # The JAX stacked step honours it through make_optimizer; the
+            # port's lockstep step does not accumulate yet.
+            raise NotImplementedError(
+                "train.grad_accum_steps > 1 (gradient accumulation) is not "
+                "ported to the federated trainer's stacked step"
+            )
         self.cfg = cfg
         self.C = cfg.fed.num_clients
         self.pad_id = pad_id

@@ -1,7 +1,8 @@
 """Boundaries of the PyTorch port.
 
 * The port and chip_smoke.py import with JAX, flax, optax, orbax,
-  ml_dtypes, pandas, matplotlib and the JAX package blocked (the card's
+  ml_dtypes, pandas, matplotlib, safetensors, transformers and the JAX
+  package blocked (the card's
   machine has none of them), and no file of theirs imports any of them;
   the port's strategies and int8c codec import only numpy, torch and the
   port itself.
@@ -34,7 +35,12 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PKG = "detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu"
 PORT_PKG = JAX_PKG + "_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "pandas", "matplotlib", JAX_PKG)
+#: Neither is on the card's machine either: the port reads and writes
+#: safetensors and HF checkpoints itself (models/safetensors.py, models/hf_convert.py).
+BLOCKED = (
+    "jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "pandas", "matplotlib",
+    "safetensors", "transformers", JAX_PKG,
+)
 #: The frame magics the port's wire copies from the JAX package.
 PORT_MAGICS = {
     "SCRQ", "SCRP", "SCRJ", "SCAU", "SCST", "SCSR", "SCRL", "SCRD", "FTPW", "NONC", "STRH", "STRC", "STRT",
@@ -78,6 +84,7 @@ print(" ".join(names))
         "data.partition", "train.batches", "train.fedsteps", "train.fedeval", "train.federated",
         "parallel.fedavg", "cli.federated", "data.datasets", "data.native_tokenizer", "utils.native",
         "serving.client", "serving.protocol", "serving.server",
+        "models.safetensors", "models.hf_convert", "train.distill", "cli.distill", "comm.native",
     ):
         assert f"{PORT_PKG}.{mod}" in imported.split(), mod
 

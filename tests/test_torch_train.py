@@ -253,8 +253,16 @@ def test_load_flow_csv_matches_jax(synthetic_csv):
 
 
 def test_unported_config_paths_raise():
+    # Accumulation is ported in the single-client engine; the federated
+    # trainer's stacked step refuses it rather than ignoring it.
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.federated import (
+        FederatedTrainer,
+    )
+
+    accum = pcfg.ExperimentConfig(model=pcfg.ModelConfig.tiny(), data=pcfg.DataConfig(max_len=32),
+                                  train=pcfg.TrainConfig(grad_accum_steps=2))
     with pytest.raises(NotImplementedError, match="accumulation"):
-        pcfg.TrainConfig(grad_accum_steps=2)
+        FederatedTrainer(accum, device="cpu")
     # Every registered dataset is ported; an unknown name raises, as the
     # JAX package's get_dataset does.
     with pytest.raises(ValueError, match="unknown dataset 'bogus'"):
@@ -264,6 +272,6 @@ def test_unported_config_paths_raise():
     with pytest.raises(ValueError, match="unknown partition"):
         pcfg.DataConfig(partition="bogus")
     # Every field of the JAX configs exists in the port's.
-    for port_cls, jax_cls in ((pcfg.TrainConfig, jcfg.TrainConfig), (pcfg.DataConfig, jcfg.DataConfig), (pcfg.FedConfig, jcfg.FedConfig)):
+    for port_cls, jax_cls in ((pcfg.TrainConfig, jcfg.TrainConfig), (pcfg.DataConfig, jcfg.DataConfig), (pcfg.FedConfig, jcfg.FedConfig), (pcfg.DistillConfig, jcfg.DistillConfig)):
         assert {f.name for f in dataclasses.fields(port_cls)} == {f.name for f in dataclasses.fields(jax_cls)}
         assert dataclasses.asdict(port_cls()) == dataclasses.asdict(jax_cls())
