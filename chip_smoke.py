@@ -136,7 +136,49 @@ Phases; any failure exits non-zero before the last line is printed:
             ``.pth`` from the export, ``predict --hf-dir --pth`` and
             ``export-hf --pth`` (the same ``model.safetensors`` bytes);
             ``local --hf-dir`` (9 steps); ``infer-serve --hf-dir --pth``
-            answering 32 flows within bf16 atol 1e-2 of ``predict``;
+            answering 32 flows within bf16 atol 1e-2 of ``predict``; then
+            ``client --hf-dir`` twice in a one-round ``serve --num-clients
+            2`` (K4 once per leaf, both aggregates equal), ``federated
+            --hf-dir`` for one round, ``distill --hf-dir`` (the encoder
+            warm-starts a 6-layer teacher) and ``distill --hf-dir --pth``
+            (the .pth is the teacher), each to a 3-layer student, all with
+            finite losses;
+   privacy — (a) at full width, four clients' round results (the seeded
+            init plus deltas of norm 0.25, 0.5, 2 and 4 x the clip 1.0):
+            ``FederatedTrainer.aggregate`` with DP at noise 0 on the card
+            within rtol 1e-5 (of the terms' magnitude) of the float64
+            numpy clipped mean, every row equal, the update norms within
+            rtol 1e-5 of float64's, the 4x client alone scaled to the clip
+            within 1e-5; (b) the std of (noised - noiseless) over the whole
+            model within 1% of noise x clip / n; (c) ``federated --config``
+            (``train.grad_accum_steps`` 2) ``--dp-clip 1.0
+            --dp-noise-multiplier 1.1 --participation 0.5`` (Poisson)
+            ``--personalize-epochs 1 --personalize-scope full``, 4 clients,
+            ``--partition quantity``, 2 rounds: the ``[DP]`` banner's two
+            epsilons equal to ``dp_epsilon_both`` for 2 rounds at q 0.5,
+            each client's Adam count and mini step those of its micro
+            steps, an idle client's window unchanged through a gated step,
+            K1 with dropout, K2 and K3 once per layer of every micro
+            client-step (personalization included), K1 at rate 0 once per
+            layer of every eval client-batch, a finite
+            ``client{c}_personalized_metrics.csv`` each; then ``personalize``
+            at scope ``head``: every encoder leaf bit-equal, the head moved,
+            K2 and K3 not launched;
+   dp-rounds — ``serve --num-clients 2 --dp-clip 1.0`` with two ``client
+            --dp`` at full width, the fold on the card: (a) noise 0, the
+            reply delta bit-equal to numpy's fp32 fold of the clipped
+            uploads; (b) 3 rounds at noise 1.0, ``--dp-participation 0.5``
+            (the cohort draws scripted so each client sits a round out),
+            ``--dp-history-file``, FEDTPU_SECRET set (the sit-out goes
+            through ``DPSK``): both clients' bases bit-equal every round,
+            3 deltas in the history file; (c) a client that drops a reply
+            healed by the composed resync, bit-equal to the fleet. K4 once
+            per leaf of every round that released;
+   stream — ``--stream`` over a 20,000-row CSV with NaN/inf cells: on a
+            clean one the token arrays equal the in-memory loader's
+            (disjoint, dirichlet), on the noisy one the labels and shapes
+            and most rows; ``local --stream``, ``federated --stream`` and
+            ``distill --stream`` for one epoch with finite losses;
 8. round    — one FedAvg round of full-width DistilBERT-base on loopback:
             the port's ``serve`` (2 clients, fold on the card) in a
             thread and two port ``client``s in threads (``--preset
@@ -206,16 +248,20 @@ Phases; any failure exits non-zero before the last line is printed:
             class_probs summing to 1 within 1e-5, prob = 1 - class_probs[0]
             within 1e-6, within atol 1e-2 of the dot path); (d) the native
             WordPiece encoder active, its ids on every served text equal
-            to the Python encoder's, microseconds a flow for both;
+            to the Python encoder's, microseconds a flow for both; (e)
+            ``infer-serve --hf-dir --max-len 64`` on the same weights: 32
+            flows at L=64 within bf16 atol 1e-2 of an fp32 scorer at L=64
+            on the CPU;
 11. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
    serving shape and dropout at the training shape, then K2, K3 and K4;
    K1's rate-0 launches count phase 5, phase 6's evaluation, the
    lifecycle's predict and reload serving, the federated phase's
-   evaluations, predicts and serving, the train-options, distill and
-   migrate phases, the rounds phase's evaluations and the serving phase;
-   K1 with dropout, K2 and K3 count phase 6, the federated, train-options,
-   distill, migrate and rounds phases and the serving phase's ``local``;
-   K4 phases 8 and 9),
+   evaluations, predicts and serving, the train-options, distill,
+   migrate, privacy, dp-rounds and stream phases, the rounds phase's
+   evaluations and the serving phase; K1 with dropout, K2 and K3 count
+   phase 6, the federated, train-options, distill, migrate, privacy,
+   dp-rounds, stream and rounds phases and the serving phase's ``local``;
+   K4 the migrate and dp-rounds phases and phases 8 and 9),
    then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -1049,9 +1095,10 @@ def resume_check(seed: int, card: str, res: dict, ckpt_dir: str):
     return resumed
 
 
-def write_flows_csv(path: str, n: int, seed: int) -> None:
-    """``n`` synthetic CICIDS2017 flows as a CSV with a Label column."""
-    frame = make_synthetic_flows(n, seed=seed)
+def write_flows_csv(path: str, n: int, seed: int, **kw) -> None:
+    """``n`` synthetic CICIDS2017 flows as a CSV with a Label column (NaN
+    and ±inf cells unless ``kw`` turns them off)."""
+    frame = make_synthetic_flows(n, seed=seed, **kw)
     with open(path, "w", newline="") as f:
         w = csv.writer(f)
         w.writerow(list(frame))
@@ -1404,7 +1451,8 @@ def migrate_phase(seed: int, card: str, work: str, ckpt_dir: str, csv_path: str)
     the export, ``predict --hf-dir --pth`` and ``export-hf --pth`` (the
     same ``model.safetensors`` bytes); ``local --hf-dir`` (9 steps); and
     ``infer-serve --hf-dir --pth`` answering 32 flows within bf16's bound
-    of ``predict``. Returns the phase's launches."""
+    of ``predict``; then the other ``--hf-dir`` verbs (:func:`hf_verbs_check`).
+    Returns the phase's launches (K4's under ``fold``)."""
     flags = ["--preset", "distilbert", "--attention-impl", "flash"]
     hf, hf2 = os.path.join(work, "hf"), os.path.join(work, "hf2")
     counts_zero()
@@ -1472,7 +1520,9 @@ def migrate_phase(seed: int, card: str, work: str, ckpt_dir: str, csv_path: str)
     check(sdiff <= 1e-2, f"infer-serve --hf-dir --pth differs from predict by {sdiff}")
     check(launches["flash_fwd"] - warm["flash_fwd"] == L * batches and launches["flash_fwd_dropout"] == trained["flash_fwd_dropout"],
           f"serving K1 launches {launches['flash_fwd'] - warm['flash_fwd']} for {batches} batches")
-    return launches
+    total = {**launches, "fold": 0}
+    add_launches(total, hf_verbs_check(seed, card, work, hf, pth))
+    return total
 
 
 def native_wire_check(card: str, upload: dict) -> None:
@@ -1530,8 +1580,8 @@ class FedWatch:
     federated phase runs: before each aggregation it copies the stacked
     params on the card, after it checks that every client row equals row
     0 and keeps row 0; at the first step where a client's batch is all
-    padding it copies that client's params and moments and checks them
-    after the step. The copies stay on the card (a few ms inside the
+    padding it copies that client's params, moments and (with
+    accumulation) window and checks them after the step. The copies stay on the card (a few ms inside the
     timed aggregate); the fp64 comparison runs after the invocation."""
 
     def __init__(self):
@@ -1556,14 +1606,15 @@ class FedWatch:
                 return step(trainer, state, batch, anchor)
             c = idle[0]
             opt = state.opt_state
-            before = [{n: t[c].detach().clone() for n, t in d.items()} for d in (state.params, opt.mu, opt.nu)]
-            count = opt.count[c]
+            groups = (state.params, opt.mu, opt.nu) + (() if opt.acc is None else (opt.acc,))
+            before = [{n: t[c].detach().clone() for n, t in d.items()} for d in groups]
+            count, mini = opt.count[c], None if opt.mini_step is None else opt.mini_step[c]
             out = step(trainer, state, batch, anchor)
             same = all(
                 torch.equal(now[n][c], t)
-                for now, was in zip((state.params, opt.mu, opt.nu), before)
+                for now, was in zip(groups, before)
                 for n, t in was.items()
-            ) and opt.count[c] == count
+            ) and opt.count[c] == count and (mini is None or opt.mini_step[c] == mini)
             watch.gated = (c, state.step, same)
             return out
 
@@ -2427,6 +2478,7 @@ def serving_phase(seed: int, card: str) -> dict[str, int]:
             k1_serve, _, served = auth_and_load(seed, card, reg, cfg, params)
             del os.environ["FEDTPU_SECRET"]
             launches, more = schemas(seed, card, work)
+            k1_serve += max_len_serve(card, work, cfg, params, served)["flash_fwd"]
     finally:
         if old_secret is None:
             os.environ.pop("FEDTPU_SECRET", None)
@@ -2435,6 +2487,616 @@ def serving_phase(seed: int, card: str) -> dict[str, int]:
     tokenizer_check(card, served + more)
     launches["flash_fwd"] += k1_serve
     print(f"serving: launches {launches}; phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------- slice 11
+def zero_launches() -> dict[str, int]:
+    return {k: 0 for k in ("flash_fwd", "flash_fwd_dropout", "flash_bwd_dkdv", "flash_bwd_dq", "fold")}
+
+
+def add_launches(total: dict[str, int], more: dict[str, int]) -> None:
+    for k, v in more.items():
+        total[k] += v
+
+
+def read_with_fold() -> dict[str, int]:
+    return {**counts_read(), "fold": fold_mod.FOLD_LAUNCHES}
+
+
+def zero_with_fold() -> None:
+    """Every launch counter to 0, K4's included (``counts_zero`` leaves it)."""
+    counts_zero()
+    fold_mod.FOLD_LAUNCHES = 0
+
+
+def hf_verbs_check(seed: int, card: str, work: str, hf: str, pth: str) -> dict[str, int]:
+    """The ``--hf-dir`` verbs the migrate phase owed a card run: ``client
+    --hf-dir`` in a one-round ``serve --num-clients 2``, ``federated
+    --hf-dir`` for one round, ``distill --hf-dir`` (the encoder warm-starts
+    a 6-layer teacher, a 3-layer student) and ``distill --hf-dir --pth``
+    (the .pth is the teacher). Each with finite losses; returns their
+    launches (K4's under ``fold``)."""
+    flags = ["--preset", "distilbert", "--attention-impl", "flash", "--hf-dir", hf, "--seed", str(seed)]
+    total = zero_launches()
+    zero_with_fold()
+    with tempfile.TemporaryDirectory() as out_dir:
+        server = build_round_server(build_parser().parse_args(
+            ["serve", "--host", "127.0.0.1", "--port", "0", "--num-clients", "2", "--timeout", "600"]
+        ))
+        check(server.device.type == "cuda", f"server folds on {server.device}")
+        results, errors = {}, []
+
+        def client(i: int) -> None:
+            try:
+                results[i] = run_client(build_parser().parse_args(
+                    ["client", "--client-id", str(i), "--host", "127.0.0.1", "--port", str(server.port), *flags,
+                     "--synthetic", "1200", "--epochs", "1", "--rounds", "1", "--timeout", "600", "--output-dir", out_dir]
+                ))
+            except BaseException as e:  # re-raised below, after the join
+                errors.append(e)
+
+        with server:
+            threads = [threading.Thread(target=server.serve, args=(1,))] + [threading.Thread(target=client, args=(i,)) for i in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=900)
+        check(not any(t.is_alive() for t in threads), "client --hf-dir round threads hung")
+        if errors:
+            raise errors[0]
+    got = read_with_fold()
+    add_launches(total, got)
+    L = results[0]["config"].model.n_layers
+    steps = [results[i]["state"].step for i in range(2)]
+    aggs = [wire.flatten_params(results[i]["aggregate"]) for i in range(2)]
+    same = all(np.array_equal(aggs[0][k], aggs[1][k]) for k in aggs[0])
+    finite = all(np.isfinite(v).all() for v in aggs[0].values())
+    print(f"migrate: {card}: client --hf-dir x2 in one serve round: {steps} steps, K4 {got['fold']} launches, "
+          f"both aggregates equal {same}, finite {finite}; launches {got}", flush=True)
+    check(results[0]["config"].model.dim == 768 and got["fold"] == 102 and same and finite, "client --hf-dir round")
+    check(got["flash_fwd_dropout"] == got["flash_bwd_dq"] == L * sum(steps), f"client --hf-dir launches {got}")
+
+    zero_with_fold()
+    res = run_federated(build_parser().parse_args(
+        ["federated", *flags, "--synthetic", "1200", "--num-clients", "2", "--rounds", "1", "--epochs", "1",
+         "--output-dir", os.path.join(work, "m_fed")]
+    ))
+    got = read_with_fold()
+    add_launches(total, got)
+    losses = res["history"][0].epoch_losses
+    steps = sum(-(-int(n) // 16) for n in res["stacked_train"].n_rows)
+    print(f"migrate: {card}: federated --hf-dir: 1 round, {steps} client-steps, epoch losses {np.round(losses, 4).tolist()}; "
+          f"launches {got}", flush=True)
+    check(res["trainer"].device.type == "cuda" and res["config"].model.dim == 768 and np.isfinite(losses).all(), "federated --hf-dir")
+    check(got["flash_fwd_dropout"] == L * steps, f"federated --hf-dir K1-dropout launches {got}")
+    del res
+
+    for name, extra in (("distill --hf-dir", ["--teacher-layers", "6"]), ("distill --hf-dir --pth", ["--pth", pth])):
+        zero_with_fold()
+        res = run_distill(build_parser().parse_args(
+            ["distill", *flags, *extra, "--student-layers", "3", "--synthetic", "1200",
+             "--output-dir", os.path.join(work, "m_distill")]
+        ))
+        got = read_with_fold()
+        add_launches(total, got)
+        losses = np.asarray(res["losses"], np.float64)
+        t_losses = res["teacher_losses"]
+        print(f"migrate: {card}: {name}: teacher {res['teacher_config'].n_layers} layers ({res['teacher_steps']} steps, "
+              f"losses {t_losses}), student {res['config'].model.n_layers} layers, KD losses {losses.tolist()}; launches {got}", flush=True)
+        check(res["config"].model.dim == 768 and res["teacher_config"].n_layers == 6, f"{name}: teacher {res['teacher_config']}")
+        check(np.isfinite(losses).all() and (t_losses is None or np.isfinite(t_losses).all()), f"{name}: non-finite losses")
+        check(got["flash_bwd_dkdv"] > 0, f"{name} launched no backward")
+        del res
+    return total
+
+
+PRIV_ARGS = ["--synthetic", "1600", "--num-clients", str(FED_CLIENTS), "--partition", "quantity",
+             "--dirichlet-alpha", "2.0", "--data-fraction", "0.25"]
+
+
+def dp_boundary_check(seed: int, card: str) -> None:
+    """(a) and (b) of the privacy phase on the card, at full width: four
+    clients' round results made from the seeded init plus deltas of L2
+    norm 0.25, 0.5, 2 and 4 x the clip (the last two clipped).
+    ``FederatedTrainer.aggregate`` at noise 0 against the float64 numpy
+    clipped mean; the clipped client alone scaled to the clip exactly;
+    the std of (noised - noiseless) over the whole model within 1% of
+    ``noise * clip / n``."""
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.common import (
+        resolve_config,
+    )
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.parallel import (
+        dp as pdp,
+    )
+
+    clip, scales = 1.0, np.array([0.25, 0.5, 2.0, 4.0])
+    tok = default_tokenizer()
+    args = build_parser().parse_args(
+        ["federated", "--preset", "distilbert", "--attention-impl", "flash", *PRIV_ARGS, "--dp-clip", str(clip)]
+    )
+    trainer = FederatedTrainer(resolve_config(args, vocab_size=len(tok.vocab)), pad_id=tok.pad_id, device="cuda")
+    state = trainer.init_state(seed=seed)
+    anchor = trainer.round_anchor(state)
+    g = torch.Generator(device="cuda").manual_seed(seed + 41)
+    with torch.no_grad():
+        for p in state.params.values():
+            p.add_(torch.randn(p.shape, generator=g, device="cuda"))
+        norms = pdp.client_update_norms(state.params, anchor)
+        f = torch.tensor(scales * clip, device="cuda", dtype=torch.float32) / norms
+        for n, p in state.params.items():
+            p.copy_(anchor[n] + (p - anchor[n]) * f.view(-1, *([1] * (p.ndim - 1))))
+    n_params = sum(p[0].numel() for p in state.params.values())
+    deltas = {n: (p.detach() - anchor[n]).double().cpu().numpy() for n, p in state.params.items()}
+    norm64 = np.sqrt(sum((d.reshape(FED_CLIENTS, -1) ** 2).sum(axis=1) for d in deltas.values()))
+    factor = np.minimum(1.0, clip / norm64) / FED_CLIENTS
+    card_norms = pdp.client_update_norms(state.params, anchor).cpu().numpy()
+    local = {n: p.detach().clone() for n, p in state.params.items()}
+    t0 = time.perf_counter()
+    trainer.aggregate(state, anchor=anchor, round_index=0)
+    torch.cuda.synchronize()
+    agg_s = time.perf_counter() - t0
+    worst, rows_equal = 0.0, True
+    for n, p in state.params.items():
+        a64 = anchor[n][0].double().cpu().numpy()
+        mean64 = np.tensordot(factor, deltas[n], axes=1)
+        got = p[0].detach().double().cpu().numpy()
+        # rtol 1e-5 of the terms' magnitude: the clients' deltas may cancel.
+        terms = np.abs(a64) + np.tensordot(factor, np.abs(deltas[n]), axes=1)
+        ratio = np.abs(got - (a64 + mean64)) / np.maximum(1e-5 * terms, np.finfo(np.float64).tiny)
+        worst = max(worst, float(ratio.max()))
+        rows_equal = rows_equal and all(torch.equal(p[c], p[0]) for c in range(1, FED_CLIENTS))
+    # The clipped client alone: its delta scaled to the clip exactly.
+    only = np.array([0.0, 0.0, 0.0, 1.0])
+    alone, _ = pdp.dp_fedavg(local, anchor, None, only, clip=clip, noise_multiplier=0.0)
+    alone_norm = float(np.sqrt(sum(((alone[n].double() - anchor[n][0].double()) ** 2).sum().item() for n in alone)))
+    print(f"privacy: {card}: {FED_CLIENTS} clients x {n_params} parameters; update norms on the card "
+          f"{np.round(card_norms, 6).tolist()} (float64 {np.round(norm64, 6).tolist()}), clip {clip}; DP aggregate at noise 0 "
+          f"in {agg_s:.3f} s, every row equal {rows_equal}, largest |card - float64 clipped mean| over rtol 1e-5 of the "
+          f"terms' magnitude {worst:.3e} (<= 1 passes); the 4x client alone lands at norm {alone_norm:.7f}", flush=True)
+    check(rows_equal and worst <= 1.0, f"the card's DP aggregate is {worst} x rtol 1e-5 off the float64 clipped mean")
+    check(bool(np.all(np.abs(card_norms - norm64) <= 1e-5 * norm64)), f"update norms {card_norms} against {norm64}")
+    check(abs(alone_norm - clip) <= 1e-5 * clip, f"the clipped client was scaled to norm {alone_norm}, not {clip}")
+    # (b) noise calibration over the whole model.
+    mult = 1.0
+    gen = torch.Generator(device="cuda").manual_seed(seed + 43)
+    noised, _ = pdp.dp_fedavg(local, anchor, gen, None, clip=clip, noise_multiplier=mult)
+    quiet, _ = pdp.dp_fedavg(local, anchor, None, None, clip=clip, noise_multiplier=0.0)
+    diff = torch.cat([(noised[n].double() - quiet[n].double()).flatten() for n in noised])
+    std, mean = float(diff.std()), float(diff.mean())
+    sigma = mult * clip / FED_CLIENTS
+    print(f"privacy: {card}: noise over {diff.numel()} coordinates: std {std:.6f} against noise * clip / n = {sigma} "
+          f"({abs(std - sigma) / sigma:.2e} relative; bound 1e-2), mean {mean:.2e}", flush=True)
+    check(abs(std - sigma) <= 0.01 * sigma and abs(mean) < 4 * sigma / np.sqrt(diff.numel()), f"noise std {std}, mean {mean}")
+    del trainer, state, anchor, local, deltas, noised, quiet, diff
+    torch.cuda.empty_cache()
+
+
+def privacy_phase(seed: int, card: str, work: str) -> dict[str, int]:
+    """DP-FedAvg, its accountant, accumulation and personalization through
+    the ``federated`` verb at full width (the boundary checks first, see
+    :func:`dp_boundary_check`): ``--dp-clip 1.0 --dp-noise-multiplier 1.1
+    --participation 0.5`` (Poisson) ``--personalize-epochs 1
+    --personalize-scope full`` with a ``--config`` whose
+    ``train.grad_accum_steps`` is 2, over 2 rounds of 4 clients. Returns
+    the launches of the verb and of one ``head`` personalization."""
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.parallel.dp import (
+        dp_epsilon_both,
+    )
+
+    dp_boundary_check(seed, card)
+    args = build_parser().parse_args(["export-config", "--preset", "distilbert", "--attention-impl", "flash"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        check(args.fn(args) == 0, "export-config failed")
+    d = json.loads(out.getvalue())
+    d["train"]["grad_accum_steps"] = 2
+    cfg_path = os.path.join(work, "priv_accum.json")
+    with open(cfg_path, "w") as f:
+        json.dump(d, f)
+    out_dir = os.path.join(work, "priv_out")
+    args = build_parser().parse_args(
+        ["federated", "--config", cfg_path, *PRIV_ARGS, "--rounds", "2", "--epochs", "1", "--seed", str(seed),
+         "--dp-clip", "1.0", "--dp-noise-multiplier", "1.1", "--participation", "0.5",
+         "--personalize-epochs", "1", "--personalize-scope", "full", "--output-dir", out_dir]
+    )
+    with FedWatch() as watch:
+        zero_with_fold()
+        t0 = time.perf_counter()
+        res = run_federated(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_with_fold()
+    cfg, trainer, state = res["config"], res["trainer"], res["state"]
+    mcfg, L, bs = cfg.model, cfg.model.n_layers, cfg.data.batch_size
+    check((mcfg.dim, L, mcfg.attention_impl, mcfg.compute_dtype) == (768, 6, "flash", "bfloat16"), f"not full width: {mcfg}")
+    check(cfg.fed.resolve_participation_mode() == "poisson" and cfg.train.grad_accum_steps == 2, f"config {cfg.fed}")
+    n_rows = [int(n) for n in res["stacked_train"].n_rows]
+    per_client = [-(-n // bs) for n in n_rows]  # micro steps an epoch
+    fit_steps = 2 * sum(per_client)
+    pers_steps = sum(per_client)
+    val_cb = eval_client_batches(trainer.prepare_eval([c.val for c in res["clients"]]))
+    test_cb = eval_client_batches(trainer.prepare_eval([c.test for c in res["clients"]]))
+    eval_cb = 2 * 2 * (val_cb + test_cb) + 2 * test_cb  # local + aggregated each round, final and personalized
+    q, _ = cfg.fed.dp_sampling_rate()
+    eps = dp_epsilon_both(2, 1.1, 1e-5, sampling_rate=q)
+    banner = res["dp_banner"] or ""
+    print(f"privacy: {card}: federated (DP clip 1.0 noise 1.1, Poisson q {q}, grad_accum_steps 2, personalize full) "
+          f"train rows {n_rows}, {fit_steps} micro client-steps + {pers_steps} personalizing, {eval_cb} eval "
+          f"client-batches; wall {wall:.3f} s; launches {launches}", flush=True)
+    print(f"privacy: banner: {banner}", flush=True)
+    want_banner = (f"({eps[0]:.3g}, 1e-05)-DP under zeroed-contribution adjacency; "
+                   f"({eps[1]:.3g}, 1e-05)-DP under replace-one adjacency")
+    check(want_banner in banner and "Poisson sampling q=0.5 (accountant exact)" in banner, f"[DP] banner {banner!r}, want {want_banner!r}")
+    for row in ("flash_fwd_dropout", "flash_bwd_dkdv", "flash_bwd_dq"):
+        check(launches[row] == L * (fit_steps + pers_steps), f"{row} launched {launches[row]} for {fit_steps} + {pers_steps} client-steps")
+    check(launches["flash_fwd"] == L * eval_cb, f"K1 (rate 0) launched {launches['flash_fwd']} for {eval_cb} eval client-batches")
+    opt = state.opt_state
+    want_count = [m // 2 for m in per_client]  # the last round's window (no reset after it)
+    want_mini = [m % 2 for m in per_client]
+    print(f"privacy: per client micro steps a round {per_client}: Adam counts {opt.count} (want {want_count}), "
+          f"mini steps {opt.mini_step} (want {want_mini})", flush=True)
+    check(opt.count == want_count and opt.mini_step == want_mini, "accumulation counts differ from the micro steps run")
+    check(watch.gated is not None and watch.gated[2], f"an idle client's window moved: {watch.gated}")
+    for h in res["history"]:
+        check(np.isfinite(h.epoch_losses).all(), f"round {h.round + 1}: non-finite loss {h.epoch_losses}")
+    for c in range(FED_CLIENTS):
+        path = os.path.join(out_dir, f"client{c}_personalized_metrics.csv")
+        check(path in res["metrics_csvs"] and os.path.exists(path), f"missing {path}")
+        with open(path) as f:
+            header, values = f.read().strip().splitlines()
+        check(header == "Accuracy,Loss,Precision,Recall,F1-Score" and all(np.isfinite(float(v)) for v in values.split(",")),
+              f"{path}: {values!r}")
+    pers_loss = [m["Loss"] for m in res["personalized"]]
+    agg_loss = [m["Loss"] for m in res["final"]]
+    print(f"privacy: personalized test acc {[round(m['Accuracy'], 2) for m in res['personalized']]} and loss "
+          f"{np.round(pers_loss, 6).tolist()} against aggregated {[round(m['Accuracy'], 2) for m in res['final']]} and "
+          f"{np.round(agg_loss, 6).tolist()}", flush=True)
+    check(pers_loss != agg_loss, "the personalized models score as the aggregate: personalization trained nothing")
+    # Scope head on the aggregate: the encoder stays bit-equal; K2/K3 do not run.
+    zero_with_fold()
+    pstate, _ = trainer.personalize(state, res["stacked_train"], epochs=1, scope="head")
+    head = read_with_fold()
+    encoder = [n for n in state.params if not n.startswith("classifier.")]
+    frozen = all(torch.equal(pstate.params[n], state.params[n]) for n in encoder)
+    moved = not torch.equal(pstate.params["classifier.weight"], state.params["classifier.weight"])
+    print(f"privacy: personalize scope head: {len(encoder)} encoder leaves bit-equal {frozen}, head moved {moved}; "
+          f"launches {head}", flush=True)
+    check(frozen and moved, "scope head changed the encoder or left the head")
+    check(head["flash_fwd_dropout"] == L * pers_steps and head["flash_bwd_dkdv"] == head["flash_bwd_dq"] == 0, f"head launches {head}")
+    add_launches(launches, head)
+    del res, trainer, state, pstate
+    torch.cuda.empty_cache()
+    return launches
+
+
+class _ScriptedCohort:
+    """The server's cohort draws from a script (``random()``); its noise
+    stays the OS-seeded Philox's (``standard_normal``)."""
+
+    def __init__(self, draws, real):
+        self._draws, self._real = list(draws), real
+
+    def random(self):
+        return self._draws.pop(0)
+
+    def standard_normal(self, *a, **kw):
+        return self._real.standard_normal(*a, **kw)
+
+
+DP_CLIENT_ARGS = ["--preset", "distilbert", "--attention-impl", "flash", "--synthetic", "1200", "--epochs", "1",
+                  "--timeout", "600", "--dp"]
+
+
+def dp_invocation(seed: int, card: str, name: str, rounds: int, serve_flags: list[str], draws=None,
+                  secret: str | None = None) -> tuple[list, dict]:
+    """``serve --num-clients 2 --dp-clip 1.0`` with two ``client --dp`` over
+    ``rounds`` rounds, through the parser, the fold on the card. Returns
+    the server's per-round records (its return value, K4's launches) and
+    the clients' ``run_client`` results."""
+    old_secret = os.environ.pop("FEDTPU_SECRET", None)
+    if secret is not None:
+        os.environ["FEDTPU_SECRET"] = secret
+    records, results, errors = [], {}, []
+    try:
+        with tempfile.TemporaryDirectory() as out_dir:
+            server = build_round_server(build_parser().parse_args(
+                ["serve", "--host", "127.0.0.1", "--port", "0", "--num-clients", "2", "--timeout", "600",
+                 "--dp-clip", "1.0", *serve_flags]
+            ))
+            check(server.device.type == "cuda" and server.dp_clip == 1.0, f"server folds on {server.device}")
+            if draws is not None:
+                server._dp_rng = _ScriptedCohort(draws, server._dp_rng)
+
+            def serve() -> None:
+                try:
+                    for _ in range(rounds):
+                        k4 = fold_mod.FOLD_LAUNCHES
+                        agg = server.serve_round()
+                        records.append({"agg": agg, "mean": server.last_mean, "k4": fold_mod.FOLD_LAUNCHES - k4,
+                                        "fold": dict(server.last_fold_stats or {})})
+                except BaseException as e:  # re-raised below, after the join
+                    errors.append(e)
+
+            def client(i: int) -> None:
+                try:
+                    results[i] = run_client(build_parser().parse_args(
+                        ["client", "--client-id", str(i), "--host", "127.0.0.1", "--port", str(server.port),
+                         *DP_CLIENT_ARGS, "--rounds", str(rounds), "--seed", str(seed), "--output-dir", out_dir]
+                    ))
+                except BaseException as e:  # re-raised below, after the join
+                    errors.append(e)
+
+            with server:
+                threads = [threading.Thread(target=serve)] + [threading.Thread(target=client, args=(i,)) for i in range(2)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=900)
+            check(not any(t.is_alive() for t in threads), f"dp-rounds ({name}) threads hung")
+    finally:
+        os.environ.pop("FEDTPU_SECRET", None)
+        if old_secret is not None:
+            os.environ["FEDTPU_SECRET"] = old_secret
+    if errors:
+        raise errors[0]
+    check(len(records) == rounds and all(len(results[i]["rounds"]) == rounds for i in range(2)), f"dp-rounds ({name}) rounds")
+    return records, results
+
+
+def dp_rounds_phase(seed: int, card: str, work: str) -> dict[str, int]:
+    """Central DP over TCP at full width, the fold on the card: (a) one
+    round at noise 0, the reply delta bit-equal to numpy's fp32 fold of the
+    two clipped uploads (K4 is bit-exact) and within 1e-6 of the terms'
+    magnitude of the float64 mean; (b) three rounds at ``--dp-noise-multiplier 1.0
+    --dp-participation 0.5`` with ``--dp-history-file`` and FEDTPU_SECRET
+    set, the cohort draws scripted (both, only client 0, only client 1) so
+    that each client sits a round out through ``DPSK``: both clients'
+    bases bit-equal after every round, the history file holding the 3
+    released deltas; (c) a stranded client (it drops round 1's reply)
+    healed by the composed resync, bit-equal to the fleet, and round 3
+    from the common base. Returns the launches (K4's under ``fold``)."""
+    total = zero_launches()
+    zero_with_fold()
+    records, results = dp_invocation(seed, card, "noise 0", 1, ["--dp-noise-multiplier", "0"])
+    add_launches(total, read_with_fold())
+    uploads = [wire.flatten_params(results[i]["rounds"][0]["uploaded"]) for i in range(2)]
+    bases = [wire.flatten_params(results[i]["rounds"][0]["round_base"]) for i in range(2)]
+    check(all(np.array_equal(bases[0][k], bases[1][k]) for k in bases[0]), "the clients started from different bases")
+    clipped, norms = [], []
+    for u, b in zip(uploads, bases):
+        c, norm, _ = wire.clip_flat({k: np.asarray(u[k], np.float32) - b[k] for k in b}, 1.0)
+        clipped.append(c)
+        norms.append(norm)
+    agg = records[0]["agg"]
+    bit_equal, worst = True, 0.0
+    for k in clipped[0]:
+        acc = np.zeros_like(clipped[0][k])
+        for c in clipped:
+            acc += np.float32(0.5) * c[k]
+        bit_equal = bit_equal and np.array_equal(agg[k], acc)
+        c0, c1 = (c[k].astype(np.float64) for c in clipped)
+        scale = 0.5 * (np.abs(c0) + np.abs(c1))  # the terms' magnitude: cancellation leaves no relative bound
+        ratio = np.abs(agg[k] - 0.5 * (c0 + c1)) / np.maximum(1e-6 * scale, np.finfo(np.float64).tiny)
+        worst = max(worst, float(ratio.max(initial=0.0)))
+    same = all(np.array_equal(wire.flatten_params(results[0]["aggregate"])[k], wire.flatten_params(results[1]["aggregate"])[k]) for k in bases[0])
+    print(f"dp-rounds (a) {card}: upload delta norms {np.round(norms, 5).tolist()} (clip 1.0); reply delta bit-equal to "
+          f"numpy's fp32 fold of the clipped deltas {bit_equal}, largest |reply - float64 mean| over 1e-6 x the terms' "
+          f"magnitude {worst:.3e} (<= 1 passes); K4 {records[0]['k4']} launches; both clients' bases equal {same}", flush=True)
+    check(bit_equal and worst <= 1.0 and same and records[0]["k4"] == 102, "dp-rounds (a)")
+
+    hist = os.path.join(work, "dp_history.npz")
+    zero_with_fold()
+    records, results = dp_invocation(
+        seed, card, "noise 1.0, q 0.5", 3,
+        ["--dp-noise-multiplier", "1.0", "--dp-participation", "0.5", "--dp-history-file", hist],
+        draws=[0.1, 0.1, 0.1, 0.9, 0.9, 0.1], secret="chip-smoke-dp-secret",
+    )
+    add_launches(total, read_with_fold())
+    for r in range(3):
+        a = [wire.flatten_params(results[i]["rounds"][r]["aggregate"]) for i in range(2)]
+        same = all(np.array_equal(a[0][k], a[1][k]) for k in a[0])
+        finite = all(np.isfinite(v).all() for v in a[0].values())
+        x = [results[i]["rounds"][r]["exchange"] for i in range(2)]
+        print(f"dp-rounds (b) {card}: round {r + 1}: uploads {[e['upload_shape'] for e in x]}, K4 {records[r]['k4']} "
+              f"launches, reply {x[0]['meta'].get('dp_reply')} (round_clients {x[0]['meta'].get('round_clients')}); "
+              f"bases bit-equal {same}, finite {finite}; waits {[round(e['reply_wait_s'], 3) for e in x]} s", flush=True)
+        check(same and finite and records[r]["k4"] == 102, f"dp-rounds (b) round {r + 1}")
+    sat_out = [[results[i]["rounds"][r]["exchange"]["upload_shape"] for i in range(2)] for r in range(3)]
+    check(sat_out == [["dense", "dense"], ["dense", "none"], ["none", "dense"]], f"sit-outs {sat_out}")
+    with np.load(hist, allow_pickle=False) as z:
+        kept = len(json.loads(bytes(z["__index__"].tobytes()).decode()))
+    print(f"dp-rounds (b): {hist} holds {kept} retained round deltas", flush=True)
+    check(kept == 3, f"the history file holds {kept} deltas")
+
+    zero_with_fold()
+    stranded_check(seed, card)
+    add_launches(total, read_with_fold())
+    print(f"dp-rounds: launches {total}", flush=True)
+    return total
+
+
+def stranded_check(seed: int, card: str) -> None:
+    """(c): full-width params (the seeded init, JAX layout) with seeded
+    local deltas, through the library client."""
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.comm import (
+        AggregationServer,
+        FederatedClient,
+    )
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.models import (
+        params_to_jax,
+    )
+
+    tok = default_tokenizer()
+    cfg = ModelConfig.distilbert_base(vocab_size=len(tok.vocab))
+    base0 = wire.flatten_params(params_to_jax(init_params(cfg, torch.Generator().manual_seed(seed + 47))))
+    rng = np.random.default_rng(seed + 48)
+
+    def step(b):
+        return {k: v + rng.standard_normal(v.shape, dtype=np.float32) * np.float32(1e-4) for k, v in b.items()}
+
+    def exchange_all(clients, params, bases):
+        out, errors = {}, []
+
+        def go(i):
+            try:
+                tree = clients[i].exchange(wire.unflatten_params(params[i]), round_base=wire.unflatten_params(bases[i]))
+                out[i] = wire.flatten_params(tree)
+            except BaseException as e:  # re-raised below
+                errors.append(e)
+
+        ts = [threading.Thread(target=go, args=(i,)) for i in range(2)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=600)
+        if errors:
+            raise errors[0]
+        return out
+
+    with AggregationServer(host="127.0.0.1", port=0, num_clients=2, min_clients=1, timeout=600, dp_clip=1.0,
+                           dp_noise_multiplier=1.0, device="cuda") as server:
+        clients = [FederatedClient("127.0.0.1", server.port, client_id=i, timeout=600, dp=True) for i in range(2)]
+        aggs = []
+
+        def serve_one():
+            aggs.append(server.serve_round())
+
+        t = threading.Thread(target=serve_one)
+        t.start()
+        out = exchange_all(clients, [step(base0), step(base0)], [base0, base0])
+        t.join(timeout=600)
+        base1 = out[1]  # client 0 drops this reply: it stays at base0
+        t = threading.Thread(target=serve_one)
+        t.start()
+        out = exchange_all(clients, [step(base0), step(base1)], [base0, base1])
+        t.join(timeout=600)
+        healed = all(np.array_equal(out[0][k], out[1][k]) for k in out[1])
+        changed = not all(np.array_equal(out[1][k], base1[k]) for k in base1)
+        base2 = out[1]
+        t = threading.Thread(target=serve_one)
+        t.start()
+        out = exchange_all(clients, [step(base2), step(base2)], [base2, base2])
+        t.join(timeout=600)
+        agree = all(np.array_equal(out[0][k], out[1][k]) for k in out[1])
+        third = server.last_fold_stats
+    print(f"dp-rounds (c) {card}: the stranded client healed bit-equal to the fleet {healed} (round 2 moved the base "
+          f"{changed}); round 3 from the common base: {len(aggs)} rounds released, bases equal {agree}, "
+          f"{third['fold_engine']} fold", flush=True)
+    check(healed and changed and agree and all(a is not None for a in aggs), "the stranded client did not heal")
+
+
+def stream_phase(seed: int, card: str, work: str) -> dict[str, int]:
+    """``--stream``: a 20,000-row CSV with NaN/inf cells read by the
+    two-pass chunked reader. On a clean 20,000-row CSV its token arrays
+    equal the in-memory loader's (disjoint and dirichlet partitions, as
+    tests/test_streaming.py holds them); on the noisy one every label and
+    shape matches and most rows' tokens do. Then ``local --stream``,
+    ``federated --stream`` and ``distill --stream`` at full width for one
+    epoch with finite losses. Returns their launches."""
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.config import (
+        DataConfig,
+    )
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.data.cicids import (
+        make_all_client_splits,
+    )
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.data.pipeline import (
+        tokenize_client,
+    )
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.data.streaming import (
+        stream_client_tokens,
+    )
+
+    noisy, clean = os.path.join(work, "stream_noisy.csv"), os.path.join(work, "stream_clean.csv")
+    write_flows_csv(noisy, 20000, seed + 51)
+    write_flows_csv(clean, 20000, seed + 52, inf_fraction=0.0, nan_fraction=0.0)
+    tok = default_tokenizer()
+    for path, scheme, exact in ((clean, "disjoint", True), (clean, "dirichlet", True), (noisy, "disjoint", False)):
+        dcfg = DataConfig(partition=scheme, data_fraction=0.05, max_len=128)
+        t0 = time.perf_counter()
+        got = stream_client_tokens(path, dcfg, 2, tok, chunk_rows=4096)
+        t_stream = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = [tokenize_client(s, tok, max_len=128) for s in make_all_client_splits(load_flow_csv(path), 2, dcfg)]
+        t_mem = time.perf_counter() - t0
+        equal_rows = total_rows = 0
+        for a, b in zip(got, want):
+            for split in ("train", "val", "test"):
+                sa, sb = getattr(a, split), getattr(b, split)
+                check(np.array_equal(sa.labels, sb.labels) and sa.input_ids.shape == sb.input_ids.shape,
+                      f"stream {scheme}: {split} labels or shapes differ")
+                same = (sa.input_ids == sb.input_ids).all(axis=1) & (sa.attention_mask == sb.attention_mask).all(axis=1)
+                equal_rows += int(same.sum())
+                total_rows += len(same)
+        print(f"stream: {os.path.basename(path)} {scheme}: {total_rows} rows, {equal_rows} token rows equal to the "
+              f"in-memory loader's; host seconds streamed {t_stream:.3f}, in memory {t_mem:.3f}", flush=True)
+        check(equal_rows == total_rows if exact else equal_rows > 0.7 * total_rows, f"stream {scheme}: {equal_rows}/{total_rows}")
+    flags = ["--preset", "distilbert", "--attention-impl", "flash", "--stream", "--csv", noisy, "--data-fraction", "0.02",
+             "--epochs", "1", "--seed", str(seed)]
+    total = zero_launches()
+    zero_with_fold()
+    res = run_local(build_parser().parse_args(["local", *flags, "--output-dir", os.path.join(work, "s_local")]))
+    got = read_with_fold()
+    add_launches(total, got)
+    L, steps = res["config"].model.n_layers, res["state"].step
+    print(f"stream: {card}: local --stream: {steps} steps, losses {res['losses']}; launches {got}", flush=True)
+    check(steps > 0 and np.isfinite(res["losses"]).all() and got["flash_fwd_dropout"] == L * steps, "local --stream")
+    zero_with_fold()
+    res = run_federated(build_parser().parse_args(
+        ["federated", *flags, "--num-clients", "2", "--partition", "disjoint", "--rounds", "1",
+         "--output-dir", os.path.join(work, "s_fed")]
+    ))
+    got = read_with_fold()
+    add_launches(total, got)
+    losses = res["history"][0].epoch_losses
+    print(f"stream: {card}: federated --stream: train rows {[int(n) for n in res['stacked_train'].n_rows]}, epoch losses "
+          f"{np.round(losses, 4).tolist()}; launches {got}", flush=True)
+    check(np.isfinite(losses).all() and got["flash_bwd_dq"] > 0, "federated --stream")
+    zero_with_fold()
+    res = run_distill(build_parser().parse_args(
+        ["distill", *flags, "--teacher-layers", "6", "--student-layers", "3", "--output-dir", os.path.join(work, "s_distill")]
+    ))
+    got = read_with_fold()
+    add_launches(total, got)
+    print(f"stream: {card}: distill --stream: teacher losses {res['teacher_losses']}, KD losses {res['losses']}; "
+          f"launches {got}", flush=True)
+    check(np.isfinite(res["losses"]).all() and np.isfinite(res["teacher_losses"]).all(), "distill --stream")
+    del res
+    return total
+
+
+def max_len_serve(card: str, work: str, cfg: ModelConfig, params: dict, texts: list[str]) -> dict[str, int]:
+    """``infer-serve --hf-dir --max-len 64`` (the serving weights written
+    as an HF directory) answering 32 flows at L=64, within bf16's bound
+    (atol 1e-2) of the same weights scored at L=64 in fp32 on the CPU.
+    Returns its launches."""
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.models.hf_convert import (
+        write_hf_dir,
+    )
+
+    tok = default_tokenizer()
+    hf = os.path.join(work, "serve_hf")
+    write_hf_dir(hf, params, cfg, tok)
+    server = build_server(build_parser().parse_args(
+        serve_args("--preset", "distilbert", "--attention-impl", "flash", "--hf-dir", hf, "--max-len", "64")
+    ))
+    check(server.engine.device.type == "cuda" and server.engine.seq_len == 64, f"engine on {server.engine.device} at L={server.engine.seq_len}")
+    texts = texts[:32]
+    with server:
+        zero_with_fold()
+        b0 = server.stats()["batches"]
+        replies = score_texts(server.port, texts)
+        batches = server.stats()["batches"] - b0
+        launches = read_with_fold()
+    enc = tok.batch_encode(texts, max_len=64)
+    cpu = ScoreEngine(dataclasses.replace(cfg, max_len=64, attention_impl="dot", compute_dtype="float32"),
+                      {n: t.detach().cpu() for n, t in params.items()}, pad_id=tok.pad_id, buckets=(32,), device="cpu")
+    want = cpu.score(enc["input_ids"], enc["attention_mask"])[0]
+    got = np.array([r["prob"] for r in replies])
+    diff = float(np.abs(got - want).max())
+    print(f"serving: {card}: infer-serve --hf-dir --max-len 64: {len(replies)} replies in {batches} batches at L=64, "
+          f"max|prob - fp32 CPU scorer at L=64| {diff:.3e} (bf16 atol 1e-2); launches {launches}", flush=True)
+    check(diff <= 1e-2 and launches["flash_fwd"] == cfg.n_layers * batches, f"max-len 64 serving: diff {diff}, launches {launches}")
     return launches
 
 
@@ -2486,17 +3148,27 @@ def main() -> int:
         distill_launches = distill_phase(seed, card, work, ckpt_dir, csv_path)
         phase("migrate")
         migrate_launches = migrate_phase(seed, card, work, ckpt_dir, csv_path)
-    slice_launches = {k: opt_launches[k] + distill_launches[k] + migrate_launches[k] for k in opt_launches}
+        phase("privacy")
+        privacy_launches = privacy_phase(seed, card, work)
+        phase("dp-rounds")
+        dp_launches = dp_rounds_phase(seed, card, work)
+        phase("stream")
+        stream_launches = stream_phase(seed, card, work)
+    slice_launches = {
+        k: opt_launches[k] + distill_launches[k] + migrate_launches[k] + privacy_launches[k] + dp_launches[k] + stream_launches[k]
+        for k in opt_launches
+    }
+    early_fold = migrate_launches["fold"] + privacy_launches["fold"] + dp_launches["fold"] + stream_launches["fold"]
     k1["launches"] = serve_launches + train_launches["flash_fwd"] + life_launches + fed_launches["flash_fwd"] + slice_launches["flash_fwd"]
     for row in (k1_drop, k2, k3):
         row["launches"] = train_launches[row["name"]] + fed_launches[row["name"]] + slice_launches[row["name"]]
     print(
         f"launches: flash_fwd {serve_launches} (serving) + {train_launches['flash_fwd']} (evaluation) + {life_launches} "
         f"(predict, reload serving) + {fed_launches['flash_fwd']} (federated evaluation, predict, serving) + "
-        f"{slice_launches['flash_fwd']} (train-options, distill, migrate); K1 dropout / K2 / K3 "
+        f"{slice_launches['flash_fwd']} (train-options, distill, migrate, privacy, dp-rounds, stream); K1 dropout / K2 / K3 "
         f"{train_launches['flash_fwd_dropout']} (local) + {fed_launches['flash_fwd_dropout']} (federated) + "
         f"{slice_launches['flash_fwd_dropout']} / {slice_launches['flash_bwd_dkdv']} / {slice_launches['flash_bwd_dq']} "
-        "(train-options, distill, migrate)",
+        f"(train-options, distill, migrate, privacy, dp-rounds, stream); K4 {early_fold} (migrate, dp-rounds)",
         flush=True,
     )
 
@@ -2504,7 +3176,7 @@ def main() -> int:
     k4 = fold_kernel_phase(seed, card)
 
     phase("round")
-    k4["launches"] = round_phase(seed, card)
+    k4["launches"] = early_fold + round_phase(seed, card)
 
     phase("rounds")
     rounds_launches = rounds_phase(seed, card)

@@ -1,8 +1,8 @@
 """``serve`` / ``client``: the federated round over TCP (the reference's
 socket deployment, server.py + client1.py end to end; the port of the JAX
-package's ``cli/comm.py`` for the plain round: dense or streamed uploads
-and replies, the bf16/int8/top-k wires, HMAC, server strategies and the
-client's FedProx).
+package's ``cli/comm.py`` without secure aggregation: dense or streamed
+uploads and replies, the bf16/int8/top-k wires, HMAC, server strategies,
+the client's FedProx, and central DP with its accountant banner).
 
 Both run on the card unless ``--device cpu`` is given. A JAX ``serve`` or
 ``client`` interoperates with these. The HMAC key comes from the
@@ -44,6 +44,9 @@ def build_server(args) -> AggregationServer:
     """The aggregation server the ``serve`` flags describe, bound and
     listening (``server.port`` is the bound port), not yet serving."""
     _refuse_identity_keys("FEDTPU_CLIENT_SECRETS")
+    if not 0.0 < args.dp_participation <= 1.0:
+        raise SystemExit(f"--dp-participation {args.dp_participation} must be in (0, 1]")
+    _log_dp_banner(args)
     return AggregationServer(
         host=args.host,
         port=args.port,
@@ -57,8 +60,52 @@ def build_server(args) -> AggregationServer:
         strategy=args.strategy,
         strategy_state_path=args.strategy_state_file,
         reply_dtype=args.reply_dtype,
+        dp_clip=args.dp_clip,
+        dp_noise_multiplier=args.dp_noise_multiplier,
+        dp_participation=args.dp_participation,
+        dp_history_path=args.dp_history_file,
         device=args.device,
     )
+
+
+def _log_dp_banner(args) -> str | None:
+    """The serve verb's ``[DP]`` banner (and its return): the client-level
+    guarantee of the served rounds under both adjacencies. The Poisson
+    cohort is the sampler the subsampled-Gaussian accountant assumes, so
+    the epsilon is exact at any q."""
+    if not args.dp_clip > 0.0:
+        return None
+    if not args.dp_noise_multiplier > 0.0:
+        log.warning(
+            "[DP] --dp-clip without --dp-noise-multiplier clips uploads "
+            "but adds NO noise: no (epsilon, delta) guarantee"
+        )
+        return None
+    from ..parallel.dp import dp_epsilon_both
+
+    rounds = args.rounds or 1
+    q = args.dp_participation
+    eps_zeroed, eps_replace = dp_epsilon_both(rounds, args.dp_noise_multiplier, 1e-5, sampling_rate=q)
+    sampling_note = (
+        "full participation, accountant exact"
+        if q >= 1.0
+        else (
+            f"Poisson cohort sampling q={q:.3g} (accountant "
+            "exact; sampled sets are kept out of replies — "
+            "amplification assumes a hidden cohort)"
+        )
+    )
+    banner = (
+        f"[DP] client-level guarantee for {rounds} round(s): "
+        f"({eps_zeroed:.3g}, 1e-05)-DP under zeroed-contribution "
+        f"adjacency; ({eps_replace:.3g}, 1e-05)-DP under replace-one "
+        f"adjacency (clip {args.dp_clip}, noise x{args.dp_noise_multiplier}; "
+        f"{sampling_note}). Noise caveat: float32 Gaussian draws "
+        "(OS-entropy Philox) — not hardened against the Mironov "
+        "floating-point precision attack (no discrete Gaussian)"
+    )
+    log.info(banner)
+    return banner
 
 
 def cmd_serve(args) -> int:
@@ -78,8 +125,9 @@ def run_client(args) -> dict:
     ``config``, ``trainer``, ``state``, ``local`` and ``aggregated``
     metrics (None after a failed exchange), ``rounds`` (per round: the
     params as sent, JAX layout, whose leaves are host arrays once sent;
-    the aggregate as received; the metrics; the seconds per phase; and
-    ``exchange``, the client's wire record), ``uploaded``, ``aggregate``,
+    the aggregate as received; the metrics; the seconds per phase;
+    ``exchange``, the client's wire record; and under DP ``round_base``,
+    the params the round's training started from), ``uploaded``, ``aggregate``,
     ``seconds`` and ``exchange`` of the last round (with the data and
     model set-up before the first in ``seconds``), ``metrics_csvs``, and
     with a checkpoint directory ``warm_step`` (the step warm-started
@@ -103,7 +151,7 @@ def run_client(args) -> dict:
     fed = FederatedClient(
         args.host, args.port, client_id=args.client_id, timeout=args.timeout,
         compression=args.compression, auth_key=_auth_key(), stream=args.stream_upload,
-        wire_dtype=args.wire_dtype,
+        wire_dtype=args.wire_dtype, dp=args.dp,
     )
     tok, cfg, pretrained = _resolve_with_pretrained(args)
     client = _load_clients(args, cfg, tok, cfg.fed.num_clients)[args.client_id]
@@ -140,6 +188,10 @@ def run_client(args) -> dict:
     seconds: dict[str, float] = {}
     records: list[dict] = []
     for r in range(rounds):
+        # Central DP: the round base is what this round's training starts
+        # from (the shared init in round 1, the adopted aggregate after);
+        # host_params copies, so training cannot alias it.
+        round_base = trainer.host_params(state) if fed.dp else None
         t0 = time.perf_counter()
         state, _ = trainer.fit(
             state, client.train, batch_size=cfg.data.batch_size, epoch_offset=r * E, tag=tag
@@ -161,7 +213,7 @@ def run_client(args) -> dict:
             else None
         )
         try:
-            aggregated = fed.exchange(uploaded, n_samples=len(client.train))
+            aggregated = fed.exchange(uploaded, n_samples=len(client.train), round_base=round_base)
         except OSError as e:  # ConnectionError included: the server is gone
             agg_metrics = aggregated = None
             log.info(f"{tag}round {r + 1} exchange failed ({e}); local-only reports")
@@ -185,6 +237,7 @@ def run_client(args) -> dict:
         records.append({
             "uploaded": uploaded, "aggregate": aggregated, "local": local,
             "aggregated": agg_metrics, "seconds": dict(seconds), "exchange": fed.last_exchange,
+            "round_base": round_base,
         })
     paths = _write_reports(args.client_id, local, agg_metrics, cfg.output_dir)
     return {

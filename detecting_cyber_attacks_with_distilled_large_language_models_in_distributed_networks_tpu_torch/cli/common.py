@@ -109,10 +109,13 @@ def _resolve_fed(args: argparse.Namespace, fed: FedConfig) -> FedConfig:
         kw.update(weighted=True)
     elif getattr(args, "unweighted", False):
         kw.update(weighted=False)
-    for name in ("prox_mu", "participation", "server_lr", "server_momentum"):
+    for name in (
+        "prox_mu", "participation", "server_lr", "server_momentum", "dp_clip", "dp_noise_multiplier",
+        "personalize_epochs",
+    ):
         if getattr(args, name, None) is not None:
             kw[name] = getattr(args, name)
-    for name in ("participation_mode", "server_opt"):
+    for name in ("participation_mode", "server_opt", "personalize_scope"):
         if getattr(args, name, None):
             kw[name] = getattr(args, name)
     participation = kw.get("participation", fed.participation)
@@ -261,9 +264,18 @@ def _load_client_splits(args, cfg: ExperimentConfig, num_clients: int):
 
 
 def _load_clients(args, cfg: ExperimentConfig, tok, num_clients: int):
-    """Per-client text splits -> token arrays."""
+    """Per-client text splits -> token arrays; with ``--stream`` the
+    two-pass chunked reader of ``--csv`` (data/streaming.py), which never
+    holds the whole CSV."""
     from ..data.pipeline import tokenize_client
 
+    if getattr(args, "stream", False):
+        if not getattr(args, "csv", None):
+            raise SystemExit("--stream needs --csv (chunked two-pass reader)")
+        from ..data.streaming import stream_client_tokens
+
+        log.info(f"[DATA] streaming {args.csv}")
+        return stream_client_tokens(args.csv, cfg.data, num_clients, tok, max_len=cfg.model.max_len)
     splits = _load_client_splits(args, cfg, num_clients)
     return [tokenize_client(s, tok, max_len=cfg.model.max_len) for s in splits]
 

@@ -8,9 +8,9 @@ process), ``serve`` and ``client`` (a federated round over TCP),
 to the HF layout), ``export-config`` (the resolved config as JSON) and
 ``registry`` (the model registry's operator commands) so far. Each that
 computes runs on the card unless ``--device cpu`` is given. Flags of
-features the port has not reached (``--stream``, ``--metrics-jsonl``,
-``--profile-dir``, ``--trace-jsonl``) are absent, so argparse refuses
-them.
+features the port has not reached (``--metrics-jsonl``, ``--profile-dir``,
+``--trace-jsonl``, ``--secure-agg``, ``--data-parallel``,
+``--seq-parallel``) are absent, so argparse refuses them.
 """
 
 from __future__ import annotations
@@ -145,6 +145,12 @@ def _add_training(p: argparse.ArgumentParser, *, device: bool = True) -> None:
         "the entry names none",
     )
     p.add_argument("--synthetic", type=int, metavar="N", help="use N synthetic flows of --dataset's schema")
+    p.add_argument(
+        "--stream",
+        action="store_true",
+        help="two-pass chunked CSV reader (corpora larger than RAM); "
+        "index-based sampling semantics",
+    )
     p.add_argument("--output-dir", default=None)
     p.add_argument("--batch-size", type=int)
     p.add_argument("--epochs", type=int, help="epochs per round")
@@ -202,14 +208,43 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--prox-mu", type=float, help="FedProx proximal weight (0 = plain FedAvg)")
     p.add_argument(
+        "--personalize-epochs",
+        type=int,
+        help="after the final round, fine-tune the aggregate on each "
+        "client's own shard for this many epochs and report a third "
+        "'personalized' evaluation phase (0 = off)",
+    )
+    p.add_argument(
+        "--personalize-scope",
+        choices=["full", "head"],
+        help="personalization scope: 'full' fine-tunes everything "
+        "(FedAvg+FT); 'head' freezes the shared encoder and adapts only "
+        "the classifier head (FedPer)",
+    )
+    p.add_argument(
         "--participation", type=float,
         help="fraction of clients aggregated per round (sampled, seeded); "
         "1.0 = everyone (reference behavior)",
     )
     p.add_argument(
         "--participation-mode", choices=["auto", "fixed", "poisson"],
-        help="cohort sampler under --participation < 1: an exact-size "
-        "cohort (fixed) or each client independently (poisson)",
+        help="cohort sampler under --participation < 1: 'fixed' draws an "
+        "exact-size cohort; 'poisson' draws each client independently "
+        "(the DP accountant's assumption, making epsilon exact); 'auto' "
+        "(default) = poisson when DP is on",
+    )
+    p.add_argument(
+        "--dp-clip",
+        type=float,
+        help="DP-FedAvg: clip each client's round update to this L2 norm "
+        "before aggregation (0 = off)",
+    )
+    p.add_argument(
+        "--dp-noise-multiplier",
+        type=float,
+        help="DP-FedAvg: Gaussian noise multiplier on the clipped mean "
+        "update (std = multiplier * clip / n_participants); requires "
+        "--dp-clip",
     )
     p.add_argument(
         "--server-opt", choices=["none", "momentum", "adam", "yogi"],
@@ -285,6 +320,43 @@ def build_parser() -> argparse.ArgumentParser:
         "state in this npz file (the JAX package's layout) and resume from it "
         "on start; ignored when it holds another strategy",
     )
+    p.add_argument(
+        "--dp-clip",
+        type=float,
+        default=0.0,
+        help="central DP: require clipped round-delta uploads (clients "
+        "run with --dp), aggregate mean(clipped deltas) + Gaussian noise, "
+        "reply with the noised mean delta — the server never holds "
+        "absolute weights",
+    )
+    p.add_argument(
+        "--dp-noise-multiplier",
+        type=float,
+        default=0.0,
+        help="Gaussian noise std on the mean delta is "
+        "multiplier * clip / n_clients; the accountant banner reports "
+        "the (epsilon, delta) guarantee for the served rounds",
+    )
+    p.add_argument(
+        "--dp-participation",
+        type=float,
+        default=1.0,
+        help="Poisson cohort sampling rate q: each round samples every "
+        "registered client independently with probability q; non-sampled "
+        "clients sit the round out (they still receive the reply). "
+        "q < 1 buys privacy amplification — the banner's subsampled "
+        "accountant is exact for this sampler",
+    )
+    p.add_argument(
+        "--dp-history-file",
+        default=None,
+        help="persist the DP resync window (the retained post-noise "
+        "round deltas) to this npz file and reload it on startup, so a "
+        "server restart between rounds does not re-strand stale "
+        "clients — they heal bit-exactly from the reloaded fp32 "
+        "history. Post-noise deltas are DP outputs; persisting them "
+        "costs no privacy",
+    )
     _add_device(p, "the fold runs")
     p.set_defaults(fn=cmd_serve)
 
@@ -338,6 +410,24 @@ def build_parser() -> argparse.ArgumentParser:
         "server's --strategy fedprox); 0/unset = plain local training",
     )
     p.add_argument(
+        "--dp",
+        action="store_true",
+        help="central DP (server runs with --dp-clip): upload the clipped "
+        "round delta vs this round's starting params; the clip bound and "
+        "noise multiplier come from the server's advert",
+    )
+    p.add_argument(
+        "--partition", choices=["sample", "disjoint", "dirichlet", "quantity"],
+        help="sample|disjoint|dirichlet|quantity",
+    )
+    p.add_argument(
+        "--dirichlet-alpha",
+        type=float,
+        help="skew concentration for --partition dirichlet/quantity "
+        "(smaller = more non-IID; default 0.5). Same seeded partition "
+        "as the federated verb: client i holds identical rows on both",
+    )
+    p.add_argument(
         "--checkpoint-dir",
         help="warm-start + save full state here (the reference's "
         "client{N}_model.pth re-launch pattern, client1.py:375-377,388,403)",
@@ -389,20 +479,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="seconds between reload-source polls on the scorer's idle "
         "tick (default 2)",
     )
-    p.add_argument(
-        "--preset",
-        default="tiny",
-        help=f"{'|'.join(preset_names())}; the artifact manifest's "
-        "model_config wins when it has one",
-    )
-    p.add_argument(
-        "--attention-impl",
-        choices=["dot", "flash"],
-        help="attention path: dot (plain PyTorch) or flash (the CUDA "
-        "kernel); the artifact manifest's model_config wins",
-    )
-    _add_model_source(p)
-    _add_dataset(p)
+    # The model, tokenizer and dataset flags of the training verbs, as the
+    # JAX package gives them (--max-len sets the served sequence length);
+    # an artifact manifest's or checkpoint's model_config wins.
+    _add_training(p, device=False)
     p.add_argument(
         "--auth",
         action="store_true",

@@ -60,7 +60,7 @@ def run_predict(args) -> dict:
 
     if not args.csv:
         raise SystemExit("predict needs --csv (the flows to classify)")
-    for flag in ("source", "synthetic"):
+    for flag in ("stream", "source", "synthetic"):
         if getattr(args, flag, None):
             raise SystemExit(
                 f"--{flag} is a training-data option; predict reads the "

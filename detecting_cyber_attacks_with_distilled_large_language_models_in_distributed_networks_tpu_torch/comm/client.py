@@ -30,17 +30,26 @@ interoperates:
   base is adopted only when it hashes to the server's ``agg_crc`` stamp,
   so a lossy reply keeps the client dense;
 * with ``auth_key`` the server's nonce is echoed in the upload's meta, and
-  the reply must echo it back with role ``server``.
+  the reply must echo it back with role ``server``;
+* with ``dp=True`` (central DP, ``--dp``) the client reads the server's
+  DP advert, names itself, and on its cohort verdict either uploads its
+  round delta against ``round_base`` clipped to the advertised bound
+  (dense, never streamed), or sits the round out; the reply is the
+  noised mean delta (applied to the base), a ``noop``, or a ``resync``
+  sequence replayed onto a stale base;
+* a plain client whose first attempt failed peeks at the server's first
+  frame, and names the fix when the server runs DP or auth.
 
-Not ported: secure aggregation, central DP, and re-homing to fallback
-parents.
+Not ported: secure aggregation and re-homing to fallback parents.
 """
 
 from __future__ import annotations
 
+import hmac
 import logging
 import random
 import socket
+import struct
 import time
 from typing import Any, Iterator, Mapping
 
@@ -118,8 +127,15 @@ class FederatedClient:
         auth_key: bytes | None = None,
         stream: bool = True,
         wire_dtype: str = "fp32",
+        dp: bool = False,
     ):
         _, self._topk_frac = wire.parse_compression(compression)
+        if dp and self._topk_frac is not None:
+            raise ValueError(
+                "central DP uploads are clipped dense deltas; the sparse "
+                "topk path would bypass the clip and the base-agreement "
+                "rounds — drop --dp or topk"
+            )
         if wire_dtype not in wire.WIRE_DTYPE_ENCS:
             raise ValueError(f"wire_dtype {wire_dtype!r} must be {'|'.join(sorted(wire.WIRE_DTYPE_ENCS))}")
         if wire_dtype != "fp32" and compression != "none":
@@ -141,6 +157,9 @@ class FederatedClient:
         #: a lossy --reply-dtype).
         self.stream = bool(stream)
         self.wire_dtype = wire_dtype
+        #: Central DP: uploads are clipped round deltas (the server's
+        #: --dp-clip), and replies are noised mean deltas.
+        self.dp = bool(dp)
         #: The server's last offers (one reply behind): its chunk bytes
         #: (None = no stream offer) and the stream encodings it decodes.
         self._server_stream: int | None = None
@@ -172,6 +191,7 @@ class FederatedClient:
         n_samples: int = 1,
         meta: Mapping[str, Any] | None = None,
         max_retries: int = 5,  # the reference's retry budget (client1.py:314)
+        round_base: Any | None = None,
     ) -> dict:
         """Upload local params (a nested dict in the JAX layout, of host
         arrays or ``HostLeaf``), return the aggregate (nested dict of
@@ -180,12 +200,26 @@ class FederatedClient:
         Retries the whole round trip on connection errors and on a
         malformed reply; a :class:`~.wire.ModeError` is not retried. With
         a topk compression the caller must adopt the returned aggregate as
-        its model (the error feedback assumes it)."""
+        its model (the error feedback assumes it). Under DP ``round_base``
+        is the params this round's training started from (the adopted
+        aggregate, or the shared init in round 1); the upload is
+        ``clip(params - round_base)`` and the return is absolute."""
         base_meta = {"client_id": self.client_id, "n_samples": int(n_samples), **dict(meta or {})}
         if self.stream:
             base_meta[wire.META_STREAM_REPLY] = 1
             base_meta[wire.META_REPLY_DTYPES] = sorted(set(wire.WIRE_DTYPE_ENCS.values()))
         flat = wire.flatten_lazy(params)
+        dp_base = dp_delta = None
+        if self.dp:
+            if round_base is None:
+                raise ValueError("central DP needs round_base: the params this round's training started from")
+            dp_base = {k: np.asarray(v, np.float32) for k, v in wire.flatten_params(round_base).items()}
+            flat = wire.flatten_params(params)
+            if not wire.shapes_compatible(flat, dp_base):
+                raise ValueError("round_base tensor set/shapes do not match params")
+            dp_delta = {k: np.asarray(flat[k], np.float32) - dp_base[k] for k in flat}
+            base_meta["dp"] = True
+            base_meta["dp_base_crc"] = wire.flat_crc32(dp_base)
         msg = None  # a dense frame, encoded once unless auth or topk re-encode it
         last: Exception | None = None
         for attempt in range(1, max_retries + 1):
@@ -204,16 +238,27 @@ class FederatedClient:
                         raise wire.WireError("bad auth challenge from server")
                     nonce_hex = bytes(chal[len(wire.NONCE_MAGIC) :]).hex()
                     attempt_meta.update(role="client", nonce=nonce_hex)
+                if not self.dp and attempt > 1:
+                    self._diagnose_mode(sock)
                 upload, delta_flat, sent_flat = flat, None, None
+                sitting_out = False
+                if self.dp:
+                    clipped = self._dp_handshake(sock, nonce_hex, dp_delta)
+                    sitting_out = clipped is None
+                    upload = clipped
                 if self._topk_frac is not None:
                     upload, delta_flat, sent_flat = self._prepare_topk_upload(flat, attempt, attempt_meta)
                 # Streamed on the first attempt only: a retry may be
-                # recovering from a server that stopped streaming.
+                # recovering from a server that stopped streaming. Never
+                # under DP (the clipped delta goes in one frame).
                 use_stream = (
-                    self.stream and self._topk_frac is None and self._server_stream is not None and attempt == 1
+                    self.stream and not self.dp and self._topk_frac is None
+                    and self._server_stream is not None and attempt == 1
                 )
                 t0 = time.monotonic()
-                if use_stream:
+                if sitting_out:
+                    up = {"upload_shape": "none", "wire_dtype": "fp32", "upload_bytes": 0}
+                elif use_stream:
                     enc = wire.WIRE_DTYPE_ENCS[self.wire_dtype]
                     stream_comp, used_dtype = self.compression, "fp32"
                     if self.wire_dtype != "fp32" and enc in self._server_wire_dtypes:
@@ -226,7 +271,7 @@ class FederatedClient:
                           "chunks": chunks, "overlap_s": overlap_s}
                 else:
                     self._log_dense_fallback(attempt)
-                    if msg is None or self.auth_key is not None or self._topk_frac is not None:
+                    if msg is None or self.auth_key is not None or self._topk_frac is not None or self.dp:
                         # A topk client's frame is raw (dense rounds) or
                         # carries its pre-encoded top-k leaves.
                         comp = "none" if self._topk_frac is not None else self.compression
@@ -263,6 +308,8 @@ class FederatedClient:
                     f"[CLIENT {self.client_id}] received the aggregate "
                     f"({reply_bytes / 1e6:.1f} MB {reply_shape}, clients {agg_meta.get('round_clients')})"
                 )
+                if self.dp:
+                    return self._apply_dp_reply(agg, agg_meta, dp_base, base_meta["dp_base_crc"])
                 if self._topk_frac is not None:
                     self._finish_topk(agg, agg_meta, delta_flat, sent_flat)
                 return agg
@@ -282,6 +329,117 @@ class FederatedClient:
         raise ConnectionError(
             f"client {self.client_id}: round failed after {max_retries} attempts: {last}"
         )
+
+    # ---------------------------------------------------------- central DP
+    def _diagnose_mode(self, sock: socket.socket) -> None:
+        """After a failed attempt a plain client peeks at the server's
+        first frame: a DP or auth server speaks first, and a plain upload
+        there dies as a malformed hello on every retry. A stray frame
+        becomes a non-retryable :class:`~.wire.ModeError` naming the fix."""
+        sock.settimeout(min(self.timeout, 2.0))
+        try:
+            stray = framing.recv_frame(sock)
+        except OSError:  # ConnectionError and socket.timeout included
+            stray = None
+        finally:
+            sock.settimeout(self.timeout)
+        if stray is None:
+            return
+        magic = bytes(stray[:4])
+        if magic == wire.DP_MAGIC:
+            raise wire.ModeError("server is running --dp-clip; run this client with --dp")
+        if magic == wire.NONCE_MAGIC:
+            raise wire.ModeError("server requires authentication; set FEDTPU_SECRET for this client")
+        raise wire.ModeError(f"server opened with an unexpected frame ({magic!r}) — client/server mode mismatch")
+
+    def _dp_handshake(self, sock: socket.socket, nonce_hex: str | None, dp_delta: dict) -> dict | None:
+        """Read the DP advert, name this client, read the cohort verdict.
+        Returns the delta clipped to the advertised bound, or None when
+        this client sits the round out (under auth after proving key
+        knowledge). A server that sends no advert raises ModeError."""
+        sock.settimeout(min(self.timeout, 30.0))
+        try:
+            adv = framing.recv_frame(sock)
+        except socket.timeout:
+            # Not retried: every attempt would stall the same way.
+            raise wire.ModeError("server sent no DP advert — is it running with --dp-clip?") from None
+        finally:
+            sock.settimeout(self.timeout)
+        n_magic = len(wire.DP_MAGIC)
+        if len(adv) != n_magic + 24 or not bytes(adv).startswith(wire.DP_MAGIC):
+            raise wire.ModeError("bad DP advert from server")
+        dp_clip, dp_noise, dp_q = struct.unpack("<ddd", bytes(adv[n_magic:]))
+        if not dp_clip > 0.0:
+            raise wire.WireError(f"DP advert carries clip={dp_clip}")
+        if not 0.0 < dp_q <= 1.0:
+            raise wire.WireError(f"DP advert carries sampling rate q={dp_q}")
+        framing.send_frame(sock, wire.DPID_MAGIC + struct.pack("<q", self.client_id))
+        verdict = framing.recv_frame(sock)
+        if len(verdict) != len(wire.DPCOHORT_MAGIC) + 1 or not bytes(verdict).startswith(wire.DPCOHORT_MAGIC):
+            raise wire.WireError("bad DP cohort verdict")
+        if verdict[-1] == 0:
+            if dp_q >= 1.0:
+                raise wire.WireError("server claims this client is not sampled under full participation (q=1)")
+            if self.auth_key is not None:
+                framing.send_frame(
+                    sock,
+                    wire.DPSKIP_MAGIC + hmac.new(
+                        self.auth_key,
+                        wire.DPSKIP_DOMAIN + bytes.fromhex(nonce_hex) + struct.pack("<q", self.client_id),
+                        "sha256",
+                    ).digest(),
+                )
+            log.info(
+                f"[CLIENT {self.client_id}] sitting out this round (Poisson cohort "
+                f"sampling q={dp_q}); waiting for the round reply"
+            )
+            return None
+        clipped, norm, scale = wire.clip_flat(dp_delta, dp_clip)
+        log.info(
+            f"[CLIENT {self.client_id}] DP round: update norm {norm:.4g}, clip {dp_clip} "
+            f"(scale {scale:.3g}), noise x{dp_noise}"
+        )
+        return clipped
+
+    def _apply_dp_reply(self, agg: dict, agg_meta: Mapping[str, Any], dp_base: dict, base_crc: int) -> dict:
+        """The absolute aggregate from a DP reply: ``noop`` keeps the base,
+        ``resync`` replays the retained round deltas onto it in order (the
+        fleet's own fp32 additions, so the base lands bit for bit), and
+        ``delta`` is added to the base, unless it targets another base
+        (this client is stale): then the base is kept and the next
+        contributing round resyncs it."""
+        kind = agg_meta.get("dp_reply")
+        if kind == "noop":
+            log.info(f"[CLIENT {self.client_id}] no-op round (empty sampled cohort); keeping the round base")
+            return wire.unflatten_params(dp_base)
+        if kind == "resync":
+            try:
+                n_rounds = int(agg_meta["dp_resync_rounds"])
+            except (KeyError, TypeError, ValueError):
+                raise wire.WireError("resync reply missing dp_resync_rounds") from None
+            cur = dp_base
+            for i in range(n_rounds):
+                if str(i) not in agg:
+                    raise wire.WireError(f"resync reply missing round delta {i}")
+                step = wire.flatten_params(agg[str(i)])
+                if not wire.shapes_compatible(step, cur):
+                    raise wire.WireError(f"resync delta {i} shapes do not match the base")
+                cur = {k: cur[k] + np.asarray(step[k], np.float32) for k in cur}
+            log.info(f"[CLIENT {self.client_id}] stale round base resynced: replayed {n_rounds} retained round delta(s)")
+            return wire.unflatten_params(cur)
+        if kind != "delta":
+            raise wire.WireError("DP reply missing dp_reply=delta marker")
+        reply_crc = agg_meta.get("dp_base_crc")
+        if reply_crc is not None and int(reply_crc) != int(base_crc):
+            log.info(
+                f"[CLIENT {self.client_id}] round delta targets a different base than ours "
+                "(stale base); keeping the base — the next contributing round resyncs it"
+            )
+            return wire.unflatten_params(dp_base)
+        agg_flat = wire.flatten_params(agg)
+        if not wire.shapes_compatible(agg_flat, dp_base):
+            raise wire.WireError("DP reply delta shapes do not match the base")
+        return wire.unflatten_params({k: dp_base[k] + np.asarray(agg_flat[k], np.float32) for k in agg_flat})
 
     def _adopt_offers(self, agg_meta: Mapping[str, Any]) -> None:
         """The reply's stream and wire-dtype offers, for the NEXT upload;
@@ -366,6 +524,8 @@ class FederatedClient:
         exists, once per reason."""
         if not self.stream:
             reason = "--no-stream-upload"
+        elif self.dp:
+            reason = "central DP (the clipped delta goes in one frame)"
         elif self._topk_frac is not None:
             reason = "topk (payload size is data-dependent; nothing to plan)"
         elif self._server_stream is None:

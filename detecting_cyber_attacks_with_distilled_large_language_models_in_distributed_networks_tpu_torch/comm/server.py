@@ -34,17 +34,32 @@ mean at finalize; its post-strategy global and optimizer state can be
 kept in a state file (the JAX package's npz layout, so either package's
 server resumes the other's).
 
-Not ported: secure aggregation, central DP, relays and re-homing, and the
-obs hooks. An upload that asks for one of them is refused with
+Central DP (``dp_clip > 0``): every connection opens with the DP
+handshake (the ``DPAD`` advert, the client's ``DPID`` hello, the
+``DPCO`` cohort verdict of the round's Poisson draw, and under auth the
+``DPSK`` sit-out proof). Uploads are clipped round deltas against a
+declared base crc, which the server re-clips (dense, streamed, and held
+lossy-encoded streams); K4 folds them, and the reply is their mean plus
+fp32 Gaussian noise from an OS-seeded Philox: the noised mean DELTA, so
+the server never holds absolute weights. A round with an empty cohort
+replies ``noop``. A client whose base is a retained earlier round's is
+excluded from the mean and answered with the catch-up sequence of
+retained deltas (``dp_resync_rounds`` of them, optionally persisted to
+``dp_history_path``).
+
+Not ported: secure aggregation, relays and re-homing, and the obs hooks.
+An upload that asks for one of them is refused with
 :class:`.wire.ModeError`.
 """
 
 from __future__ import annotations
 
+import hmac
 import json
 import logging
 import os
 import socket
+import struct
 import threading
 import time
 import zipfile
@@ -64,7 +79,6 @@ log = logging.getLogger(__name__)
 #: Upload meta fields of the JAX package's modes the port does not fold.
 _UNPORTED_UPLOAD_MODES = {
     "secure": "secure aggregation",
-    "dp": "central DP",
     "subtree_ids": "a relay's subtree upload",
     "rehomed": "client re-homing",
     wire.META_STRATEGY: "a relay's strategy claim",
@@ -129,6 +143,13 @@ class _Round:
     #: Per completed upload: ``{"shape": "dense"|"stream", "wire_dtype",
     #: "bytes"}`` (what arrived, from the frames themselves).
     uploads: dict[int, dict] = field(default_factory=dict)
+    #: Central DP: each upload's declared round-base crc (the round
+    #: aggregates only over one agreed base).
+    dp_crcs: dict[int, int] = field(default_factory=dict)
+    #: Poisson cohort (``dp_participation < 1``): the round's sampled ids;
+    #: non-sampled clients register in ``skip_conns`` for the reply.
+    cohort: set | None = None
+    skip_conns: dict[int, socket.socket] = field(default_factory=dict)
 
 
 class AggregationServer:
@@ -157,9 +178,29 @@ class AggregationServer:
         strategy: str | Strategy | None = None,
         strategy_state_path: str | None = None,
         reply_dtype: str = "fp32",
+        dp_clip: float = 0.0,
+        dp_noise_multiplier: float = 0.0,
+        dp_participation: float = 1.0,
+        dp_resync_rounds: int = 8,
+        dp_history_path: str | None = None,
         device: str | torch.device | None = None,
     ):
         self.device = resolve_device(device)
+        if dp_noise_multiplier > 0.0 and dp_clip <= 0.0:
+            raise ValueError("dp_noise_multiplier needs dp_clip > 0")
+        if dp_clip > 0.0 and weighted:
+            raise ValueError(
+                "central DP is a uniform mean over clipped updates; "
+                "weighted=True is incompatible"
+            )
+        if not 0.0 < dp_participation <= 1.0:
+            raise ValueError(f"dp_participation={dp_participation} must be in (0, 1]")
+        if dp_participation < 1.0 and dp_clip <= 0.0:
+            raise ValueError(
+                "dp_participation < 1 is the DP cohort sampler; it needs "
+                "dp_clip > 0 (the sampling exists for the accountant's "
+                "privacy amplification)"
+            )
         if wire.parse_compression(compression)[0] == "topk":
             raise ValueError(
                 "topk is an upload-side (sparse round-delta) compression; "
@@ -185,6 +226,41 @@ class AggregationServer:
         self.stream_chunk_bytes = int(stream_chunk_bytes)
         self.reply_dtype = reply_dtype
         self._strategy = make_strategy(strategy, device=self.device)
+        if self._strategy.name != "fedavg" and dp_clip > 0.0:
+            raise ValueError(
+                f"strategy {self._strategy.name!r} is incompatible "
+                "with central DP: the DP release is the noised mean "
+                "DELTA with a calibrated sensitivity; an optimizer "
+                "transform on top would change what is released "
+                "without re-deriving the bound"
+            )
+        self.dp_clip = float(dp_clip)
+        self.dp_noise_multiplier = float(dp_noise_multiplier)
+        self.dp_participation = float(dp_participation)
+        # The resync window: the last dp_resync_rounds released (post-noise)
+        # round deltas with the base crc their round agreed on. A client
+        # that missed a reply declares one of those crcs; its upload is
+        # excluded and it is answered with every retained delta from its
+        # base forward, which it replays in order (the fleet's own fp32
+        # additions, so its base lands on the fleet's bit for bit).
+        # Re-releasing released values is post-processing: no privacy
+        # cost. Lossy reply compression disables it (the fleet's bases are
+        # the decoded deltas, which fp32 retention cannot reproduce).
+        self.dp_resync_rounds = int(dp_resync_rounds)
+        self._dp_history: list[tuple[int, dict]] = []
+        # Persisted after every round by one background writer holding the
+        # latest snapshot (never on the round's critical path), reloaded
+        # on start, so a restart does not re-strand stale clients.
+        self.dp_history_path = dp_history_path
+        self._dp_persist_lock = threading.Lock()
+        self._dp_persist_pending: list | None = None
+        self._dp_persist_thread: threading.Thread | None = None
+        if dp_history_path:
+            self._load_dp_history()
+        # Noise and cohort draws: Philox keyed from OS entropy, never from
+        # a run artifact. The samples are fp32 Gaussians (Mironov's 2012
+        # floating-point attack applies; a discrete Gaussian would not).
+        self._dp_rng = np.random.Generator(np.random.Philox(key=int.from_bytes(os.urandom(16), "little")))
         self._round_counter = 0
         #: The last post-strategy global (flat fp32) and its round: the
         #: strategy's previous global and the sparse deltas' base.
@@ -246,7 +322,7 @@ class AggregationServer:
         shed: list[socket.socket] = []
         if rnd is not None:
             with rnd.lock:
-                shed += list(rnd.conns.values())
+                shed += list(rnd.conns.values()) + list(rnd.skip_conns.values())
         with self._conn_lock:
             shed += list(self._open_conns)
         for c in shed:
@@ -256,10 +332,16 @@ class AggregationServer:
                 pass
             c.close()
         self._pool.shutdown(wait=False, cancel_futures=True)
-        with self._strategy_persist_lock:
-            t = self._strategy_persist_thread
-        if t is not None:
-            t.join(timeout=60.0)
+        # Drain both writers: a clean shutdown leaves the newest resync
+        # window and strategy state on disk.
+        for lock, attr in (
+            (self._dp_persist_lock, "_dp_persist_thread"),
+            (self._strategy_persist_lock, "_strategy_persist_thread"),
+        ):
+            with lock:
+                t = getattr(self, attr)
+            if t is not None:
+                t.join(timeout=60.0)
 
     def __enter__(self) -> "AggregationServer":
         return self
@@ -268,9 +350,10 @@ class AggregationServer:
         self.close()
 
     # --------------------------------------------------------------- uploads
-    def _validate_upload(self, meta, nonce_hex: str | None) -> int:
+    def _validate_upload(self, meta, nonce_hex: str | None, dpid: int | None = None) -> int:
         """Freshness, identity and mode checks the dense and the streamed
-        upload share; returns the client id."""
+        upload share; returns the client id (which must be the DP id
+        hello's, under DP)."""
         if self.auth_key is not None and (
             meta.get("role") != "client" or meta.get("nonce") != nonce_hex
         ):
@@ -279,6 +362,8 @@ class AggregationServer:
                 "(stale nonce or wrong role) — possible replay"
             )
         client_id = int(meta.get("client_id", -1))
+        if dpid is not None and client_id != dpid:
+            raise wire.WireError(f"upload claims client {client_id} but the DP id hello said {dpid}")
         for key, mode in _UNPORTED_UPLOAD_MODES.items():
             if meta.get(key):
                 raise wire.ModeError(
@@ -286,6 +371,92 @@ class AggregationServer:
                     f"{mode} is not ported"
                 )
         return client_id
+
+    def _validate_dp_meta(self, meta, *, is_delta: bool) -> tuple[bool, int | None]:
+        """Central-DP mode agreement and the base crc, for both upload
+        shapes; returns ``(dp_mode, dp_crc)``."""
+        dp_mode = self.dp_clip > 0.0
+        if bool(meta.get("dp", False)) != dp_mode:
+            raise wire.WireError(
+                f"central-DP mode mismatch: server dp={dp_mode}, "
+                f"upload dp={meta.get('dp', False)} — run the client "
+                f"with --dp iff the server has --dp-clip"
+            )
+        dp_crc = None
+        if dp_mode:
+            if is_delta:
+                raise wire.WireError("sparse-delta upload in central-DP mode")
+            try:
+                dp_crc = int(meta["dp_base_crc"])
+            except (KeyError, TypeError, ValueError):
+                raise wire.WireError("DP upload missing its dp_base_crc") from None
+        return dp_mode, dp_crc
+
+    def _reclip(self, flat: dict, client_id: int, what: str) -> dict:
+        """The server's enforced clip: a delta above ``dp_clip`` (past the
+        fp tolerance) is scaled down as the client should have."""
+        norm = wire.flat_l2_norm(flat)
+        if norm > self.dp_clip * (1.0 + 1e-5):
+            flat, _, _ = wire.clip_flat(flat, self.dp_clip)
+            log.info(f"[SERVER] re-clipped client {client_id}'s {what} ({norm:.4g} -> {self.dp_clip})")
+        return flat
+
+    def _round_done(self, rnd: _Round) -> bool:
+        """Caller holds ``rnd.lock``: every expected upload arrived and,
+        under a Poisson cohort, every non-sampled client connected for its
+        reply."""
+        uploads_done = len(rnd.done) >= rnd.expected
+        if rnd.cohort is None:
+            return uploads_done
+        return uploads_done and len(rnd.skip_conns) >= self.num_clients - len(rnd.cohort)
+
+    def _dp_handshake(self, conn: socket.socket, rnd: _Round, nonce_hex: str | None) -> tuple[int, bool]:
+        """The DP handshake, server first: the advert (so a plain client
+        can diagnose the mismatch), the client's id hello, the round's
+        cohort verdict. A non-sampled client (under auth, after proving
+        key knowledge) is registered for the reply. Returns ``(client id,
+        sampled)``."""
+        framing.send_frame(
+            conn, wire.DP_MAGIC + struct.pack("<ddd", self.dp_clip, self.dp_noise_multiplier, self.dp_participation)
+        )
+        idf = framing.recv_frame(conn)
+        if len(idf) != len(wire.DPID_MAGIC) + 8 or not bytes(idf).startswith(wire.DPID_MAGIC):
+            raise wire.WireError("bad DP id hello")
+        dpid = struct.unpack("<q", bytes(idf[len(wire.DPID_MAGIC):]))[0]
+        if not 0 <= dpid < self.num_clients:
+            raise wire.WireError(f"DP id hello from unknown client {dpid}")
+        with rnd.lock:
+            sampled = rnd.cohort is None or dpid in rnd.cohort
+        framing.send_frame(conn, wire.DPCOHORT_MAGIC + bytes([1 if sampled else 0]))
+        if sampled:
+            return dpid, True
+        if self.auth_key is not None:
+            # Without this proof anyone could claim a non-sampled id,
+            # evict the real registration and collect the aggregate.
+            ack = framing.recv_frame(conn)
+            want = wire.DPSKIP_MAGIC + hmac.new(
+                self.auth_key, wire.DPSKIP_DOMAIN + bytes.fromhex(nonce_hex) + struct.pack("<q", dpid), "sha256"
+            ).digest()
+            if not hmac.compare_digest(bytes(ack), want):
+                raise wire.WireError(f"sit-out ack for client {dpid} failed its authenticity check")
+        with rnd.lock:
+            if rnd.closed:
+                conn.close()
+                return dpid, False
+            old = rnd.skip_conns.pop(dpid, None)
+            if old is not None and old is not conn:
+                old.close()
+            rnd.skip_conns[dpid] = conn
+            if nonce_hex is not None:
+                rnd.nonces[dpid] = nonce_hex
+            done = self._round_done(rnd)
+        log.info(
+            f"[SERVER] client {dpid} sits out round {rnd.round_no} "
+            f"(cohort sampling q={self.dp_participation})"
+        )
+        if done:
+            rnd.complete.set()
+        return dpid, False
 
     def _check_delta(self, flat, meta) -> None:
         """A sparse-delta upload must name the server's current base."""
@@ -326,16 +497,26 @@ class AggregationServer:
                 # echoes it back with role=server.
                 nonce_hex = os.urandom(wire.NONCE_LEN).hex()
                 framing.send_frame(conn, wire.NONCE_MAGIC + bytes.fromhex(nonce_hex))
+            dpid = None
+            if self.dp_clip > 0.0:
+                dpid, sampled = self._dp_handshake(conn, rnd, nonce_hex)
+                if not sampled:
+                    return
             payload = framing.recv_frame(conn)
             if bytes(payload[:4]) == wire.STREAM_MAGIC:
-                self._handle_stream_upload(conn, payload, rnd, nonce_hex=nonce_hex)
+                self._handle_stream_upload(conn, payload, rnd, nonce_hex=nonce_hex, dpid=dpid)
                 return
             flat, meta = wire.decode(payload, auth_key=self.auth_key)
-            client_id = self._validate_upload(meta, nonce_hex)
+            client_id = self._validate_upload(meta, nonce_hex, dpid)
             flat = wire.flatten_params(flat)
             is_delta = bool(meta.get("delta", False))
             if is_delta:
                 self._check_delta(flat, meta)
+            dp_mode, dp_crc = self._validate_dp_meta(meta, is_delta=is_delta)
+            if dp_mode:
+                # Enforced, not trusted: a client that skipped its clip
+                # cannot widen the mechanism's sensitivity.
+                flat = self._reclip(flat, client_id, "delta")
             n_samples = float(meta.get("n_samples", 1.0))
             with rnd.lock:
                 if rnd.closed:
@@ -365,6 +546,8 @@ class AggregationServer:
                         # same upload) complete the remaining folds.
                         it = rnd.stream.intents.get(client_id, {})
                         rnd.done.add(client_id)
+                        if it.get("dp_crc") is not None:
+                            rnd.dp_crcs[client_id] = it["dp_crc"]
                         rnd.n_samples[client_id] = float(it.get("n_samples", 1.0))
                         rnd.uploads[client_id] = {"shape": "dense", "wire_dtype": "fp32", "bytes": len(payload)}
                         if set(flat) == set(it.get("keys", ())) and is_delta == bool(it.get("delta", False)):
@@ -373,6 +556,8 @@ class AggregationServer:
                     rnd.done.add(client_id)
                     rnd.n_samples[client_id] = n_samples
                     rnd.uploads[client_id] = {"shape": "dense", "wire_dtype": "fp32", "bytes": len(payload)}
+                    if dp_crc is not None:
+                        rnd.dp_crcs[client_id] = dp_crc
                 if is_delta or bool(meta.get("wants_delta", False)):
                     rnd.wants_delta = True
                 self._note_reply_caps(rnd, client_id, meta)
@@ -380,10 +565,12 @@ class AggregationServer:
                 if nonce_hex is not None:
                     rnd.nonces[client_id] = nonce_hex
                 if not dup_folded:
-                    rnd.stream.register(client_id, keys=tuple(flat), n_samples=n_samples, delta=is_delta)
+                    rnd.stream.register(
+                        client_id, keys=tuple(flat), n_samples=n_samples, delta=is_delta, dp_crc=dp_crc
+                    )
                     rnd.stream.add_dense(client_id, flat)
                     self._try_freeze_stream(rnd)
-                done = len(rnd.done) >= rnd.expected
+                done = self._round_done(rnd)
             log.info(
                 f"[SERVER] received model from client {client_id} "
                 f"({len(rnd.done)}/{rnd.expected})"
@@ -406,14 +593,34 @@ class AggregationServer:
         st = rnd.stream
         if not st.eager or st.fold_ids is not None or st.poisoned:
             return
-        ids = sorted(st.intents)
-        if len(ids) < rnd.expected:
-            return
+        have = set(st.intents)
+        if rnd.cohort is not None:
+            if not rnd.cohort <= have:
+                return
+            ids = sorted(rnd.cohort)
+        else:
+            if len(have) < rnd.expected:
+                return
+            ids = sorted(have)
+        if self.dp_clip > 0.0:
+            # The close-time staleness partition over the same inputs (the
+            # history changes only after the wait), so the frozen set is
+            # the one serve_round aggregates over. Current clients that
+            # disagree on their base leave it unfrozen: close time raises.
+            crcs = {c: st.intents[c].get("dp_crc") for c in ids}
+            hist = {crc for crc, _ in self._dp_history}
+            stale = [c for c in ids if crcs[c] in hist]
+            current = [c for c in ids if c not in stale]
+            if not current and stale and len({crcs[c] for c in stale}) == 1:
+                current = stale
+            if not current or len({crcs[c] for c in current}) != 1:
+                return
+            ids = current
         weights = [st.intents[c]["n_samples"] for c in ids] if self.weighted else None
         st.freeze(ids, weights)
 
     def _handle_stream_upload(
-        self, conn: socket.socket, header, rnd: _Round, *, nonce_hex: str | None
+        self, conn: socket.socket, header, rnd: _Round, *, nonce_hex: str | None, dpid: int | None = None
     ) -> None:
         """Receive one streamed upload: validate the header's meta as a
         dense upload's, register the intent, then decode each leaf as its
@@ -422,17 +629,24 @@ class AggregationServer:
         upload-complete handshake; only then does the client count toward
         the round. A duplicate after folds consumed the first upload is
         drained (a completed original stands) or adopted (the retry of a
-        half-folded, dead stream completes the folds)."""
+        half-folded, dead stream completes the folds).
+
+        Under DP a raw stream folds eagerly and its norm is summed as its
+        leaves arrive; past the clip its pending leaves are scaled, or the
+        round fails closed when folds already consumed some. A
+        lossy-encoded stream is held whole and re-clipped before it joins
+        the fold (its decode can inflate an honest clip)."""
         st = rnd.stream
         tensors, meta, _chunk_bytes, payload_nbytes = wire.decode_stream_header(
             header, auth_key=self.auth_key, max_payload=framing.MAX_FRAME, direction="up"
         )
-        client_id = self._validate_upload(meta, nonce_hex)
+        client_id = self._validate_upload(meta, nonce_hex, dpid)
         if bool(meta.get("delta", False)):
             raise wire.WireError(
                 "sparse-delta uploads are single-frame (topk payload sizes are "
                 "data-dependent; nothing to stream)"
             )
+        dp_mode, dp_crc = self._validate_dp_meta(meta, is_delta=False)
         n_samples = float(meta.get("n_samples", 1.0))
         # The wire dtype, from what the header actually encodes.
         encs = {t["enc"] for t in tensors}
@@ -468,23 +682,47 @@ class AggregationServer:
                 if not (discard or adopt):
                     rnd.done.discard(client_id)
             if not (discard or adopt):
-                st.register(client_id, keys=keys, n_samples=n_samples)
+                st.register(client_id, keys=keys, n_samples=n_samples, dp_crc=dp_crc)
             # Registered now: a failed round's cleanup closes a mid-stream
             # client too.
             rnd.conns[client_id] = conn
             self._try_freeze_stream(rnd)
         nonce = bytes.fromhex(nonce_hex) if nonce_hex else b""
+        dp_hold: dict[str, np.ndarray] | None = (
+            {} if dp_mode and any(t["enc"] != "raw" for t in tensors) else None
+        )
+        sumsq = 0.0  # header order = sorted keys = flat_l2_norm's order
 
         def on_leaf(t: dict, raw: bytes) -> None:
-            if not discard:
-                st.add_leaf(client_id, t["key"], wire.decode_tensor_entry(t, raw))
+            nonlocal sumsq
+            if discard:
+                return
+            arr = wire.decode_tensor_entry(t, raw)
+            if dp_hold is not None:
+                dp_hold[t["key"]] = arr
+                return
+            if dp_mode:
+                sumsq += float(np.sum(np.asarray(arr, np.float64) ** 2))
+            st.add_leaf(client_id, t["key"], arr)
 
         try:
             seq, body = framing.recv_stream(
                 conn, tensors, payload_nbytes, on_leaf, auth_key=self.auth_key, nonce=nonce, direction="up"
             )
-            if not discard:
+            if not discard and dp_hold is not None:
+                st.add_dense(client_id, self._reclip(dp_hold, client_id, "streamed lossy-encoded delta"))
+            elif not discard:
                 st.mark_complete(client_id)
+            if dp_mode and not discard and dp_hold is None:
+                norm = float(np.sqrt(sumsq))
+                if norm > self.dp_clip * (1.0 + 1e-5):
+                    if not st.scale_client(client_id, min(1.0, self.dp_clip / max(norm, 1e-12))):
+                        raise wire.WireError(
+                            f"client {client_id} exceeded its DP clip "
+                            f"({norm:.4g} > {self.dp_clip}) after folds "
+                            "already consumed its leaves — round fails closed"
+                        )
+                    log.info(f"[SERVER] re-clipped client {client_id}'s streamed delta ({norm:.4g} -> {self.dp_clip})")
         except BaseException:
             # Mid-stream death: forget the client's unfolded leaves; if
             # folds consumed any, the round is poisoned and fails at close.
@@ -506,12 +744,14 @@ class AggregationServer:
                 rnd.done.add(client_id)
                 rnd.n_samples[client_id] = n_samples
                 rnd.uploads[client_id] = {"shape": "stream", "wire_dtype": up_dtype, "bytes": len(header) + body}
+                if dp_crc is not None:
+                    rnd.dp_crcs[client_id] = dp_crc
             if bool(meta.get("wants_delta", False)):
                 rnd.wants_delta = True
             self._note_reply_caps(rnd, client_id, meta)
             if nonce_hex is not None:
                 rnd.nonces[client_id] = nonce_hex
-            done = len(rnd.done) >= rnd.expected
+            done = self._round_done(rnd)
         log.info(
             f"[SERVER] received streamed model from client {client_id} "
             f"({payload_nbytes / 1e6:.1f} MB {up_dtype} in {seq} chunk(s)"
@@ -522,17 +762,25 @@ class AggregationServer:
             rnd.complete.set()
 
     # ----------------------------------------------------------------- round
-    def serve_round(self, *, deadline: float | None = None) -> dict[str, np.ndarray]:
+    def serve_round(self, *, deadline: float | None = None) -> dict[str, np.ndarray] | None:
         """Accept uploads until every client arrived (or ``deadline``
         seconds passed, default ``timeout``), fold, apply the strategy,
-        reply to every contributor. Returns the new global as a flat dict.
-        Raises ``RuntimeError`` when the round fails (below quorum, a
-        poisoned or failed fold); its connections are closed so clients
-        fail fast."""
+        reply to every contributor. Returns the new global as a flat dict
+        (under DP the noised mean delta; None for a no-op round of an
+        empty cohort). Raises ``RuntimeError`` when the round fails (below
+        quorum, a poisoned or failed fold, a DP base mismatch); its
+        connections are closed so clients fail fast."""
         rnd = _Round(expected=self.num_clients, round_no=self._round_counter)
         self._round_counter = rnd.round_no + 1
         self._cur_rnd = rnd
         rnd.trace = os.urandom(8).hex()
+        if self.dp_clip > 0.0 and self.dp_participation < 1.0:
+            # Each client independently with probability q, from OS
+            # entropy: the sampler the subsampled-Gaussian accountant
+            # assumes. An empty draw is a legitimate sample (a no-op).
+            rnd.cohort = {i for i in range(self.num_clients) if self._dp_rng.random() < self.dp_participation}
+            rnd.expected = len(rnd.cohort)
+            log.info(f"[SERVER] round {rnd.round_no} Poisson cohort (q={self.dp_participation}): {sorted(rnd.cohort)}")
         # Quorum deployments fold at close: an eager fold commits to the
         # full contributor set, and one mid-stream death would then fail
         # a round the barrier completes over the survivors.
@@ -545,7 +793,27 @@ class AggregationServer:
         deadline = t0 + (self.timeout if deadline is None else deadline)
         futures: list = []
         listener_closed = False
+        # Once every cohort upload landed, a missing sitting-out client
+        # gets a short grace, not the round's whole deadline.
+        uploads_done_at = None
+        skip_grace = min(self.timeout / 2.0, 10.0)
         while not rnd.complete.is_set() and time.monotonic() < deadline:
+            if rnd.cohort is not None:
+                with rnd.lock:
+                    up_done = len(rnd.done) >= rnd.expected
+                    all_done = self._round_done(rnd)
+                if up_done and not all_done:
+                    if uploads_done_at is None:
+                        uploads_done_at = time.monotonic()
+                    elif time.monotonic() - uploads_done_at > skip_grace:
+                        log.info(
+                            "[SERVER] cohort uploads complete; proceeding without the missing "
+                            f"sitting-out client(s) after {skip_grace:.0f}s grace"
+                        )
+                        rnd.complete.set()
+                        break
+                else:
+                    uploads_done_at = None
             try:
                 self._sock.settimeout(max(0.05, min(1.0, deadline - time.monotonic())))
                 conn, _ = self._sock.accept()
@@ -572,15 +840,43 @@ class AggregationServer:
             done = set(rnd.done)
             n_samples = dict(rnd.n_samples)
             conns = dict(rnd.conns)
+            skip_conns = dict(rnd.skip_conns)
             nonces = dict(rnd.nonces)
+            dp_crcs = dict(rnd.dp_crcs)
+        # Failure cleanup covers contributors and sitting-out clients alike.
+        all_conns = {**skip_conns, **conns}
         t_agg = time.monotonic()
         try:
-            if len(done) < self.min_clients:
+            if rnd.cohort is not None and not rnd.cohort:
+                # Empty Poisson cohort: nothing is aggregated or released;
+                # the connected clients are told to keep their base.
+                log.info(
+                    f"[SERVER] round {rnd.round_no}: empty Poisson cohort — no-op round, "
+                    f"replying noop to {len(skip_conns)} client(s)"
+                )
+                noop_meta = {"round_clients": [], "agg_round": rnd.round_no, "dp_reply": "noop", "trace": rnd.trace}
+                if self.stream_chunk_bytes > 0:
+                    noop_meta[wire.META_STREAM] = self.stream_chunk_bytes
+                    noop_meta[wire.META_WIRE_DTYPES] = sorted(set(wire.WIRE_DTYPE_ENCS.values()))
+                replies = {cid: self._encode_reply({}, noop_meta, nonces.get(cid)) for cid in skip_conns}
+                agg_s = time.monotonic() - t_agg
+                t_rep = time.monotonic()
+                self._reply_all(replies, skip_conns, {})
+                self._add_phases(wait_s, agg_s, time.monotonic() - t_rep)
+                return None
+            quorum = self.min_clients if rnd.cohort is None else min(self.min_clients, len(rnd.cohort))
+            if len(done) < quorum:
                 raise RuntimeError(
                     f"only {len(done)}/{self.num_clients} clients arrived "
-                    f"(min_clients={self.min_clients})"
+                    f"(min_clients={self.min_clients}"
+                    + (f", cohort {sorted(rnd.cohort)}" if rnd.cohort is not None else "")
+                    + ")"
                 )
             ids = sorted(done)
+            stale_resync: dict[int, int] = {}  # client id -> history index
+            crc_set: set = set()
+            if self.dp_clip > 0.0:
+                ids, stale_resync, crc_set = self._dp_partition(rnd, ids, dp_crcs, quorum, all_conns, nonces)
             weights = [n_samples[i] for i in ids] if self.weighted else None
             try:
                 mean = rnd.stream.finalize(ids, weights)
@@ -594,38 +890,249 @@ class AggregationServer:
                 f"{self.last_fold_stats['overlap_frac']:.0%} of fold input consumed "
                 "during the wire phase)"
             )
-            agg = self._strategy.apply(
-                self._last_agg, mean, round_no=rnd.round_no, client_stats=rnd.stream.client_stats()
-            )
-            # The post-strategy global is what clients adopt, so it is the
-            # next round's strategy input and sparse-delta base.
-            self._last_agg = agg
-            self._last_agg_round = rnd.round_no
-            self._persist_strategy_state()
-            reply_meta = {
-                "round_clients": ids,
-                "agg_round": rnd.round_no,
-                "trace": rnd.trace,
-                wire.META_STRATEGY: self._strategy.describe(),
-            }
-            if rnd.wants_delta:
-                # The base-agreement stamp: a sparse client adopts the
-                # decoded reply as its delta base only if it hashes to this.
-                reply_meta["agg_crc"] = wire.flat_crc32(agg)
+            resync_payloads: dict[int, tuple[dict, int]] = {}
+            if self.dp_clip > 0.0:
+                agg, reply_meta, resync_payloads = self._dp_release(rnd, ids, mean, crc_set, stale_resync)
+            else:
+                agg = self._strategy.apply(
+                    self._last_agg, mean, round_no=rnd.round_no, client_stats=rnd.stream.client_stats()
+                )
+                # The post-strategy global is what clients adopt, so it is
+                # the next round's strategy input and sparse-delta base.
+                self._last_agg = agg
+                self._last_agg_round = rnd.round_no
+                self._persist_strategy_state()
+                reply_meta = {
+                    "round_clients": ids,
+                    "agg_round": rnd.round_no,
+                    "trace": rnd.trace,
+                    wire.META_STRATEGY: self._strategy.describe(),
+                }
+                if rnd.wants_delta:
+                    # The base-agreement stamp: a sparse client adopts the
+                    # decoded reply as its delta base only if it hashes to this.
+                    reply_meta["agg_crc"] = wire.flat_crc32(agg)
             if self.stream_chunk_bytes > 0:
                 reply_meta[wire.META_STREAM] = self.stream_chunk_bytes
                 reply_meta[wire.META_WIRE_DTYPES] = sorted(set(wire.WIRE_DTYPE_ENCS.values()))
-            replies, stream_jobs = self._build_replies(rnd, ids, agg, reply_meta, nonces)
+            # Sitting-out clients get the identical reply (their bases must
+            # track the fleet's), dense.
+            replies, stream_jobs = self._build_replies(rnd, ids, agg, reply_meta, nonces, sorted(skip_conns))
+            for cid, (sequence, n_rounds) in resync_payloads.items():
+                replies[cid] = self._encode_reply(
+                    sequence, {**reply_meta, "dp_reply": "resync", "dp_resync_rounds": n_rounds}, nonces.get(cid)
+                )
+                log.info(f"[SERVER] client {cid} resynced with a catch-up sequence of {n_rounds} retained round delta(s)")
+            for cid in stale_resync:
+                if cid not in resync_payloads and cid in all_conns:
+                    # Unresyncable after all (shape drift mid-window):
+                    # close now so the client fails fast.
+                    all_conns[cid].close()
         except BaseException:
-            for c in conns.values():
+            for c in all_conns.values():
                 c.close()
             self._add_phases(wait_s, time.monotonic() - t_agg, 0.0)
             raise
         agg_s = time.monotonic() - t_agg
         t_rep = time.monotonic()
-        self._reply_all(replies, conns, stream_jobs)
+        self._reply_all(replies, all_conns, stream_jobs)
         self._add_phases(wait_s, agg_s, time.monotonic() - t_rep)
         return agg
+
+    # -------------------------------------------------------- central DP
+    def _dp_partition(
+        self, rnd: _Round, ids: list[int], dp_crcs: dict[int, int], quorum: int, conns: dict, nonces: dict
+    ) -> tuple[list[int], dict[int, int], set]:
+        """Split the round's uploads into the current-base contributors and
+        the stale but resyncable ones (their base crc is a retained
+        round's). Returns ``(contributors, {stale id: history index},
+        {the agreed base crc})``; raises when the current clients disagree
+        on their base, or (after healing the stale ones with the retained
+        rounds alone) when too few current clients remain."""
+        stale_resync: dict[int, int] = {}
+        if self.compression == "none":
+            # Latest entry wins on a crc collision.
+            hist_index = {crc: j for j, (crc, _) in enumerate(self._dp_history)}
+            stale_resync = {i: hist_index[dp_crcs[i]] for i in ids if dp_crcs[i] in hist_index}
+        current = [i for i in ids if i not in stale_resync]
+        if not current and stale_resync and len({dp_crcs[i] for i in stale_resync}) == 1:
+            # Every upload agrees on a retained base: the deltas released
+            # past it reached nobody (a fleet-wide missed reply), so the
+            # consensus IS the fleet's base.
+            log.info("[SERVER] all uploads share a retained base crc (fleet-wide missed reply); treating the consensus as current")
+            current, stale_resync = sorted(stale_resync), {}
+        crc_set = {dp_crcs[i] for i in current}
+        if not current or len(crc_set) != 1:
+            raise RuntimeError(
+                "DP round base mismatch: clients disagree on the "
+                f"round base (crcs per client: "
+                f"{ {i: f'{dp_crcs[i]:#010x}' for i in ids} }) — "
+                "every client must start the round from the same "
+                "adopted aggregate / shared init (stale clients "
+                f"resync only within the last {self.dp_resync_rounds} "
+                "retained round(s) of this server process)"
+            )
+        if stale_resync:
+            if len(current) < quorum:
+                # The round cannot proceed, but the stale clients are healed
+                # now with the retained rounds alone; they rejoin the
+                # current base next round, which then meets quorum.
+                self._heal_stale_clients(rnd, stale_resync, conns, nonces)
+                raise RuntimeError(
+                    f"only {len(current)} current-base clients "
+                    f"uploaded (stale: {sorted(stale_resync)}, "
+                    "served catch-up sequences), below the quorum "
+                    f"of {quorum} — retrying clients complete the "
+                    "next round from the common base"
+                )
+            log.info(
+                f"[SERVER] clients {sorted(stale_resync)} declared stale round bases; excluding their "
+                f"uploads and serving composed catch-up deltas (contributors: {current})"
+            )
+        return current, stale_resync, crc_set
+
+    def _dp_release(
+        self, rnd: _Round, ids: list[int], mean: dict, crc_set: set, stale_resync: dict[int, int]
+    ) -> tuple[dict, dict, dict[int, tuple[dict, int]]]:
+        """The Gaussian mechanism on the mean of the clipped deltas:
+        ``(noised mean delta, reply meta, resync payloads)``. Retains the
+        release for the resync window and composes each stale client's
+        catch-up sequence."""
+        n = len(ids)
+        sigma = self.dp_noise_multiplier * self.dp_clip / n
+        agg = {k: np.asarray(v, np.float32) for k, v in mean.items()}
+        if sigma > 0.0:
+            # fp32 draws (no model-sized float64 intermediate).
+            agg = {
+                k: v + self._dp_rng.standard_normal(np.shape(v), dtype=np.float32) * np.float32(sigma)
+                for k, v in agg.items()
+            }
+        log.info(
+            f"[SERVER] central DP: mean of {n} clipped deltas (clip {self.dp_clip}) "
+            f"+ Gaussian noise std {sigma:.3g}/coordinate"
+        )
+        base_crc = next(iter(crc_set))
+        # dp_base_crc: the base this delta applies to; a receiver on
+        # another base (stale, sitting out) keeps its own.
+        reply_meta = {"agg_round": rnd.round_no, "trace": rnd.trace, "dp_reply": "delta", "dp_base_crc": base_crc}
+        if rnd.cohort is None:
+            # Under cohort sampling who was sampled stays out of the
+            # replies (amplification assumes the adversary cannot
+            # condition on it); with everyone in, it is public anyway.
+            reply_meta["round_clients"] = ids
+        resync_payloads: dict[int, tuple[dict, int]] = {}
+        if self.compression == "none":
+            # An exactly-zero delta is not retained: its base crc would
+            # equal every current client's next declaration.
+            if any(np.any(v) for v in agg.values()):
+                self._dp_history.append((base_crc, agg))
+            for cid, j in stale_resync.items():
+                # Every retained delta from the client's base forward (this
+                # round's included), as a SEQUENCE: the client replays the
+                # fleet's fp32 additions in order; a pre-summed delta
+                # would land ulps away.
+                entries = [d for _, d in self._dp_history[j:]]
+                if not all(wire.shapes_compatible(d, agg) for d in entries):
+                    log.info(f"[SERVER] client {cid} cannot resync: retained deltas changed shape mid-window")
+                    continue
+                resync_payloads[cid] = ({str(i): wire.unflatten_params(d) for i, d in enumerate(entries)}, len(entries))
+            # Trim after composing: the stale indices address the untrimmed list.
+            if len(self._dp_history) > self.dp_resync_rounds:
+                del self._dp_history[: len(self._dp_history) - self.dp_resync_rounds]
+            self._persist_dp_history()
+        return agg, reply_meta, resync_payloads
+
+    def _heal_stale_clients(self, rnd: _Round, stale_resync: dict[int, int], conns: dict, nonces: dict) -> None:
+        """Serve catch-up sequences of retained deltas to the stale clients
+        of a round about to fail (no new delta exists); send failures are
+        logged and ignored."""
+        for cid, j in stale_resync.items():
+            conn = conns.get(cid)
+            entries = [d for _, d in self._dp_history[j:]]
+            if conn is None or not entries or not all(wire.shapes_compatible(d, entries[0]) for d in entries):
+                continue
+            try:
+                conn.settimeout(min(self.timeout, 30.0))
+                framing.send_frame(
+                    conn,
+                    self._encode_reply(
+                        {str(i): wire.unflatten_params(d) for i, d in enumerate(entries)},
+                        {
+                            "agg_round": rnd.round_no,
+                            "trace": rnd.trace,
+                            "dp_reply": "resync",
+                            "dp_resync_rounds": len(entries),
+                        },
+                        nonces.get(cid),
+                    ),
+                )
+                log.info(f"[SERVER] client {cid} healed with a catch-up sequence of {len(entries)} retained round delta(s)")
+            except (OSError, wire.WireError) as e:
+                log.info(f"[SERVER] catch-up for client {cid} failed: {e}")
+
+    def _load_dp_history(self) -> None:
+        """Reload the persisted resync window. A missing file is a fresh
+        deployment; a corrupt one is logged and gives an empty window (the
+        server must come up)."""
+        try:
+            with np.load(self.dp_history_path, allow_pickle=False) as z:
+                index = json.loads(bytes(z["__index__"].tobytes()).decode())
+                self._dp_history = [
+                    (
+                        int(entry["crc"]),
+                        {k: np.asarray(z[f"e{i}_{j}"], np.float32) for j, k in enumerate(entry["keys"])},
+                    )
+                    for i, entry in enumerate(index)
+                ]
+            log.info(f"[SERVER] reloaded {len(self._dp_history)} retained DP round delta(s) from {self.dp_history_path}")
+        except FileNotFoundError:
+            pass
+        except (OSError, ValueError, KeyError, zipfile.BadZipFile) as e:
+            log.warning(
+                f"[SERVER] could not reload DP resync history from {self.dp_history_path} "
+                f"({e}); starting with an empty window"
+            )
+            self._dp_history = []
+
+    def _persist_dp_history(self) -> None:
+        """Queue the window for the background writer (latest snapshot
+        wins: a slow disk skips intermediate windows)."""
+        if not self.dp_history_path:
+            return
+        snap = list(self._dp_history)
+        with self._dp_persist_lock:
+            self._dp_persist_pending = snap
+            if self._dp_persist_thread is None or not self._dp_persist_thread.is_alive():
+                self._dp_persist_thread = threading.Thread(target=self._dp_persist_loop, daemon=True)
+                self._dp_persist_thread.start()
+
+    def _dp_persist_loop(self) -> None:
+        while True:
+            with self._dp_persist_lock:
+                snap = self._dp_persist_pending
+                self._dp_persist_pending = None
+                if snap is None:
+                    self._dp_persist_thread = None
+                    return
+            self._write_dp_history(snap)
+
+    def _write_dp_history(self, history: list[tuple[int, dict]]) -> None:
+        """One atomic snapshot (tmp + replace) in the JAX package's layout:
+        a JSON ``__index__`` (per entry its base crc and leaf key order)
+        and the leaves as fp32 ``e{i}_{j}``."""
+        index = [{"crc": int(crc), "keys": list(d)} for crc, d in history]
+        arrays: dict[str, np.ndarray] = {"__index__": np.frombuffer(json.dumps(index).encode(), dtype=np.uint8)}
+        for i, (_, d) in enumerate(history):
+            for j, k in enumerate(d):
+                arrays[f"e{i}_{j}"] = np.asarray(d[k], np.float32)
+        tmp = self.dp_history_path + ".tmp"
+        try:
+            os.makedirs(os.path.dirname(os.path.abspath(tmp)) or ".", exist_ok=True)
+            with open(tmp, "wb") as f:
+                np.savez(f, **arrays)
+            os.replace(tmp, self.dp_history_path)
+        except OSError as e:
+            log.warning(f"[SERVER] could not persist DP resync history to {self.dp_history_path}: {e}")
 
     def _add_phases(self, wait_s: float, agg_s: float, reply_s: float) -> None:
         for name, dur in (("wait", wait_s), ("agg", agg_s), ("reply", reply_s)):
@@ -655,12 +1162,19 @@ class AggregationServer:
         )
 
     def _build_replies(
-        self, rnd: _Round, ids: list[int], agg: dict, reply_meta: dict, nonces: dict[int, str]
+        self,
+        rnd: _Round,
+        ids: list[int],
+        agg: dict,
+        reply_meta: dict,
+        nonces: dict[int, str],
+        dense_extra: list[int] = (),
     ) -> tuple[dict[int, bytes], dict[int, tuple[bytes, dict, bytes]]]:
-        """The round's dense reply blobs and streamed-reply jobs. A client
-        that advertised streamed replies gets the stream (in the
-        ``reply_dtype`` encoding when it advertised that); the payload
-        chunks of each encoding are built once and shared."""
+        """The round's dense reply blobs and streamed-reply jobs. A
+        contributor that advertised streamed replies gets the stream (in
+        the ``reply_dtype`` encoding when it advertised that); the payload
+        chunks of each encoding are built once and shared. ``dense_extra``
+        (the sitting-out clients) get the dense reply."""
         stream_ids = (
             [cid for cid in ids if cid in rnd.stream_replies] if self.stream_chunk_bytes > 0 else []
         )
@@ -676,7 +1190,7 @@ class AggregationServer:
             if any(cid not in quant_ids for cid in stream_ids)
             else None
         )
-        dense_ids = [c for c in ids if c not in stream_ids]
+        dense_ids = [c for c in ids if c not in stream_ids] + list(dense_extra)
         if not dense_ids:
             replies = {}
         elif self.auth_key is None:

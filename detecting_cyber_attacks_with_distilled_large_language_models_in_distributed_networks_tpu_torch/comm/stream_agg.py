@@ -76,7 +76,7 @@ class StreamAgg:
         self.eager = bool(eager)
         self.base = base
         self._lock = threading.Lock()
-        #: cid -> {"keys": tuple, "n_samples": float, "delta": bool}
+        #: cid -> {"keys": tuple, "n_samples": float, "delta": bool, "dp_crc": int | None}
         self.intents: dict[int, dict] = {}
         self._pending: dict[str, dict[int, np.ndarray]] = {}
         self._acc: dict[str, np.ndarray] = {}
@@ -102,9 +102,15 @@ class StreamAgg:
         self._fold_ms: dict[str, float] = {}
 
     # ------------------------------------------------------------ intents
-    def register(self, cid: int, *, keys: tuple, n_samples: float, delta: bool = False) -> None:
+    def register(
+        self, cid: int, *, keys: tuple, n_samples: float, delta: bool = False, dp_crc: int | None = None
+    ) -> None:
+        """An upload's intent; ``dp_crc`` is a central-DP upload's declared
+        round base (the server freezes only over one agreed base)."""
         with self._lock:
-            self.intents[cid] = {"keys": tuple(keys), "n_samples": float(n_samples), "delta": bool(delta)}
+            self.intents[cid] = {
+                "keys": tuple(keys), "n_samples": float(n_samples), "delta": bool(delta), "dp_crc": dp_crc,
+            }
             self._client_stats[cid] = {"weight": float(n_samples), "bytes": 0.0, "scale": 1.0}
 
     def admit(self, cid: int) -> bool:
@@ -157,6 +163,25 @@ class StreamAgg:
         folds no longer overlap ITS wire time."""
         with self._lock:
             self._complete.add(cid)
+
+    def scale_client(self, cid: int, scale: float) -> bool:
+        """Apply the DP re-clip scale to a client's pending leaves
+        (``leaf * float32(scale)``, the bytes of ``wire.clip_flat``).
+        Returns False, poisoning the round, when folds already consumed
+        unscaled leaves of the fold set (the caller fails the round)."""
+        with self._lock:
+            if self._folded and self.fold_ids and cid in self.fold_ids:
+                self.poisoned = (
+                    f"client {cid} exceeded its DP clip after folds "
+                    "already consumed its unscaled leaves"
+                )
+                return False
+            for leaves in self._pending.values():
+                if cid in leaves:
+                    leaves[cid] = np.asarray(leaves[cid], np.float32) * np.float32(scale)
+            if cid in self._client_stats:
+                self._client_stats[cid]["scale"] *= float(scale)
+            return True
 
     # ------------------------------------------------------------- leaves
     def _put(self, cid: int, key: str, arr: np.ndarray) -> None:

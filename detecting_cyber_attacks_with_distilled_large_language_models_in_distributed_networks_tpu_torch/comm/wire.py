@@ -97,6 +97,20 @@ NONCE_LEN = 16
 STREAM_MAGIC = b"STRH"  # fedtpu: allow(wire-magic-coverage): the JAX package's stream-header magic, copied byte for byte so both packages stream one protocol
 STREAM_CHUNK_MAGIC = b"STRC"  # fedtpu: allow(wire-magic-coverage): the JAX package's stream-chunk magic, copied byte for byte so both packages stream one protocol
 STREAM_END_MAGIC = b"STRT"  # fedtpu: allow(wire-magic-coverage): the JAX package's stream-trailer magic, copied byte for byte so both packages stream one protocol
+#: Central-DP handshake (after the nonce, if any). The server speaks
+#: first: DP_MAGIC + f64 clip + f64 noise multiplier + f64 sampling rate
+#: q, so a plain client can diagnose the mode mismatch; the client names
+#: itself (DPID_MAGIC + i64 client_id) and the server answers the round's
+#: Poisson cohort verdict (DPCOHORT_MAGIC + u8 sampled). A sampled client
+#: uploads its clipped round delta; a non-sampled one sits the round out
+#: and still gets the round's reply. Under auth a sitting-out client first
+#: proves key knowledge: DPSKIP_MAGIC + HMAC(key, DPSKIP_DOMAIN + nonce +
+#: i64 id).
+DP_MAGIC = b"DPAD"  # fedtpu: allow(wire-magic-coverage): the JAX package's DP-advert magic, copied byte for byte so both packages run one central-DP handshake
+DPID_MAGIC = b"DPID"  # fedtpu: allow(wire-magic-coverage): the JAX package's DP id-hello magic, copied byte for byte so both packages run one central-DP handshake
+DPCOHORT_MAGIC = b"DPCO"  # fedtpu: allow(wire-magic-coverage): the JAX package's DP cohort-verdict magic, copied byte for byte so both packages run one central-DP handshake
+DPSKIP_MAGIC = b"DPSK"  # fedtpu: allow(wire-magic-coverage): the JAX package's DP sit-out-ack magic, copied byte for byte so both packages run one central-DP handshake
+DPSKIP_DOMAIN = b"fedtpu-dp-skip-v1"
 #: Reply meta: the server's preferred upload chunk bytes (the stream offer).
 META_STREAM = "stream"
 #: Upload meta: a truthy value means this client decodes streamed replies.
@@ -270,6 +284,21 @@ def shapes_compatible(a: Mapping[str, Any], b: Mapping[str, Any]) -> bool:
     if set(a) != set(b):
         return False
     return all(np.asarray(a[k]).shape == np.asarray(b[k]).shape for k in a)
+
+
+def flat_l2_norm(flat: Mapping[str, Any]) -> float:
+    """Global L2 norm over every tensor of a flat dict, accumulated in
+    float64: the one norm the DP client's clip and the DP server's
+    re-clip both compute (their tolerance depends on agreeing)."""
+    return float(np.sqrt(sum(float(np.sum(np.asarray(v, np.float64) ** 2)) for v in flat.values())))
+
+
+def clip_flat(flat: Mapping[str, Any], clip: float) -> tuple[dict[str, np.ndarray], float, float]:
+    """Scale a flat delta dict to global L2 norm <= ``clip``; returns
+    ``(clipped fp32 dict, original norm, applied scale)``."""
+    norm = flat_l2_norm(flat)
+    scale = min(1.0, clip / max(norm, 1e-12))
+    return {k: np.asarray(v, np.float32) * np.float32(scale) for k, v in flat.items()}, norm, scale
 
 
 def flat_crc32(flat: Mapping[str, Any]) -> int:

@@ -3,11 +3,10 @@
 Copies of the JAX package's ``ModelConfig``, ``DataConfig`` and
 ``TrainConfig`` (fields, defaults, validation and presets unchanged) and
 its ``FedConfig`` and ``DistillConfig``, so a manifest or config
-written by either package means the same thing in both. Fields whose
-code paths the port has not reached yet (DP-FedAvg, personalization,
-relays' deadlines) are kept for compatibility and raise
-``NotImplementedError`` when set away from their defaults, instead of
-being ignored. ``ExperimentConfig``
+written by either package means the same thing in both. The one field
+whose code path the port has not reached yet (relays' deadlines) is kept
+for compatibility and raises ``NotImplementedError`` when set away from
+its default, instead of being ignored. ``ExperimentConfig``
 carries only the sections the ported commands read; a checkpoint records
 it as ``to_dict()`` and ``predict`` reads it back with ``from_dict``,
 which also reads a config the JAX package wrote (the sections the port
@@ -230,9 +229,10 @@ class FedConfig:
     The reference runs one FedAvg round per invocation with exactly two
     clients and an unweighted mean (reference server.py:13,67-79); here
     rounds and client count are first-class, the mean may be weighted by
-    sample count, and dropped clients are masked out of it. DP-FedAvg,
-    personalization and relays' deadlines are not ported: they raise
-    ``NotImplementedError`` away from their defaults.
+    sample count, dropped clients are masked out of it, DP-FedAvg clips
+    and noises it, and personalization fine-tunes each client after the
+    last round. Relays' deadlines are not ported: they raise
+    ``NotImplementedError`` away from their default.
     """
 
     num_clients: int = 2
@@ -255,7 +255,11 @@ class FedConfig:
     # cohort_size() clients), "poisson" (each client independently), or
     # "auto" (poisson when DP is on, fixed otherwise).
     participation_mode: str = "auto"
-    # DP-FedAvg (ROADMAP queue 1, item 9; not ported).
+    # DP-FedAvg (parallel/dp.py): each client's round update is clipped to
+    # L2 norm dp_clip, and noise of std dp_noise_multiplier * dp_clip / n
+    # joins the uniform mean. dp_seed pins the noise for tests only:
+    # anyone who knows it can subtract the noise, so it voids the
+    # guarantee; None draws fresh OS entropy each run.
     dp_clip: float = 0.0
     dp_noise_multiplier: float = 0.0
     dp_seed: int | None = None
@@ -265,7 +269,10 @@ class FedConfig:
     server_opt: str = "none"
     server_lr: float = 1.0
     server_momentum: float = 0.9
-    # Personalization after the final round (not ported).
+    # Personalization after the final round: each client fine-tunes the
+    # aggregate on its own shard for personalize_epochs (0 = off), scope
+    # "full" (FedAvg+FT) or "head" (FedPer: the encoder stays frozen), and
+    # is evaluated as a third "personalized" phase.
     personalize_epochs: int = 0
     personalize_scope: str = "full"
     # Relay subtree deadline (the TCP tier's relays; not ported) and the
@@ -312,6 +319,17 @@ class FedConfig:
             return "poisson" if self.dp_enabled() else "fixed"
         return self.participation_mode
 
+    def dp_sampling_rate(self) -> tuple[float, bool]:
+        """(q for the DP accountant, whether the SGM bound's sampling
+        assumption is exact for the sampler in use). Poisson: q is the
+        nominal participation, the sampler's own Bernoulli rate. Fixed:
+        q = cohort_size / C, the standard approximation."""
+        if self.participation >= 1.0:
+            return 1.0, True
+        if self.resolve_participation_mode() == "poisson":
+            return self.participation, True
+        return self.effective_participation(), False
+
     def __post_init__(self) -> None:
         if not 0.0 < self.participation <= 1.0:
             raise ValueError(
@@ -355,11 +373,13 @@ class FedConfig:
             )
         if self.dp_noise_multiplier > 0.0 and self.dp_clip == 0.0:
             raise ValueError(
-                "dp_noise_multiplier > 0 requires dp_clip > 0"
+                "dp_noise_multiplier > 0 requires dp_clip > 0: the noise "
+                "std is calibrated to the clip norm (sensitivity)"
             )
         if self.dp_clip > 0.0 and self.weighted:
             raise ValueError(
-                "dp_clip > 0 is incompatible with weighted FedAvg"
+                "dp_clip > 0 is incompatible with weighted FedAvg: the DP "
+                "sensitivity bound assumes a uniform mean over participants"
             )
         if self.server_opt not in ("none", "momentum", "adam", "yogi"):
             raise ValueError(
@@ -371,16 +391,6 @@ class FedConfig:
         if not 0.0 <= self.server_momentum < 1.0:
             raise ValueError(
                 f"server_momentum={self.server_momentum} must be in [0, 1)"
-            )
-        if self.dp_clip > 0.0 or self.dp_seed is not None:
-            raise NotImplementedError(
-                "DP-FedAvg (dp_clip, dp_noise_multiplier, dp_seed) is not "
-                "ported yet (ROADMAP queue 1, item 9)"
-            )
-        if self.personalize_epochs > 0 or self.personalize_scope != "full":
-            raise NotImplementedError(
-                "personalization (personalize_epochs, personalize_scope) is "
-                "not ported yet (ROADMAP queue 1, item 16)"
             )
         if self.subtree_deadline_factor != 0.5:
             raise NotImplementedError(

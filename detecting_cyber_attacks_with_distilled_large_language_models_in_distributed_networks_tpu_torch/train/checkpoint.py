@@ -18,8 +18,9 @@ the model registry is the format the two packages share)::
                              "step", "generator": {"device_type", "state"}}
                              (with gradient accumulation also "acc" and
                              "mini_step", so a run saved mid-window resumes
-                             inside it; federated: "count" is a [C]
-                             tensor, "generators" a list, plus "server_opt")
+                             inside it; federated: "count" and
+                             "mini_step" are [C], "acc" stacked,
+                             "generators" a list, plus "server_opt")
     <dir>/<step>/meta.json   the caller's meta + "_leaf_shapes"
 
 A step is written under ``<dir>/<step>.tmp-<pid>/`` and renamed to
@@ -90,14 +91,20 @@ def _leaf_shapes(state: TrainState | FedState) -> list[list[int]]:
     """Per-leaf shapes in a fixed order: params, then Adam's mu and nu (in
     the state's order), then the count (a scalar, or ``[C]`` for a
     federated state) and the step, then a federated state's server
-    optimizer leaves, or a single state's gradient accumulator. A
-    positional list, so two tables swapping sizes still differ."""
+    optimizer leaves, then the gradient accumulator (a federated state's
+    after its ``[C]`` mini steps). A positional list, so two tables
+    swapping sizes still differ, and a state with accumulation never
+    matches one without."""
     tensors = [*state.params.values(), *state.opt_state.mu.values(), *state.opt_state.nu.values()]
     shapes = [[int(d) for d in t.shape] for t in tensors]
     if isinstance(state, FedState):
+        acc = state.opt_state.acc
+        tail = [] if acc is None else [[len(state.opt_state.mini_step)]] + [
+            [int(d) for d in t.shape] for t in acc.values()
+        ]
         return shapes + [[len(state.opt_state.count)], []] + [
             [int(d) for d in t.shape] for t in _server_leaves(state.server_opt)
-        ]
+        ] + tail
     acc = [[int(d) for d in t.shape] for t in (state.acc or {}).values()]
     return shapes + [[], []] + acc
 
@@ -123,6 +130,9 @@ def _payload(state: TrainState | FedState) -> dict:
             {"device_type": g.device.type, "state": g.get_state()} for g in state.generators
         ]
         payload["server_opt"] = state.server_opt
+        if opt.acc is not None:
+            payload["acc"] = dict(opt.acc)
+            payload["mini_step"] = torch.tensor(opt.mini_step, dtype=torch.int64)
     else:
         payload["count"] = int(opt.count)
         payload["generator"] = {"device_type": state.generator.device.type, "state": state.generator.get_state()}
@@ -245,9 +255,15 @@ class Checkpointer:
             count = [int(c) for c in saved["count"].tolist()]
             if len(count) != len(template.generators) or len(saved["generators"]) != len(count):
                 raise ValueError("checkpoint client count differs from the template's")
+            if (opt.acc is None) != ("acc" not in saved):
+                raise ValueError("checkpoint gradient accumulation differs from the template's")
+            acc = mini = None
+            if opt.acc is not None:
+                acc = leaves("acc", opt.acc)
+                mini = [int(c) for c in saved["mini_step"].tolist()]
             return FedState(
                 leaves("params", template.params),
-                FedAdamState(count, leaves("mu", opt.mu), leaves("nu", opt.nu)),
+                FedAdamState(count, leaves("mu", opt.mu), leaves("nu", opt.nu), acc, mini),
                 int(saved["step"]),
                 [_generator(g, t) for g, t in zip(saved["generators"], template.generators)],
                 _to_device(saved["server_opt"], device),

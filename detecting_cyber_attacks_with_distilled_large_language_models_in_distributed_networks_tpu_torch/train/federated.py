@@ -10,7 +10,8 @@ one process on one card:
   replica (:class:`.fedsteps.FedState`);
 * one lockstep train step advancing every client on its own batch;
 * the round boundary is a weighted, masked mean over the clients axis
-  written back into every row (:mod:`..parallel.fedavg`), optionally
+  written back into every row (:mod:`..parallel.fedavg`), or DP-FedAvg's
+  clipped, noised uniform mean (:mod:`..parallel.dp`), optionally
   through a FedOpt server optimizer;
 * per-client local-vs-aggregated evaluation in the reference's order
   (train -> local eval -> aggregate -> aggregated eval,
@@ -18,11 +19,13 @@ one process on one card:
 
 Rounds are a loop, with a fresh client Adam each round when
 ``fed.reset_optimizer_each_round`` (every reference re-launch builds a
-new one, client1.py:380).
+new one, client1.py:380). After the last round, :meth:`FederatedTrainer.personalize`
+fine-tunes a copy of each client's aggregate on its own shard.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from dataclasses import dataclass, field
@@ -35,11 +38,12 @@ from ..config import ExperimentConfig
 from ..data.pipeline import StackedClients, TokenizedSplit
 from ..device import resolve_device
 from ..models.distilbert import build_trainable_params, init_params, model_skeleton
+from ..parallel.dp import noise_seed, round_generator
 from ..parallel.fedavg import make_server_optimizer, stack_params
 from .batches import federated_batches, federated_batches_ragged
 from .engine import Trainer
 from .fedeval import PreparedEval, evaluate_stacked, stack_eval_splits
-from .fedsteps import FedState, aggregate_round, check_survivors, init_opt_state, train_step
+from .fedsteps import FedAdamState, FedState, aggregate_round, check_survivors, init_opt_state, train_step
 
 log = logging.getLogger(__name__)
 
@@ -57,18 +61,17 @@ class RoundRecord:
     seconds: dict[str, float] = field(default_factory=dict)
 
 
+def _clone_generator(g: torch.Generator) -> torch.Generator:
+    out = torch.Generator(device=g.device)
+    out.set_state(g.get_state())
+    return out
+
+
 class FederatedTrainer:
     """N-client FedAvg in one process, on the card unless ``device="cpu"``
     is given (no CUDA raises)."""
 
     def __init__(self, cfg: ExperimentConfig, *, pad_id: int = 0, device: str | torch.device | None = None):
-        if cfg.train.grad_accum_steps > 1:
-            # The JAX stacked step honours it through make_optimizer; the
-            # port's lockstep step does not accumulate yet.
-            raise NotImplementedError(
-                "train.grad_accum_steps > 1 (gradient accumulation) is not "
-                "ported to the federated trainer's stacked step"
-            )
         self.cfg = cfg
         self.C = cfg.fed.num_clients
         self.pad_id = pad_id
@@ -77,6 +80,9 @@ class FederatedTrainer:
         # rows of the stacked leaves through functional_call.
         self.model = model_skeleton(cfg.model)
         self.server_tx = make_server_optimizer(cfg.fed)
+        # DP noise seed (fed.dp_seed, else fresh OS entropy): drawn once
+        # a run, mixed with the round index for each round's generator.
+        self._dp_seed = noise_seed(cfg.fed.dp_seed) if cfg.fed.dp_clip > 0.0 else None
 
     # One client's rows through the meta-device skeleton, as the
     # single-client engine runs its state.
@@ -103,7 +109,7 @@ class FederatedTrainer:
             server_opt = self.server_tx.init(single)
         return FedState(
             params=stacked,
-            opt_state=init_opt_state(stacked, self.C),
+            opt_state=self._opt_init(stacked),
             step=0,
             generators=[self._generator(seed, c) for c in range(self.C)],
             server_opt=server_opt,
@@ -112,15 +118,57 @@ class FederatedTrainer:
     def _generator(self, seed: int, client: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed((seed + 1) * 1_000_003 + client)
 
+    def _opt_init(self, params: dict) -> FedAdamState:
+        return init_opt_state(params, self.C, self.cfg.train.grad_accum_steps)
+
     def reset_optimizer(self, state: FedState) -> FedState:
-        state.opt_state = init_opt_state(state.params, self.C)
+        state.opt_state = self._opt_init(state.params)
         return state
 
-    def personalize(self, *args, **kwargs):
-        raise NotImplementedError(
-            "personalization (FedAvg + local fine-tuning) is not ported yet "
-            "(ROADMAP queue 1, item 16)"
+    def personalize(
+        self,
+        state: FedState,
+        stacked_train: TokenizedSplit | StackedClients,
+        *,
+        epochs: int | None = None,
+        scope: str | None = None,
+    ) -> tuple[FedState, np.ndarray]:
+        """FedAvg + local fine-tuning: each client trains its replica on its
+        own shard from the current (just aggregated) params, with no
+        closing aggregate: the per-client personalized models of the third
+        evaluation phase. ``scope="head"`` freezes the encoder and adapts
+        only the classifier (FedPer); ``"full"`` fine-tunes everything
+        (FedAvg+FT).
+
+        A side branch: it trains copies of the leaves and of the dropout
+        generators under a fresh optimizer state, so ``state`` stays the
+        aggregate. Returns the personalized state and the ``[E, C]`` epoch
+        losses."""
+        epochs = self.cfg.fed.personalize_epochs if epochs is None else epochs
+        scope = self.cfg.fed.personalize_scope if scope is None else scope
+        if epochs <= 0:
+            raise ValueError("personalize needs epochs > 0")
+        if scope not in ("full", "head"):
+            raise ValueError(f"personalize scope {scope!r} must be full|head")
+        # A scope-matched trainer in either direction: head scope on an
+        # all-params config, or full scope on a trainable="head" one.
+        want = "head" if scope == "head" else "all"
+        ptrainer = self
+        if self.cfg.train.trainable != want:
+            cfg = dataclasses.replace(self.cfg, train=dataclasses.replace(self.cfg.train, trainable=want))
+            ptrainer = type(self)(cfg, pad_id=self.pad_id, device=self.device)
+        params = {
+            n: p.detach().clone().requires_grad_(want == "all" or n.startswith("classifier."))
+            for n, p in state.params.items()
+        }
+        branch = FedState(
+            params=params,
+            opt_state=ptrainer._opt_init(params),
+            step=state.step,
+            generators=[_clone_generator(g) for g in state.generators],
+            server_opt=state.server_opt,
         )
+        return ptrainer.fit_local(branch, stacked_train, epochs=epochs)
 
     # ---------------------------------------------------------------- phases
     def train_step(self, state: FedState, batch: dict, anchor=None) -> tuple[torch.Tensor, np.ndarray]:
@@ -227,11 +275,15 @@ class FederatedTrainer:
         return mask
 
     def round_anchor(self, state: FedState) -> dict | None:
-        """Round-start params for FedOpt aggregation, captured before
-        ``fit_local`` (a copy); None under plain FedAvg."""
-        if self.server_tx is None:
+        """Round-start params for DP and/or FedOpt aggregation, captured
+        before ``fit_local`` (a copy); None when neither needs it."""
+        if self.server_tx is None and self._dp_seed is None:
             return None
         return {n: p.detach().clone() for n, p in state.params.items()}
+
+    def dp_generator(self, round_index: int) -> torch.Generator:
+        """The round's DP noise generator, on the training device."""
+        return round_generator(self._dp_seed, round_index, self.device)
 
     def round_aggregate(
         self,

@@ -9,13 +9,16 @@ backward of the sum of the clients' losses: a client's loss depends only
 on its own rows, so the gradient of the sum is the stacked per-client
 gradient (the trick of the JAX package's FSDP step). Adam then updates
 each client's rows with the client's own count, so its bias corrections
-and warmup follow the steps that client actually took.
+and warmup follow the steps that client actually took. With
+``train.grad_accum_steps = k > 1`` a client's step folds its gradient
+into its running mean and Adam runs on that mean at the k-th micro step
+the client took (``optax.MultiSteps`` per client).
 
 A client whose lockstep batch holds no valid row (a short client idling
-through the epoch's tail) keeps its params, moments and count untouched,
-as the JAX package's gated update does. Its outputs are defined (loss 0,
-``has`` 0), so its forward is skipped: the flash kernels launch once per
-layer per client-step that ran.
+through the epoch's tail) keeps its params, moments, count, accumulator
+and mini step untouched, as the JAX package's gated update does. Its
+outputs are defined (loss 0, ``has`` 0), so its forward is skipped: the
+flash kernels launch once per layer per client-step that ran.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from ..ops.metrics import BinaryCounts, ClassCounts
+from ..parallel.dp import dp_fedavg
 from ..parallel.fedavg import broadcast_rows, fedavg, weighted_mean
 from .engine import adam_update, eval_counts, masked_loss_fn, prox_sq
 
@@ -36,11 +40,17 @@ log = logging.getLogger(__name__)
 
 class FedAdamState(NamedTuple):
     """optax's ``ScaleByAdamState`` vmapped over clients: one Adam count
-    per client and ``[C, ...]`` moments of the trainable leaves."""
+    per client and ``[C, ...]`` moments of the trainable leaves. Under
+    ``train.grad_accum_steps > 1`` it is ``optax.MultiSteps``' state too:
+    each client's running mean of its window's gradients (``acc``,
+    ``[C, ...]``) and the micro steps that window holds (``mini_step``);
+    None without accumulation."""
 
     count: list[int]
     mu: dict[str, torch.Tensor]
     nu: dict[str, torch.Tensor]
+    acc: dict[str, torch.Tensor] | None = None
+    mini_step: list[int] | None = None
 
 
 @dataclass
@@ -57,14 +67,17 @@ class FedState:
     server_opt: dict | None = None
 
 
-def init_opt_state(params: Mapping[str, torch.Tensor], num_clients: int) -> FedAdamState:
-    """Zero moments for the leaves that train, count 0 for every client."""
+def init_opt_state(params: Mapping[str, torch.Tensor], num_clients: int, accum_steps: int = 1) -> FedAdamState:
+    """Zero moments for the leaves that train, count 0 for every client;
+    with ``accum_steps > 1`` also a zero accumulator and mini step."""
     names = [n for n, t in params.items() if t.requires_grad]
-    return FedAdamState(
-        [0] * num_clients,
-        {n: torch.zeros_like(params[n], requires_grad=False) for n in names},
-        {n: torch.zeros_like(params[n], requires_grad=False) for n in names},
-    )
+
+    def zeros() -> dict[str, torch.Tensor]:
+        return {n: torch.zeros_like(params[n], requires_grad=False) for n in names}
+
+    if accum_steps <= 1:
+        return FedAdamState([0] * num_clients, zeros(), zeros())
+    return FedAdamState([0] * num_clients, zeros(), zeros(), zeros(), [0] * num_clients)
 
 
 def _device_batch(batch: Mapping[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
@@ -124,13 +137,29 @@ def train_step(
             p_rows = [state.params[n].detach().unbind(0) for n in names]
             m_rows = [opt.mu[n].unbind(0) for n in names]
             v_rows = [opt.nu[n].unbind(0) for n in names]
+            a_rows = None if opt.acc is None else [opt.acc[n].unbind(0) for n in names]
+            k = int(trainer.cfg.train.grad_accum_steps)
             for c in active:
+                grads_c = [g[c] for g in g_rows]
+                if a_rows is not None:
+                    # MultiSteps: the running mean of the window, applied
+                    # (and reset) on the client's k-th micro step.
+                    acc = [r[c] for r in a_rows]
+                    step_c = opt.mini_step[c]
+                    torch._foreach_add_(acc, torch._foreach_div(torch._foreach_sub(grads_c, acc), float(step_c + 1)))
+                    if step_c < k - 1:
+                        opt.mini_step[c] = step_c + 1
+                        continue
+                    grads_c = acc
                 opt.count[c] += 1
                 adam_update(
                     trainer.cfg.train,
                     [r[c] for r in p_rows], [r[c] for r in m_rows], [r[c] for r in v_rows],
-                    [g[c] for g in g_rows], opt.count[c], int(warm[c]),
+                    grads_c, opt.count[c], int(warm[c]),
                 )
+                if a_rows is not None:
+                    torch._foreach_zero_(grads_c)
+                    opt.mini_step[c] = 0
     state.step += 1
     return losses, has
 
@@ -178,12 +207,15 @@ def aggregate_round(
     enforce_min_fraction: bool = True,
 ) -> FedState:
     """The FedAvg round boundary, in place on ``state``: plain, weighted
-    or masked FedAvg, or FedOpt over the mean update (``anchor`` = the
-    round-start params, from ``round_anchor``). Enforces
+    or masked FedAvg, DP-FedAvg (``fed.dp_clip > 0``: the clipped,
+    noised uniform mean of :func:`..parallel.dp.dp_fedavg`), and FedOpt
+    over the mean update, which under DP is the noised aggregate
+    (``anchor`` = the round-start params, from ``round_anchor``). Enforces
     min_client_fraction unless ``enforce_min_fraction=False`` (the
     Poisson path, where the caller gates crashes itself)."""
     cfg = trainer.cfg
     C = trainer.C
+    participants = client_mask  # DP folds the mask in; its log reads this
     if client_mask is not None:
         check_survivors(
             float(np.asarray(client_mask).sum()),
@@ -201,14 +233,46 @@ def aggregate_round(
                 "effective FedAvg weight sum is zero (all-zero weights, "
                 "or every weighted client masked out)"
             )
-    if trainer.server_tx is None:
-        fedavg(state.params, weights, client_mask)
-        return state
-    if anchor is None:
+    dp = cfg.fed.dp_clip > 0.0
+    if (dp or trainer.server_tx is not None) and anchor is None:
         raise ValueError(
-            "FedOpt aggregation needs the round-start anchor — capture it "
-            "with round_anchor(state) before fit_local"
+            "DP and/or FedOpt aggregation needs the round-start anchor "
+            "— capture it with round_anchor(state) before fit_local"
         )
+    if dp:
+        if weights is not None:
+            raise ValueError(
+                "DP aggregation is a uniform mean (FedConfig forbids "
+                "weighted=True with dp_clip); do not pass weights"
+            )
+        noised, norms = dp_fedavg(
+            state.params,
+            anchor,
+            trainer.dp_generator(round_index),
+            client_mask,
+            clip=float(cfg.fed.dp_clip),
+            noise_multiplier=float(cfg.fed.dp_noise_multiplier),
+        )
+        # The noised uniform aggregate goes to every row; a server
+        # optimizer consumes it as its (already aggregated) base.
+        broadcast_rows(state.params, noised)
+        weights = client_mask = None
+        # Stats over PARTICIPANTS only: masked-out clients' norms never
+        # touched the aggregate and would skew clip-rate tuning.
+        hn = norms.cpu().numpy()
+        if participants is not None:
+            hn = hn[np.asarray(participants) > 0]
+        clipped = int((hn > cfg.fed.dp_clip).sum())
+        log.info(
+            f"[DP] round {round_index}: participant update norms "
+            f"median {np.median(hn):.4g} max {hn.max():.4g}; "
+            f"{clipped}/{hn.size} participants clipped at "
+            f"{cfg.fed.dp_clip}"
+        )
+    if trainer.server_tx is None:
+        if not dp:
+            fedavg(state.params, weights, client_mask)
+        return state
     mean = weighted_mean(state.params, weights, client_mask)
     # The anchor's rows are identical (the previous round's broadcast);
     # their mean is the single-model value, computed as JAX computes it.

@@ -83,16 +83,15 @@ def test_each_side_decodes_the_others_bytes():
 
 def test_unported_modes_raise_mode_error():
     """What the port's server still refuses: an upload in a JAX mode it
-    does not fold (secure aggregation, central DP, a relay's subtree
-    upload, a re-homed client, a relay's strategy claim) raises
-    ModeError, and a sparse delta without a base raises WireError (the
+    does not fold (secure aggregation, a relay's subtree upload, a
+    re-homed client, a relay's strategy claim) raises ModeError; a DP
+    upload to a plain server fails the mode check; and a sparse delta without a base raises WireError (the
     JAX server's refusal: the client then resends dense)."""
     rng = np.random.default_rng(3)
     flat = pwire.flatten_params(_params(rng))
     with AggregationServer(port=0, num_clients=1, timeout=5, device="cpu") as server:
         for key, value, what in (
             ("secure", True, "secure aggregation"),
-            ("dp", True, "central DP"),
             ("subtree_ids", [0, 1], "relay"),
             ("rehomed", 1, "re-homing"),
             ("strategy", {"name": "fedavg"}, "relay"),
@@ -100,6 +99,11 @@ def test_unported_modes_raise_mode_error():
             with pytest.raises(ModeError, match=f"{what}.* not ported"):
                 server._validate_upload({"client_id": 0, key: value}, None)
         assert server._validate_upload({"client_id": 4, "dp": False}, None) == 4
+        # Central DP is ported: a DP upload to a plain server is a mode
+        # mismatch (the JAX server's WireError), not an unported mode.
+        assert server._validate_upload({"client_id": 0, "dp": True}, None) == 0
+        with pytest.raises(WireError, match="central-DP mode mismatch"):
+            server._validate_dp_meta({"client_id": 0, "dp": True}, is_delta=False)
         for meta in ({"delta": True, "base_agg_round": 0}, {"delta": True}):
             with pytest.raises(WireError, match="base is absent"):
                 server._check_delta(flat, meta)
@@ -252,11 +256,21 @@ def test_cli_refuses_what_the_jax_cli_refuses(monkeypatch):
     )
     with pytest.raises(ValueError, match="wire_dtype"):
         run_client(args)
-    for argv in (["serve", "--secure-agg"], ["serve", "--dp-clip", "1"], ["client", "--client-id", "0", "--dp"],
-                 ["client", "--client-id", "0", "--parent", "h:1"], ["client", "--client-id", "0", "--secure-agg"]):
+    for argv in (["serve", "--secure-agg"], ["client", "--client-id", "0", "--parent", "h:1"],
+                 ["client", "--client-id", "0", "--secure-agg"]):
         with pytest.raises(SystemExit):
             build_parser().parse_args(argv)
         jax_parser().parse_args(argv)  # valid in the JAX package
+    # Central DP is ported: its flags parse, and the serve verb refuses
+    # what the JAX one refuses (tests/test_torch_dp_tcp.py holds the rest).
+    assert build_parser().parse_args(["serve", "--dp-clip", "1"]).dp_clip == 1.0
+    assert build_parser().parse_args(["client", "--client-id", "0", "--dp"]).dp
+    for bad, err in ((["--dp-participation", "0"], SystemExit), (["--dp-noise-multiplier", "1"], ValueError)):
+        with pytest.raises(err):
+            build_server(build_parser().parse_args(["serve", "--port", "0", "--device", "cpu", *bad]))
+        jargs = jax_parser().parse_args(["serve", "--port", "0", *bad])
+        with pytest.raises(err):
+            jargs.fn(jargs)
     monkeypatch.setenv("FEDTPU_CLIENT_SECRETS", "0:a,1:b")
     with pytest.raises(ModeError, match="identity keys"):
         build_server(build_parser().parse_args(["serve", "--port", "0", "--device", "cpu"]))

@@ -510,6 +510,21 @@ def test_federated_cli_matches_the_jax_cli(tmp_path, monkeypatch):
     ],
 )
 def test_unported_federated_flags_are_refused(flag, capsys):
+    """Flags of unported features are unknown to argparse; the DP,
+    personalization and --stream flags are ported and parse to the JAX
+    package's values."""
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu.cli import (
+        build_parser as jax_parser,
+    )
+
+    if flag[0] in ("--personalize-epochs", "--personalize-scope", "--dp-clip", "--dp-noise-multiplier", "--stream"):
+        argv = ["federated", *flag]
+        if flag[0] == "--dp-noise-multiplier":
+            argv += ["--dp-clip", "1.0"]
+        args, jargs = build_parser().parse_args(argv), jax_parser().parse_args(argv)
+        name = flag[0][2:].replace("-", "_")
+        assert getattr(args, name) == getattr(jargs, name)
+        return
     with pytest.raises(SystemExit):
         build_parser().parse_args(["federated", *flag])
     assert "unrecognized arguments" in capsys.readouterr().err
@@ -539,8 +554,10 @@ def test_federated_flags_resolve_and_personalize_raises():
     assert (cfg.data.partition, cfg.data.dirichlet_alpha) == ("dirichlet", 0.2)
     with pytest.raises(SystemExit):
         build_parser().parse_args(["federated", "--weighted", "--unweighted"])
+    # personalize is ported (tests/test_torch_personalize.py): with the
+    # config's epochs at 0 it refuses to run, as the JAX trainer does.
     trainer = FederatedTrainer(_configs(dict(num_clients=2))[0], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="epochs > 0"):
         trainer.personalize(trainer.init_state(), None)
 
 

@@ -253,16 +253,17 @@ def test_load_flow_csv_matches_jax(synthetic_csv):
 
 
 def test_unported_config_paths_raise():
-    # Accumulation is ported in the single-client engine; the federated
-    # trainer's stacked step refuses it rather than ignoring it.
+    # Accumulation is ported in the single-client engine and in the
+    # federated trainer's stacked step (tests/test_torch_fed_accum.py):
+    # every client gets its own window.
     from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.federated import (
         FederatedTrainer,
     )
 
     accum = pcfg.ExperimentConfig(model=pcfg.ModelConfig.tiny(), data=pcfg.DataConfig(max_len=32),
                                   train=pcfg.TrainConfig(grad_accum_steps=2))
-    with pytest.raises(NotImplementedError, match="accumulation"):
-        FederatedTrainer(accum, device="cpu")
+    opt = FederatedTrainer(accum, device="cpu").init_state().opt_state
+    assert opt.mini_step == [0, 0] and opt.acc.keys() == opt.mu.keys()
     # Every registered dataset is ported; an unknown name raises, as the
     # JAX package's get_dataset does.
     with pytest.raises(ValueError, match="unknown dataset 'bogus'"):

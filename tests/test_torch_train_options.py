@@ -284,6 +284,8 @@ def test_local_remat_and_config_accumulation_through_the_parser(tmp_path):
 
 
 def test_federated_refuses_accumulation(tmp_path):
+    """(Named for the refusal it replaced.) A config with
+    grad_accum_steps=2 runs the federated verb."""
     from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.federated import (
         run_federated,
     )
@@ -296,5 +298,11 @@ def test_federated_refuses_accumulation(tmp_path):
         "federated", "--device", "cpu", "--config", str(tmp_path / "cfg.json"), "--synthetic", "300",
         "--output-dir", str(tmp_path / "out"),
     ])
-    with pytest.raises(NotImplementedError, match="accumulation"):
-        run_federated(args)
+    # Ported: the --config written for `local` runs on `federated`, each
+    # client accumulating its own window (tests/test_torch_fed_accum.py
+    # holds the stacked step against JAX's).
+    res = run_federated(args)
+    assert res["config"].train.grad_accum_steps == 2
+    opt = res["state"].opt_state
+    assert opt.acc is not None and len(opt.mini_step) == 2
+    assert all(np.isfinite(r.epoch_losses).all() for r in res["history"])
