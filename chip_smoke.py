@@ -252,16 +252,52 @@ Phases; any failure exits non-zero before the last line is printed:
             ``infer-serve --hf-dir --max-len 64`` on the same weights: 32
             flows at L=64 within bf16 atol 1e-2 of an fp32 scorer at L=64
             on the CPU;
-11. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
+11. obs     — the obs layer on the card, through the port's parser, at
+            full width: (a) ``local`` at phase 6's configuration (bs16,
+            9 steps) with ``--profile-stride 3 --metrics-jsonl
+            --trace-jsonl --profile-dir``: 3 samples each of host,
+            dispatch and device (and ``fedtpu_train_step_seconds``
+            counting them), a ``post-first-step`` peak above 0 and at
+            most ``torch.cuda.max_memory_allocated()``, the Chrome
+            trace's K1/K2/K3 kernel events (by substring of their
+            mangled names; a trace without CUDA kernel events fails)
+            equal to the launch counters over the fit (and the device's
+            busy share over the traced kernels printed), and the device
+            share of a sampled step printed (and again at stride 1
+            without the profiler, whose host cost inflates the
+            dispatch); (b) before it, the same fit
+            at stride 0 with ``torch.cuda.synchronize`` counted: 0 calls
+            and no ``fedtpu_*_step_seconds`` family; (c) ``obs profile
+            --preset distilbert --steps 12 --capture DIR --json``: the
+            counted/analytic FLOPs ratio (printed, inside 0.5-2.0), MFU
+            against the card's peak, ``peak_device_bytes``,
+            ``compile_count``, a serving storm with 0 recompiles, CUDA
+            kernels in the capture; (d) ``serve --num-clients 2
+            --trace-jsonl --metrics-port`` with two ``client
+            --trace-jsonl --profile-stride 3`` at phase 8's configuration
+            (their spans' sampled step attrs printed): ``/metrics`` and
+            ``/metrics.json`` agree, the round counter moves by 1 and the
+            byte counters by the bytes the clients sent and received,
+            ``obs timeline`` attributes each client's wall within 10%,
+            K4 launches 102; (e) ``infer-serve --metrics-port 0
+            --trace-sample 0.25 --scored-jsonl --flight-dir
+            --trace-jsonl --profile-stride 2`` over 64 flows and a
+            reload frame (the sampled score dispatch's split printed):
+            ``fedtpu_serve_scored_total`` counts every answer, one scored
+            row per reply with its prob, one ``serve-batch`` span per
+            stride of 4 batches, one ledger signature per bucket and no
+            recompile after the reload, no postmortem bundle;
+12. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
    serving shape and dropout at the training shape, then K2, K3 and K4;
    K1's rate-0 launches count phase 5, phase 6's evaluation, the
    lifecycle's predict and reload serving, the federated phase's
    evaluations, predicts and serving, the train-options, distill,
    migrate, privacy, dp-rounds and stream phases, the rounds phase's
-   evaluations and the serving phase; K1 with dropout, K2 and K3 count
-   phase 6, the federated, train-options, distill, migrate, privacy,
-   dp-rounds, stream and rounds phases and the serving phase's ``local``;
-   K4 the migrate and dp-rounds phases and phases 8 and 9),
+   evaluations, the serving phase and the obs phase; K1 with dropout,
+   K2 and K3 count phase 6, the federated, train-options, distill,
+   migrate, privacy, dp-rounds, stream and rounds phases, the serving
+   phase's ``local`` and the obs phase; K4 the migrate and dp-rounds
+   phases, phases 8 and 9 and the obs phase's round),
    then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -273,25 +309,34 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import collections
 import contextlib
 import csv
 import dataclasses
 import io
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.request
 import zlib
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch import (
+    obs as obs_mod,
+)
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli import (
     build_parser,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli import (
+    main as cli_main,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.comm import (
     build_server as build_round_server,
@@ -401,6 +446,9 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.utils import (
     native,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.utils import (
+    profiling as profiling_mod,
 )
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -2490,6 +2538,378 @@ def serving_phase(seed: int, card: str) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------- slice 12
+#: K1, K2 and K3 as their mangled names show in a torch.profiler trace.
+KERNEL_FRAGMENTS = {"K1": "flash_fwd", "K2": "flash_dkdv", "K3": "flash_dq"}
+STEP_FAMILIES = ("fedtpu_train_step_seconds", "fedtpu_score_step_seconds", "fedtpu_wire_step_seconds")
+OBS_FLOWS = 64
+
+
+def registry_value(name: str, labels: dict | None = None) -> float:
+    """A family's value (a histogram's count) on the process registry,
+    summed over the samples whose labels match ``labels``."""
+    fam = obs_mod.default_registry().snapshot()["families"].get(name)
+    if fam is None:
+        return 0.0
+    return sum(
+        s.get("count", s.get("value", 0.0)) for s in fam["samples"] if labels is None or s["labels"] == labels
+    )
+
+
+def trace_kernel_counts(log_dir: str) -> tuple[dict[str, int], int, float]:
+    """K1/K2/K3 kernel events (by substring of their mangled names) in
+    the one Chrome trace under ``log_dir``, all its CUDA kernel events,
+    and the share of the span from the first kernel's start to the last
+    one's end that some kernel ran (the device's busy share); a trace
+    without CUDA kernel events fails."""
+    names = [n for n in os.listdir(log_dir) if n.endswith(".json")]
+    check(len(names) == 1, f"{log_dir} holds traces {names}, want one")
+    with open(os.path.join(log_dir, names[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    check(kernels, f"the torch.profiler trace {names[0]} holds no CUDA kernel events")
+    busy, end = 0.0, None
+    for e in sorted(kernels, key=lambda e: float(e["ts"])):
+        t0, t1 = float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))
+        if end is None or t0 >= end:
+            busy += t1 - t0
+        elif t1 > end:
+            busy += t1 - end
+        end = t1 if end is None else max(end, t1)
+    span = end - min(float(e["ts"]) for e in kernels) if kernels else 0.0
+    counts = {k: sum(frag in e["name"] for e in kernels) for k, frag in KERNEL_FRAGMENTS.items()}
+    return counts, len(kernels), busy / span if span > 0 else 0.0
+
+
+@contextlib.contextmanager
+def counting_synchronize():
+    """``torch.cuda.synchronize`` wrapped by a counter for the block."""
+    calls = [0]
+    orig = torch.cuda.synchronize
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return orig(*a, **kw)
+
+    torch.cuda.synchronize = counted
+    try:
+        yield calls
+    finally:
+        torch.cuda.synchronize = orig
+
+
+def obs_local(seed: int, card: str, work: str) -> dict[str, int]:
+    """Obs (a) and (b): ``local`` at the train cell (bs16, 9 steps) with
+    the plane off (stride 0: no fence, no step family), then armed
+    (``--profile-stride 3 --metrics-jsonl --trace-jsonl --profile-dir``):
+    the step samples, the post-first-step watermark, the Chrome trace's
+    kernels against the launch counters, the device share of a sampled
+    step. Returns each kernel's launches over both runs."""
+    base = ["local", "--preset", "distilbert", "--attention-impl", "flash", "--synthetic", "2400",
+            "--epochs", "1", "--seed", str(seed)]
+    total = zero_launches()
+    # (b) first: no step family may exist yet in this process.
+    check(not any(f in obs_mod.default_registry().snapshot()["families"] for f in STEP_FAMILIES),
+          "a step family was registered before any profiled run")
+    zero_with_fold()
+    with counting_synchronize() as syncs:
+        res = run_local(build_parser().parse_args(base + ["--output-dir", os.path.join(work, "obs-b")]))
+    launches = read_with_fold()
+    fams = obs_mod.default_registry().snapshot()["families"]
+    print(f"obs (b): stride 0: {res['state'].step} steps, torch.cuda.synchronize calls {syncs[0]}, step families "
+          f"{[f for f in STEP_FAMILIES if f in fams]}, launches {launches}", flush=True)
+    check(syncs[0] == 0, f"stride 0 made {syncs[0]} torch.cuda.synchronize calls")
+    check(not any(f in fams for f in STEP_FAMILIES), "stride 0 registered a step family")
+    check(res["trainer"].step_profiler is None, "stride 0 built a step profiler")
+    add_launches(total, launches)
+
+    # (a) the plane armed; the trace's window is the fit.
+    prof_dir = os.path.join(work, "obs-prof")
+    metrics_path, trace_path = os.path.join(work, "obs-local.jsonl"), os.path.join(work, "obs-local-spans.jsonl")
+    window: dict[str, int] = {}
+    orig_trace = profiling_mod.trace
+
+    @contextlib.contextmanager
+    def counted_trace(log_dir):
+        counts_zero()
+        with orig_trace(log_dir):
+            yield
+        window.update(counts_read())
+
+    before = {p: registry_value("fedtpu_train_step_seconds", {"phase": p}) for p in ("host", "dispatch", "device")}
+    torch.cuda.reset_peak_memory_stats()
+    zero_with_fold()
+    profiling_mod.trace = counted_trace
+    try:
+        res = run_local(build_parser().parse_args(base + [
+            "--output-dir", os.path.join(work, "obs-a"), "--profile-stride", "3", "--metrics-jsonl", metrics_path,
+            "--trace-jsonl", trace_path, "--profile-dir", prof_dir,
+        ]))
+    finally:
+        profiling_mod.trace = orig_trace
+        obs_mod.set_profile_stride(0)
+        obs_mod.set_global_tracer(None)
+    launches = read_with_fold()
+    max_alloc = torch.cuda.max_memory_allocated()
+    add_launches(total, launches)
+    steps = res["state"].step
+    summary = res["trainer"].step_profiler.summary()
+    counted = {p: registry_value("fedtpu_train_step_seconds", {"phase": p}) - before[p] for p in before}
+    print(f"obs (a): {card}: {steps} steps at stride 3: samples {({p: s['n'] for p, s in summary.items()})}, "
+          f"fedtpu_train_step_seconds counts {counted}", flush=True)
+    check(steps == 9, f"{steps} steps, want 9")
+    check(all(summary.get(p, {}).get("n") == 3 for p in before) and all(c == 3 for c in counted.values()),
+          f"step samples {summary}, histogram counts {counted}: want 3 of each phase")
+    mem = obs_mod.memory_report().get("post-first-step", {})
+    print(f"obs (a): {card}: post-first-step watermark: in use {mem.get('bytes_in_use', 0) / 1e6:.1f} MB, peak "
+          f"{mem.get('peak_bytes', 0) / 1e6:.1f} MB (torch.cuda.max_memory_allocated over the run "
+          f"{max_alloc / 1e6:.1f} MB)", flush=True)
+    check(mem.get("available") and 0 < mem["peak_bytes"] <= max_alloc, f"post-first-step watermark {mem}")
+    in_trace, n_kernels, busy = trace_kernel_counts(prof_dir)
+    want = {"K1": window["flash_fwd"] + window["flash_fwd_dropout"], "K2": window["flash_bwd_dkdv"],
+            "K3": window["flash_bwd_dq"]}
+    print(f"obs (a): torch.profiler trace of the fit: {n_kernels} CUDA kernel events; K1/K2/K3 in the trace {in_trace}, "
+          f"launch counters over the same window {want}; device busy share from the first kernel to the last "
+          f"{busy:.3f} (under the profiler's own host cost)", flush=True)
+    check(in_trace == want, f"the trace's K1/K2/K3 kernels {in_trace} != the launch counters {want}")
+    p50 = {p: summary[p]["p50"] * 1e3 for p in ("host", "dispatch", "device")}
+    p95 = {p: summary[p]["p95"] * 1e3 for p in ("host", "dispatch", "device")}
+    share = p50["device"] / sum(p50.values())
+    print(f"obs (a): {card}: sampled train step (bs16, flash, bf16) p50 host {p50['host']:.3f} ms, dispatch "
+          f"{p50['dispatch']:.3f} ms, device {p50['device']:.3f} ms (p95 {p95['host']:.3f} / {p95['dispatch']:.3f} / "
+          f"{p95['device']:.3f} ms): device share of the sampled step {share:.3f}", flush=True)
+    with open(metrics_path) as f:
+        recs = [json.loads(line) for line in f]
+    check([r["phase"] for r in recs] == ["val", "test"] and all(np.isfinite(r["Loss"]) for r in recs),
+          f"metrics records {recs}")
+    check(all(r["schema"] == "fedtpu-metrics-v1" and r["run_id"] for r in recs), "metrics records lack schema/run_id")
+    check(launches["flash_fwd_dropout"] == launches["flash_bwd_dkdv"] == launches["flash_bwd_dq"] == 6 * steps,
+          f"K1-dropout/K2/K3 launches {launches} for {steps} steps")
+
+    # The same fit at stride 1 without --profile-dir: every step's split
+    # with no torch.profiler running (the trace's own host cost inflates
+    # the dispatch above).
+    zero_with_fold()
+    try:
+        res = run_local(build_parser().parse_args(base + ["--output-dir", os.path.join(work, "obs-a1"), "--profile-stride", "1"]))
+    finally:
+        obs_mod.set_profile_stride(0)
+    add_launches(total, read_with_fold())
+    summary = res["trainer"].step_profiler.summary()
+    p50 = {p: summary[p]["p50"] * 1e3 for p in ("host", "dispatch", "device")}
+    share = p50["device"] / sum(p50.values())
+    print(f"obs (a): {card}: the same fit at stride 1, no profiler: {summary['device']['n']} samples, p50 host "
+          f"{p50['host']:.3f} ms, dispatch {p50['dispatch']:.3f} ms, device {p50['device']:.3f} ms: device share {share:.3f}",
+          flush=True)
+    check(summary["device"]["n"] == 9, f"stride 1 sampled {summary['device']['n']} of 9 steps")
+    return total
+
+
+def obs_profile(card: str, work: str) -> dict[str, int]:
+    """Obs (c): ``obs profile --preset distilbert --steps 12 --capture DIR
+    --json`` through the port's CLI."""
+    cap = os.path.join(work, "obs-capture")
+    zero_with_fold()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(["obs", "profile", "--preset", "distilbert", "--steps", "12", "--capture", cap, "--json"])
+    launches = read_with_fold()
+    rep = json.loads(out.getvalue())
+    check(rc == 0, f"obs profile exited {rc}: {rep}")
+    step = rep["step"]
+    step_s = sum(step[p]["p50"] for p in ("host", "dispatch", "device"))
+    peak = profiling_mod.device_peak_flops()
+    flops = rep["flops_analytic"]
+    mfu = profiling_mod.mfu(flops, step_s)
+    lo, hi = rep["flops_tolerance"]
+    print(f"obs (c): {card}: FLOPs counted {rep['flops_xla']:.6g} vs analytic {flops:.6g}: ratio {rep['flops_ratio']} "
+          f"(tolerance {lo}-{hi}, ok {rep['flops_ratio_ok']})", flush=True)
+    print(f"obs (c): {card}: sampled step (bs8, flash, bf16) p50 host {step['host']['p50'] * 1e3:.3f} ms, dispatch "
+          f"{step['dispatch']['p50'] * 1e3:.3f} ms, device {step['device']['p50'] * 1e3:.3f} ms ({step['device']['n']} "
+          f"samples): MFU {mfu if mfu is None else round(mfu, 4)} of {peak} FLOP/s peak", flush=True)
+    print(f"obs (c): {card}: peak_device_bytes {rep['peak_device_bytes'] / 1e6:.1f} MB, compile_count "
+          f"{rep['compile_count']} ({rep['sites']}), serving storm {rep['serving']}; launches {launches}", flush=True)
+    check(rep["flops_ratio_ok"] and lo < rep["flops_ratio"] < hi, f"FLOPs ratio {rep['flops_ratio']}")
+    check(step["device"]["n"] == 12 and rep["recompiles"] == [], f"profiled steps {step}, recompiles {rep['recompiles']}")
+    check(rep["serving"]["recompiles"] == 0, f"the serving storm recompiled: {rep['serving']}")
+    check(rep["peak_device_bytes"] > 0, "no device watermark in the profile")
+    _, n_kernels, busy = trace_kernel_counts(cap)
+    print(f"obs (c): the capture: {n_kernels} CUDA kernel events, device busy share {busy:.3f}", flush=True)
+    check(launches["flash_fwd_dropout"] == launches["flash_bwd_dkdv"] == launches["flash_bwd_dq"] == 6 * 15,
+          f"K1-dropout/K2/K3 launches {launches} for 2 warmup + 1 counted + 12 profiled steps")
+    return launches
+
+
+def free_port() -> int:
+    with contextlib.closing(socket.socket()) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def scrape(port: int, path: str) -> bytes:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return r.read()
+
+
+def obs_round(seed: int, card: str, work: str) -> dict[str, int]:
+    """Obs (d): ``serve --num-clients 2 --trace-jsonl --metrics-port`` and
+    two ``client --trace-jsonl`` at the round cell, fold on the card."""
+    spans = os.path.join(work, "obs-spans")
+    mport = free_port()
+    names = ("fedtpu_server_rounds_total", "fedtpu_server_wire_bytes_received_total",
+             "fedtpu_server_wire_bytes_sent_total")
+    before = {n: registry_value(n) for n in names}
+    server = build_round_server(build_parser().parse_args(
+        ["serve", "--host", "127.0.0.1", "--port", "0", "--num-clients", "2", "--timeout", "600", "--device", "cuda",
+         "--trace-jsonl", os.path.join(spans, "server.jsonl"), "--metrics-port", str(mport)]
+    ))
+    results: dict[int, dict] = {}
+    errors: list[BaseException] = []
+
+    def client(i: int) -> None:
+        try:
+            results[i] = run_client(build_parser().parse_args(
+                ["client", "--client-id", str(i), "--host", "127.0.0.1", "--port", str(server.port),
+                 "--preset", "distilbert", "--attention-impl", "flash", "--synthetic", "2400", "--epochs", "1",
+                 "--rounds", "1", "--seed", str(seed), "--timeout", "600", "--output-dir", os.path.join(work, "obs-d"),
+                 "--trace-jsonl", os.path.join(spans, f"client{i}.jsonl"), "--profile-stride", "3"]
+            ))
+        except BaseException as e:  # re-raised below, after the join
+            errors.append(e)
+
+    zero_with_fold()
+    with server:
+        st = threading.Thread(target=server.serve, args=(1,))
+        workers = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+        for t in (st, *workers):
+            t.start()
+        for t in (*workers, st):
+            t.join(timeout=900)
+        check(not any(t.is_alive() for t in (st, *workers)), "round threads hung")
+        if errors:
+            raise errors[0]
+        text = scrape(mport, "/metrics").decode()
+        doc = json.loads(scrape(mport, "/metrics.json"))
+    launches = read_with_fold()
+    obs_mod.set_profile_stride(0)
+    check(server.metrics_server is None, "the server left its /metrics endpoint open")
+
+    def text_value(name: str) -> float:
+        lines = [ln for ln in text.splitlines() if ln.startswith(name + " ")]
+        check(len(lines) == 1, f"/metrics renders {name} {len(lines)} times")
+        return float(lines[0].rsplit(" ", 1)[1])
+
+    fams = doc["families"]
+    moved = {n: text_value(n) - before[n] for n in names}
+    check(all(fams[n]["samples"][0]["value"] == text_value(n) for n in names), "/metrics.json disagrees with /metrics")
+    up = sum(results[i]["exchange"]["upload_bytes"] for i in range(2))
+    down = sum(results[i]["exchange"]["reply_bytes"] for i in range(2))
+    print(f"obs (d): /metrics over the round: rounds_total +{moved[names[0]]:.0f}, bytes received "
+          f"+{moved[names[1]]:.0f} (the clients sent {up}), bytes sent +{moved[names[2]]:.0f} (the clients "
+          f"received {down}); the same numbers on /metrics.json", flush=True)
+    check(moved[names[0]] == 1, f"fedtpu_server_rounds_total moved by {moved[names[0]]}")
+    check(moved[names[1]] == up and moved[names[2]] == down, f"byte counters {moved} vs the wire's {up} / {down}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        check(cli_main(["obs", "timeline", "--trace-dir", spans, "--json"]) == 0, "obs timeline failed")
+    (rnd,) = json.loads(out.getvalue())
+    for proc, row in sorted(rnd["clients"].items()):
+        err = abs(row["attributed_s"] - row["measured_s"]) / row["measured_s"]
+        print(f"obs (d): {card}: {proc}: compute {row['compute_s']:.3f} s, upload {row['upload_s']:.3f} s, wait "
+              f"{row['wait_s']:.3f} s, agg {row['agg_s']:.3f} s, reply {row['reply_s']:.3f} s; attributed "
+              f"{row['attributed_s']:.3f} s of {row['measured_s']:.3f} s measured ({err:.1%} off)", flush=True)
+        check(err < 0.10, f"{proc}: the timeline attributes {row['attributed_s']} s of {row['measured_s']} s")
+    check(len(rnd["clients"]) == 2 and rnd["contributors"] == [0, 1], f"timeline round {rnd}")
+    for s in obs_mod.load_spans(trace_dir=spans):
+        if s["span"] == "client-local" or (s["span"] in ("wire-upload", "wire-reply") and s.get("step_wire_ms_p50")):
+            attrs = {k: v for k, v in s.items() if k.startswith("step_")}
+            print(f"obs (d): {card}: {s['proc']} {s['span']} {s['dur_s']:.3f} s, sampled step attrs {attrs}", flush=True)
+    stats = server.last_fold_stats
+    print(f"obs (d): {card}: round wall {rnd['round_wall_s']:.3f} s, agg span {rnd['agg_s']:.3f} s, reply "
+          f"{rnd['reply_s']:.3f} s; K4 launches {launches['fold']} (fold of {stats['early_bytes'] + stats['late_bytes']} "
+          f"bytes, {stats['overlap_frac']:.0%} during the wire phase, the rest inside the agg span)", flush=True)
+    check(launches["fold"] == 102, f"K4 launched {launches['fold']} times in the traced round, want 102")
+    steps = sum(results[i]["state"].step for i in range(2))
+    check(launches["flash_fwd_dropout"] == launches["flash_bwd_dkdv"] == launches["flash_bwd_dq"] == 6 * steps,
+          f"K1-dropout/K2/K3 launches {launches} for {steps} steps")
+    return launches
+
+
+def obs_serving(seed: int, card: str, work: str) -> dict[str, int]:
+    """Obs (e): ``infer-serve --metrics-port --trace-sample 0.25
+    --scored-jsonl --flight-dir`` (and ``--trace-jsonl``) over 64 flows at
+    full width, then a reload frame."""
+    tok = default_tokenizer()
+    cfg = ModelConfig.distilbert_base(vocab_size=len(tok.vocab), attention_impl="flash", compute_dtype="bfloat16")
+    params = init_params(cfg, torch.Generator().manual_seed(seed + 41))
+    reg = os.path.join(work, "obs-registry")
+    publish(reg, params, 1, cfg)
+    scored, spans, flight = (os.path.join(work, n) for n in ("obs-scored.jsonl", "obs-serve.jsonl", "obs-flight"))
+    texts = [flow_to_text(r) for r in flow_records(seed + 42, OBS_FLOWS)]
+    before = registry_value("fedtpu_serve_scored_total")
+    zero_with_fold()
+    server = build_server(build_parser().parse_args(serve_args(
+        "--registry-dir", reg, "--reload-poll", "3600", "--metrics-port", "0", "--trace-sample", "0.25",
+        "--scored-jsonl", scored, "--flight-dir", flight, "--trace-jsonl", spans, "--profile-stride", "2",
+    )))
+    with server:
+        replies = score_texts(server.port, texts)
+        batches = fetch_stats("127.0.0.1", server.port)["batches"]
+        new_params = {n: t.clone() for n, t in params.items()}
+        new_params["classifier.bias"] = new_params["classifier.bias"] + torch.tensor([2.0, -2.0])
+        publish(reg, new_params, 2, cfg)
+        with ScoringClient("127.0.0.1", server.port) as c:
+            reload = c.reload()
+            after = [c.score(text=t) for t in texts[:8]]
+        stats = fetch_stats("127.0.0.1", server.port)
+        counts, events = server.engine.compile_counts, server.engine.ledger.recompiles()
+        score = server.engine.step_profiler.summary()
+    obs_mod.set_profile_stride(0)
+    obs_mod.set_global_tracer(None)
+    obs_mod.set_global_recorder(None)
+    launches = read_with_fold()
+    n_scored = registry_value("fedtpu_serve_scored_total") - before
+    with open(scored) as f:
+        rows = [json.loads(line) for line in f]
+    serve_spans = [s for s in obs_mod.load_spans([spans]) if s["span"] == "serve-batch"]
+    print(f"obs (e): {card}: {OBS_FLOWS} flows in {batches} batches: fedtpu_serve_scored_total +{n_scored:.0f} "
+          f"(then {len(after)} after the reload), {len(rows)} scored rows, {len(serve_spans)} serve-batch spans at "
+          f"stride 4 over {stats['batches']} batches; ledger {counts}, recompiles {events}; reload {reload}", flush=True)
+    p50 = {ph: score[ph]["p50"] * 1e3 for ph in ("host", "dispatch", "device")}
+    print(f"obs (e): {card}: sampled score dispatches (every 2nd, {score['device']['n']} samples, warmup included) p50 "
+          f"host {p50['host']:.3f} ms, dispatch {p50['dispatch']:.3f} ms, device {p50['device']:.3f} ms: device share "
+          f"{p50['device'] / sum(p50.values()):.3f}", flush=True)
+    check(n_scored == OBS_FLOWS + len(after), f"fedtpu_serve_scored_total moved by {n_scored}")
+    check(len(rows) == OBS_FLOWS + len(after), f"{len(rows)} scored rows")
+    # Ids are per connection: the rows and the replies are held as
+    # multisets of (id, prob).
+    want_rows = collections.Counter((str(r["id"]), round(r["prob"], 6)) for r in replies + after)
+    check(collections.Counter((r["rid"], r["prob"]) for r in rows) == want_rows, "the scored rows differ from the replies")
+    check(len(serve_spans) == -(-stats["batches"] // 4) and all(s["sampled_batches"] == 4 for s in serve_spans),
+          f"{len(serve_spans)} serve-batch spans for {stats['batches']} batches at stride 4")
+    check(counts == {(b, cfg.max_len): 1 for b in BUCKETS} and events == [], f"ledger {counts}, recompiles {events}")
+    check(reload["reloaded"] is True and reload["round"] == 2, f"reload reply {reload}")
+    bundles = os.listdir(flight) if os.path.isdir(flight) else []
+    check(not bundles, f"flight bundles {bundles} from a clean run")
+    check(launches["flash_fwd"] == cfg.n_layers * (len(BUCKETS) + stats["batches"]),
+          f"K1 launched {launches['flash_fwd']} times for {len(BUCKETS)} warmups + {stats['batches']} batches")
+    return launches
+
+
+def obs_phase(seed: int, card: str) -> dict[str, int]:
+    """Phase 12: the obs layer on the card, (a)-(e). Returns each kernel's
+    launches during it."""
+    t0 = time.perf_counter()
+    total = zero_launches()
+    with tempfile.TemporaryDirectory() as work:
+        add_launches(total, obs_local(seed, card, work))
+        add_launches(total, obs_profile(card, work))
+        add_launches(total, obs_round(seed, card, work))
+        add_launches(total, obs_serving(seed, card, work))
+    print(f"obs: launches {total}; phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return total
+
+
 # ---------------------------------------------------------------- slice 11
 def zero_launches() -> dict[str, int]:
     return {k: 0 for k in ("flash_fwd", "flash_fwd_dropout", "flash_bwd_dkdv", "flash_bwd_dq", "fold")}
@@ -3188,6 +3608,12 @@ def main() -> int:
     serving_launches = serving_phase(seed, card)
     for row in (k1, k1_drop, k2, k3):
         row["launches"] += serving_launches[row["name"]]
+
+    phase("obs")
+    obs_launches = obs_phase(seed, card)
+    for row in (k1, k1_drop, k2, k3):
+        row["launches"] += obs_launches[row["name"]]
+    k4["launches"] += obs_launches["fold"]
 
     print(json.dumps({"kernels": [k1, k1_drop, k2, k3, k4]}), flush=True)
     print(json.dumps({

@@ -7,6 +7,14 @@ the client's FedProx, and central DP with its accountant banner).
 Both run on the card unless ``--device cpu`` is given. A JAX ``serve`` or
 ``client`` interoperates with these. The HMAC key comes from the
 ``FEDTPU_SECRET`` environment variable, never from argv.
+
+The obs flags are the JAX verbs': ``serve --trace-jsonl --metrics-port
+--flight-dir`` (round/agg/wire-reply spans, the server families on
+/metrics bound on ``--host``, a bundle on round failure) and ``client
+--trace-jsonl --metrics-jsonl --profile-stride`` (client-local,
+batch-prefetch and wire spans under the server's trace id, one metrics
+record per round and phase, device memory at post-restore,
+post-aggregate and post-round).
 """
 
 from __future__ import annotations
@@ -17,7 +25,7 @@ import time
 
 from ..comm import AggregationServer, FederatedClient, wire
 from ..device import resolve_device
-from .common import _load_clients, _resolve_with_pretrained, _write_reports
+from .common import _append_metrics, _load_clients, _obs_setup, _resolve_with_pretrained, _write_reports
 
 log = logging.getLogger(__name__)
 
@@ -47,7 +55,8 @@ def build_server(args) -> AggregationServer:
     if not 0.0 < args.dp_participation <= 1.0:
         raise SystemExit(f"--dp-participation {args.dp_participation} must be in (0, 1]")
     _log_dp_banner(args)
-    return AggregationServer(
+    tracer, metrics_server = _obs_setup(args, proc="server", metrics_host=args.host)
+    server = AggregationServer(
         host=args.host,
         port=args.port,
         num_clients=args.num_clients,
@@ -65,7 +74,10 @@ def build_server(args) -> AggregationServer:
         dp_participation=args.dp_participation,
         dp_history_path=args.dp_history_file,
         device=args.device,
+        tracer=tracer,
     )
+    server.metrics_server = metrics_server
+    return server
 
 
 def _log_dp_banner(args) -> str | None:
@@ -109,7 +121,7 @@ def _log_dp_banner(args) -> str | None:
 
 
 def cmd_serve(args) -> int:
-    with build_server(args) as server:
+    with build_server(args) as server:  # closes its /metrics endpoint too
         log.info(f"[SERVER] listening on {args.host}:{server.port} (fold on {server.device})")
         server.serve(rounds=args.rounds)
     return 0
@@ -133,6 +145,12 @@ def run_client(args) -> dict:
     with a checkpoint directory ``warm_step`` (the step warm-started
     from, None for a fresh start) and ``saved_steps``.
 
+    Obs: with ``--trace-jsonl`` each round's ``client-local`` span (the
+    training seconds, with the sampled step attrs under
+    ``--profile-stride``) and the next-round ``batch-prefetch`` span are
+    written with the exchange's wire spans under the server's trace id;
+    ``--metrics-jsonl`` gets the round's local and aggregated records.
+
     With a checkpoint directory the client warm-starts from its latest
     step and saves twice a round: after local training (the reference's
     client1.py:388) and after adopting the aggregate (:403, meta
@@ -140,6 +158,7 @@ def run_client(args) -> dict:
     past the directory's latest, since ``state.step`` alone can lag
     them. Epoch offsets start from 0 on every launch, as in the JAX
     package."""
+    from ..obs.profile import note_memory
     from ..train.checkpoint import Checkpointer, maybe_warm_start
     from ..train.engine import Trainer
 
@@ -154,6 +173,9 @@ def run_client(args) -> dict:
         wire_dtype=args.wire_dtype, dp=args.dp,
     )
     tok, cfg, pretrained = _resolve_with_pretrained(args)
+    # The round loop writes its own client-local span (note_local_phase),
+    # so the global tracer stays disarmed.
+    fed.tracer, _metrics = _obs_setup(args, proc=f"client-{args.client_id}", cfg=cfg, install_global=False)
     client = _load_clients(args, cfg, tok, cfg.fed.num_clients)[args.client_id]
     trainer = Trainer(
         cfg.model, cfg.train, pad_id=tok.pad_id,
@@ -168,6 +190,7 @@ def run_client(args) -> dict:
         if restored is not None:
             state = restored
             log.info(f"{tag}warm start from {cfg.checkpoint_dir} (step {warm_step})")
+        note_memory("post-restore")
         ckpt = Checkpointer(cfg.checkpoint_dir)
         save_seq = max(state.step, ckpt.latest_step() or 0)
 
@@ -192,11 +215,14 @@ def run_client(args) -> dict:
         # from (the shared init in round 1, the adopted aggregate after);
         # host_params copies, so training cannot alias it.
         round_base = trainer.host_params(state) if fed.dp else None
+        t_local = time.time()
         t0 = time.perf_counter()
         state, _ = trainer.fit(
             state, client.train, batch_size=cfg.data.batch_size, epoch_offset=r * E, tag=tag
         )
         t1 = time.perf_counter()
+        # Buffered until the exchange names the round (trace, round).
+        fed.note_local_phase(t_local, t1 - t0, client=args.client_id, **trainer.step_profile_attrs())
         local = trainer.evaluate_state(state, client.test, batch_size=eval_bs)
         t2 = time.perf_counter()
         if ckpt is not None:
@@ -220,19 +246,31 @@ def run_client(args) -> dict:
             break
         t4 = time.perf_counter()
         if prefetch is not None and prefetch.ready():
-            # The input-pipeline seconds hidden behind the reply wait.
+            # The input-pipeline seconds hidden behind the reply wait,
+            # stamped with the round identity on the NEXT exchange.
             seconds["prefetch"] = prefetch.busy_s
+            fed.note_phase(
+                "batch-prefetch", prefetch.t_unix, prefetch.busy_s,
+                client=args.client_id, batches=prefetch.n_prefetched,
+            )
         agg_metrics = trainer.evaluate(aggregated, client.test, batch_size=eval_bs)
         t5 = time.perf_counter()
         log.info(
             f"{tag}round {r + 1}: local acc {local['Accuracy']:.4f} -> "
             f"aggregated acc {agg_metrics['Accuracy']:.4f}"
         )
+        _append_metrics(args, (
+            {"round": r + 1, "client": args.client_id, "phase": phase_name, **m}
+            for phase_name, m in (("local", local), ("aggregated", agg_metrics))
+        ))
         # The next round trains FROM the aggregate with a fresh Adam and a
         # continuing step counter.
         state = trainer.adopt_aggregate(state, aggregated)
+        # The adoption boundary: fresh Adam moments land here.
+        note_memory("post-aggregate")
         if ckpt is not None:
             save(aggregated=True)
+        note_memory("post-round")
         seconds.update(exchange=t4 - t3, eval_aggregated=t5 - t4, adopt=time.perf_counter() - t5)
         records.append({
             "uploaded": uploaded, "aggregate": aggregated, "local": local,

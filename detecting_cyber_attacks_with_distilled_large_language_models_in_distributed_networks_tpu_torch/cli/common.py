@@ -1,10 +1,11 @@
-"""Shared CLI plumbing of the ported commands: config resolution
-(defaults <- ``--config`` <- flags), the pretrained start (``--hf-dir``,
-``--pth``), data loading (a CSV, a mixed ``--source`` corpus or synthetic
-flows of the ``--dataset`` schema) and per-client report writing (the
-port's copy of the parts of the JAX package's ``cli/common.py`` that
-``local``, ``client``, ``federated``, ``distill``, ``predict`` and
-``infer-serve`` use)."""
+"""Shared CLI plumbing of the ported commands: the per-process obs setup
+(tracer, flight recorder, profile stride, ``/metrics``), config
+resolution (defaults <- ``--config`` <- flags), the pretrained start
+(``--hf-dir``, ``--pth``), data loading (a CSV, a mixed ``--source``
+corpus or synthetic flows of the ``--dataset`` schema) and per-client
+report writing (the port's copy of the parts of the JAX package's
+``cli/common.py`` that ``local``, ``client``, ``federated``, ``distill``,
+``predict``, ``serve`` and ``infer-serve`` use)."""
 
 from __future__ import annotations
 
@@ -19,6 +20,102 @@ from typing import Any
 from ..config import DataConfig, ExperimentConfig, FedConfig, ModelConfig
 
 log = logging.getLogger(__name__)
+
+
+# ------------------------------------------------------------- observability
+def _obs_setup(
+    args,
+    *,
+    proc: str,
+    cfg: ExperimentConfig | None = None,
+    install_global: bool = True,
+    metrics_host: str = "127.0.0.1",
+):
+    """One call per CLI process: build this process's span Tracer (from
+    --trace-jsonl, falling back to the config's obs.trace_jsonl), install
+    it as the global tracer, arm the flight recorder (--flight-dir /
+    obs.flight_dir), install the step-profiling stride (--profile-stride /
+    obs.profile_stride), and start the /metrics endpoint when
+    --metrics-port (or obs.metrics_port) asks for one. Returns
+    ``(tracer | None, metrics_server | None)``; the caller closes the
+    server when it is done.
+
+    Each setting is installed unconditionally, so one in-process
+    invocation's tracer, recorder or stride never leaks into the next.
+    ``install_global=False`` (the TCP client): the round loop writes its
+    own client-local span through ``FederatedClient.note_local_phase``,
+    so the global tracer stays disarmed. The endpoint is
+    unauthenticated: it binds loopback unless the verb passes its own
+    ``--host``."""
+    from ..obs import (
+        FlightRecorder,
+        Tracer,
+        maybe_start_metrics_server,
+        set_global_recorder,
+        set_global_tracer,
+    )
+    from ..obs.profile import set_profile_stride
+    from ..obs.trace import set_run_id
+
+    obs_cfg = cfg.obs if cfg is not None else None
+    if obs_cfg is not None and obs_cfg.run_id:
+        # Pinned BEFORE the first span/metrics record.
+        set_run_id(obs_cfg.run_id)
+    trace_path = getattr(args, "trace_jsonl", None) or (
+        obs_cfg.trace_jsonl if obs_cfg else None
+    )
+    tracer = None
+    if trace_path:
+        tracer = Tracer(trace_path, proc=proc)
+        log.info(f"[OBS] {proc}: appending spans to {trace_path}")
+    set_global_tracer(tracer if install_global else None)
+    flight_dir = getattr(args, "flight_dir", None) or (
+        obs_cfg.flight_dir if obs_cfg else None
+    )
+    recorder = None
+    if flight_dir:
+        recorder = FlightRecorder(
+            flight_dir,
+            proc=proc,
+            ring=obs_cfg.flight_ring if obs_cfg else 256,
+            # What this process was running with: the first thing a
+            # postmortem reader checks.
+            config={
+                "proc": proc,
+                **({"experiment": cfg.to_dict()} if cfg is not None else {}),
+            },
+            tracer=tracer,
+        )
+        log.info(f"[OBS] {proc}: flight recorder armed, postmortem bundles -> {flight_dir}")
+    set_global_recorder(recorder)
+    stride = getattr(args, "profile_stride", None)
+    if stride is None and obs_cfg is not None:
+        stride = obs_cfg.profile_stride
+    set_profile_stride(stride or 0)
+    if stride:
+        log.info(
+            f"[OBS] {proc}: step profiling armed (every {stride}th step "
+            "fenced into host/dispatch/device)"
+        )
+    port = getattr(args, "metrics_port", None) or (
+        obs_cfg.metrics_port if obs_cfg else 0
+    )
+    server = maybe_start_metrics_server(port, host=metrics_host)
+    if server is not None:
+        log.info(f"[OBS] {proc}: Prometheus /metrics on {metrics_host}:{server.port}")
+    return tracer, server
+
+
+def _append_metrics(args, records) -> None:
+    """``--metrics-jsonl``: append each record of ``records`` (the JAX
+    package's keys) to the stream; nothing without the flag."""
+    path = getattr(args, "metrics_jsonl", None)
+    if not path:
+        return
+    from ..reporting import append_metrics_jsonl
+
+    for rec in records:
+        append_metrics_jsonl(path, rec)
 
 
 def _preset_model(preset: str, vocab_size: int) -> ModelConfig:

@@ -34,11 +34,14 @@ def run_distill(args) -> dict:
     init, copies), ``state``, ``teacher_steps`` and ``teacher_losses``
     (per epoch; 0 and None unless the teacher trained here),
     ``losses`` (KD, per epoch), ``teacher_metrics``, ``student_metrics``
-    and ``metrics_csvs``."""
+    and ``metrics_csvs``. ``--profile-dir`` wraps the teacher's and the
+    student's training in one torch.profiler trace, as the JAX verb
+    does."""
     from .. import reporting
     from ..train.checkpoint import Checkpointer
     from ..train.distill import DistillTrainer
     from ..train.engine import Trainer
+    from ..utils.profiling import trace
 
     if getattr(args, "teacher_checkpoint", None) and getattr(args, "pth", None):
         raise SystemExit("--teacher-checkpoint and --pth are both teacher sources; pass one")
@@ -89,49 +92,51 @@ def run_distill(args) -> dict:
     def trainer_for(model_cfg) -> Trainer:
         return Trainer(model_cfg, cfg.train, pad_id=tok.pad_id, drop_remainder=cfg.data.drop_remainder, device=device)
 
-    teacher_steps, teacher_losses = 0, None
-    if args.teacher_checkpoint:
-        # A model trained elsewhere (say a federated fleet's aggregate); a
-        # checkpoint without a recorded config is read at the teacher's
-        # resolved architecture, as the JAX verb reads it.
-        teacher_cfg, teacher_params = restore_inference(
-            dataclasses.replace(cfg, model=teacher_cfg), device, args.teacher_checkpoint
-        )
-        check_teacher(teacher_cfg)
-        log.info(f"[DISTILL] teacher from {args.teacher_checkpoint} ({teacher_cfg.n_layers} layers)")
-    elif args.pth:
-        # The migrated reference model is the (trained) teacher.
-        teacher_cfg, teacher_params = cfg.model, {n: t.to(device) for n, t in pretrained.items()}
-        check_teacher(teacher_cfg)
-        log.info(f"[DISTILL] teacher from reference .pth {args.pth} ({teacher_cfg.n_layers} layers)")
-    else:
-        t_trainer = trainer_for(teacher_cfg)
-        warm = pretrained if teacher_cfg == cfg.model else None
-        if pretrained is not None and warm is None:
-            log.info(
-                f"[DISTILL] --hf-dir encoder ({cfg.model.n_layers} layers) cannot "
-                f"warm-start the {teacher_cfg.n_layers}-layer teacher; pass "
-                f"--teacher-layers {cfg.model.n_layers} to use it"
+    # --profile-dir: one torch.profiler trace over both trainings.
+    with trace(args.profile_dir):
+        teacher_steps, teacher_losses = 0, None
+        if args.teacher_checkpoint:
+            # A model trained elsewhere (say a federated fleet's aggregate); a
+            # checkpoint without a recorded config is read at the teacher's
+            # resolved architecture, as the JAX verb reads it.
+            teacher_cfg, teacher_params = restore_inference(
+                dataclasses.replace(cfg, model=teacher_cfg), device, args.teacher_checkpoint
             )
-        t_state = t_trainer.init_state(params=warm)
-        log.info(f"[DISTILL] training the {teacher_cfg.n_layers}-layer teacher")
-        t_state, teacher_losses = t_trainer.fit(t_state, client.train, batch_size=cfg.data.batch_size, tag="[TEACHER] ")
-        teacher_params = {n: t.detach() for n, t in t_state.params.items()}
-        teacher_steps = t_state.step
-    t_trainer = trainer_for(teacher_cfg)
-    teacher_metrics = t_trainer.evaluate(teacher_params, client.test)
+            check_teacher(teacher_cfg)
+            log.info(f"[DISTILL] teacher from {args.teacher_checkpoint} ({teacher_cfg.n_layers} layers)")
+        elif args.pth:
+            # The migrated reference model is the (trained) teacher.
+            teacher_cfg, teacher_params = cfg.model, {n: t.to(device) for n, t in pretrained.items()}
+            check_teacher(teacher_cfg)
+            log.info(f"[DISTILL] teacher from reference .pth {args.pth} ({teacher_cfg.n_layers} layers)")
+        else:
+            t_trainer = trainer_for(teacher_cfg)
+            warm = pretrained if teacher_cfg == cfg.model else None
+            if pretrained is not None and warm is None:
+                log.info(
+                    f"[DISTILL] --hf-dir encoder ({cfg.model.n_layers} layers) cannot "
+                    f"warm-start the {teacher_cfg.n_layers}-layer teacher; pass "
+                    f"--teacher-layers {cfg.model.n_layers} to use it"
+                )
+            t_state = t_trainer.init_state(params=warm)
+            log.info(f"[DISTILL] training the {teacher_cfg.n_layers}-layer teacher")
+            t_state, teacher_losses = t_trainer.fit(t_state, client.train, batch_size=cfg.data.batch_size, tag="[TEACHER] ")
+            teacher_params = {n: t.detach() for n, t in t_state.params.items()}
+            teacher_steps = t_state.step
+        t_trainer = trainer_for(teacher_cfg)
+        teacher_metrics = t_trainer.evaluate(teacher_params, client.test)
 
-    trainer = DistillTrainer(
-        student_cfg, teacher_cfg, cfg.train, cfg.distill, pad_id=tok.pad_id,
-        drop_remainder=cfg.data.drop_remainder, device=device,
-    )
-    state = trainer.init_student_state(teacher_params)
-    initial = {n: t.detach().clone() for n, t in state.params.items()}
-    log.info(f"[DISTILL] distilling into the {student_cfg.n_layers}-layer student")
-    state, losses = trainer.distill(
-        state, teacher_params, client.train, batch_size=cfg.data.batch_size,
-        epochs=args.distill_epochs, tag="[STUDENT] ",
-    )
+        trainer = DistillTrainer(
+            student_cfg, teacher_cfg, cfg.train, cfg.distill, pad_id=tok.pad_id,
+            drop_remainder=cfg.data.drop_remainder, device=device,
+        )
+        state = trainer.init_student_state(teacher_params)
+        initial = {n: t.detach().clone() for n, t in state.params.items()}
+        log.info(f"[DISTILL] distilling into the {student_cfg.n_layers}-layer student")
+        state, losses = trainer.distill(
+            state, teacher_params, client.train, batch_size=cfg.data.batch_size,
+            epochs=args.distill_epochs, tag="[STUDENT] ",
+        )
     student_metrics = trainer.evaluate(state.params, client.test)
     log.info(
         f"[DISTILL] teacher acc {teacher_metrics['Accuracy']:.4f} -> student acc "

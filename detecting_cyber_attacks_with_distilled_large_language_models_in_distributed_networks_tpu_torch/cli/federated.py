@@ -13,7 +13,7 @@ import numpy as np
 
 from ..device import resolve_device
 from ..reporting import METRIC_COLUMNS
-from .common import _load_clients, _resolve_with_pretrained, _write_reports
+from .common import _append_metrics, _load_clients, _obs_setup, _resolve_with_pretrained, _write_reports
 
 log = logging.getLogger(__name__)
 
@@ -36,10 +36,17 @@ def run_federated(args) -> dict:
     :class:`RoundRecord` of each round this launch ran), ``final``
     (aggregated test metrics with probs), ``personalized`` (test metrics,
     or None), ``dp_banner`` (or None), ``artifacts`` (registry ids) and
-    ``metrics_csvs``."""
+    ``metrics_csvs``.
+
+    Obs, as the JAX verb: the trainer's per-round ``client-local`` and
+    ``agg`` spans go to ``--trace-jsonl`` (proc ``fed``), ``--profile-dir``
+    wraps the rounds in a torch.profiler trace, and ``--metrics-jsonl``
+    gets one record per (round, client, phase, split) and the
+    personalized test records."""
     from ..data.pipeline import stack_clients_ragged
     from ..train.checkpoint import Checkpointer, maybe_warm_start
     from ..train.federated import FederatedTrainer
+    from ..utils.profiling import trace
 
     device = resolve_device(args.device)  # raises before any work without CUDA
     tok, cfg, pretrained = _resolve_with_pretrained(args)
@@ -49,6 +56,8 @@ def run_federated(args) -> dict:
     # truncated (the reference's N processes each train on all of theirs).
     stacked_train = stack_clients_ragged([c.train for c in clients], pad_id=tok.pad_id)
     trainer = FederatedTrainer(cfg, pad_id=tok.pad_id, device=device)
+    # One proc covers the fleet: the round boundary is in this process.
+    trainer.tracer, metrics_server = _obs_setup(args, proc="fed", cfg=cfg)
     log.info(f"[FED] {C} clients on {device}, train rows {[len(c.train) for c in clients]}")
 
     state = trainer.init_state(params=pretrained)
@@ -73,6 +82,16 @@ def run_federated(args) -> dict:
 
     def save(state, record) -> None:
         r = record.round + 1
+        _append_metrics(args, (
+            {"round": r, "client": c, "phase": phase_name, "split": split_name, **m[c]}
+            for c in range(C)
+            for phase_name, split_name, m in (
+                ("local", "val", record.local_val),
+                ("local", "test", record.local_metrics),
+                ("aggregated", "val", record.aggregated_val),
+                ("aggregated", "test", record.aggregated_metrics),
+            )
+        ))
         if ckpt is not None:
             ckpt.save(r, state, meta={"round": r, "kind": "federated", "config": cfg.to_dict()})
         if registry is not None:
@@ -88,9 +107,10 @@ def run_federated(args) -> dict:
             ))
 
     test = [c.test for c in clients]
-    state, history = trainer.run(
-        state, stacked_train, test, val_splits=[c.val for c in clients], start_round=start_round, on_round=save
-    )
+    with trace(args.profile_dir):
+        state, history = trainer.run(
+            state, stacked_train, test, val_splits=[c.val for c in clients], start_round=start_round, on_round=save
+        )
     if ckpt is not None:
         ckpt.close()
 
@@ -112,6 +132,10 @@ def run_federated(args) -> dict:
                 f"[FED] client {c}: aggregated test acc {final[c]['Accuracy']:.4f} "
                 f"-> personalized {personalized[c]['Accuracy']:.4f}"
             )
+        _append_metrics(args, (
+            {"round": cfg.fed.rounds, "client": c, "phase": "personalized", "split": "test", **personalized[c]}
+            for c in range(C)
+        ))
     if not history:
         # No round trained in this launch (a finished run relaunched):
         # there are no local-model metrics to report.
@@ -120,6 +144,8 @@ def run_federated(args) -> dict:
     paths = [p for c in range(C) for p in _write_reports(c, local[c], final[c], cfg.output_dir)]
     if personalized is not None:
         paths += _save_phase_csvs(personalized, "personalized", cfg.output_dir)
+    if metrics_server is not None:
+        metrics_server.close()
     return {
         "config": cfg, "trainer": trainer, "state": state, "clients": clients,
         "stacked_train": stacked_train, "start_round": start_round,

@@ -5,12 +5,17 @@ has ``local`` (single-client training), ``federated`` (N clients in one
 process), ``serve`` and ``client`` (a federated round over TCP),
 ``distill`` (teacher -> student), ``predict`` (batch inference),
 ``infer-serve`` (online scoring with hot reload), ``export-hf`` (weights
-to the HF layout), ``export-config`` (the resolved config as JSON) and
-``registry`` (the model registry's operator commands) so far. Each that
-computes runs on the card unless ``--device cpu`` is given. Flags of
-features the port has not reached (``--metrics-jsonl``, ``--profile-dir``,
-``--trace-jsonl``, ``--secure-agg``, ``--data-parallel``,
-``--seq-parallel``) are absent, so argparse refuses them.
+to the HF layout), ``export-config`` (the resolved config as JSON),
+``registry`` (the model registry's operator commands) and ``obs``
+(timelines, Chrome export, span tailing, postmortems and the device
+profile) so far. Each that computes runs on the card unless ``--device
+cpu`` is given. The obs flags (``--trace-jsonl``, ``--metrics-jsonl``,
+``--profile-dir``, ``--profile-stride``, ``--metrics-port``,
+``--flight-dir``, ``--trace-sample``, ``--scored-jsonl``) are the JAX
+package's, on the same verbs. Flags of features the port has not reached
+(``--secure-agg``, ``--data-parallel``, ``--seq-parallel``) and the obs
+actions of the fleet read side (``health``, ``watch``, ``sentinel``) are
+absent, so argparse refuses them.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from .control import cmd_registry
 from .distill import cmd_distill
 from .federated import cmd_federated
 from .local import cmd_local
+from .obs import cmd_obs
 from .predict import cmd_export_hf, cmd_predict
 from .serving import cmd_infer_serve
 
@@ -63,6 +69,55 @@ def cmd_export_config(args) -> int:
     json.dump(cfg.to_dict(), sys.stdout, indent=2)
     sys.stdout.write("\n")
     return 0
+
+
+def _add_flight_dir(p: argparse.ArgumentParser) -> None:
+    """The daemons' failure-flight-recorder flag (serve | infer-serve)."""
+    p.add_argument(
+        "--flight-dir",
+        default=None,
+        help="arm the failure flight recorder (obs/flight.py): keep a "
+        "bounded in-memory ring of recent spans and dump a postmortem "
+        "bundle (ring + config + /metrics snapshot) to this directory "
+        "on round failure or scoring-dispatch failure. Inspect with "
+        "`obs postmortem`",
+    )
+
+
+def _add_metrics_port(p: argparse.ArgumentParser, help: str) -> None:
+    p.add_argument("--metrics-port", type=int, default=0, help=help)
+
+
+def _add_obs(p: argparse.ArgumentParser) -> None:
+    """The JAX package's per-verb obs flags (its ``_add_common``)."""
+    p.add_argument(
+        "--profile-dir",
+        help="write a torch.profiler Chrome trace of the training phase "
+        "here (CPU and CUDA activity; open it in ui.perfetto.dev)",
+    )
+    p.add_argument(
+        "--metrics-jsonl",
+        help="append one structured JSON record per (round, client, phase) "
+        "here — machine-readable observability the reference's prints/CSVs "
+        "lack",
+    )
+    p.add_argument(
+        "--trace-jsonl",
+        help="append obs spans (round/client-local/wire/agg/... with the "
+        "round's shared trace id) to this events-JSONL; give every "
+        "process its own file and merge with `obs timeline "
+        "--trace-dir DIR`",
+    )
+    p.add_argument(
+        "--profile-stride",
+        type=int,
+        default=None,
+        help="device performance plane (obs/profile.py): fence every Nth "
+        "train/score step into host/dispatch/device-execute timers "
+        "(fedtpu_*_step_seconds on /metrics + step attrs on the "
+        "client-local span). 0/absent = off — the hot loops run the "
+        "literal unprofiled path",
+    )
 
 
 def _add_device(p: argparse.ArgumentParser, what: str) -> None:
@@ -164,8 +219,105 @@ def _add_training(p: argparse.ArgumentParser, *, device: bool = True) -> None:
     p.add_argument("--max-len", type=int)
     p.add_argument("--data-fraction", type=float)
     p.add_argument("--seed", type=int)
+    _add_obs(p)
     if device:
         _add_device(p, "training and evaluation run")
+
+
+def _add_obs_verb(sub) -> None:
+    """``obs``: the JAX package's timeline | export | tail | postmortem |
+    profile actions, with their flags and defaults."""
+    p = sub.add_parser(
+        "obs",
+        help="observability: round timelines, Chrome export, live span "
+        "tailing, postmortem bundles, device profiling",
+        epilog="Every tier writes spans with --trace-jsonl; the server "
+        "stamps one trace id per round into its replies, so the merged "
+        "files agree on (trace, round), whichever package wrote them. "
+        "`timeline` attributes each round's wall-clock to per-client "
+        "compute / straggler wait / wire / agg; `export` writes "
+        "chrome://tracing JSON; `tail` follows the files live; "
+        "`postmortem` lists/inspects the flight recorder's bundles "
+        "(--flight-dir). `profile` runs the device performance plane "
+        "(obs/profile.py) end to end on real train steps on the card: "
+        "the dispatch ledger by site, recompile flags, the fenced "
+        "host/dispatch/device step split, memory watermarks, the "
+        "analytic-vs-counted FLOPs cross-check, and the bucketed serving "
+        "path's zero-new-shape storm (--capture DIR wraps torch.profiler "
+        "around the profiled steps).",
+    )
+    p.add_argument("action", choices=["timeline", "export", "tail", "postmortem", "profile"])
+    p.add_argument(
+        "--trace-dir",
+        help="directory of span JSONLs (every *.jsonl is merged; tail "
+        "also picks up files that appear later)",
+    )
+    p.add_argument(
+        "--trace",
+        action="append",
+        metavar="FILE",
+        help="individual span JSONL (repeatable; composes with --trace-dir)",
+    )
+    p.add_argument("--round", type=int, default=None, help="only this round (timeline/tail)")
+    p.add_argument("--trace-id", default=None, help="tail: only spans carrying this trace id")
+    p.add_argument(
+        "--from-start",
+        action="store_true",
+        help="tail: replay existing spans before following (default: "
+        "start at each file's end, new spans only)",
+    )
+    p.add_argument(
+        "--poll", type=float, default=0.5, help="tail: seconds between file polls (default 0.5)"
+    )
+    p.add_argument(
+        "--max-seconds",
+        type=float,
+        default=None,
+        help="tail: stop after this many seconds (default: follow until "
+        "interrupted)",
+    )
+    p.add_argument(
+        "--json",
+        action="store_true",
+        help="machine-readable JSON instead of the rendered output "
+        "(timeline/postmortem/profile)",
+    )
+    p.add_argument("--out", help="output path (export)")
+    p.add_argument(
+        "--flight-dir",
+        help="postmortem: the flight-recorder bundle directory the "
+        "daemons were started with (--flight-dir on serve/infer-serve)",
+    )
+    p.add_argument(
+        "--bundle",
+        help="postmortem: inspect this bundle (name from the list, or "
+        "a path) instead of listing",
+    )
+    p.add_argument(
+        "--preset",
+        default="tiny",
+        help="profile: model preset to profile "
+        f"({'|'.join(preset_names())}; default tiny)",
+    )
+    p.add_argument(
+        "--steps", type=int, default=12, help="profile: profiled train steps after warmup (default 12)"
+    )
+    p.add_argument("--batch-size", type=int, default=8, help="profile: train batch size (default 8)")
+    p.add_argument(
+        "--stride",
+        type=int,
+        default=1,
+        help="profile: sample every Nth step (default 1 — every step "
+        "fenced; production daemons use --profile-stride instead)",
+    )
+    p.add_argument(
+        "--capture",
+        metavar="DIR",
+        help="profile: additionally wrap torch.profiler around the "
+        "profiled steps and write a Chrome trace here",
+    )
+    _add_device(p, "the profiled steps run")
+    p.set_defaults(fn=cmd_obs)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -357,6 +509,19 @@ def build_parser() -> argparse.ArgumentParser:
         "history. Post-noise deltas are DP outputs; persisting them "
         "costs no privacy",
     )
+    p.add_argument(
+        "--trace-jsonl",
+        help="append obs spans (round/agg/wire-reply with each round's "
+        "trace id, also stamped into every reply meta) to this "
+        "events-JSONL; merge with `obs timeline --trace-dir`",
+    )
+    _add_metrics_port(
+        p,
+        "expose live counters/gauges (rounds, uploads, wire bytes, "
+        "per-phase seconds) at http://HOST:PORT/metrics in Prometheus "
+        "text format (0 = off, the default)",
+    )
+    _add_flight_dir(p)
     _add_device(p, "the fold runs")
     p.set_defaults(fn=cmd_serve)
 
@@ -523,6 +688,30 @@ def build_parser() -> argparse.ArgumentParser:
         default=0.5,
         help="P(attack) decision threshold in replies (default 0.5)",
     )
+    _add_metrics_port(
+        p,
+        "expose live gauges/counters (queue depth, rejects by kind, "
+        "scored total, queue-wait histogram) at http://HOST:PORT/metrics "
+        "in Prometheus text format (0 = off, the default)",
+    )
+    p.add_argument(
+        "--trace-sample",
+        type=float,
+        default=None,
+        help="serve-batch span sampling rate in (0, 1]: with --trace-jsonl"
+        " on a high-rate scorer, emit one span per ~1/RATE coalesced "
+        "batches (deterministic batch-counter stride, not RNG; each span "
+        "carries sampled_batches so the timeline can re-scale). Default "
+        "1.0 = every batch",
+    )
+    p.add_argument(
+        "--scored-jsonl",
+        help="append one {rid, prob, round} record per ANSWERED request "
+        "here — the join key against a delayed ground-truth journal. Off "
+        "by default: the metrics stream keeps exporting binned "
+        "histograms, never raw scores",
+    )
+    _add_flight_dir(p)
     _add_device(p, "the model runs")
     p.set_defaults(fn=cmd_infer_serve)
 
@@ -588,6 +777,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-dir")
     p.add_argument("--out", required=True, help="output HF checkpoint dir")
     p.set_defaults(fn=cmd_export_hf)
+
+    _add_obs_verb(sub)
 
     p = sub.add_parser("export-config", help="print the resolved config as JSON")
     _add_training(p, device=False)

@@ -108,10 +108,14 @@ def run_predict(args) -> dict:
         enc["attention_mask"],
         labels if labels is not None else np.zeros(len(texts), np.int32),
     )
+    from ..utils.profiling import trace
+
     t0 = time.perf_counter()
     # Trainer.evaluate is the one eval pipeline (pad, slice, accumulate);
     # its metrics are ignored here (the labels may be dummies).
-    probs = trainer.evaluate(params, split, batch_size=cfg.data.eval_batch_size)["probs"]
+    # --profile-dir: a torch.profiler trace of the scoring.
+    with trace(args.profile_dir):
+        probs = trainer.evaluate(params, split, batch_size=cfg.data.eval_batch_size)["probs"]
     seconds = time.perf_counter() - t0
     preds = (probs >= args.threshold).astype(np.int32)
     positive = cfg.data.positive_label if spec.label_kind == "positive" else "attack"

@@ -16,6 +16,10 @@ vocabulary when given, and the model config the registry manifest's,
 else the checkpoint's, else ``--config``/``--preset`` with the flags.
 ``features`` requests render through ``--dataset``'s template; ``--auth``
 requires the HMAC challenge on every connection, keyed by FEDTPU_SECRET.
+The obs flags are the JAX verb's: ``--trace-jsonl`` (serve-batch spans,
+sampled by ``--trace-sample``), ``--metrics-port`` (bound on ``--host``),
+``--metrics-jsonl``, ``--scored-jsonl``, ``--flight-dir`` and
+``--profile-stride`` (the score step's fenced timers).
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from ..serving import CheckpointWatcher, MicroBatcher, RegistryWatcher, ScoreEng
 from ..serving.reload import checkpoint_restorer
 from ..train.checkpoint import CheckpointError
 from .comm import _auth_key
-from .common import _resolve_with_pretrained
+from .common import _obs_setup, _resolve_with_pretrained
 
 log = logging.getLogger(__name__)
 
@@ -121,6 +125,7 @@ def build_server(args) -> ScoringServer:
         device=args.device,
     )
     dataset = cfg.data.dataset
+    tracer, metrics_server = _obs_setup(args, proc="serve", cfg=cfg, metrics_host=args.host)
     log.info(
         f"[SERVE] serving {source} (round {engine.round_id}, attention "
         f"{model_cfg.attention_impl}, {model_cfg.compute_dtype}) on {engine.device}; "
@@ -145,6 +150,12 @@ def build_server(args) -> ScoringServer:
         ),
         watcher=watcher,
         auth_key=auth_key,
+        metrics_jsonl=args.metrics_jsonl,
+        scored_jsonl=args.scored_jsonl,
+        tracer=tracer,
+        # --trace-sample overrides the config's obs.trace_sample.
+        trace_sample=args.trace_sample if args.trace_sample is not None else cfg.obs.trace_sample,
+        metrics_server=metrics_server,
     )
 
 

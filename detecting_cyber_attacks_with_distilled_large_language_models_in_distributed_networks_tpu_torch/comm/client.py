@@ -41,6 +41,13 @@ interoperates:
   frame, and names the fix when the server runs DP or auth.
 
 Not ported: secure aggregation and re-homing to fallback parents.
+
+With a ``tracer`` the client writes its round's spans once the reply
+reveals the round's (trace, round) identity: the caller's buffered
+``client-local`` phase (:meth:`FederatedClient.note_local_phase`), then
+``wire-upload`` and ``wire-reply``; with ``--profile-stride`` those carry
+the sampled per-leaf pack / unpack timings of the streamed legs
+(``step_wire_ms_*``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -55,9 +62,33 @@ from typing import Any, Iterator, Mapping
 
 import numpy as np
 
+from ..obs import metrics as obs_metrics
+
 from . import framing, wire
 
 log = logging.getLogger(__name__)
+
+
+#: Re-home reasons (the ``fedtpu_client_rehomes_total`` label values).
+REHOME_REASONS = ("dial-exhausted", "mid-exchange")
+
+
+def _rehome_counters() -> dict:
+    """Per-reason re-home counters on the default registry, registered as
+    the JAX client registers them. The port's client has no fallback
+    parent, so they stay at 0; /metrics shows the same families either
+    way."""
+    m = obs_metrics.default_registry()
+    return {
+        # fedtpu: allow(obs-metric-once): the JAX package's comm/client.py family, same name/kind/labels/help
+        r: m.counter(
+            "fedtpu_client_rehomes_total",
+            help="exchanges moved to a fallback parent, by reason "
+            "(dial-exhausted | mid-exchange)",
+            labels={"reason": r},
+        )
+        for r in REHOME_REASONS
+    }
 
 
 def backoff_intervals(
@@ -128,6 +159,7 @@ class FederatedClient:
         stream: bool = True,
         wire_dtype: str = "fp32",
         dp: bool = False,
+        tracer=None,
     ):
         _, self._topk_frac = wire.parse_compression(compression)
         if dp and self._topk_frac is not None:
@@ -182,6 +214,15 @@ class FederatedClient:
         #: server's fold and the reply's transfer), the reply's bytes and
         #: shape, and its meta.
         self.last_exchange: dict[str, Any] = {}
+        self._m_rehomes = _rehome_counters()
+        # Observability: spans are written only once the reply reveals the
+        # round's (trace, round), so both sides of the wire share it.
+        self.tracer = tracer
+        self.last_trace: tuple[str | None, int | None] = (None, None)
+        self._pending_spans: list[tuple[str, float, float, dict]] = []
+        # Wire-codec step profiler (--profile-stride): samples the streamed
+        # pack and unpack loops; re-armed lazily per exchange.
+        self._wire_profiler = None
 
     # -------------------------------------------------------------- round
     def exchange(
@@ -255,7 +296,9 @@ class FederatedClient:
                     self.stream and not self.dp and self._topk_frac is None
                     and self._server_stream is not None and attempt == 1
                 )
+                t_up_unix = time.time()
                 t0 = time.monotonic()
+                wire_attrs: dict = {}
                 if sitting_out:
                     up = {"upload_shape": "none", "wire_dtype": "fp32", "upload_bytes": 0}
                 elif use_stream:
@@ -264,7 +307,7 @@ class FederatedClient:
                     if self.wire_dtype != "fp32" and enc in self._server_wire_dtypes:
                         stream_comp, used_dtype = enc, self.wire_dtype
                         attempt_meta["wire_dtype"] = self.wire_dtype
-                    sent, chunks, overlap_s = self._stream_upload(
+                    sent, chunks, overlap_s, wire_attrs = self._stream_upload(
                         sock, upload, attempt_meta, stream_comp, nonce_hex
                     )
                     up = {"upload_shape": "stream", "wire_dtype": used_dtype, "upload_bytes": sent,
@@ -284,9 +327,11 @@ class FederatedClient:
                     framing.send_frame(sock, msg)
                     up = {"upload_shape": "dense", "wire_dtype": "fp32", "upload_bytes": len(msg)}
                 t1 = time.monotonic()
+                t_rep_unix = time.time()
                 reply = framing.recv_frame(sock)
+                reply_attrs: dict = {}
                 if bytes(reply[:4]) == wire.STREAM_MAGIC:
-                    agg_flat, agg_meta, reply_bytes = self._recv_stream_reply(sock, reply, nonce_hex)
+                    agg_flat, agg_meta, reply_bytes, reply_attrs = self._recv_stream_reply(sock, reply, nonce_hex)
                     agg = wire.unflatten_params(agg_flat)
                     reply_shape = "stream"
                 else:
@@ -300,10 +345,20 @@ class FederatedClient:
                         "nonce or wrong role) — possible replay"
                     )
                 self._adopt_offers(agg_meta)
+                t2 = time.monotonic()
                 self.last_exchange = {
-                    **up, "upload_s": t1 - t0, "reply_wait_s": time.monotonic() - t1,
+                    **up, "upload_s": t1 - t0, "reply_wait_s": t2 - t1,
                     "reply_bytes": reply_bytes, "reply_shape": reply_shape, "meta": agg_meta,
                 }
+                upload_span = None
+                if not sitting_out:
+                    upload_attrs = (
+                        {"chunks": up["chunks"], "overlap_s": round(up["overlap_s"], 6),
+                         "wire_dtype": up["wire_dtype"], **wire_attrs}
+                        if up["upload_shape"] == "stream" else None
+                    )
+                    upload_span = (t_up_unix, t1 - t0, up["upload_bytes"], upload_attrs)
+                self._flush_spans(agg_meta, upload_span, (t_rep_unix, t2 - t1, reply_bytes, reply_attrs or None))
                 log.info(
                     f"[CLIENT {self.client_id}] received the aggregate "
                     f"({reply_bytes / 1e6:.1f} MB {reply_shape}, clients {agg_meta.get('round_clients')})"
@@ -458,15 +513,69 @@ class FederatedClient:
             if str(e) in wire.WIRE_DTYPE_ENCS.values()
         )
 
+    # ------------------------------------------------------ observability
+    def note_local_phase(self, t_start: float, dur_s: float, **attrs) -> None:
+        """Buffer a ``client-local`` span measured by the caller (the round
+        loop times local training before the exchange); it is written on
+        the next successful exchange, once the reply names the round."""
+        self.note_phase("client-local", t_start, dur_s, **attrs)
+
+    def note_phase(self, name: str, t_start: float, dur_s: float, **attrs) -> None:
+        """Buffer a caller-measured span (``client-local``,
+        ``batch-prefetch``, ...) for the next successful exchange, which
+        stamps it with the round's (trace, round) identity."""
+        self._pending_spans.append((str(name), float(t_start), float(dur_s), dict(attrs)))
+
+    def _flush_spans(self, agg_meta: Mapping[str, Any], upload, reply) -> None:
+        """Adopt the reply's (trace, round) identity and write this round's
+        spans: the buffered phases first (they happened first), then
+        ``wire-upload`` and ``wire-reply``. ``upload``/``reply``: ``(unix
+        start, seconds, bytes, extra attrs or None)``."""
+        trace = agg_meta.get("trace")
+        rnd = agg_meta.get("agg_round")
+        try:
+            rnd = int(rnd) if rnd is not None else None
+        except (TypeError, ValueError):
+            rnd = None
+        self.last_trace = (trace if isinstance(trace, str) else None, rnd)
+        trace = self.last_trace[0]
+        if self.tracer is None:
+            self._pending_spans.clear()
+            return
+        for name, t_start, dur_s, attrs in self._pending_spans:
+            self.tracer.record(name, t_start=t_start, dur_s=dur_s, trace=trace, round=rnd, **attrs)
+        self._pending_spans.clear()
+        for span, timing in (("wire-upload", upload), ("wire-reply", reply)):
+            if timing is not None:
+                self.tracer.record(
+                    span, t_start=timing[0], dur_s=timing[1], trace=trace, round=rnd,
+                    bytes=timing[2], **(timing[3] or {}),
+                )
+
+    def _armed_wire_profiler(self):
+        """The wire-codec StepProfiler with a fresh window, or None when
+        profiling is off (re-checked per call: the CLI installs the
+        stride after construction)."""
+        from ..obs.profile import maybe_step_profiler
+
+        prof = self._wire_profiler
+        if prof is None:
+            prof = self._wire_profiler = maybe_step_profiler("wire")
+        if prof is not None:
+            prof.begin_window()
+        return prof
+
     # ------------------------------------------------------------ streams
     def _stream_upload(
         self, sock: socket.socket, flat: dict, meta: dict, compression: str, nonce_hex: str | None
-    ) -> tuple[int, int, float]:
+    ) -> tuple[int, int, float, dict]:
         """Ship one upload as header + chunk frames + trailer. Leaves are
         gathered and encoded one at a time on THIS thread while a wire
         thread sends the chunks already packed. Returns ``(bytes sent,
-        chunk count, overlap seconds)``, the overlap being the pack and
-        send time hidden by running the two at once."""
+        chunk count, overlap seconds, wire attrs)``, the overlap being the
+        pack and send time hidden by running the two at once and the wire
+        attrs the sampled per-leaf pack timings (``step_wire_ms_*``, {}
+        when profiling is off)."""
         tensors, payload_nbytes = wire.plan_stream(flat, compression)
         chunk_bytes = int(self._server_stream or wire.DEFAULT_STREAM_CHUNK)
         nonce = bytes.fromhex(nonce_hex) if nonce_hex else b""
@@ -487,11 +596,17 @@ class FederatedClient:
         seq = 0
         sent = len(header)
         buf = bytearray()
+        wire_prof = self._armed_wire_profiler()
         try:
             for t in tensors:
+                sampled = wire_prof.tick() if wire_prof is not None else False
                 tp0 = time.monotonic()
                 buf += wire.encode_stream_leaf(flat[t["key"]], t["enc"])
-                pack_s += time.monotonic() - tp0
+                leaf_dt = time.monotonic() - tp0
+                pack_s += leaf_dt
+                if sampled:
+                    # One pack "step": one leaf's gather off the card and encode.
+                    wire_prof.note("wire", leaf_dt)
                 while len(buf) >= chunk_bytes:
                     frame = wire.encode_stream_chunk(
                         seq, bytes(buf[:chunk_bytes]), auth_key=self.auth_key, nonce=nonce, direction="up"
@@ -517,7 +632,7 @@ class FederatedClient:
                 pass
             raise
         wall = max(time.monotonic() - t0, 1e-9)
-        return sent, seq, max(0.0, pack_s + send_s - wall)
+        return sent, seq, max(0.0, pack_s + send_s - wall), wire_prof.span_attrs() if wire_prof is not None else {}
 
     def _log_dense_fallback(self, attempt: int) -> None:
         """One line naming why this upload goes dense while streaming
@@ -538,10 +653,12 @@ class FederatedClient:
 
     def _recv_stream_reply(
         self, sock: socket.socket, header, nonce_hex: str | None
-    ) -> tuple[dict, dict, int]:
+    ) -> tuple[dict, dict, int, dict]:
         """Receive a streamed aggregate, decoding each leaf the moment its
         bytes complete; every frame's tag verifies under the REPLY
-        direction's domain first. Returns ``(flat leaves, meta, bytes)``."""
+        direction's domain first. Returns ``(flat leaves, meta, bytes,
+        wire attrs)``, the last the sampled per-leaf unpack timings ({}
+        when profiling is off)."""
         tensors, meta, _chunk_bytes, payload_nbytes = wire.decode_stream_header(
             header, auth_key=self.auth_key, max_payload=framing.MAX_FRAME, direction="down"
         )
@@ -551,15 +668,20 @@ class FederatedClient:
                 "streamed reply failed the freshness check (stale nonce or wrong role) — possible replay"
             )
         flat: dict[str, np.ndarray] = {}
+        wire_prof = self._armed_wire_profiler()
 
         def on_leaf(t: dict, raw: bytes) -> None:
+            sampled = wire_prof.tick() if wire_prof is not None else False
+            td0 = time.monotonic() if sampled else 0.0
             flat[t["key"]] = wire.decode_tensor_entry(t, raw)
+            if sampled:
+                wire_prof.note("wire", time.monotonic() - td0)
 
         _, got = framing.recv_stream(
             sock, tensors, payload_nbytes, on_leaf, auth_key=self.auth_key,
             nonce=bytes.fromhex(nonce_hex) if nonce_hex else b"", direction="down",
         )
-        return flat, meta, len(header) + got
+        return flat, meta, len(header) + got, wire_prof.span_attrs() if wire_prof is not None else {}
 
     # ------------------------------------------------- sparse round deltas
     def _prepare_topk_upload(

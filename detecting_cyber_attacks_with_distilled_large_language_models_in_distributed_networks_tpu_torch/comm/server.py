@@ -47,9 +47,16 @@ excluded from the mean and answered with the catch-up sequence of
 retained deltas (``dp_resync_rounds`` of them, optionally persisted to
 ``dp_history_path``).
 
-Not ported: secure aggregation, relays and re-homing, and the obs hooks.
-An upload that asks for one of them is refused with
-:class:`.wire.ModeError`.
+Observability, registered and written as in the JAX package: the
+``fedtpu_server_*``, ``fedtpu_strategy_rounds_total`` and ``fedtpu_relay_*``
+families on the process registry (``/metrics``), and with a ``tracer`` the
+``round``, ``agg``, ``wire-reply`` and ``wire-overlap`` spans under the
+round's trace id (stamped into every reply's meta, so the clients' spans
+share it); a failed round dumps a flight-recorder bundle, and every round
+snapshots device memory at its aggregation boundary.
+
+Not ported: secure aggregation, relays and re-homing. An upload that asks
+for one of them is refused with :class:`.wire.ModeError`.
 """
 
 from __future__ import annotations
@@ -70,6 +77,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs import flight as obs_flight
+from ..obs import metrics as obs_metrics
+from ..obs.profile import note_memory
+from ..obs.trace import new_trace_id
 from ..strategies import Strategy, make_strategy
 from . import framing, wire
 from .stream_agg import StreamAgg
@@ -150,6 +161,9 @@ class _Round:
     #: non-sampled clients register in ``skip_conns`` for the reply.
     cohort: set | None = None
     skip_conns: dict[int, socket.socket] = field(default_factory=dict)
+    #: ``StreamAgg.stats()`` once the round folded (None before, and for
+    #: a failed or no-op round).
+    fold_stats: dict | None = None
 
 
 class AggregationServer:
@@ -184,6 +198,7 @@ class AggregationServer:
         dp_resync_rounds: int = 8,
         dp_history_path: str | None = None,
         device: str | torch.device | None = None,
+        tracer=None,
     ):
         self.device = resolve_device(device)
         if dp_noise_multiplier > 0.0 and dp_clip <= 0.0:
@@ -279,6 +294,14 @@ class AggregationServer:
         #: folds that overlapped them), agg (the rest of the fold, the
         #: strategy and the replies' encode), reply (the fan-out).
         self.phase_seconds = {"wait": 0.0, "agg": 0.0, "reply": 0.0}
+        #: Span writer (obs/trace.py) for round/agg/wire-reply spans; the
+        #: last round's (trace id, round).
+        self.tracer = tracer
+        self.last_trace: tuple[str, int] | None = None
+        #: The process's /metrics endpoint when this server owns it
+        #: (``serve --metrics-port``); closed with the server.
+        self.metrics_server = None
+        self._register_metrics()
         #: ``StreamAgg.stats()`` of the last round that aggregated, and
         #: its per-client upload record (``_Round.uploads``).
         self.last_fold_stats: dict | None = None
@@ -299,6 +322,116 @@ class AggregationServer:
         # them all, registered or not.
         self._conn_lock = threading.Lock()
         self._open_conns: set[socket.socket] = set()
+
+    def _register_metrics(self) -> None:
+        """The JAX server's families on the process registry (get-or-create:
+        a second server in one process shares them)."""
+        m = obs_metrics.default_registry()
+        # fedtpu: allow(obs-metric-once): the JAX package's comm/server.py family, same name/kind/labels/help
+        self._m_stream_uploads = m.counter(
+            "fedtpu_server_stream_uploads_total",
+            help="chunk-streamed client uploads accepted into a round",
+        )
+        # fedtpu: allow(obs-metric-once): the JAX package's comm/server.py family, same name/kind/labels/help
+        self._m_stream_replies = m.counter(
+            "fedtpu_server_stream_replies_total",
+            help="aggregate replies fanned out as chunk streams",
+        )
+        # fedtpu: allow(obs-metric-once): the JAX package's comm/server.py family, same name/kind/labels/help
+        self._m_stream_fallbacks = m.counter(
+            "fedtpu_server_stream_fallbacks_total",
+            help="dense single-frame uploads accepted while streaming "
+            "was advertised (topk/secure-agg/old-peer/retry fallbacks)",
+        )
+        # fedtpu: allow(obs-metric-once): the JAX package's comm/server.py family, same name/kind/labels/help
+        self._g_inflight_streams = m.gauge(
+            "fedtpu_server_stream_inflight",
+            help="chunk-streamed uploads currently mid-transfer",
+        )
+        # fedtpu: allow(obs-metric-once): the JAX package's comm/server.py family, same name/kind/labels/help
+        self._m_uploads_by_dtype = lambda wd: m.counter(
+            "fedtpu_server_stream_uploads_by_wire_dtype_total",
+            help="chunk-streamed uploads accepted, by negotiated wire "
+            "dtype (fp32|bf16|int8)",
+            labels={"wire_dtype": wd},
+        )
+        # fedtpu: allow(obs-metric-once): the JAX package's comm/server.py family, same name/kind/labels/help
+        self._g_fold_throughput = m.gauge(
+            "fedtpu_server_fold_throughput_gbps",
+            help="last round's fold throughput (bytes folded / fold "
+            "seconds), by the active fold engine",
+        )
+        # fedtpu: allow(obs-metric-once): the JAX package's comm/server.py family, same name/kind/labels/help
+        self._g_peak_agg = m.gauge(
+            "fedtpu_server_peak_agg_bytes",
+            help="peak aggregation-state bytes of the last round "
+            "(accumulator + pending leaves)",
+        )
+        # fedtpu: allow(obs-metric-once): the JAX package's comm/server.py family, same name/kind/labels/help
+        self._m_rounds = m.counter(
+            "fedtpu_server_rounds_total",
+            help="aggregation rounds started",
+        )
+        # fedtpu: allow(obs-metric-once): the JAX package's comm/server.py family, same name/kind/labels/help
+        self._m_strategy_rounds = lambda name: m.counter(
+            "fedtpu_strategy_rounds_total",
+            help="aggregation rounds finalized, by server strategy",
+            labels={"strategy": name},
+        )
+        # fedtpu: allow(obs-metric-once): the JAX package's comm/server.py family, same name/kind/labels/help
+        self._m_round_failures = m.counter(
+            "fedtpu_server_round_failures_total",
+            help="rounds that raised (quorum miss, deadline, bad uploads)",
+        )
+        # fedtpu: allow(obs-metric-once): the JAX package's comm/server.py family, same name/kind/labels/help
+        self._m_uploads = m.counter(
+            "fedtpu_server_uploads_total",
+            help="client model uploads accepted into a round",
+        )
+        # fedtpu: allow(obs-metric-once): the JAX package's comm/server.py family, same name/kind/labels/help
+        self._m_bytes_in = m.counter(
+            "fedtpu_server_wire_bytes_received_total",
+            help="model upload payload bytes received",
+        )
+        # fedtpu: allow(obs-metric-once): the JAX package's comm/server.py family, same name/kind/labels/help
+        self._m_bytes_out = m.counter(
+            "fedtpu_server_wire_bytes_sent_total",
+            help="aggregate reply payload bytes sent",
+        )
+        self._m_phase = {
+            # fedtpu: allow(obs-metric-once): the JAX package's comm/server.py family, same name/kind/labels/help
+            p: m.counter(
+                "fedtpu_server_round_phase_seconds_total",
+                help="round wall-clock by phase (wait|agg|reply)",
+                labels={"phase": p},
+            )
+            for p in ("wait", "agg", "reply")
+        }
+        # Registered as the JAX server registers them; the port has no
+        # relays, so a subtree failure never counts here, and a quorum
+        # round that completes without some clients counts them as shed
+        # stragglers.
+        # fedtpu: allow(obs-metric-once): the JAX package's comm/server.py family, same name/kind/labels/help
+        self._m_subtree_failures = m.counter(
+            "fedtpu_relay_subtree_failures_total",
+            help="expected fold-tree children missing from a completed "
+            "round at a parent of relays (the subtree was dropped from "
+            "the fold; the mean renormalized over survivors)",
+        )
+        # fedtpu: allow(obs-metric-once): the JAX package's comm/server.py family, same name/kind/labels/help
+        self._m_stragglers_shed = m.counter(
+            "fedtpu_relay_stragglers_shed_total",
+            help="expected leaf clients missing from a completed quorum "
+            "round (shed locally at this aggregator's deadline instead "
+            "of stalling its parent)",
+        )
+        # fedtpu: allow(obs-metric-once): the JAX package's comm/server.py family, same name/kind/labels/help
+        self._h_round = m.histogram(
+            "fedtpu_server_round_seconds",
+            help="aggregation round wall-clock, failed rounds included "
+            "(the round-duration SLO's burn-rate source, obs/slo.py)",
+            buckets=(0.1, 0.5, 1.0, 5.0, 15.0, 60.0, 300.0),
+        )
 
     # -------------------------------------------------------------- strategy
     @property
@@ -342,6 +475,9 @@ class AggregationServer:
                 t = getattr(self, attr)
             if t is not None:
                 t.join(timeout=60.0)
+        if self.metrics_server is not None:
+            self.metrics_server.close()
+            self.metrics_server = None
 
     def __enter__(self) -> "AggregationServer":
         return self
@@ -506,6 +642,7 @@ class AggregationServer:
             if bytes(payload[:4]) == wire.STREAM_MAGIC:
                 self._handle_stream_upload(conn, payload, rnd, nonce_hex=nonce_hex, dpid=dpid)
                 return
+            self._m_bytes_in.inc(float(len(payload)))
             flat, meta = wire.decode(payload, auth_key=self.auth_key)
             client_id = self._validate_upload(meta, nonce_hex, dpid)
             flat = wire.flatten_params(flat)
@@ -571,6 +708,11 @@ class AggregationServer:
                     rnd.stream.add_dense(client_id, flat)
                     self._try_freeze_stream(rnd)
                 done = self._round_done(rnd)
+            if self.stream_chunk_bytes > 0 and not dup_folded:
+                # Dense while streaming was offered: a fallback (round 1,
+                # topk, DP, a retry or an old peer).
+                self._m_stream_fallbacks.inc()
+            self._m_uploads.inc()
             log.info(
                 f"[SERVER] received model from client {client_id} "
                 f"({len(rnd.done)}/{rnd.expected})"
@@ -692,6 +834,7 @@ class AggregationServer:
             {} if dp_mode and any(t["enc"] != "raw" for t in tensors) else None
         )
         sumsq = 0.0  # header order = sorted keys = flat_l2_norm's order
+        self._m_bytes_in.inc(float(len(header)))
 
         def on_leaf(t: dict, raw: bytes) -> None:
             nonlocal sumsq
@@ -705,10 +848,15 @@ class AggregationServer:
                 sumsq += float(np.sum(np.asarray(arr, np.float64) ** 2))
             st.add_leaf(client_id, t["key"], arr)
 
+        self._g_inflight_streams.inc()
         try:
-            seq, body = framing.recv_stream(
-                conn, tensors, payload_nbytes, on_leaf, auth_key=self.auth_key, nonce=nonce, direction="up"
-            )
+            try:
+                seq, body = framing.recv_stream(
+                    conn, tensors, payload_nbytes, on_leaf, auth_key=self.auth_key, nonce=nonce, direction="up"
+                )
+            finally:
+                self._g_inflight_streams.dec()
+            self._m_bytes_in.inc(float(body))
             if not discard and dp_hold is not None:
                 st.add_dense(client_id, self._reclip(dp_hold, client_id, "streamed lossy-encoded delta"))
             elif not discard:
@@ -752,6 +900,10 @@ class AggregationServer:
             if nonce_hex is not None:
                 rnd.nonces[client_id] = nonce_hex
             done = self._round_done(rnd)
+        if not discard:
+            self._m_uploads.inc()
+            self._m_stream_uploads.inc()
+            self._m_uploads_by_dtype(up_dtype).inc()
         log.info(
             f"[SERVER] received streamed model from client {client_id} "
             f"({payload_nbytes / 1e6:.1f} MB {up_dtype} in {seq} chunk(s)"
@@ -773,7 +925,12 @@ class AggregationServer:
         rnd = _Round(expected=self.num_clients, round_no=self._round_counter)
         self._round_counter = rnd.round_no + 1
         self._cur_rnd = rnd
-        rnd.trace = os.urandom(8).hex()
+        # The round's trace identity, stamped into every reply's meta:
+        # clients adopt it for their own spans.
+        rnd.trace = new_trace_id()
+        self.last_trace = (rnd.trace, rnd.round_no)
+        self._m_rounds.inc()
+        t_round_unix = time.time()
         if self.dp_clip > 0.0 and self.dp_participation < 1.0:
             # Each client independently with probability q, from OS
             # entropy: the sampler the subsampled-Gaussian accountant
@@ -845,6 +1002,7 @@ class AggregationServer:
             dp_crcs = dict(rnd.dp_crcs)
         # Failure cleanup covers contributors and sitting-out clients alike.
         all_conns = {**skip_conns, **conns}
+        t_agg_unix = time.time()
         t_agg = time.monotonic()
         try:
             if rnd.cohort is not None and not rnd.cohort:
@@ -861,8 +1019,8 @@ class AggregationServer:
                 replies = {cid: self._encode_reply({}, noop_meta, nonces.get(cid)) for cid in skip_conns}
                 agg_s = time.monotonic() - t_agg
                 t_rep = time.monotonic()
-                self._reply_all(replies, skip_conns, {})
-                self._add_phases(wait_s, agg_s, time.monotonic() - t_rep)
+                self._m_bytes_out.inc(float(self._reply_all(replies, skip_conns, {})))
+                self._finish_round(rnd, t_round_unix, t0, wait_s, agg_s, time.monotonic() - t_rep)
                 return None
             quorum = self.min_clients if rnd.cohort is None else min(self.min_clients, len(rnd.cohort))
             if len(done) < quorum:
@@ -877,12 +1035,13 @@ class AggregationServer:
             crc_set: set = set()
             if self.dp_clip > 0.0:
                 ids, stale_resync, crc_set = self._dp_partition(rnd, ids, dp_crcs, quorum, all_conns, nonces)
+            missing_n = max(0, rnd.expected - len(done)) if rnd.cohort is None else 0
             weights = [n_samples[i] for i in ids] if self.weighted else None
             try:
                 mean = rnd.stream.finalize(ids, weights)
             except wire.WireError as e:
                 raise RuntimeError(f"aggregation failed: {e}") from e
-            self.last_fold_stats = rnd.stream.stats()
+            self.last_fold_stats = rnd.fold_stats = rnd.stream.stats()
             self.last_uploads = {i: dict(rnd.uploads[i]) for i in ids}
             self.last_mean = mean
             log.info(
@@ -899,6 +1058,7 @@ class AggregationServer:
                 )
                 # The post-strategy global is what clients adopt, so it is
                 # the next round's strategy input and sparse-delta base.
+                self._m_strategy_rounds(self._strategy.name).inc()
                 self._last_agg = agg
                 self._last_agg_round = rnd.round_no
                 self._persist_strategy_state()
@@ -931,12 +1091,48 @@ class AggregationServer:
         except BaseException:
             for c in all_conns.values():
                 c.close()
-            self._add_phases(wait_s, time.monotonic() - t_agg, 0.0)
+            self._finish_round(rnd, t_round_unix, t0, wait_s, time.monotonic() - t_agg, 0.0, failed=True)
             raise
         agg_s = time.monotonic() - t_agg
+        if missing_n:
+            # Quorum semantics: the round completed over the survivors;
+            # the missing clients were shed at this aggregator's deadline.
+            self._m_stragglers_shed.inc(float(missing_n))
+        if self.tracer is not None:
+            extra: dict = {"stragglers_shed": missing_n} if missing_n else {}
+            if self.dp_clip <= 0.0:
+                # Which strategy produced this round's global.
+                extra["strategy"] = self._strategy.name
+                s_params = self._strategy.params()
+                if s_params:
+                    extra["strategy_params"] = {k: s_params[k] for k in sorted(s_params)}
+            self.tracer.record(
+                "agg",
+                t_start=t_agg_unix,
+                dur_s=agg_s,
+                trace=rnd.trace,
+                round=rnd.round_no,
+                clients=len(ids),
+                contributors=[int(i) for i in ids],
+                **extra,
+            )
+        t_rep_unix = time.time()
         t_rep = time.monotonic()
-        self._reply_all(replies, all_conns, stream_jobs)
-        self._add_phases(wait_s, agg_s, time.monotonic() - t_rep)
+        out_bytes = self._reply_all(replies, all_conns, stream_jobs)
+        reply_s = time.monotonic() - t_rep
+        if stream_jobs:
+            self._m_stream_replies.inc(float(len(stream_jobs)))
+        self._m_bytes_out.inc(float(out_bytes))
+        if self.tracer is not None:
+            self.tracer.record(
+                "wire-reply",
+                t_start=t_rep_unix,
+                dur_s=reply_s,
+                trace=rnd.trace,
+                round=rnd.round_no,
+                replies=len(replies) + len(stream_jobs),
+            )
+        self._finish_round(rnd, t_round_unix, t0, wait_s, agg_s, reply_s)
         return agg
 
     # -------------------------------------------------------- central DP
@@ -1134,9 +1330,70 @@ class AggregationServer:
         except OSError as e:
             log.warning(f"[SERVER] could not persist DP resync history to {self.dp_history_path}: {e}")
 
-    def _add_phases(self, wait_s: float, agg_s: float, reply_s: float) -> None:
+    def _finish_round(
+        self, rnd: _Round, t_unix: float, t0: float, wait_s: float, agg_s: float, reply_s: float, *, failed: bool = False
+    ) -> None:
+        """Close a round's observability: the wait/agg/reply seconds (the
+        process totals and the /metrics counters), the round histogram,
+        the post-aggregate memory watermark, the fold's gauges and its
+        ``wire-overlap`` span when folds overlapped the wire, the round
+        span, and on failure the counter and a flight-recorder bundle."""
+        round_wall = time.monotonic() - t0
         for name, dur in (("wait", wait_s), ("agg", agg_s), ("reply", reply_s)):
             self.phase_seconds[name] += dur
+            self._m_phase[name].inc(max(dur, 0.0))
+        self._h_round.observe(max(round_wall, 0.0))
+        # The fold ran on this server's device (K4 on the card).
+        note_memory("post-aggregate")
+        if failed:
+            self._m_round_failures.inc()
+        s = rnd.fold_stats
+        if s is not None:
+            self._g_peak_agg.set(float(s["peak_bytes"]))
+            if s["fold_s"] > 0.0:
+                self._g_fold_throughput.set(float(s["fold_throughput_gbps"]))
+            if self.tracer is not None and s["early_s"] > 0.0:
+                # Fold work that ran DURING the wait phase (hidden behind
+                # other clients' transfers).
+                dtypes = sorted({u["wire_dtype"] for u in rnd.uploads.values() if u.get("shape") == "stream"})
+                self.tracer.record(
+                    "wire-overlap",
+                    t_start=t_unix,
+                    dur_s=s["early_s"],
+                    trace=rnd.trace,
+                    round=rnd.round_no,
+                    folded_bytes=s["early_bytes"],
+                    overlap_frac=round(s["overlap_frac"], 4),
+                    peak_agg_bytes=s["peak_bytes"],
+                    fold_engine=s["fold_engine"],
+                    fold_throughput_gbps=round(s["fold_throughput_gbps"], 3),
+                    wire_dtypes=dtypes or None,
+                )
+        if self.tracer is not None:
+            self.tracer.record(
+                "round",
+                t_start=t_unix,
+                dur_s=round_wall,
+                trace=rnd.trace,
+                round=rnd.round_no,
+                failed=True if failed else None,
+            )
+        if failed:
+            # After the round span, so the bundle's ring holds the failure.
+            recorder = obs_flight.get_global_recorder()
+            if recorder is not None:
+                try:
+                    recorder.maybe_dump(
+                        "round-failure",
+                        extra={
+                            "round": rnd.round_no,
+                            "trace": rnd.trace,
+                            "expected": rnd.expected,
+                            "wall_s": round(round_wall, 3),
+                        },
+                    )
+                except OSError as e:
+                    log.warning(f"[SERVER] postmortem dump failed (non-fatal): {e}")
 
     def serve(self, rounds: int = 1) -> None:
         """Multi-round loop: a failed round is logged and the next one
@@ -1228,36 +1485,37 @@ class AggregationServer:
             chunks.append(bytes(buf))
         return {"tensors": tensors, "chunks": chunks, "payload_nbytes": payload_nbytes}
 
-    def _send_stream_reply(self, conn: socket.socket, header: bytes, plan: dict, nonce: bytes) -> None:
+    def _send_stream_reply(self, conn: socket.socket, header: bytes, plan: dict, nonce: bytes) -> int:
         """ACKed header, fire-and-forget chunks, ACKed trailer, each under
-        the reply direction's tag domain."""
+        the reply direction's tag domain. Returns the frame bytes sent."""
         framing.send_frame(conn, header)
+        sent = len(header)
         for seq, chunk in enumerate(plan["chunks"]):
-            framing.send_frame(
-                conn,
-                wire.encode_stream_chunk(seq, chunk, auth_key=self.auth_key, nonce=nonce, direction="down"),
-                await_ack=False,
-            )
-        framing.send_frame(
-            conn,
-            wire.encode_stream_end(len(plan["chunks"]), auth_key=self.auth_key, nonce=nonce, direction="down"),
-        )
+            frame = wire.encode_stream_chunk(seq, chunk, auth_key=self.auth_key, nonce=nonce, direction="down")
+            framing.send_frame(conn, frame, await_ack=False)
+            sent += len(frame)
+        trailer = wire.encode_stream_end(len(plan["chunks"]), auth_key=self.auth_key, nonce=nonce, direction="down")
+        framing.send_frame(conn, trailer)
+        return sent + len(trailer)
 
     def _reply_all(
         self,
         replies: dict[int, bytes],
         conns: dict[int, socket.socket],
         stream_jobs: dict[int, tuple[bytes, dict, bytes]],
-    ) -> None:
+    ) -> int:
         """Parallel fan-out: ``send_frame`` waits for each client's ACK,
-        so one dead client must not stall the healthy ones behind it."""
+        so one dead client must not stall the healthy ones behind it.
+        Returns the reply frame bytes that went out."""
+        sent: dict[int, int] = {}
 
         def _reply(cid: int, conn: socket.socket) -> None:
             try:
                 if cid in stream_jobs:
-                    self._send_stream_reply(conn, *stream_jobs[cid])
+                    sent[cid] = self._send_stream_reply(conn, *stream_jobs[cid])
                 else:
                     framing.send_frame(conn, replies[cid])
+                    sent[cid] = len(replies[cid])
             except (OSError, wire.WireError) as e:
                 log.info(f"[SERVER] reply to client {cid} failed: {e}")
             finally:
@@ -1271,6 +1529,7 @@ class AggregationServer:
             t.start()
         for t in threads:
             t.join(timeout=self.timeout)
+        return sum(sent.values())
 
     # ------------------------------------------------------ strategy state
     def _load_strategy_state(self) -> None:

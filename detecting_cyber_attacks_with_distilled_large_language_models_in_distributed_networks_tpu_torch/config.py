@@ -2,7 +2,7 @@
 
 Copies of the JAX package's ``ModelConfig``, ``DataConfig`` and
 ``TrainConfig`` (fields, defaults, validation and presets unchanged) and
-its ``FedConfig`` and ``DistillConfig``, so a manifest or config
+its ``FedConfig``, ``DistillConfig`` and ``ObsConfig``, so a manifest or config
 written by either package means the same thing in both. The one field
 whose code path the port has not reached yet (relays' deadlines) is kept
 for compatibility and raises ``NotImplementedError`` when set away from
@@ -421,11 +421,120 @@ class DistillConfig:
             raise ValueError(f"temperature={self.temperature} must be > 0")
 
 
+@dataclass(frozen=True)
+class ObsConfig:
+    """Observability (obs/): cross-tier round tracing + /metrics (the JAX
+    package's section, field for field, so a config file of either
+    package resolves to the same values). The matching CLI flags
+    (``--trace-jsonl``, ``--metrics-port``, ``--flight-dir``,
+    ``--profile-stride``, ``--trace-sample``) override per process. The
+    snapshot and sentinel knobs configure the JAX package's fleet read
+    side, which the port does not run; they are kept so the section
+    round-trips.
+    """
+
+    #: Span events-JSONL path for THIS process (obs.trace.Tracer). None
+    #: (default) = tracing off. Give every process its own file; `fedtpu
+    #: obs timeline --trace-dir` merges a directory of them.
+    trace_jsonl: str | None = None
+    #: Prometheus text endpoint port (stdlib HTTP, GET /metrics). 0
+    #: (default) = off — the endpoint binds nothing unless asked.
+    metrics_port: int = 0
+    #: Run identity stamped on every span and metrics record. None =
+    #: FEDTPU_RUN_ID env var, else a fresh per-process id.
+    run_id: str | None = None
+    #: Span sampling rate for HIGH-RATE span streams (today: the serving
+    #: tier's per-coalesced-batch ``serve-batch`` spans): emit one span
+    #: per ~1/rate batches via a deterministic batch-counter stride (no
+    #: RNG — reruns sample identically), each carrying
+    #: ``sampled_batches`` so consumers can re-scale. 1.0 = every batch.
+    #: Round-scoped spans (round/agg/wire-*) are never sampled — they
+    #: are one-per-round by construction.
+    trace_sample: float = 1.0
+    #: Failure flight recorder (obs/flight.py): postmortem bundles land
+    #: in this directory on round failure / eject storm / SLO page.
+    #: None (default) = recorder off — no ring, no hot-path cost. The
+    #: matching CLI flag is ``--flight-dir``.
+    flight_dir: str | None = None
+    #: Span-ring depth the flight recorder retains per process.
+    flight_ring: int = 256
+    #: Device performance plane (obs/profile.py): sample every Nth
+    #: train/score step with fenced host/dispatch/device timers
+    #: (``fedtpu_*_step_seconds`` histograms + span attrs). 0 (default)
+    #: = off — the hot loops run the literal unprofiled path (no
+    #: fences, no timer reads). The matching CLI flag is
+    #: ``--profile-stride``; a deterministic counter stride, no RNG.
+    profile_stride: int = 0
+    #: Snapshot-JSONL retention cap in MB for the scrape hub / sentinel
+    #: (``--snapshot-max-mb``): past this size the live file atomically
+    #: rolls to ``<path>.1`` (at most ~2x the cap on disk). None
+    #: (default) = unbounded, the pre-existing behavior.
+    snapshot_max_mb: float | None = None
+    #: Sentinel cadence (obs/sentinel.py): seconds between ticks of the
+    #: ``fedtpu obs sentinel`` watch loop.
+    sentinel_interval_s: float = 5.0
+    #: Long-horizon retention ring rows kept (memory + --ring-jsonl).
+    sentinel_ring_records: int = 512
+    #: Ring rows pinned as the regression baseline window (the FIRST N
+    #: retained — "how the fleet looked when watching began").
+    sentinel_baseline_n: int = 8
+    #: Current-window rows a trend check averages against the baseline.
+    sentinel_window_n: int = 8
+    #: A watched field regresses when its current-window mean moves past
+    #: baseline * ratio (+ the field's absolute floor); round cadence
+    #: fires on the inverse drop.
+    sentinel_regression_ratio: float = 1.5
+
+    def __post_init__(self) -> None:
+        if not 0 <= self.metrics_port <= 65535:
+            raise ValueError(
+                f"metrics_port={self.metrics_port} must be a port in "
+                "[0, 65535] (0 = off)"
+            )
+        if not 0.0 < self.trace_sample <= 1.0:
+            raise ValueError(
+                f"trace_sample={self.trace_sample} must be in (0, 1]"
+            )
+        if self.flight_ring < 1:
+            raise ValueError(
+                f"flight_ring={self.flight_ring} must be >= 1"
+            )
+        if self.profile_stride < 0:
+            raise ValueError(
+                f"profile_stride={self.profile_stride} must be >= 0 "
+                "(0 = off)"
+            )
+        if self.snapshot_max_mb is not None and self.snapshot_max_mb <= 0:
+            raise ValueError(
+                f"snapshot_max_mb={self.snapshot_max_mb} must be > 0 "
+                "(None = unbounded)"
+            )
+        if self.sentinel_interval_s <= 0:
+            raise ValueError(
+                f"sentinel_interval_s={self.sentinel_interval_s} must "
+                "be > 0"
+            )
+        if self.sentinel_ring_records < max(
+            self.sentinel_baseline_n, self.sentinel_window_n
+        ):
+            raise ValueError(
+                f"sentinel_ring_records={self.sentinel_ring_records} "
+                "must hold at least the baseline "
+                f"({self.sentinel_baseline_n}) and current "
+                f"({self.sentinel_window_n}) windows"
+            )
+        if self.sentinel_regression_ratio <= 1.0:
+            raise ValueError(
+                f"sentinel_regression_ratio="
+                f"{self.sentinel_regression_ratio} must be > 1 (it "
+                "multiplies the baseline mean)"
+            )
+
+
 #: Sections of the JAX package's ``ExperimentConfig`` the port does not
-#: model (its mesh, control plane, observability, router, shadow and
-#: labels planes).
+#: model (its mesh, control plane, router, shadow and labels planes).
 _JAX_ONLY_SECTIONS = frozenset(
-    {"mesh", "control", "obs", "router", "shadow", "labels"}
+    {"mesh", "control", "router", "shadow", "labels"}
 )
 
 
@@ -439,6 +548,7 @@ class ExperimentConfig:
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     fed: FedConfig = dataclasses.field(default_factory=FedConfig)
     distill: DistillConfig = dataclasses.field(default_factory=DistillConfig)
+    obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
     output_dir: str = "outputs"
     # Where ``local``/``client`` save (and ``client`` warm-starts from),
     # and what ``predict``/``infer-serve`` restore.
@@ -462,7 +572,7 @@ class ExperimentConfig:
         raise."""
         sections = {
             "model": ModelConfig, "data": DataConfig, "train": TrainConfig,
-            "fed": FedConfig, "distill": DistillConfig,
+            "fed": FedConfig, "distill": DistillConfig, "obs": ObsConfig,
         }
         scalars = ("output_dir", "checkpoint_dir")
         unknown_top = set(d) - set(sections) - set(scalars) - _JAX_ONLY_SECTIONS

@@ -16,8 +16,9 @@ state dict goes through ``params_to_jax`` first), so the same weights get
 the same id in both packages. Artifacts are staged under a tmp directory
 and renamed into place, manifests and pointers are rewritten through tmp
 + ``os.replace``: every read a serving process makes sees the old state
-or the new one, never a torn write. The JAX package's tracer spans and
-reload metrics are not ported.
+or the new one, never a torn write. With a ``tracer`` (obs/trace.py)
+every promotion, pointer swap and rollback is also a ``promote`` span, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -99,9 +100,22 @@ def _shadow_evidence(root: str, aid: str) -> tuple[str, str]:
 class ModelRegistry:
     """Artifact store + promotion state machine + serving pointer."""
 
-    def __init__(self, root: str):
+    def __init__(self, root: str, *, tracer=None):
         self.root = os.path.abspath(root)
         self._artifacts = os.path.join(self.root, "artifacts")
+        self.tracer = tracer
+
+    def _promote_span(self, t_unix: float, t0: float, aid: str, state: str, round_index) -> None:
+        if self.tracer is None:
+            return
+        self.tracer.record(
+            "promote",
+            t_start=t_unix,
+            dur_s=time.monotonic() - t0,
+            round=round_index if isinstance(round_index, int) else None,
+            artifact=aid,
+            state=state,
+        )
 
     def _event(self, kind: str, **fields: Any) -> None:
         rec = {"ts": time.time(), "event": kind, **fields}
@@ -261,6 +275,8 @@ class ModelRegistry:
         """Advance ``aid`` one rung up the ladder (or straight ``to`` a
         named rung). Reaching ``serving`` swaps the pointer atomically and
         retires the previous serving artifact. Returns the new manifest."""
+        t_unix = time.time()
+        t0 = time.monotonic()
         m = self.manifest(aid)
         cur = m.get("state", "candidate")
         if cur in ("rejected", "retired") and to is None:
@@ -307,6 +323,7 @@ class ModelRegistry:
                 self._clear_shadow(aid)
             self._event("promoted", artifact=aid, state=to)
             log.info(f"[REGISTRY] {aid}: {cur} -> {to}")
+            self._promote_span(t_unix, t0, aid, to, m.get("round"))
             return m
         prev = self.serving_info()
         prev_id = prev["artifact"] if prev else None
@@ -332,6 +349,7 @@ class ModelRegistry:
             f"[REGISTRY] serving pointer -> {aid} (round {m.get('round')})"
             + (f", retired {prev_id}" if prev_id else "")
         )
+        self._promote_span(t_unix, t0, aid, "serving", m.get("round"))
         return m
 
     def reject(self, aid: str, *, reason: str = "") -> dict:
@@ -346,6 +364,8 @@ class ModelRegistry:
     def rollback(self) -> dict:
         """Swap the pointer back to the previous serving artifact (one
         atomic step). The demoted artifact is marked retired."""
+        t_unix = time.time()
+        t0 = time.monotonic()
         cur = self.serving_info()
         if cur is None:
             raise RegistryError("nothing is serving; no rollback target")
@@ -369,6 +389,7 @@ class ModelRegistry:
             pass
         self._event("rollback", artifact=target, previous=cur["artifact"])
         log.info(f"[REGISTRY] rollback: serving pointer {cur['artifact']} -> {target}")
+        self._promote_span(t_unix, t0, target, "rollback", m.get("round"))
         return m
 
     # ------------------------------------------------------------------- gc

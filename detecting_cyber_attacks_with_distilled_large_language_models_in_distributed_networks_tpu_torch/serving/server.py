@@ -21,7 +21,13 @@ Port of the JAX package's ``serving/server.py`` core. Thread layout:
 No ACK bytes ride the scoring sockets (framing ``await_ack=False`` both
 directions), so reader and writer writes cannot interleave.
 
-Not ported: the metrics registry, tracing and the JSONL exports.
+Observability, as in the JAX package: the six ``fedtpu_serve_*`` families
+on the process registry (``/metrics`` with ``--metrics-port``), one
+``serve-batch`` span per sampled coalesced dispatch (a deterministic
+batch-counter stride of ``round(1 / trace_sample)``, the first batch
+always), the ``--scored-jsonl`` rows (one per answered request), the
+``--metrics-jsonl`` per-batch records and close summary, and a flight
+dump on a scoring-dispatch failure.
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ import time
 import numpy as np
 
 from ..comm import framing
+from ..obs import flight as obs_flight
+from ..obs import metrics as obs_metrics
 from ..comm.wire import NONCE_LEN, NONCE_MAGIC, WireError
 from ..data.textualize import render_row
 from . import protocol
@@ -134,7 +142,26 @@ class ScoringServer:
         default_deadline_s: float | None = None,
         watcher=None,
         auth_key: bytes | None = None,
+        metrics_jsonl: str | None = None,
+        scored_jsonl: str | None = None,
+        tracer=None,
+        trace_sample: float = 1.0,
+        metrics_server=None,
     ):
+        if not 0.0 < float(trace_sample) <= 1.0:
+            raise ValueError(f"trace_sample={trace_sample} must be in (0, 1]")
+        # serve-batch span sampling: one span per ``stride`` coalesced
+        # batches, by the batch COUNTER (reruns sample the same batches);
+        # each span carries ``sampled_batches`` so consumers re-scale.
+        self._trace_stride = max(1, round(1.0 / float(trace_sample)))
+        self.tracer = tracer
+        self.metrics_jsonl = metrics_jsonl
+        # One line per ANSWERED request (its id, prob and round): the join
+        # key against a delayed ground-truth journal. Off by default.
+        self.scored_jsonl = scored_jsonl
+        #: The process's /metrics endpoint when this server owns it
+        #: (``infer-serve --metrics-port``); closed with the server.
+        self.metrics_server = metrics_server
         self.engine = engine
         self.watcher = watcher
         self.tok = tokenizer
@@ -167,6 +194,40 @@ class ScoringServer:
         self._batch_hist: collections.Counter[int] = collections.Counter()
         self._latencies: collections.deque[float] = collections.deque(
             maxlen=LATENCY_WINDOW
+        )
+        m = obs_metrics.default_registry()
+        # fedtpu: allow(obs-metric-once): the JAX package's serving/server.py family, same name/kind/labels/help
+        self._g_queue = m.gauge(
+            "fedtpu_serve_queue_depth",
+            help="scoring requests waiting in the micro-batcher",
+        )
+        # fedtpu: allow(obs-metric-once): the JAX package's serving/server.py family, same name/kind/labels/help
+        self._g_round = m.gauge(
+            "fedtpu_serve_model_round",
+            help="model round currently serving",
+        )
+        # fedtpu: allow(obs-metric-once): the JAX package's serving/server.py family, same name/kind/labels/help
+        self._m_scored = m.counter(
+            "fedtpu_serve_scored_total", help="flows scored"
+        )
+        # fedtpu: allow(obs-metric-once): the JAX package's serving/server.py family, same name/kind/labels/help
+        self._m_batches = m.counter(
+            "fedtpu_serve_batches_total", help="coalesced score dispatches"
+        )
+        self._m_rejects = {
+            # fedtpu: allow(obs-metric-once): the JAX package's serving/server.py family, same name/kind/labels/help
+            kind: m.counter(
+                "fedtpu_serve_rejects_total",
+                help="explicit reject frames by kind",
+                labels={"kind": kind},
+            )
+            for kind in self._rejects
+        }
+        # fedtpu: allow(obs-metric-once): the JAX package's serving/server.py family, same name/kind/labels/help
+        self._h_queue_ms = m.histogram(
+            "fedtpu_serve_queue_wait_seconds",
+            help="request queue wait before dispatch",
+            buckets=(0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.5, 1.0, 5.0),
         )
         self._t_start = time.monotonic()
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -214,12 +275,18 @@ class ScoringServer:
                 pass
         for t in self._threads:
             t.join(timeout=5.0)
+        if self.metrics_server is not None:
+            self.metrics_server.close()
         s = self.stats()
         log.info(
             f"[SERVE] served {s['scored']} flows in {s['batches']} batches "
             f"({s['flows_per_sec']:.1f} flows/s), p50 {s['p50_ms']:.2f} ms "
             f"p99 {s['p99_ms']:.2f} ms, rejects {s['rejects']}"
         )
+        if self.metrics_jsonl:
+            from ..reporting import append_metrics_jsonl
+
+            append_metrics_jsonl(self.metrics_jsonl, {"phase": "serve_summary", **_flat(s)})
 
     def __enter__(self) -> "ScoringServer":
         return self.start()
@@ -429,6 +496,7 @@ class ScoringServer:
     def _count_reject(self, kind: str) -> None:
         with self._stats_lock:
             self._rejects[kind] += 1
+        self._m_rejects[kind].inc()
 
     def _drain_reload_requests(self) -> None:
         """Answer the queued reload frames: one forced watcher poll covers
@@ -484,6 +552,21 @@ class ScoringServer:
                 for r in live:
                     self._count_reject("error")
                     r.reject(500, f"scoring failed: {type(e).__name__}")
+                # Flight recorder: a failed dispatch is the scoring tier's
+                # moment to preserve (rate-limited; never fatal here).
+                recorder = obs_flight.get_global_recorder()
+                if recorder is not None:
+                    try:
+                        recorder.maybe_dump(
+                            "scoring-error",
+                            extra={
+                                "error": f"{type(e).__name__}: {e}"[:300],
+                                "rejected": len(live),
+                                "bucket_batch": len(live),
+                            },
+                        )
+                    except OSError as dump_err:
+                        log.warning(f"[SERVE] postmortem dump failed (non-fatal): {dump_err}")
                 continue
             done = time.monotonic()
             n = len(live)
@@ -491,14 +574,23 @@ class ScoringServer:
             batch_hist, _ = np.histogram(
                 np.clip(np.asarray(probs[:n], np.float64), 0.0, 1.0), bins=self._hist_edges
             )
+            queue_depth = self.batcher.qsize()
             # Count before replying: a client that got its reply may read
             # stats() at once, and its flow must already be counted.
             with self._stats_lock:
                 self._scored += n
                 self._batches += 1
+                batch_no = self._batches
                 self._batch_hist[n] += 1
                 self._score_hist += batch_hist
                 self._latencies.extend(done - r.t_enqueue for r in live)
+                rejects_total = sum(self._rejects.values())
+            self._m_scored.inc(n)
+            self._m_batches.inc()
+            self._g_queue.set(queue_depth)
+            self._g_round.set(round_id)
+            for r in live:
+                self._h_queue_ms.observe(now - r.t_enqueue)
             kclass = class_probs.shape[1] > 2
             for i, (r, p) in enumerate(zip(live, probs)):
                 r.reply(
@@ -509,3 +601,60 @@ class ScoringServer:
                     queue_ms=(now - r.t_enqueue) * 1e3,
                     class_probs=class_probs[i].tolist() if kclass else None,
                 )
+            self._export_batch(live, probs, n, bucket, round_id, now, done, batch_no, queue_depth, rejects_total, batch_hist)
+
+    def _export_batch(self, live, probs, n, bucket, round_id, now, done, batch_no, queue_depth, rejects_total, batch_hist) -> None:
+        """The scored rows, the sampled serve-batch span and the per-batch
+        metrics record of one answered batch (each only when asked for)."""
+        if self.scored_jsonl:
+            import json
+
+            from ..obs.trace import append_jsonl_line
+
+            for r, p in zip(live, probs):
+                append_jsonl_line(
+                    self.scored_jsonl,
+                    json.dumps({"schema": "fedtpu-scored-v1", "rid": str(r.req_id), "prob": round(float(p), 6), "round": round_id}),
+                )
+        # Counter-stride sampling: batch 1, 1 + stride, ... (the first
+        # batch always emits, so a short-lived scorer leaves a span).
+        if self.tracer is not None and (batch_no - 1) % self._trace_stride == 0:
+            self.tracer.record(
+                "serve-batch",
+                t_start=time.time() - (done - now),
+                dur_s=done - now,
+                trace=next((r.trace for r in live if r.trace is not None), None),
+                batch_size=n,
+                bucket=bucket,
+                round=round_id,
+                sampled_batches=self._trace_stride if self._trace_stride > 1 else None,
+            )
+        if self.metrics_jsonl:
+            from ..reporting import append_metrics_jsonl
+
+            append_metrics_jsonl(
+                self.metrics_jsonl,
+                {
+                    "phase": "serve_batch",
+                    "batch_size": n,
+                    "bucket": bucket,
+                    "round": round_id,
+                    "score_ms": round((done - now) * 1e3, 3),
+                    "queue_ms_max": round(max((now - r.t_enqueue) for r in live) * 1e3, 3),
+                    "queue_depth": queue_depth,
+                    "rejects_total": rejects_total,
+                    "score_hist": batch_hist.tolist(),
+                },
+            )
+
+
+def _flat(stats: dict) -> dict:
+    """Flatten stats() for the scalar-only JSONL writer."""
+    out = {}
+    for k, v in stats.items():
+        if isinstance(v, dict):
+            for kk, vv in v.items():
+                out[f"{k}_{kk}"] = vv
+        else:
+            out[k] = v
+    return out

@@ -43,10 +43,15 @@ class EpochPrefetcher:
         #: Seconds the background work ran (the input-pipeline time hidden
         #: behind the reply wait).
         self.busy_s = 0.0
+        #: When the background work started (unix seconds) and how many
+        #: batches it built: the ``batch-prefetch`` span's start and attrs.
+        self.t_unix = 0.0
+        self.n_prefetched = 0
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
 
     def _run(self) -> None:
+        self.t_unix = time.time()
         t0 = time.monotonic()
         try:
             it = self._factory()
@@ -57,6 +62,7 @@ class EpochPrefetcher:
                     it = iter(())
                     break
             self._it = it
+            self.n_prefetched = len(self._buf)
         except BaseException as e:  # raised on consume, not on a daemon thread
             self._err = e
         finally:

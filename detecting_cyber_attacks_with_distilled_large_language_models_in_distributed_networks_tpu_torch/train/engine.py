@@ -36,6 +36,13 @@ Evaluation accumulates on-device sufficient statistics per batch
 (:mod:`..ops.metrics`) over a split padded to the batch size; pad rows
 (all-zero attention mask) go through the model and are masked out of the
 counts, as in the JAX engine.
+
+The device performance plane (:mod:`..obs.profile`) rides the same
+sites as in the JAX engine: the dispatch ledger notes the first train
+and eval step of each batch shape (``engine.train_step``,
+``engine.eval_step``), and with ``--profile-stride`` the fit loop fences
+every Nth step into host / dispatch / device timers and snapshots device
+memory after its first step.
 """
 
 from __future__ import annotations
@@ -55,6 +62,13 @@ from ..data.pipeline import TokenizedSplit, batch_iterator, pad_split_to_batch
 from ..device import resolve_device
 from ..models.convert import params_from_jax, params_to_jax
 from ..models.distilbert import build_trainable_params, init_params, model_skeleton
+from ..obs.profile import (
+    default_ledger,
+    maybe_step_profiler,
+    note_memory,
+    profiled_step_iter,
+    shape_signature,
+)
 from ..ops.metrics import (
     BinaryCounts,
     ClassCounts,
@@ -208,6 +222,16 @@ class Trainer:
         # FedProx anchor (prox_mu > 0): copies of the trainable leaves at
         # the round's start.
         self._prox_anchor: dict[str, torch.Tensor] | None = None
+        # Dispatch ledger (obs/profile.py): the first step of each batch
+        # shape is noted, with its wall seconds.
+        ledger = default_ledger()
+        self._timed_step = ledger.timed("engine.train_step", self._train_step, signature=shape_signature)
+        self._timed_eval = ledger.timed(
+            "engine.eval_step", self._eval_batch, signature=lambda params, ids, *a: tuple(ids.shape)
+        )
+        # Step-time attribution: None unless profiling is armed
+        # process-wide (--profile-stride); re-checked at fit time.
+        self.step_profiler = maybe_step_profiler("train")
 
     # ------------------------------------------------------------ state
     def init_state(self, seed: int | None = None, params=None) -> TrainState:
@@ -235,9 +259,16 @@ class Trainer:
     # ------------------------------------------------------------ steps
     def _batch(self, batch: dict) -> tuple[torch.Tensor, ...]:
         return tuple(
-            torch.from_numpy(np.ascontiguousarray(batch[k])).to(self.device)
+            batch[k].to(self.device) if isinstance(batch[k], torch.Tensor)
+            else torch.from_numpy(np.ascontiguousarray(batch[k])).to(self.device)
             for k in ("input_ids", "attention_mask", "labels")
         )
+
+    def place_batch(self, batch: dict) -> dict[str, torch.Tensor]:
+        """A host batch's ``input_ids``/``attention_mask``/``labels`` on the
+        training device (what :meth:`train_step` does first); a placed
+        batch goes through :meth:`train_step` without another copy."""
+        return dict(zip(("input_ids", "attention_mask", "labels"), self._batch(batch)))
 
     def _logits(self, params, ids, mask, *, generator=None) -> torch.Tensor:
         return functional_call(
@@ -257,6 +288,9 @@ class Trainer:
         place) and the batch's loss as a device scalar. With ``anchor``
         (FedProx) the loss adds ``0.5 · prox_mu · ||params - anchor||²``
         over the trainable leaves."""
+        return self._timed_step(state, batch, anchor)
+
+    def _train_step(self, state: TrainState, batch: dict, anchor=None) -> tuple[TrainState, torch.Tensor]:
         ids, mask, labels = self._batch(batch)
         names = list(state.opt_state.mu)
         logits = self._logits(state.params, ids, mask, generator=state.generator)
@@ -325,6 +359,23 @@ class Trainer:
             lambda: self._epoch_iterator(split, epoch, batch_size),
         )
 
+    def _armed_profiler(self):
+        """The fit loop's step profiler: the one built at construction, or
+        a late arm when the CLI installed the stride afterwards, with a
+        fresh reporting window either way. None = profiling off."""
+        prof = self.step_profiler
+        if prof is None:
+            prof = self.step_profiler = maybe_step_profiler("train")
+        if prof is not None:
+            prof.begin_window()
+        return prof
+
+    def step_profile_attrs(self) -> dict:
+        """The last fit's sampled step attrs (``step_*_ms_p50/p95``) for
+        the client-local span; {} when profiling is off."""
+        prof = self.step_profiler
+        return prof.span_attrs() if prof is not None else {}
+
     def _round_anchor(self, state: TrainState) -> dict[str, torch.Tensor]:
         """The FedProx anchor of this fit: the last adopted aggregate, or
         (before any round) a copy of the fit-entry params, where the
@@ -352,10 +403,27 @@ class Trainer:
         log_every = self.train_cfg.log_every
         epoch_losses: list[float] = []
         steps, samples, t0 = 0, 0, time.perf_counter()
+        prof = self._armed_profiler()
+        first_memory = prof is not None
+        last_loss = None  # carried ACROSS epochs: the drain fence's target
         for epoch in range(epoch_offset, epoch_offset + epochs):
             losses: list[torch.Tensor] = []
-            for batch in self.epoch_batches(split, epoch, batch_size):
-                state, loss = self.train_step(state, batch, anchor)
+            for batch, sampled in profiled_step_iter(prof, self.epoch_batches(split, epoch, batch_size)):
+                if sampled:
+                    # Fenced sampled step: drain the queue so the
+                    # measurement is this step's own device work, then
+                    # split dispatch from device-execute.
+                    prof.drain(last_loss)
+                    td = prof.clock()
+                    state, loss = self.train_step(state, batch, anchor)
+                    prof.note_dispatch(prof.clock() - td)
+                    prof.fence(loss)
+                else:
+                    state, loss = self.train_step(state, batch, anchor)
+                last_loss = loss
+                if first_memory:
+                    first_memory = False
+                    note_memory("post-first-step")
                 losses.append(loss)
                 steps += 1
                 samples += len(batch["labels"])
@@ -398,7 +466,7 @@ class Trainer:
                 "labels": padded.labels[sl],
             })
             v = torch.from_numpy(valid[sl]).to(self.device)
-            counts, probs = eval_counts(self._logits(params, ids, mask), labels, v)
+            counts, probs = self._timed_eval(params, ids, mask, labels, v)
             totals = counts if totals is None else totals + counts
             probs_dev.append(probs)
         if totals is None:
@@ -412,6 +480,9 @@ class Trainer:
         metrics["probs"] = all_probs[valid == 1] if probs_dev else all_probs
         metrics["labels"] = split.labels.copy()
         return metrics
+
+    def _eval_batch(self, params, ids, mask, labels, valid) -> tuple[BinaryCounts | ClassCounts, torch.Tensor]:
+        return eval_counts(self._logits(params, ids, mask), labels, valid)
 
     def evaluate_state(self, state: TrainState, split: TokenizedSplit, **kw: Any) -> dict:
         """Metrics of the live training state."""

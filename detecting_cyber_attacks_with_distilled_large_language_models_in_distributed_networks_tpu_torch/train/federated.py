@@ -1,6 +1,6 @@
 """Single-process N-client federated training (the port of the JAX
-package's ``train/federated.py``, without its mesh, multi-host, FSDP,
-profiler and tracer parts).
+package's ``train/federated.py``, without its mesh, multi-host and FSDP
+parts).
 
 Replaces the reference's process topology (client1.py + client2.py +
 server.py: N scripts, a threaded TCP server, pickled state dicts) with
@@ -16,6 +16,14 @@ one process on one card:
 * per-client local-vs-aggregated evaluation in the reference's order
   (train -> local eval -> aggregate -> aggregated eval,
   client1.py:379-404), over one stacked sweep.
+
+Observability as in the JAX trainer: each ``fit_local`` writes one
+``client-local`` span (with the sampled step attrs under
+``--profile-stride``) and each aggregation an ``agg`` span, to
+``self.tracer`` or else the global tracer; the dispatch ledger notes the
+first lockstep step of each shape (``fed.train_step``, ragged
+``fed.ragged_step``) and eval step (``fed.eval_step``); device memory is
+snapshotted after the first step and at every aggregation.
 
 Rounds are a loop, with a fresh client Adam each round when
 ``fed.reset_optimizer_each_round`` (every reference re-launch builds a
@@ -38,6 +46,7 @@ from ..config import ExperimentConfig
 from ..data.pipeline import StackedClients, TokenizedSplit
 from ..device import resolve_device
 from ..models.distilbert import build_trainable_params, init_params, model_skeleton
+from ..obs.profile import default_ledger, maybe_step_profiler, note_memory, profiled_step_iter
 from ..parallel.dp import noise_seed, round_generator
 from ..parallel.fedavg import make_server_optimizer, stack_params
 from .batches import federated_batches, federated_batches_ragged
@@ -83,6 +92,24 @@ class FederatedTrainer:
         # DP noise seed (fed.dp_seed, else fresh OS entropy): drawn once
         # a run, mixed with the round index for each round's generator.
         self._dp_seed = noise_seed(cfg.fed.dp_seed) if cfg.fed.dp_clip > 0.0 else None
+        # Observability (obs/trace.py): set by the CLI (or any caller) to
+        # emit per-round client-local/agg spans; None falls back to the
+        # global tracer.
+        self.tracer = None
+        # Step-time attribution: None unless profiling is armed
+        # process-wide; re-checked at fit time.
+        self.step_profiler = maybe_step_profiler("train")
+        # Dispatch ledger: the first lockstep step of each [C, B, L]
+        # shape, dense and ragged apart, as the JAX trainer's sites.
+        ledger = default_ledger()
+
+        def fed_signature(trainer, state, batch, anchor=None) -> tuple:
+            return tuple(int(d) for d in batch["input_ids"].shape)
+
+        self._timed_steps = {
+            site: ledger.timed(site, train_step, signature=fed_signature)
+            for site in ("fed.train_step", "fed.ragged_step")
+        }
 
     # One client's rows through the meta-device skeleton, as the
     # single-client engine runs its state.
@@ -173,7 +200,19 @@ class FederatedTrainer:
     # ---------------------------------------------------------------- phases
     def train_step(self, state: FedState, batch: dict, anchor=None) -> tuple[torch.Tensor, np.ndarray]:
         """One lockstep step (:func:`.fedsteps.train_step`)."""
-        return train_step(self, state, batch, anchor)
+        site = "fed.ragged_step" if "valid" in batch else "fed.train_step"
+        return self._timed_steps[site](self, state, batch, anchor)
+
+    def _armed_profiler(self):
+        """The fit loop's step profiler: the one built at construction, or
+        a late arm when the CLI installed the stride afterwards, with a
+        fresh reporting window either way. None = profiling off."""
+        prof = self.step_profiler
+        if prof is None:
+            prof = self.step_profiler = maybe_step_profiler("train")
+        if prof is not None:
+            prof.begin_window()
+        return prof
 
     def fit_local(
         self,
@@ -191,7 +230,32 @@ class FederatedTrainer:
         epoch (the final short batch included), idle clients gated off,
         and a client's epoch loss averages its own batches. A plain
         ``[C, N, ...]`` :class:`TokenizedSplit` takes the dense path
-        (``N // bs`` full batches for everyone)."""
+        (``N // bs`` full batches for everyone).
+
+        Writes one ``client-local`` span per call, its round derived from
+        ``epoch_offset`` (the loops pass ``round * epochs_per_round``)."""
+        prof = self._armed_profiler()
+        t_unix = time.time()
+        t0 = time.monotonic()
+        out = self._fit_local_impl(state, stacked_train, epochs=epochs, epoch_offset=epoch_offset, prof=prof)
+        self._trace_phase(
+            "client-local",
+            t_unix,
+            time.monotonic() - t0,
+            epoch_offset // max(self.cfg.train.epochs_per_round, 1),
+            **(prof.span_attrs() if prof is not None else {}),
+        )
+        return out
+
+    def _fit_local_impl(
+        self,
+        state: FedState,
+        stacked_train: TokenizedSplit | StackedClients,
+        *,
+        epochs: int | None,
+        epoch_offset: int,
+        prof,
+    ) -> tuple[FedState, np.ndarray]:
         bs = self.cfg.data.batch_size
         E = self.cfg.train.epochs_per_round if epochs is None else epochs
         ragged = isinstance(stacked_train, StackedClients)
@@ -213,6 +277,8 @@ class FederatedTrainer:
             # FedProx: the round-start params, a copy the steps never touch.
             anchor = {n: p.detach().clone() for n, p in state.params.items()}
         out = []
+        first_memory = prof is not None
+        last_loss = None
         for epoch in range(epoch_offset, epoch_offset + E):
             if ragged:
                 batches = federated_batches_ragged(
@@ -221,8 +287,19 @@ class FederatedTrainer:
             else:
                 batches = federated_batches(stacked_train, bs, seed=self.cfg.train.seed, epoch=epoch)
             losses, had = [], []
-            for batch in batches:
-                loss, has = self.train_step(state, batch, anchor)
+            for batch, sampled in profiled_step_iter(prof, batches):
+                if sampled:
+                    prof.drain(last_loss)
+                    td = prof.clock()
+                    loss, has = self.train_step(state, batch, anchor)
+                    prof.note_dispatch(prof.clock() - td)
+                    prof.fence(loss)
+                else:
+                    loss, has = self.train_step(state, batch, anchor)
+                last_loss = loss
+                if first_memory:
+                    first_memory = False
+                    note_memory("post-first-step")
                 losses.append(loss)
                 had.append(has)
             if ragged:
@@ -312,7 +389,9 @@ class FederatedTrainer:
                 "cohort (no sampled client holds data); aggregation skipped"
             )
             return state
-        return self.aggregate(
+        t_unix = time.time()
+        t0 = time.monotonic()
+        state = self.aggregate(
             state,
             weights=weights,
             client_mask=mask,
@@ -320,6 +399,9 @@ class FederatedTrainer:
             round_index=round_index,
             enforce_min_fraction=not poisson,
         )
+        self._trace_phase("agg", t_unix, time.monotonic() - t0, round_index)
+        note_memory("post-aggregate")
+        return state
 
     def aggregate(
         self,
@@ -368,6 +450,29 @@ class FederatedTrainer:
                     "zero train rows; excluding them from the uniform mean"
                 )
         return weights, base_mask
+
+    # ------------------------------------------------------- observability
+    def _trace_attrs(self) -> dict:
+        """Span attributes naming this trainer's path (the JAX package's
+        two-axis federated trainer's)."""
+        return {"path": "fed2", "clients": self.C}
+
+    def _obs_tracer(self):
+        from ..obs.trace import get_global_tracer
+
+        return self.tracer if self.tracer is not None else get_global_tracer()
+
+    def _trace_phase(self, name: str, t_start: float, dur_s: float, round_index: int, **extra: Any) -> None:
+        tracer = self._obs_tracer()
+        if tracer is not None:
+            tracer.record(
+                name,
+                t_start=t_start,
+                dur_s=dur_s,
+                round=round_index,
+                **self._trace_attrs(),
+                **extra,
+            )
 
     # ------------------------------------------------------------------- run
     def _sync(self) -> None:

@@ -64,8 +64,14 @@ def evaluate_stacked(
     one sweep of :func:`.fedsteps.eval_step` over a prepared stack; with
     ``collect_probs`` also each client's scores and labels of its valid
     rows, in split order."""
+    from ..obs.profile import default_ledger
     from .fedsteps import eval_step
 
+    # Dispatch ledger: the first eval step of each [C, B, L] shape.
+    step = default_ledger().timed(
+        "fed.eval_step", eval_step,
+        signature=lambda trainer, params, batch, valid: tuple(int(d) for d in batch["input_ids"].shape),
+    )
     stacked, valid, bs = prepared.stacked, prepared.valid, prepared.batch_size
     C = trainer.C
     M = stacked.labels.shape[1]
@@ -79,7 +85,7 @@ def evaluate_stacked(
             "attention_mask": stacked.attention_mask[:, sl],
             "labels": stacked.labels[:, sl],
         }
-        for c, res in enumerate(eval_step(trainer, stacked_params, batch, valid[:, sl])):
+        for c, res in enumerate(step(trainer, stacked_params, batch, valid[:, sl])):
             if res is None:
                 continue
             counts, p = res

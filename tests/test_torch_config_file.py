@@ -1,6 +1,6 @@
 """``export-config`` and ``--config`` resolution held against the JAX
 package's, for the sections the port models (model, data, train, fed,
-distill and the two paths), under every flag the resolution takes:
+distill, obs and the two paths), under every flag the resolution takes:
 ``--config`` (a file of either package), ``--gelu``, ``--warmup-steps``,
 ``--attention-dropout`` (an explicit 0 included) and the three-way
 ``--remat``/``--no-remat``; and ``from_checkpoint_dict``'s legacy gelu
@@ -25,7 +25,7 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     main as port_main,
 )
 
-PORT_SECTIONS = ("model", "data", "train", "fed", "distill", "output_dir", "checkpoint_dir")
+PORT_SECTIONS = ("model", "data", "train", "fed", "distill", "obs", "output_dir", "checkpoint_dir")
 
 
 def _export(main, argv, capsys):
@@ -82,6 +82,8 @@ def test_config_file_resolution_matches_jax(case, tmp_path, capsys):
         fed={"rounds": 4, "num_clients": 4},
         distill={"alpha": 0.2, "temperature": 3.0, "init_from_teacher": False},
         data={"batch_size": 8, "eval_batch_size": 8},
+        obs={"trace_jsonl": "t.jsonl", "metrics_port": 9100, "run_id": "r1", "trace_sample": 0.25,
+             "flight_dir": "fl", "flight_ring": 64, "profile_stride": 3},
     )
     if case == "jax_file":
         d = _export(jax_main, ["--preset", "tiny"], capsys)
@@ -100,6 +102,7 @@ def test_config_file_resolution_matches_jax(case, tmp_path, capsys):
     for key in PORT_SECTIONS:
         assert port_d[key] == jax_d[key], key
     assert port_d["train"]["grad_accum_steps"] == 3 and port_d["distill"]["alpha"] == 0.2
+    assert port_d["obs"]["profile_stride"] == 3 and port_d["obs"]["trace_sample"] == 0.25
     assert port_d["model"]["remat"] is (case != "file_remat_then_no_remat")
     # What the port wrote, the JAX package reads as the same config.
     back = pcfg.ExperimentConfig.from_dict(port_d)
@@ -130,3 +133,21 @@ def test_distill_config_validation_matches_jax():
         assert str(pe.value) == str(je.value)
     with pytest.raises(ValueError, match="unknown distill config keys"):
         pcfg.ExperimentConfig.from_dict({"distill": {"bogus": 1}})
+
+
+def test_obs_config_matches_jax():
+    """The port's ``ObsConfig`` is the JAX package's, field for field and
+    check for check."""
+    assert dataclasses.asdict(pcfg.ObsConfig()) == dataclasses.asdict(jcfg.ObsConfig())
+    for kw in (
+        dict(metrics_port=70000), dict(trace_sample=0.0), dict(trace_sample=1.5), dict(flight_ring=0),
+        dict(profile_stride=-1), dict(snapshot_max_mb=0.0), dict(sentinel_interval_s=0.0),
+        dict(sentinel_ring_records=4), dict(sentinel_regression_ratio=1.0),
+    ):
+        with pytest.raises(ValueError) as pe:
+            pcfg.ObsConfig(**kw)
+        with pytest.raises(ValueError) as je:
+            jcfg.ObsConfig(**kw)
+        assert str(pe.value) == str(je.value)
+    with pytest.raises(ValueError, match="unknown obs config keys"):
+        pcfg.ExperimentConfig.from_dict({"obs": {"bogus": 1}})

@@ -511,13 +511,17 @@ def test_federated_cli_matches_the_jax_cli(tmp_path, monkeypatch):
 )
 def test_unported_federated_flags_are_refused(flag, capsys):
     """Flags of unported features are unknown to argparse; the DP,
-    personalization and --stream flags are ported and parse to the JAX
-    package's values."""
+    personalization, --stream and obs (--trace-jsonl, --metrics-jsonl,
+    --profile-dir) flags are ported and parse to the JAX package's
+    values."""
     from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu.cli import (
         build_parser as jax_parser,
     )
 
-    if flag[0] in ("--personalize-epochs", "--personalize-scope", "--dp-clip", "--dp-noise-multiplier", "--stream"):
+    if flag[0] in (
+        "--personalize-epochs", "--personalize-scope", "--dp-clip", "--dp-noise-multiplier", "--stream",
+        "--trace-jsonl", "--metrics-jsonl", "--profile-dir",
+    ):
         argv = ["federated", *flag]
         if flag[0] == "--dp-noise-multiplier":
             argv += ["--dp-clip", "1.0"]

@@ -9,10 +9,12 @@
 * Entry points run on the card unless the caller asks for the CPU: with
   no CUDA they raise instead of falling back.
 * The static checker still resolves its path-suffix rules inside the JAX
-  package (the port's name sorts after it); a directory rule also covers
-  the port's copy of that directory (``strategies/``), which passes it;
-  the port's only checker pragmas are the reasoned ones on its copies of
-  the wire magics, and every copied magic carries one.
+  package (the port's name sorts after it), the obs vocabulary's
+  ``obs/trace.py`` among them; a directory rule also covers the port's
+  copy of that directory (``strategies/``), which passes it; the port's
+  only checker pragmas are the reasoned ones on its copies of the wire
+  magics (every copied magic carries one) and on its registrations of the
+  JAX package's metric families, in the modules that register twins.
 """
 
 import ast
@@ -154,15 +156,30 @@ def test_checker_suffixes_resolve_inside_the_jax_package():
         else:
             m = project.module(suffix)
             assert m is not None and m.rel.startswith(JAX_PKG + "/"), suffix
+    # The span vocabulary is read from the JAX package's obs/trace.py,
+    # though the port has its own copy of the file.
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu.analysis import (
+        obs_rules,
+    )
+
+    assert os.path.isfile(os.path.join(REPO_ROOT, PORT_PKG, obs_rules.TRACE_REL))
+    assert project.module(obs_rules.TRACE_REL).rel == f"{JAX_PKG}/{obs_rules.TRACE_REL}"
+
+
+#: The port modules that register the JAX package's metric families.
+METRIC_TWIN_MODULES = ("comm/client.py", "comm/server.py", "obs/profile.py", "serving/server.py")
 
 
 def test_only_pragmas_are_the_wire_magic_copies():
-    seen = []
+    seen, twins = [], []
     for path in _port_files():
         rel = os.path.relpath(path, REPO_ROOT)
         with open(path) as f:
             for line in f:
-                if "fedtpu: allow(" in line:
+                if "fedtpu: allow(obs-metric-once): the JAX package's " in line:
+                    twins.append(rel)
+                    assert line.lstrip().startswith("# fedtpu: allow(obs-metric-once): "), line
+                elif "fedtpu: allow(" in line:
                     seen.append(rel)
                     assert "fedtpu: allow(wire-magic-coverage): " in line, line
                     assert line.split("= b\"")[1][:4].isupper(), line
@@ -170,6 +187,16 @@ def test_only_pragmas_are_the_wire_magic_copies():
         f"{PORT_PKG}/comm/framing.py",
         f"{PORT_PKG}/comm/wire.py",
     ]
+    # The metric-family pragmas sit in the twin modules only, each naming
+    # the JAX module that registers the same family.
+    assert sorted(set(twins)) == [f"{PORT_PKG}/{m}" for m in METRIC_TWIN_MODULES]
+    for path in _port_files():
+        rel = os.path.relpath(path, REPO_ROOT)
+        with open(path) as f:
+            text = f.read()
+        if rel in twins:
+            module = rel.split("/", 1)[1]
+            assert text.count(f"the JAX package's {module} family") == text.count("allow(obs-metric-once)"), rel
     # Every magic the port's wire copies carries the reasoned pragma.
     with open(os.path.join(REPO_ROOT, PORT_PKG, "comm", "wire.py")) as f:
         lines = [ln for ln in f if ln.startswith(tuple("ABCDEFGHIJKLMNOPQRSTUVWXYZ")) and '= b"' in ln]
