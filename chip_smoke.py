@@ -287,17 +287,56 @@ Phases; any failure exits non-zero before the last line is printed:
             row per reply with its prob, one ``serve-batch`` span per
             stride of 4 batches, one ledger signature per bucket and no
             recompile after the reload, no postmortem bundle;
-12. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
+12. control — the watched deployment loop, through the port's parser,
+            at full width: ``controller --num-clients 2 --rounds 2
+            --drift-jsonl --sentinel-jsonl --max-interval 900
+            --gate-min-delta 100 --round-deadline 600 --slo-alerts-jsonl
+            --metrics-port --trace-jsonl`` on the card (the fold K4, the
+            gate K1 at rate 0 on the pooled validation rows) with two
+            ``client``s of phase 8's cell, and ``infer-serve
+            --registry-dir --reload-poll 0.2 --metrics-port
+            --metrics-jsonl --scored-jsonl`` from round 0's promotion on.
+            (b) ``obs watch --slo`` over the controller from the start,
+            with a 1 s round-duration objective: one fire after round 0,
+            and round 1's record says ``slo_tightened`` (its straggler
+            deadline halved); ``obs health --json`` over both daemons:
+            exit 0, both up,
+            ``fedtpu-health-v1``; then ``obs health --slo`` with a 1 ms
+            queue-wait objective, ``--alerts-jsonl --alert-cmd``, 80 flows
+            sent between its polls: exit 1, exactly one
+            ``fedtpu-alert-v1`` fire, one ``--alert-cmd`` run. (c) ``obs
+            sentinel --canaries tests/data/canary_flows.jsonl
+            --canary-preset cicids2017 --registry-dir --ring-jsonl`` with
+            its journal tail (``--scored-jsonl --labels-journal
+            --reference-error 0.05 --verdicts-jsonl``): 3 ticks at round
+            0's artifact, then delayed labels that every served flow was
+            misjudged, whose verdict the controller's sentinel link turns
+            into round 1; 3 ticks after the scorer followed round 1's
+            promotion: no incident, no canary score moving at a fixed
+            artifact, the canary latency histogram counting canaries x
+            ticks. (a) The state file reads bootstrap, the error-rate
+            drift trigger, round 1 by drift; each promoted artifact is
+            bit-equal to numpy's fp32 fold of the two uploads, its id the
+            content address of that fold, its gate metrics equal to
+            ``Trainer.evaluate`` of it again on the card, its
+            ``eval_hist`` the histogram of the gate's probs; the gate
+            launched K1 6 x ceil(val rows / 16) times a round, K4 102 a
+            round; the scorer's replies name round 1 after it. Prints the
+            cycle split (round wall, gate eval, registry add, promote),
+            the promotion latency, the canary p50/p99, each tick's
+            buckets and the hub's scrape lag;
+13. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
    serving shape and dropout at the training shape, then K2, K3 and K4;
    K1's rate-0 launches count phase 5, phase 6's evaluation, the
    lifecycle's predict and reload serving, the federated phase's
    evaluations, predicts and serving, the train-options, distill,
    migrate, privacy, dp-rounds and stream phases, the rounds phase's
-   evaluations, the serving phase and the obs phase; K1 with dropout,
-   K2 and K3 count phase 6, the federated, train-options, distill,
-   migrate, privacy, dp-rounds, stream and rounds phases, the serving
-   phase's ``local`` and the obs phase; K4 the migrate and dp-rounds
-   phases, phases 8 and 9 and the obs phase's round),
+   evaluations, the serving phase, the obs phase and the control
+   phase; K1 with dropout, K2 and K3 count phase 6, the federated,
+   train-options, distill, migrate, privacy, dp-rounds, stream and
+   rounds phases, the serving phase's ``local``, the obs phase and the
+   control phase's clients; K4 the migrate and dp-rounds phases, phases
+   8 and 9, the obs phase's round and the control phase's two rounds),
    then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -342,6 +381,9 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     build_server as build_round_server,
     run_client,
 )
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.control import (
+    build_controller,
+)
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.distill import (
     run_distill,
 )
@@ -366,6 +408,10 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     QUANT_CHUNK_ELEMS,
     dequantize_int8c,
     quantize_int8c,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.obs import (
+    build_hub,
+    build_sentinel,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.serving import (
     build_server,
@@ -420,6 +466,9 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.registry import (
     ModelRegistry,
 )
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.registry.store import (
+    artifact_id,
+)
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.serving import (
     AsyncScoringClient,
     ScoreEngine,
@@ -440,6 +489,9 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.engine import (
     Trainer,
     loss_fn,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.fedeval import (
+    reference_histogram,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.federated import (
     FederatedTrainer,
@@ -2910,6 +2962,311 @@ def obs_phase(seed: int, card: str) -> dict[str, int]:
     return total
 
 
+# ---------------------------------------------------------------- slice 13
+CANARIES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "canary_flows.jsonl")
+CONTROL_FLOWS = 80  # served between the SLO check's two polls, then labelled
+CONTROL_CLIENT_ARGS = ["--preset", "distilbert", "--attention-impl", "flash", "--synthetic", "2400",
+                       "--epochs", "1", "--rounds", "2", "--timeout", "600"]
+# "99% of requests wait <= 1 ms in the scorer's queue": the micro-batcher's
+# 5 ms gather window breaches it on any traffic.
+CONTROL_SLO = [{"name": "scoring-queue-1ms", "metric": "fedtpu_serve_queue_wait_seconds", "kind": "latency",
+                "le": 0.001, "objective": 0.99, "windows": [[600.0, 1.0], [60.0, 1.0]]}]
+# "90% of rounds close within 1 s": round 0 (two clients' start-up,
+# training and a 172 MB exchange each way) breaches it, and the
+# controller's actuator halves round 1's straggler deadline.
+ROUND_SLO = [{"name": "round-duration", "metric": "fedtpu_server_round_seconds", "kind": "latency", "le": 1.0,
+              "objective": 0.9, "windows": [[600.0, 1.0], [60.0, 1.0]]}]
+
+
+def wait_for(cond, seconds: float, what: str) -> None:
+    deadline = time.monotonic() + seconds
+    while not cond():
+        check(time.monotonic() < deadline, f"timed out after {seconds:.0f} s waiting for {what}")
+        time.sleep(0.05)
+
+
+def cli_json(argv: list[str]) -> tuple[int, str]:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    return rc, out.getvalue()
+
+
+def round_mean(uploads: list[dict]) -> dict[str, np.ndarray]:
+    """The unweighted round's mean by :func:`numpy_fold`, leaf by leaf, in
+    client order."""
+    flats = [wire.flatten_params(u) for u in uploads]
+    w = np.full(len(flats), 1.0 / len(flats))
+    return {key: numpy_fold([np.asarray(f[key], np.float32) for f in flats], w) for key in flats[0]}
+
+
+def control_phase(seed: int, card: str) -> dict[str, int]:
+    """Phase 12: the watched deployment loop on the card. ``controller``
+    with two ``client``s of the train cell for two rounds, ``infer-serve``
+    following the registry, ``obs health`` over both daemons, and ``obs
+    sentinel``'s canaries and journal tail, whose supervised-drift verdict
+    starts the second round. Returns each kernel's launches during it."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        p = {n: os.path.join(work, n) for n in (
+            "ctl-spans.jsonl", "serve-metrics.jsonl", "scored.jsonl", "labels.jsonl", "verdicts.jsonl",
+            "alerts.jsonl", "paged.jsonl", "ring.jsonl", "sentinel-spans.jsonl", "slo.json", "round-slo.json",
+            "round-alerts.jsonl")}
+        for name, slo in (("slo.json", CONTROL_SLO), ("round-slo.json", ROUND_SLO)):
+            with open(p[name], "w") as f:
+                json.dump(slo, f)
+        reg = os.path.join(work, "registry")
+        cport, sport = free_port(), free_port()
+        run = build_controller(build_parser().parse_args([
+            "controller", "--host", "127.0.0.1", "--port", "0", "--num-clients", "2", "--rounds", "2",
+            "--registry-dir", reg, "--drift-jsonl", p["serve-metrics.jsonl"], "--sentinel-jsonl", p["verdicts.jsonl"],
+            # The clock stays the fallback; random weights give no accuracy
+            # order, so the gate passes any finite candidate.
+            "--max-interval", "900", "--gate-min-delta", "100", "--metrics-port", str(cport),
+            "--round-deadline", "600", "--slo-alerts-jsonl", p["round-alerts.jsonl"],
+            "--trace-jsonl", p["ctl-spans.jsonl"], "--timeout", "600", "--seed", str(seed),
+            *CONTROL_CLIENT_ARGS[:6], "--device", "cuda",
+        ]))
+        ctl, eval_bs = run.controller, run.cfg.data.eval_batch_size
+        check(run.trainer.device.type == "cuda" and run.server.device.type == "cuda",
+              f"gate on {run.trainer.device}, fold on {run.server.device}")
+        mcfg = run.cfg.model
+        check((mcfg.dim, mcfg.n_layers, mcfg.attention_impl, mcfg.compute_dtype) == (768, 6, "flash", "bfloat16"),
+              f"not full width: {mcfg}")
+        # Measurement wrappers: the gate's seconds and its K1 launches (the
+        # controller thread's own), the registry add's seconds.
+        tally, gates, split = threading.local(), [], collections.defaultdict(list)
+        launch, eval_fn, add = flash_mod._launch_fwd, ctl.eval_fn, ctl.registry.add
+
+        def counted_launch(q, k, v, bias, seed_words, rate):
+            out = launch(q, k, v, bias, seed_words, rate)
+            if rate == 0.0:
+                tally.k1 = getattr(tally, "k1", 0) + 1
+            return out
+
+        def timed_eval(params):
+            t0, k0 = time.perf_counter(), getattr(tally, "k1", 0)
+            m = eval_fn(params)
+            torch.cuda.synchronize()
+            split["gate eval"].append(time.perf_counter() - t0)
+            gates.append((m, getattr(tally, "k1", 0) - k0))
+            return m
+
+        def timed_add(*a, **kw):
+            t0 = time.perf_counter()
+            aid = add(*a, **kw)
+            split["registry add"].append(time.perf_counter() - t0)
+            return aid
+
+        ctl.eval_fn, ctl.registry.add = timed_eval, timed_add
+        results: dict[int, dict] = {}
+        errors: list[BaseException] = []
+
+        def controller() -> None:
+            try:
+                with run.server:
+                    ctl.run(max_rounds=2)
+            except BaseException as e:  # re-raised below, after the join
+                errors.append(e)
+
+        def client(i: int) -> None:
+            try:
+                results[i] = run_client(build_parser().parse_args(
+                    ["client", "--client-id", str(i), "--host", "127.0.0.1", "--port", str(run.server.port),
+                     *CONTROL_CLIENT_ARGS, "--seed", str(seed), "--output-dir", os.path.join(work, "clients")]
+                ))
+            except BaseException as e:
+                errors.append(e)
+
+        # The health plane over the controller from before round 0: the
+        # round-duration objective fires once round 0 has closed.
+        hub = build_hub(build_parser().parse_args([
+            "obs", "watch", "--target", f"controller=127.0.0.1:{cport}", "--slo", p["round-slo.json"],
+            "--alerts-jsonl", p["round-alerts.jsonl"],
+        ]))
+        hub_deadline = time.monotonic() + 900
+        watcher = threading.Thread(target=hub.watch, kwargs=dict(
+            interval_s=0.5, out=io.StringIO(),
+            stop=lambda: os.path.exists(p["round-alerts.jsonl"]) or errors or time.monotonic() > hub_deadline,
+        ))
+        zero_with_fold()
+        flash_mod._launch_fwd = counted_launch
+        threads = [threading.Thread(target=controller)] + [threading.Thread(target=client, args=(i,)) for i in range(2)]
+        try:
+            watcher.start()
+            for t in threads:
+                t.start()
+            registry = ModelRegistry(reg)
+            wait_for(lambda: registry.serving_info() is not None or errors, 900, "round 0's promotion")
+            if errors:
+                raise errors[0]
+            a0 = registry.serving_info()["artifact"]
+            server = build_server(build_parser().parse_args(serve_args(
+                "--registry-dir", reg, "--reload-poll", "0.2", "--metrics-port", str(sport),
+                "--metrics-jsonl", p["serve-metrics.jsonl"], "--scored-jsonl", p["scored.jsonl"],
+            )))
+            with server:
+                check(server.engine.device.type == "cuda", f"engine on {server.engine.device}")
+                # (b) the hub over the two daemons, then an objective the
+                # traffic between its polls breaches.
+                rc, out = cli_json(["obs", "health", "--json", "--interval", "0.5",
+                                    "--target", f"controller=127.0.0.1:{cport}",
+                                    "--target", f"infer-serve=127.0.0.1:{sport}"])
+                verdict = json.loads(out)
+                print(f"control (b): {card}: obs health exit {rc}: {verdict['targets_up']}/{verdict['targets']} up, "
+                      f"{len(verdict['slo_firing'])} firing, scrape lag {verdict['scrape_lag_ms']} ms", flush=True)
+                check(rc == 0 and verdict["schema"] == "fedtpu-health-v1" and verdict["healthy"]
+                      and verdict["targets_up"] == 2, f"obs health: exit {rc}, {verdict}")
+                texts = [flow_to_text(r) for r in flow_records(seed + 61, CONTROL_FLOWS)]
+                replies: list[dict] = []
+
+                def traffic() -> None:
+                    time.sleep(0.5)
+                    with ScoringClient("127.0.0.1", server.port, timeout=120) as c:
+                        replies.extend(c.score(text=t) for t in texts)
+
+                sender = threading.Thread(target=traffic)
+                sender.start()
+                rc2, screen = cli_json(["obs", "health", "--interval", "3", "--slo", p["slo.json"],
+                                        "--target", f"infer-serve=127.0.0.1:{sport}", "--alerts-jsonl", p["alerts.jsonl"],
+                                        "--alert-cmd", f"cat >> {p['paged.jsonl']}", "--alert-interval", "0"])
+                sender.join(timeout=120)
+                with open(p["alerts.jsonl"]) as f:
+                    alerts = [json.loads(line) for line in f]
+                wait_for(lambda: os.path.exists(p["paged.jsonl"]) and open(p["paged.jsonl"]).read().endswith("\n"),
+                         10, "the --alert-cmd run")
+                with open(p["paged.jsonl"]) as f:
+                    paged = [json.loads(line) for line in f]
+                print(f"control (b): --slo {CONTROL_SLO[0]['name']}: exit {rc2}, alerts "
+                      f"{[(a['event'], a['slo'], a['burn']) for a in alerts]}, --alert-cmd runs {len(paged)}", flush=True)
+                check(rc2 == 1 and "FIRING" in screen, f"obs health --slo: exit {rc2}")
+                check(len(alerts) == 1 and alerts[0]["schema"] == "fedtpu-alert-v1" and alerts[0]["event"] == "fire"
+                      and alerts[0]["slo"] == CONTROL_SLO[0]["name"], f"alerts {alerts}")
+                check(paged == alerts, f"--alert-cmd got {paged}")
+                check(len(replies) == CONTROL_FLOWS and {r["round"] for r in replies} == {0},
+                      f"infer-serve answered rounds {sorted({r['round'] for r in replies})} before round 1")
+                # (c) the sentinel: canaries at a fixed artifact, then the
+                # journal tail's verdict, which starts round 1.
+                sentinel = build_sentinel(build_parser().parse_args([
+                    "obs", "sentinel", "--canaries", CANARIES, "--canary-preset", "cicids2017",
+                    "--serve", f"127.0.0.1:{server.port}", "--registry-dir", reg, "--ring-jsonl", p["ring.jsonl"],
+                    "--trace-jsonl", p["sentinel-spans.jsonl"], "--scored-jsonl", p["scored.jsonl"],
+                    "--labels-journal", p["labels.jsonl"], "--reference-error", "0.05",
+                    "--verdicts-jsonl", p["verdicts.jsonl"],
+                ]))
+                probe, probed = sentinel.prober._probe_fn, []
+
+                def recording_probe(*a, **kw):
+                    rows = probe(*a, **kw)
+                    probed.append(rows)
+                    return rows
+
+                sentinel.prober._probe_fn = recording_probe
+                n_canaries = len(sentinel.prober.flows)
+                lat_before = registry_value("fedtpu_canary_latency_seconds")
+                reports = [sentinel.tick() for _ in range(3)]
+                with open(p["labels.jsonl"], "w") as f:  # delayed truth: every served flow was misjudged
+                    for r in replies:
+                        f.write(json.dumps({"schema": "fedtpu-label-v1", "rid": str(r["id"]),
+                                            "label": 1 - int(r["prediction"]), "ts": time.time()}) + "\n")
+                    f.write(json.dumps({"schema": "fedtpu-label-v1", "watermark": time.time()}) + "\n")
+                reports.append(sentinel.tick())
+                check(reports[-1]["drift"]["verdict"] is not None, f"no supervised-drift verdict: {reports[-1]['drift']}")
+                wait_for(lambda: (registry.serving_info() or {}).get("round") == 1 or errors, 900, "round 1's promotion")
+                if errors:
+                    raise errors[0]
+                with ScoringClient("127.0.0.1", server.port, timeout=120) as c:
+                    deadline = time.monotonic() + 120
+                    while c.score(text=texts[0])["round"] != 1:
+                        check(time.monotonic() < deadline, "the scorer never swapped to round 1")
+                        time.sleep(0.01)
+                    t_first = time.time()
+                    after = [c.score(text=t) for t in texts[:8]]
+                reports += [sentinel.tick() for _ in range(3)]
+            for t in threads:
+                t.join(timeout=900)
+            watcher.join(timeout=60)
+        finally:
+            flash_mod._launch_fwd = launch
+        check(not any(t.is_alive() for t in (*threads, watcher)), "controller, client or hub threads hung")
+        if errors:
+            raise errors[0]
+        launches = read_with_fold()
+        obs_mod.set_global_tracer(None)
+        obs_mod.set_profile_stride(0)
+
+        # (a) the campaign's records: bootstrap, the sentinel's verdict, round 1.
+        with open(os.path.join(reg, "controller_state.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        print(f"control (a): state records {[(e['event'], e.get('round'), e.get('trigger'), e.get('method')) for e in events]}",
+              flush=True)
+        check([(e["event"], e.get("round"), e.get("trigger")) for e in events] == [
+            ("promoted", 0, "bootstrap"), ("drift_trigger", None, None), ("promoted", 1, "drift")],
+            f"state records {events}")
+        check(events[1]["method"] == "error_rate" and events[1]["error"] == 1.0, f"drift trigger {events[1]}")
+        with open(p["round-alerts.jsonl"]) as f:
+            round_alerts = [json.loads(line) for line in f]
+        print(f"control (b): round-duration objective: {[(a['event'], a['burn']) for a in round_alerts]} after "
+              f"{hub.polls} polls; round 1's record slo_tightened {events[2].get('slo_tightened')}", flush=True)
+        check([a["event"] for a in round_alerts] == ["fire"] and events[2].get("slo_tightened") is True
+              and "slo_tightened" not in events[0], f"round-duration alerts {round_alerts}, records {events}")
+        spans = obs_mod.load_spans([p["ctl-spans.jsonl"]])
+        # The controller's promote span (shadow, then serving); the
+        # registry's own carry the state they moved to.
+        promote = {s["round"]: s for s in spans if s["span"] == "promote" and "state" not in s}
+        check(len(gates) == 2 and all(ev["artifact"] for ev in events[::2]), f"{len(gates)} gate evaluations")
+        k1_gate = mcfg.n_layers * -(-len(run.val.input_ids) // eval_bs)
+        for r, ev in ((0, events[0]), (1, events[2])):
+            m = registry.manifest(ev["artifact"])
+            params = registry.load_params(m["id"])
+            want = round_mean([results[i]["rounds"][r]["uploaded"] for i in range(2)])
+            bitexact = params.keys() == want.keys() and all(np.array_equal(params[k], want[k]) for k in want)
+            gate, gate_k1 = gates[r]
+            again = run.trainer.evaluate(wire.unflatten_params(params), run.val, batch_size=eval_bs)
+            scalars = {k: float(v) for k, v in again.items() if k in ("Accuracy", "Loss", "Precision", "Recall", "F1-Score")}
+            hist = reference_histogram(gate["probs"]).tolist()
+            print(f"control (a): {card}: round {r}: artifact {m['id']} bit-equal to numpy's fold of the uploads: "
+                  f"{bitexact}; gate {scalars} (re-evaluated on the card: equal {all(m['metrics'][k] == v for k, v in scalars.items())}); "
+                  f"eval_hist {m['eval_hist']}; gate K1 launches {gate_k1} (want {k1_gate}); cycle: round wall "
+                  f"{ev['round_wall_s']:.3f} s, gate eval {split['gate eval'][r]:.3f} s, registry add "
+                  f"{split['registry add'][r]:.3f} s, promote {promote[r]['dur_s']:.4f} s", flush=True)
+            check(bitexact and m["id"] == artifact_id(want), f"round {r}: artifact {m['id']} is not the fold of the uploads")
+            check(all(m["metrics"][k] == v for k, v in scalars.items()), f"round {r}: gate {m['metrics']} vs {scalars}")
+            check(m["eval_hist"] == hist and hist == reference_histogram(again["probs"]).tolist(),
+                  f"round {r}: eval_hist {m['eval_hist']} vs {hist}")
+            check(gate_k1 == k1_gate, f"round {r}: the gate launched K1 {gate_k1} times, want {k1_gate}")
+            check(m["parent"] == (None if r == 0 else events[0]["artifact"]), f"round {r}: parent {m['parent']}")
+        a1 = events[2]["artifact"]
+        t_promote = promote[1]["ts"] + promote[1]["dur_s"]
+        print(f"control (a): {card}: promotion latency (promote -> first reply of round 1) "
+              f"{t_first - t_promote:.3f} s; replies after it name rounds {sorted({r['round'] for r in after})}", flush=True)
+        check({r["round"] for r in after} == {1}, "infer-serve did not follow round 1's promotion")
+        check(launches["fold"] == 2 * 102, f"K4 launched {launches['fold']} times in two rounds, want 204")
+        steps = sum(results[i]["state"].step for i in range(2))
+        check(launches["flash_fwd_dropout"] == launches["flash_bwd_dkdv"] == launches["flash_bwd_dq"]
+              == mcfg.n_layers * steps, f"K1-dropout/K2/K3 launches {launches} for {steps} client steps")
+
+        # (c) the sentinel's ticks: a fixed artifact, then across round 1.
+        canary = [s for s in obs_mod.load_spans([p["sentinel-spans.jsonl"]]) if s["span"] == "canary-probe"]
+        incidents = [i for rep in reports for i in rep["canary"]["incidents"]]
+        buckets = [[reply.get("bucket") for reply, _ in rows] for rows in probed]
+        probs = [[reply["prob"] for reply, _ in rows] for rows in probed]
+        lat = sorted(s * 1e3 for rows in probed for _, s in rows)
+        n_lat = registry_value("fedtpu_canary_latency_seconds") - lat_before
+        print(f"control (c): {card}: {len(reports)} ticks over artifacts {[s['artifact'] for s in canary]}; "
+              f"buckets per tick {buckets}; incidents {incidents}; canary p50 {lat[len(lat) // 2]:.3f} ms, p99 "
+              f"{lat[max(0, int(len(lat) * 0.99) - 1)]:.3f} ms; latency histogram +{n_lat:.0f}", flush=True)
+        check([s["artifact"] for s in canary] == [a0] * 4 + [a1] * 3, "canary ticks' artifacts")
+        check(not incidents and all(s["mismatches"] == s["flips"] == 0 for s in canary), f"incidents {incidents}")
+        check(all(row == probs[0] for row in probs[:4]) and all(row == probs[4] for row in probs[4:]),
+              "a canary's score moved at a fixed artifact")
+        check(n_lat == n_canaries * len(reports), f"fedtpu_canary_latency_seconds +{n_lat}, want {n_canaries} x {len(reports)}")
+        check(reports[-1]["counters"] == {"canary_flips": 0, "drift_fires": 1, "regression_fires": 0},
+              f"sentinel counters {reports[-1]['counters']}")
+    print(f"control: launches {launches}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 # ---------------------------------------------------------------- slice 11
 def zero_launches() -> dict[str, int]:
     return {k: 0 for k in ("flash_fwd", "flash_fwd_dropout", "flash_bwd_dkdv", "flash_bwd_dq", "fold")}
@@ -3614,6 +3971,12 @@ def main() -> int:
     for row in (k1, k1_drop, k2, k3):
         row["launches"] += obs_launches[row["name"]]
     k4["launches"] += obs_launches["fold"]
+
+    phase("control")
+    control_launches = control_phase(seed, card)
+    for row in (k1, k1_drop, k2, k3):
+        row["launches"] += control_launches[row["name"]]
+    k4["launches"] += control_launches["fold"]
 
     print(json.dumps({"kernels": [k1, k1_drop, k2, k3, k4]}), flush=True)
     print(json.dumps({

@@ -3,19 +3,20 @@
 The verbs and flags mirror the JAX package's ``cli/parser.py``; the port
 has ``local`` (single-client training), ``federated`` (N clients in one
 process), ``serve`` and ``client`` (a federated round over TCP),
+``controller`` (the unattended round -> gate -> promote loop),
 ``distill`` (teacher -> student), ``predict`` (batch inference),
 ``infer-serve`` (online scoring with hot reload), ``export-hf`` (weights
 to the HF layout), ``export-config`` (the resolved config as JSON),
 ``registry`` (the model registry's operator commands) and ``obs``
-(timelines, Chrome export, span tailing, postmortems and the device
-profile) so far. Each that computes runs on the card unless ``--device
-cpu`` is given. The obs flags (``--trace-jsonl``, ``--metrics-jsonl``,
-``--profile-dir``, ``--profile-stride``, ``--metrics-port``,
-``--flight-dir``, ``--trace-sample``, ``--scored-jsonl``) are the JAX
-package's, on the same verbs. Flags of features the port has not reached
-(``--secure-agg``, ``--data-parallel``, ``--seq-parallel``) and the obs
-actions of the fleet read side (``health``, ``watch``, ``sentinel``) are
-absent, so argparse refuses them.
+(timelines, Chrome export, span tailing, fleet health, the sentinel,
+postmortems and the device profile) so far. Each that computes runs on
+the card unless ``--device cpu`` is given. The obs flags
+(``--trace-jsonl``, ``--metrics-jsonl``, ``--profile-dir``,
+``--profile-stride``, ``--metrics-port``, ``--flight-dir``,
+``--trace-sample``, ``--scored-jsonl``) are the JAX package's, on the
+same verbs. Flags of features the port has not reached (``--secure-agg``,
+``--data-parallel``, ``--seq-parallel``, the controller's shadow, label
+and error-drift gates) are absent, so argparse refuses them.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from ..data.datasets import DATASETS
 from ..models.presets import preset_names
 from .comm import cmd_client, cmd_serve
 from .common import resolve_config
-from .control import cmd_registry
+from .control import cmd_controller, cmd_registry
 from .distill import cmd_distill
 from .federated import cmd_federated
 from .local import cmd_local
@@ -246,7 +247,13 @@ def _add_obs_verb(sub) -> None:
         "path's zero-new-shape storm (--capture DIR wraps torch.profiler "
         "around the profiled steps).",
     )
-    p.add_argument("action", choices=["timeline", "export", "tail", "postmortem", "profile"])
+    p.add_argument(
+        "action",
+        choices=[
+            "timeline", "export", "tail", "health", "watch", "postmortem",
+            "profile", "sentinel",
+        ],
+    )
     p.add_argument(
         "--trace-dir",
         help="directory of span JSONLs (every *.jsonl is merged; tail "
@@ -280,18 +287,96 @@ def _add_obs_verb(sub) -> None:
         "--json",
         action="store_true",
         help="machine-readable JSON instead of the rendered output "
-        "(timeline/postmortem/profile)",
+        "(timeline/health/postmortem/profile; sentinel: one tick)",
     )
     p.add_argument("--out", help="output path (export)")
     p.add_argument(
+        "--target",
+        action="append",
+        metavar="TIER=HOST:PORT[,events=PATH]",
+        help="health/watch: a daemon's /metrics.json endpoint to scrape "
+        "(repeatable; TIER in serve|relay|controller|infer-serve|route|"
+        "fleet names the lane; events=PATH additionally tails that "
+        "process's span JSONL for drift/postmortem state)",
+    )
+    p.add_argument(
+        "--slo",
+        help="health/watch: JSON file of SLO objects (obs/slo.py SLO "
+        "fields) replacing the built-in fleet objectives",
+    )
+    p.add_argument(
+        "--alerts-jsonl",
+        help="health/watch: append burn-alert fire/clear events here "
+        "(one atomic JSON line each)",
+    )
+    p.add_argument(
+        "--snapshot-jsonl",
+        help="health/watch: append one merged fleet snapshot record "
+        "per poll here, keyed by (tier, instance)",
+    )
+    p.add_argument(
+        "--snapshot-max-mb",
+        type=float,
+        default=None,
+        help="health/watch/sentinel: bound the snapshot JSONL — past "
+        "this size the live file atomically rolls to <path>.1 and a "
+        "fresh generation starts (at most ~2x the cap on disk; "
+        "default: unbounded, the pre-existing behavior)",
+    )
+    p.add_argument(
+        "--watch",
+        action="store_true",
+        help="health: live-refresh loop instead of one pass (same as "
+        "the watch action)",
+    )
+    p.add_argument(
+        "--interval",
+        type=float,
+        default=None,
+        help="watch: seconds between scrape passes; health: spacing of "
+        "the one-shot pass's two polls — burn rates and cadence are "
+        "counter DELTAS, so one scrape has no baseline (default 2)",
+    )
+    p.add_argument(
+        "--scrape-timeout",
+        type=float,
+        default=None,
+        help="health/watch: per-target scrape timeout seconds "
+        "(default 2); a slower daemon is marked DOWN, never blocks "
+        "the screen",
+    )
+    p.add_argument(
+        "--trace-jsonl",
+        help="health/watch: append the hub's own slo-eval spans here",
+    )
+    p.add_argument(
         "--flight-dir",
         help="postmortem: the flight-recorder bundle directory the "
-        "daemons were started with (--flight-dir on serve/infer-serve)",
+        "daemons were started with (--flight-dir on serve/controller/"
+        "infer-serve); health/watch/sentinel: ALSO arm the hub's own "
+        "recorder there, so a page-severity SLO fire dumps a postmortem "
+        "bundle (the hub is the process that evaluates SLOs — daemon "
+        "recorders never learn of a page)",
     )
     p.add_argument(
         "--bundle",
         help="postmortem: inspect this bundle (name from the list, or "
         "a path) instead of listing",
+    )
+    p.add_argument(
+        "--alert-cmd",
+        help="health/watch: run this shell command once per page-"
+        "severity SLO fire, with the alert event JSON on stdin (the "
+        "notification fan-out next to --alerts-jsonl); rate-limited to "
+        "one spawn per --alert-interval, OSError-guarded — a broken "
+        "pager never kills the poll loop",
+    )
+    p.add_argument(
+        "--alert-interval",
+        type=float,
+        default=None,
+        help="health/watch: minimum seconds between --alert-cmd spawns "
+        "(default 30)",
     )
     p.add_argument(
         "--preset",
@@ -315,6 +400,118 @@ def _add_obs_verb(sub) -> None:
         metavar="DIR",
         help="profile: additionally wrap torch.profiler around the "
         "profiled steps and write a Chrome trace here",
+    )
+    p.add_argument(
+        "--canaries",
+        help="sentinel: canary-flows JSONL fixture (fedtpu-canary-v1 "
+        "lines: id, preset, label, text) scored through the live "
+        "serving chain every tick",
+    )
+    p.add_argument(
+        "--canary-preset",
+        default=None,
+        help="sentinel: only this preset's canaries from --canaries "
+        "(default: all)",
+    )
+    p.add_argument(
+        "--serve",
+        metavar="HOST:PORT",
+        help="sentinel: the scoring endpoint (router or replica) the "
+        "canary probes dial",
+    )
+    p.add_argument(
+        "--registry-dir",
+        help="sentinel: model registry root — canary replies must match "
+        "its promoted serving pointer (round + artifact identity)",
+    )
+    p.add_argument(
+        "--scored-jsonl",
+        help="sentinel: the serving tier's scored-request export "
+        "(fedtpu-scored-v1) to tail for the supervised-drift join",
+    )
+    p.add_argument(
+        "--labels-journal",
+        help="sentinel: the ground-truth labels journal "
+        "(fedtpu-label-v1) to tail against --scored-jsonl",
+    )
+    p.add_argument(
+        "--reference-error",
+        type=float,
+        default=None,
+        help="sentinel: the promoted model's reference error rate the "
+        "continuous supervised monitor compares against (required with "
+        "--scored-jsonl/--labels-journal)",
+    )
+    p.add_argument(
+        "--error-margin",
+        type=float,
+        default=None,
+        help="sentinel: supervised error margin over the reference "
+        "before a drift verdict fires (default 0.05)",
+    )
+    p.add_argument(
+        "--error-min-joined",
+        type=int,
+        default=None,
+        help="sentinel: joined flows required before a supervised "
+        "verdict may fire (default 64)",
+    )
+    p.add_argument(
+        "--verdicts-jsonl",
+        help="sentinel: append fired supervised-drift verdicts here — "
+        "the file the controller's --sentinel-jsonl tails for its "
+        "corrective-round poke",
+    )
+    p.add_argument(
+        "--ring-jsonl",
+        help="sentinel: the long-horizon retention ring's on-disk path "
+        "(downsampled per-tick rows; survives sentinel restarts)",
+    )
+    p.add_argument(
+        "--ring-records",
+        type=int,
+        default=None,
+        help="sentinel: ring rows retained (default 512)",
+    )
+    p.add_argument(
+        "--ring-stride",
+        type=int,
+        default=None,
+        help="sentinel: retain every Nth tick in the ring (default 1)",
+    )
+    p.add_argument(
+        "--baseline-n",
+        type=int,
+        default=None,
+        help="sentinel: ring rows pinned as the regression baseline "
+        "window (the first N retained; default 8)",
+    )
+    p.add_argument(
+        "--window-n",
+        type=int,
+        default=None,
+        help="sentinel: current-window rows a trend check averages "
+        "(default 8)",
+    )
+    p.add_argument(
+        "--regression-ratio",
+        type=float,
+        default=None,
+        help="sentinel: fire when a watched field's current-window mean "
+        "moves past baseline * ratio (default 1.5; round cadence fires "
+        "on the inverse drop)",
+    )
+    p.add_argument(
+        "--trend-field",
+        action="append",
+        default=None,
+        metavar="NAME[:direction]",
+        help="sentinel: ALSO run the retention-ring trend check on this "
+        "per-deployment field (repeatable). The value is read from the "
+        "scraped targets' metric snapshots (max across targets, like "
+        "eject rate); direction up (default) fires on a rise past "
+        "baseline * ratio, down on the inverse drop. --regression-ratio "
+        "applies to these too",
     )
     _add_device(p, "the profiled steps run")
     p.set_defaults(fn=cmd_obs)
@@ -738,6 +935,183 @@ def build_parser() -> argparse.ArgumentParser:
         "live candidate/shadow artifacts are never pruned",
     )
     p.set_defaults(fn=cmd_registry)
+
+    p = sub.add_parser(
+        "controller",
+        help="control plane: continuous eval-gated federated rounds "
+        "(round -> gate -> promote -> serve -> drift-monitor loop)",
+        epilog="Set FEDTPU_SECRET to authenticate the round endpoint "
+        "(same contract as `serve`). The fold (K4) and the eval gate (K1 at "
+        "rate 0) run on the card unless --device cpu. Central DP is not "
+        "supported here: a DP server never holds the absolute params an "
+        "artifact needs. Secure aggregation and the shadow, label and "
+        "error-drift gates are not ported.",
+    )
+    _add_training(p)  # dataset/model flags resolve the held-out gate split; --device
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=12345)
+    p.add_argument("--num-clients", type=int, default=None)
+    p.add_argument("--min-clients", type=int, default=None)
+    p.add_argument("--timeout", type=float, default=300.0)
+    p.add_argument(
+        "--rounds",
+        type=int,
+        default=0,
+        help="stop after this many controller cycles (0 = run until "
+        "interrupted — the daemon shape)",
+    )
+    p.add_argument(
+        "--registry-dir",
+        required=True,
+        help="model registry root: every finished round writes an "
+        "immutable candidate artifact here; the serving pointer is the "
+        "file infer-serve --registry-dir follows",
+    )
+    p.add_argument(
+        "--state-jsonl",
+        default=None,
+        help="controller-state JSONL (default: "
+        "<registry-dir>/controller_state.jsonl); a restarted controller "
+        "replays it and resumes the campaign mid-way",
+    )
+    p.add_argument(
+        "--gate-metric",
+        default=None,
+        help="held-out metric the promotion gate compares (default "
+        "Accuracy; higher is better)",
+    )
+    p.add_argument(
+        "--gate-min-delta",
+        type=float,
+        default=None,
+        help="tolerated regression: candidate must score >= incumbent - "
+        "delta (default 0 = never promote a worse model)",
+    )
+    p.add_argument(
+        "--interval",
+        type=float,
+        default=None,
+        help="minimum seconds between round starts (fixed cadence when no "
+        "--drift-jsonl is given; default 0 = back-to-back)",
+    )
+    p.add_argument(
+        "--max-interval",
+        type=float,
+        default=None,
+        help="with --drift-jsonl: force a round after this many seconds "
+        "even when no drift fired (default: none — purely drift-driven)",
+    )
+    p.add_argument(
+        "--drift-jsonl",
+        help="serving metrics-JSONL to tail (infer-serve --metrics-jsonl "
+        "X): rounds trigger when the live score distribution shifts off "
+        "the promoted artifact's eval histogram",
+    )
+    p.add_argument(
+        "--drift-threshold",
+        type=float,
+        default=None,
+        help="drift distance that triggers a round (default 0.25 — the "
+        "classic PSI 'significant shift' bound)",
+    )
+    p.add_argument(
+        "--drift-min-scores",
+        type=int,
+        default=None,
+        help="minimum live scores before a drift verdict (default 256)",
+    )
+    p.add_argument(
+        "--drift-method",
+        choices=["psi", "ks"],
+        default=None,
+        help="distribution distance: psi (default) or ks",
+    )
+    p.add_argument(
+        "--round-deadline",
+        type=float,
+        default=None,
+        help="per-round straggler deadline in seconds handed to the round "
+        "engine (default: the server --timeout)",
+    )
+    p.add_argument(
+        "--metrics-port",
+        type=int,
+        default=0,
+        help="expose live counters (rounds, promotions, gate rejections, "
+        "round-phase seconds) at http://HOST:PORT/metrics in Prometheus "
+        "text format (0 = off, the default)",
+    )
+    p.add_argument(
+        "--stream-chunk-mb",
+        type=float,
+        default=None,
+        help="chunk-streamed upload advert for the embedded round engine "
+        "(see `serve --stream-chunk-mb`); 0 = barrier shape",
+    )
+    p.add_argument(
+        "--max-artifacts",
+        type=int,
+        default=None,
+        help="registry GC after every promotion/rejection: prune oldest "
+        "retired/rejected artifacts beyond this count (the serving "
+        "artifact and its rollback chain are never pruned); default: "
+        "keep everything",
+    )
+    p.add_argument(
+        "--adaptive-cadence",
+        action="store_true",
+        help="scale the inter-round interval between --interval and "
+        "--max-interval by each drift verdict's magnitude (barely over "
+        "threshold -> relaxed max; >= 2x threshold -> urgent min); the "
+        "chosen interval rides the drift-trigger span",
+    )
+    p.add_argument(
+        "--sentinel-jsonl",
+        help="tail this sentinel verdicts-JSONL (fedtpu obs sentinel "
+        "--verdicts-jsonl) and treat each new supervised-drift verdict "
+        "as a corrective-round trigger — the cross-process twin of "
+        "--error-drift (only verdicts appended AFTER startup count)",
+    )
+    p.add_argument(
+        "--drift-cohort",
+        action="store_true",
+        help="scale the corrective round's quorum by each drift "
+        "verdict's magnitude between --cohort-min-frac and "
+        "--cohort-max-frac of --min-clients (one round, then the base "
+        "quorum restores); the chosen quorum rides the drift-trigger "
+        "record",
+    )
+    p.add_argument(
+        "--cohort-min-frac",
+        type=float,
+        default=None,
+        help="quorum fraction at barely-over-threshold drift (default: "
+        "config control.cohort_min_frac = 0.5)",
+    )
+    p.add_argument(
+        "--cohort-max-frac",
+        type=float,
+        default=None,
+        help="quorum fraction at >= 2x-threshold drift (default: "
+        "config control.cohort_max_frac = 1.0)",
+    )
+    p.add_argument(
+        "--slo-alerts-jsonl",
+        help="tail the health plane's alerts-JSONL (fedtpu obs "
+        "health|watch --alerts-jsonl) and, while the round-duration "
+        "burn alert FIRES, tighten the straggler deadline by "
+        "--slo-deadline-factor until it clears",
+    )
+    p.add_argument(
+        "--slo-deadline-factor",
+        type=float,
+        default=None,
+        help="straggler-deadline multiplier applied while the "
+        "round-duration SLO fires (default: config "
+        "control.slo_deadline_factor = 0.5)",
+    )
+    _add_flight_dir(p)
+    p.set_defaults(fn=cmd_controller)
 
     p = sub.add_parser("distill", help="teacher -> student knowledge distillation")
     _add_training(p)

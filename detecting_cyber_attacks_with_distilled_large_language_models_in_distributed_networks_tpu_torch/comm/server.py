@@ -914,15 +914,24 @@ class AggregationServer:
             rnd.complete.set()
 
     # ----------------------------------------------------------------- round
-    def serve_round(self, *, deadline: float | None = None) -> dict[str, np.ndarray] | None:
+    def serve_round(
+        self, *, deadline: float | None = None, round_index: int | None = None
+    ) -> dict[str, np.ndarray] | None:
         """Accept uploads until every client arrived (or ``deadline``
         seconds passed, default ``timeout``), fold, apply the strategy,
         reply to every contributor. Returns the new global as a flat dict
         (under DP the noised mean delta; None for a no-op round of an
         empty cohort). Raises ``RuntimeError`` when the round fails (below
         quorum, a poisoned or failed fold, a DP base mismatch); its
-        connections are closed so clients fail fast."""
-        rnd = _Round(expected=self.num_clients, round_no=self._round_counter)
+        connections are closed so clients fail fast. ``round_index``
+        replaces the server's own round counter for this round and the
+        ones after it (a resumed controller campaign numbers its rounds
+        from its state file); the replies' meta and ``last_trace`` carry
+        it."""
+        rnd = _Round(
+            expected=self.num_clients,
+            round_no=self._round_counter if round_index is None else int(round_index),
+        )
         self._round_counter = rnd.round_no + 1
         self._cur_rnd = rnd
         # The round's trace identity, stamped into every reply's meta:

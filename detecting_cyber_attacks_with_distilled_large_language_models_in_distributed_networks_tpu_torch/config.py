@@ -2,7 +2,8 @@
 
 Copies of the JAX package's ``ModelConfig``, ``DataConfig`` and
 ``TrainConfig`` (fields, defaults, validation and presets unchanged) and
-its ``FedConfig``, ``DistillConfig`` and ``ObsConfig``, so a manifest or config
+its ``FedConfig``, ``DistillConfig``, ``ObsConfig`` and ``ControlConfig``, so a
+manifest or config
 written by either package means the same thing in both. The one field
 whose code path the port has not reached yet (relays' deadlines) is kept
 for compatibility and raises ``NotImplementedError`` when set away from
@@ -531,10 +532,126 @@ class ObsConfig:
             )
 
 
+@dataclass(frozen=True)
+class ControlConfig:
+    """Control-plane loop (control/ + registry/): the knobs of the
+    unattended train -> gate -> promote -> serve -> monitor cycle.
+
+    The reference has no loop at all — a round happens when a human
+    re-runs three scripts, and nothing gates what the serving tier loads.
+    """
+
+    # Eval gate: a candidate must score >= incumbent[metric] - min_delta
+    # on the held-out split or it is rejected (the serving pointer stays
+    # on the incumbent — automatic rollback-by-refusal).
+    gate_metric: str = "Accuracy"
+    gate_min_delta: float = 0.0
+    # Round cadence. min_interval_s throttles back-to-back rounds;
+    # max_interval_s forces a round even when no drift fired (None = no
+    # clock at all — purely drift-triggered once a monitor is attached).
+    min_interval_s: float = 0.0
+    max_interval_s: float | None = None
+    # Drift monitor (control/drift.py): score-distribution shift of live
+    # serving traffic vs the promoted artifact's eval reference
+    # histogram. PSI > 0.25 is the classic "significant shift" bound.
+    drift_method: str = "psi"  # psi | ks
+    drift_threshold: float = 0.25
+    drift_min_scores: int = 256
+    # Histogram resolution for both the eval reference and the serving
+    # tier's score export; both sides must agree.
+    score_bins: int = 10
+    # Per-round deadline handed to the TCP round engine (None = the
+    # server's own timeout).
+    round_deadline_s: float | None = None
+    # Registry GC budget: after every promotion/rejection the controller
+    # prunes oldest RETIRED/REJECTED artifacts beyond this count (the
+    # serving artifact and its rollback chain are never pruned —
+    # registry/store.py gc()). None (default) keeps everything.
+    max_artifacts: int | None = None
+    # Adaptive cadence (control/drift.py cadence_interval_s): a fired
+    # drift verdict's MAGNITUDE scales the next inter-round interval
+    # between min_interval_s (drift >= 2x threshold: urgent) and
+    # max_interval_s (barely over threshold: relaxed). Needs both bounds
+    # configured; the chosen interval rides the drift-trigger span.
+    adaptive_cadence: bool = False
+    # SLO-driven actuation: while a round-duration burn alert FIRES on
+    # the tailed alerts-JSONL (controller --slo-alerts-jsonl), the
+    # round's straggler deadline is multiplied by this factor — a fleet
+    # already blowing its round SLO should cut stragglers loose sooner,
+    # not wait the full budget on them. 1.0 disables the tightening.
+    slo_deadline_factor: float = 0.5
+    # Drift-scaled cohort (control/drift.py drift_cohort_fraction): a
+    # fired drift verdict's MAGNITUDE picks the corrective round's
+    # quorum between cohort_min_frac (barely over threshold: a lean,
+    # fast cohort) and cohort_max_frac (>= 2x threshold: the full
+    # quorum's evidence) of the server's configured min_clients — for
+    # ONE round, then the base quorum restores.
+    drift_cohort: bool = False
+    cohort_min_frac: float = 0.5
+    cohort_max_frac: float = 1.0
+
+    def __post_init__(self) -> None:
+        if not 0.0 < self.slo_deadline_factor <= 1.0:
+            raise ValueError(
+                f"slo_deadline_factor={self.slo_deadline_factor} must be "
+                "in (0, 1] (1 = no tightening)"
+            )
+        if self.max_artifacts is not None and self.max_artifacts < 1:
+            raise ValueError(
+                f"max_artifacts={self.max_artifacts} must be >= 1 "
+                "(or None to keep everything)"
+            )
+        if self.drift_method not in ("psi", "ks"):
+            raise ValueError(
+                f"drift_method={self.drift_method!r} must be 'psi' or 'ks'"
+            )
+        if self.drift_threshold <= 0.0:
+            raise ValueError(
+                f"drift_threshold={self.drift_threshold} must be > 0"
+            )
+        if self.drift_min_scores < 1:
+            raise ValueError(
+                f"drift_min_scores={self.drift_min_scores} must be >= 1"
+            )
+        if not 2 <= self.score_bins <= 64:
+            # Upper bound matches the metrics-JSONL short-list cap
+            # (reporting.append_metrics_jsonl keeps lists <= 64 entries):
+            # a larger histogram would be silently dropped from every
+            # serve_batch record and starve the drift monitor.
+            raise ValueError(
+                f"score_bins={self.score_bins} must be in [2, 64]"
+            )
+        if self.min_interval_s < 0.0:
+            raise ValueError(
+                f"min_interval_s={self.min_interval_s} must be >= 0"
+            )
+        if (
+            self.max_interval_s is not None
+            and self.max_interval_s < self.min_interval_s
+        ):
+            raise ValueError(
+                f"max_interval_s={self.max_interval_s} below "
+                f"min_interval_s={self.min_interval_s}"
+            )
+        if not 0.0 < self.cohort_min_frac <= 1.0:
+            raise ValueError(
+                f"cohort_min_frac={self.cohort_min_frac} must be in (0, 1]"
+            )
+        if not 0.0 < self.cohort_max_frac <= 1.0:
+            raise ValueError(
+                f"cohort_max_frac={self.cohort_max_frac} must be in (0, 1]"
+            )
+        if self.cohort_max_frac < self.cohort_min_frac:
+            raise ValueError(
+                f"cohort_max_frac={self.cohort_max_frac} below "
+                f"cohort_min_frac={self.cohort_min_frac}"
+            )
+
+
 #: Sections of the JAX package's ``ExperimentConfig`` the port does not
-#: model (its mesh, control plane, router, shadow and labels planes).
+#: model (its mesh, router, shadow and labels planes).
 _JAX_ONLY_SECTIONS = frozenset(
-    {"mesh", "control", "router", "shadow", "labels"}
+    {"mesh", "router", "shadow", "labels"}
 )
 
 
@@ -549,6 +666,7 @@ class ExperimentConfig:
     fed: FedConfig = dataclasses.field(default_factory=FedConfig)
     distill: DistillConfig = dataclasses.field(default_factory=DistillConfig)
     obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
+    control: ControlConfig = dataclasses.field(default_factory=ControlConfig)
     output_dir: str = "outputs"
     # Where ``local``/``client`` save (and ``client`` warm-starts from),
     # and what ``predict``/``infer-serve`` restore.
@@ -573,6 +691,7 @@ class ExperimentConfig:
         sections = {
             "model": ModelConfig, "data": DataConfig, "train": TrainConfig,
             "fed": FedConfig, "distill": DistillConfig, "obs": ObsConfig,
+            "control": ControlConfig,
         }
         scalars = ("output_dir", "checkpoint_dir")
         unknown_top = set(d) - set(sections) - set(scalars) - _JAX_ONLY_SECTIONS

@@ -15,11 +15,18 @@ the device performance plane (the port of the JAX package's ``obs/``).
   (first dispatch per site and shape), strided fenced step-time
   attribution, CUDA memory watermarks, and the analytic-vs-counted
   FLOPs cross-check behind ``obs profile``.
+* :mod:`.slo` — declarative SLOs as multi-window burn rates over
+  ``/metrics`` snapshots, and the alert manager behind ``obs health``.
+* :mod:`.fleet` — the scrape hub: every daemon's ``/metrics.json`` and
+  span tail merged into one fleet snapshot, judged and rendered.
+* :mod:`.sentinel` — canary probes through the live scorer, the
+  journal tail's supervised drift, and the long-horizon retention ring
+  behind ``obs sentinel``.
 
-The span files, metric families, postmortem bundles and Chrome traces
-are the JAX package's formats: one timeline merges a round whose server
-and clients come from either package. The JAX package's fleet read side
-(``slo``, ``fleet``, ``sentinel``) is not ported.
+The span files, metric families, postmortem bundles, Chrome traces,
+alerts, fleet snapshots and sentinel reports are the JAX package's
+formats: one timeline merges a round whose server and clients come from
+either package, and one hub scrapes daemons of both.
 """
 
 from .flight import (  # noqa: F401
@@ -38,6 +45,12 @@ from .metrics import (  # noqa: F401
     default_registry,
     maybe_start_metrics_server,
 )
+from .fleet import (  # noqa: F401
+    ScrapeHub,
+    Target,
+    health_verdict,
+    parse_target,
+)
 from .profile import (  # noqa: F401
     FLOPS_RATIO_TOLERANCE,
     CompileLedger,
@@ -51,6 +64,20 @@ from .profile import (  # noqa: F401
     render_profile_report,
     run_profile_session,
     set_profile_stride,
+)
+from .sentinel import (  # noqa: F401
+    CanaryFlow,
+    CanaryProber,
+    JournalTail,
+    RetentionRing,
+    Sentinel,
+    load_canary_flows,
+)
+from .slo import (  # noqa: F401
+    SLO,
+    AlertManager,
+    default_slos,
+    slos_from_spec,
 )
 from .timeline import (  # noqa: F401
     chrome_trace,

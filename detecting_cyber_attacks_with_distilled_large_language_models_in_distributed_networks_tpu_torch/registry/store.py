@@ -129,20 +129,23 @@ class ModelRegistry:
         *,
         round_index: int,
         metrics: Mapping[str, float] | None = None,
+        eval_hist: Any | None = None,
         model_config: Any | None = None,
+        parent: str | None = None,
         extra: Mapping[str, Any] | None = None,
     ) -> str:
         """Register one finished round's params as an immutable candidate
         and return its id. Re-adding identical params returns the
         existing id (content addressing). ``params``: a port state dict or
-        its flat '/'-keyed JAX form. ``model_config`` (a ModelConfig or
-        its asdict) lets the serving tier refuse to hot-swap an
-        architecture mismatch. ``extra``: free-form provenance (the
-        ``federated`` verb writes its tier and client count), recorded
-        only when given, as the JAX package does. The manifest's
-        ``parent`` and ``eval_hist`` (the JAX controller's lineage and
-        drift reference) are written as None, so the JAX package reads
-        the artifact as its own."""
+        its flat '/'-keyed JAX form. ``eval_hist``: the held-out score
+        histogram (train/fedeval.reference_histogram) the drift monitor
+        compares live scores against once this artifact serves.
+        ``model_config`` (a ModelConfig or its asdict) lets the serving
+        tier refuse to hot-swap an architecture mismatch. ``parent``: the
+        artifact that served when this one was made (the controller's
+        lineage). ``extra``: free-form provenance (the ``federated`` verb
+        writes its tier and client count), recorded only when given. The
+        manifest is the JAX package's, key for key."""
         flat = _flatten(params)
         aid = artifact_id(flat)
         final = os.path.join(self._artifacts, aid)
@@ -156,9 +159,13 @@ class ModelRegistry:
             "state": "candidate",
             "round": int(round_index),
             "created_unix": time.time(),
-            "parent": None,
+            "parent": parent,
             "metrics": _scalar_metrics(metrics),
-            "eval_hist": None,
+            "eval_hist": (
+                None
+                if eval_hist is None
+                else [int(c) for c in np.asarray(eval_hist).ravel()]
+            ),
             "model_config": model_config,
             "n_tensors": len(flat),
             "n_params": int(sum(v.size for v in flat.values())),

@@ -1,6 +1,6 @@
 """``export-config`` and ``--config`` resolution held against the JAX
 package's, for the sections the port models (model, data, train, fed,
-distill, obs and the two paths), under every flag the resolution takes:
+distill, obs, control and the two paths), under every flag the resolution takes:
 ``--config`` (a file of either package), ``--gelu``, ``--warmup-steps``,
 ``--attention-dropout`` (an explicit 0 included) and the three-way
 ``--remat``/``--no-remat``; and ``from_checkpoint_dict``'s legacy gelu
@@ -25,7 +25,7 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     main as port_main,
 )
 
-PORT_SECTIONS = ("model", "data", "train", "fed", "distill", "obs", "output_dir", "checkpoint_dir")
+PORT_SECTIONS = ("model", "data", "train", "fed", "distill", "obs", "control", "output_dir", "checkpoint_dir")
 
 
 def _export(main, argv, capsys):
@@ -151,3 +151,24 @@ def test_obs_config_matches_jax():
         assert str(pe.value) == str(je.value)
     with pytest.raises(ValueError, match="unknown obs config keys"):
         pcfg.ExperimentConfig.from_dict({"obs": {"bogus": 1}})
+
+
+def test_jax_config_control_section_round_trips(tmp_path, capsys):
+    """A JAX config file's ``control`` section is read, not dropped: the
+    port's ``ExperimentConfig`` holds it, writes it back unchanged, and
+    ``export-config --config`` resolves it as the JAX verb does."""
+    control = {"gate_metric": "F1-Score", "gate_min_delta": 0.01, "min_interval_s": 2.0, "max_interval_s": 60.0,
+               "drift_method": "ks", "drift_threshold": 0.3, "drift_min_scores": 64, "score_bins": 16,
+               "round_deadline_s": 30.0, "max_artifacts": 5, "adaptive_cadence": True, "slo_deadline_factor": 0.25,
+               "drift_cohort": True, "cohort_min_frac": 0.25, "cohort_max_frac": 0.75}
+    d = _export(jax_main, [], capsys)
+    d["control"].update(control)
+    path = _file(tmp_path, "jax.json", d)
+    cfg = pcfg.ExperimentConfig.from_dict(d)
+    assert dataclasses.asdict(cfg.control) == dataclasses.asdict(jcfg.ExperimentConfig.from_dict(d).control)
+    assert cfg.to_dict()["control"] == d["control"] == {**dataclasses.asdict(jcfg.ControlConfig()), **control}
+    assert _export(port_main, ["--config", path], capsys)["control"] == _export(jax_main, ["--config", path], capsys)["control"]
+    with pytest.raises(ValueError, match="unknown control config keys"):
+        pcfg.ExperimentConfig.from_dict({"control": {"gate_metrc": "x"}})
+    with pytest.raises(ValueError, match="cohort_max_frac"):
+        pcfg.ExperimentConfig.from_dict({"control": {"cohort_min_frac": 0.9, "cohort_max_frac": 0.5}})

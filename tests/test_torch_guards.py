@@ -88,7 +88,8 @@ print(" ".join(names))
         "parallel.fedavg", "cli.federated", "data.datasets", "data.native_tokenizer", "utils.native",
         "serving.client", "serving.protocol", "serving.server",
         "models.safetensors", "models.hf_convert", "train.distill", "cli.distill", "comm.native",
-        "parallel.dp", "data.streaming",
+        "parallel.dp", "data.streaming", "control", "control.drift", "control.controller", "obs.slo",
+        "obs.fleet", "obs.sentinel",
     ):
         assert f"{PORT_PKG}.{mod}" in imported.split(), mod
 
@@ -167,7 +168,10 @@ def test_checker_suffixes_resolve_inside_the_jax_package():
 
 
 #: The port modules that register the JAX package's metric families.
-METRIC_TWIN_MODULES = ("comm/client.py", "comm/server.py", "obs/profile.py", "serving/server.py")
+METRIC_TWIN_MODULES = (
+    "comm/client.py", "comm/server.py", "control/controller.py", "obs/fleet.py", "obs/profile.py",
+    "obs/sentinel.py", "serving/server.py",
+)
 
 
 def test_only_pragmas_are_the_wire_magic_copies():
@@ -260,10 +264,11 @@ def test_round_entry_points_raise_without_cuda(monkeypatch):
 
 def test_the_guards_left_are_the_unported_paths():
     """Every ``raise NotImplementedError`` left in the port guards a path
-    that is not ported: relay deadlines (config), ring attention (the
-    model), beside the abstract strategy's ``apply``. The server's secure,
-    relay and re-homing uploads and the client's identity keys refuse
-    with ModeError instead."""
+    that is not ported: relay deadlines (config), the controller's shadow,
+    label and error-rate gates, ring attention (the model), beside the
+    abstract strategy's ``apply``. The server's secure, relay and
+    re-homing uploads and the client's identity keys refuse with
+    ModeError instead."""
     from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.comm import (
         server,
     )
@@ -277,5 +282,21 @@ def test_the_guards_left_are_the_unported_paths():
                 exc = node.exc.func if isinstance(node.exc, ast.Call) else node.exc
                 if getattr(exc, "id", None) == "NotImplementedError":
                     found.append(os.path.relpath(path, REPO_ROOT).split("/", 1)[-1])
-    assert sorted(found) == ["config.py", "models/distilbert.py", "strategies/core.py"]
+    assert sorted(found) == ["config.py", "control/controller.py", "models/distilbert.py", "strategies/core.py"]
     assert set(server._UNPORTED_UPLOAD_MODES) == {"secure", "subtree_ids", "rehomed", "strategy"}
+
+
+def test_chip_smoke_defines_each_top_level_name_once():
+    """A second ``def`` (or constant) of a name silently replaces the
+    first for every phase that calls it: each top-level name of
+    chip_smoke.py is bound once."""
+    with open(os.path.join(REPO_ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.append(node.name)
+        elif isinstance(node, ast.Assign):
+            names += [t.id for t in node.targets if isinstance(t, ast.Name)]
+    assert len(names) > 100
+    assert sorted(n for n in set(names) if names.count(n) > 1) == []

@@ -4,7 +4,9 @@
   and its default too (parametrised verb x flag);
 * ``obs timeline|export|tail|postmortem|profile`` answer with the JAX
   output's keys (``--json``) or lines; ``obs health|watch|sentinel``
-  (the fleet read side, not ported) are refused by argparse;
+  parse as the JAX verb's and refuse a call without inputs as it does
+  (their outputs are held in ``test_torch_health.py`` and
+  ``test_torch_sentinel.py``);
 * ``--metrics-jsonl`` records of ``local``, ``federated`` and ``client``
   have the JAX records' keys, and their metrics agree at the tolerances
   of the CLI parity tests (dropout off, the JAX init in both);
@@ -123,10 +125,20 @@ def test_obs_flag_parses_to_the_jax_value(verb, need, flag, value, dest):
 
 @pytest.mark.parametrize("action", ["health", "watch", "sentinel"])
 def test_fleet_read_side_actions_are_refused(action, capsys):
-    jax_parser().parse_args(["obs", action])  # the JAX verb has them
-    with pytest.raises(SystemExit):
-        build_parser().parse_args(["obs", action])
-    assert "invalid choice" in capsys.readouterr().err
+    """``obs health|watch|sentinel`` parse to the JAX parser's namespace
+    (every shared dest, with its default), and without a target or a rung
+    they are refused as the JAX verb refuses them."""
+    port_ns = vars(build_parser().parse_args(["obs", action]))
+    jax_ns = vars(jax_parser().parse_args(["obs", action]))
+    shared = set(port_ns) & set(jax_ns) - {"fn", "cmd", "command", "device"}
+    assert {"target", "slo", "canaries", "serve", "ring_jsonl", "trend_field"} <= shared
+    assert {k: port_ns[k] for k in shared} == {k: jax_ns[k] for k in shared}
+    msgs = []
+    for m in (jax_main, main):
+        with pytest.raises(SystemExit) as e:
+            m(["obs", action])
+        msgs.append(str(e.value).replace("fedtpu obs", "obs"))
+    assert msgs[1] == msgs[0] and ("--target" in msgs[0] or "rung" in msgs[0])
 
 
 # ---------------------------------------------------- obs actions' output
