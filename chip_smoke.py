@@ -325,18 +325,48 @@ Phases; any failure exits non-zero before the last line is printed:
             cycle split (round wall, gate eval, registry add, promote),
             the promotion latency, the canary p50/p99, each tick's
             buckets and the hub's scrape lag;
-13. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
+13. robust — the robustness planes, through the port's parser, at full
+            width (clients of the round cell's 1200 rows each). (a)
+            ``serve --num-clients 3 --min-clients 2 --secure-agg
+            --secure-protocol double`` under ``FEDTPU_SECRET`` with three
+            ``client --secure-agg --min-participants 2``; client 2 dials
+            through a FaultProxy that resets it 4 KiB into its upload,
+            after its shares, and has one attempt. The round unmasks over
+            the survivors at its 45 s deadline: the aggregate equals
+            ``dequantize_sum(sum(quantize(u)))`` over their uploads bit
+            for bit and ``aggregate_flat`` within 2·2^-24; both received
+            it and adopted it on the card; K4 0 launches; K1–K3 as the
+            train cell per client. Prints the round wall, each client's
+            masking, keys and shares seconds, the unmask round and the
+            ring sum. (b) a root ``serve --num-clients 2 --min-clients 1
+            --weighted``, two ``relay --num-clients 2`` and four
+            ``client --parent ... --parent ...`` (own relay first) for two
+            rounds; relay B's clients reach it through a DeadRelayFault
+            whose seeded kill lands in round 2's uploads. Round 1: each
+            relay's partial equals ``aggregate_flat`` of its subtree, the
+            root crc-equal to ``aggregate_tree`` over [[0, 1], [2, 3]], K4
+            3 x 102. Round 2: B's clients re-home to relay A (held until
+            they registered there), the root completes a degraded round
+            crc-equal to ``aggregate_tree`` over its recorded assignment,
+            ``fedtpu_client_rehomes_total`` +2. (c) ``scenario`` (the
+            default matrix: lazy, slow, intermittent x iid, dirichlet,
+            the auth cell, the dead-relay cell) and one ``--train`` cell
+            through ``cli_main``: exit 0, every round ok and crc-exact,
+            K4 launched by the cells' servers;
+14. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
    serving shape and dropout at the training shape, then K2, K3 and K4;
    K1's rate-0 launches count phase 5, phase 6's evaluation, the
    lifecycle's predict and reload serving, the federated phase's
    evaluations, predicts and serving, the train-options, distill,
    migrate, privacy, dp-rounds and stream phases, the rounds phase's
-   evaluations, the serving phase, the obs phase and the control
-   phase; K1 with dropout, K2 and K3 count phase 6, the federated,
-   train-options, distill, migrate, privacy, dp-rounds, stream and
-   rounds phases, the serving phase's ``local``, the obs phase and the
-   control phase's clients; K4 the migrate and dp-rounds phases, phases
-   8 and 9, the obs phase's round and the control phase's two rounds),
+   evaluations, the serving phase, the obs phase, the control phase
+   and the robust phase's clients; K1 with dropout, K2 and K3 count
+   phase 6, the federated, train-options, distill, migrate, privacy,
+   dp-rounds, stream and rounds phases, the serving phase's ``local``,
+   the obs phase, the control phase's and the robust phase's clients;
+   K4 the migrate and dp-rounds phases, phases 8 and 9, the obs
+   phase's round, the control phase's two rounds and the robust
+   phase's relays, roots and scenario servers),
    then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -378,6 +408,7 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     main as cli_main,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.comm import (
+    build_relay,
     build_server as build_round_server,
     run_client,
 )
@@ -401,8 +432,22 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     native as wire_native,
     wire,
 )
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.comm import (
+    FederatedClient as PortFederatedClient,
+    aggregate_flat,
+    aggregate_tree,
+    secure as psecure,
+)
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.comm.wire import (
     WireError,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.faults import (
+    DeadRelayFault,
+    FaultProxy,
+    FaultSpec,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.faults.deadrelay import (
+    wait_registered,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.comm.quant import (
     QUANT_CHUNK_ELEMS,
@@ -3877,6 +3922,339 @@ def max_len_serve(card: str, work: str, cfg: ModelConfig, params: dict, texts: l
     return launches
 
 
+# ------------------------------------------------- the robustness planes
+ROBUST_CLIENT_ARGS = ["--preset", "distilbert", "--attention-impl", "flash", "--epochs", "1", "--timeout", "600"]
+ROBUST_ROWS = 1200  # synthetic rows a client: the round cell's, 9 steps at bs16
+SECURE_SECRET = "chip-smoke-secure-secret"
+#: Seconds the secure round waits for the dead client's upload before it
+#: unmasks over the survivors (from the moment all three start exchanging).
+SECURE_DEADLINE = 45.0
+#: The root's round-2 deadline: relay B is dead, so the root folds the one
+#: surviving subtree when it passes.
+TREE_R2_DEADLINE = 45.0
+
+
+@contextlib.contextmanager
+def exchange_gate(gate):
+    """While it is open, every port ``FederatedClient.exchange`` first
+    calls ``gate(client, n, kwargs)``, ``n`` counting that client's
+    exchanges (the gate may edit the call's kwargs)."""
+    orig = PortFederatedClient.exchange
+    calls: dict[int, int] = collections.Counter()
+    lock = threading.Lock()
+
+    def exchange(self, *a, **kw):
+        with lock:
+            n = calls[id(self)]
+            calls[id(self)] += 1
+        gate(self, n, kw)
+        return orig(self, *a, **kw)
+
+    PortFederatedClient.exchange = exchange
+    try:
+        yield
+    finally:
+        PortFederatedClient.exchange = orig
+
+
+def flash_steps_check(results: dict, launches: dict, what: str) -> None:
+    """K1 with dropout, K2 and K3 launch once a layer a local step of every
+    client; K1 at rate 0 once a layer an evaluation batch (the local
+    evaluation, and the aggregate's of each client that got one)."""
+    mcfg = next(iter(results.values()))["config"].model
+    steps = sum(r["state"].step for r in results.values())
+    # Two evaluation passes a completed round, one for a failed exchange.
+    evals = sum(
+        (2 * len(r["rounds"]) + (r["aggregated"] is None)) * -(-r["local"]["n"] // r["config"].data.eval_batch_size)
+        for r in results.values()
+    )
+    want = mcfg.n_layers * steps
+    check(launches["flash_fwd_dropout"] == launches["flash_bwd_dkdv"] == launches["flash_bwd_dq"] == want,
+          f"{what}: K1-dropout/K2/K3 launches {launches} for {steps} steps ({want} each)")
+    check(launches["flash_fwd"] == mcfg.n_layers * evals, f"{what}: K1 (rate 0) launches {launches['flash_fwd']} for {evals} eval batches")
+
+
+def robust_secure(seed: int, card: str, work: str) -> dict[str, int]:
+    """(a) ``serve --num-clients 3 --min-clients 2 --secure-agg
+    --secure-protocol double`` with three port ``client --secure-agg``;
+    client 2 dials through a FaultProxy that resets it 4 KiB into its
+    upload, after the share exchange, and does not come back. The round
+    unmasks over the survivors."""
+    os.environ["FEDTPU_SECRET"] = SECURE_SECRET
+    try:
+        server = build_round_server(build_parser().parse_args(
+            ["serve", "--host", "127.0.0.1", "--port", "0", "--num-clients", "3", "--min-clients", "2",
+             "--secure-agg", "--secure-protocol", "double", "--timeout", "600", "--device", "cuda"]
+        ))
+    finally:
+        os.environ.pop("FEDTPU_SECRET")
+    check(server.secure_agg and server.device.type == "cuda", f"secure {server.secure_agg}, fold on {server.device}")
+    proxy = FaultProxy("127.0.0.1", server.port, plan=FaultSpec(reset_after_bytes=4096))
+    results: dict[int, dict] = {}
+    served: dict = {}
+    errors: list[BaseException] = []
+    start = threading.Barrier(4)
+
+    def gate(fc, n, kw):
+        start.wait(timeout=900)
+        if fc.client_id == 2:
+            kw["max_retries"] = 1  # a dead client does not come back
+
+    def client(i: int) -> None:
+        try:
+            results[i] = run_client(build_parser().parse_args(
+                ["client", "--client-id", str(i), "--host", "127.0.0.1",
+                 "--port", str(proxy.port if i == 2 else server.port), "--num-clients", "3",
+                 "--synthetic", str(3 * ROBUST_ROWS), "--secure-agg", "--min-participants", "2",
+                 *ROBUST_CLIENT_ARGS, "--rounds", "1", "--seed", str(seed), "--output-dir", os.path.join(work, "secure")]
+            ))
+        except BaseException as e:  # re-raised below, after the join
+            errors.append(e)
+            start.abort()  # the others must not wait for this client
+
+    def serve() -> None:
+        try:
+            start.wait(timeout=900)
+            t0 = time.perf_counter()
+            served["agg"] = server.serve_round(deadline=SECURE_DEADLINE)
+            served["wall"] = time.perf_counter() - t0
+        except BaseException as e:
+            errors.append(e)
+
+    zero_with_fold()
+    with server, proxy, exchange_gate(gate):
+        os.environ["FEDTPU_SECRET"] = SECURE_SECRET
+        try:
+            threads = [threading.Thread(target=serve)] + [threading.Thread(target=client, args=(i,)) for i in range(3)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=900)
+        finally:
+            os.environ.pop("FEDTPU_SECRET", None)
+    launches = read_with_fold()
+    check(not any(t.is_alive() for t in threads), "secure round threads hung")
+    if errors:
+        raise errors[0]
+    check(bool(proxy.events_of("reset")), "client 2's connection was never reset")
+    check(results[2]["aggregated"] is None and results[2]["aggregate"] is None, "the dead client got an aggregate")
+    agg = served["agg"]
+    ups = [{k: np.asarray(v) for k, v in wire.flatten_params(results[i]["uploaded"]).items()} for i in (0, 1)]
+    ring = psecure.dequantize_sum(psecure.sum_masked([psecure.quantize(u) for u in ups]), 2)
+    check(agg.keys() == ring.keys() and all(np.array_equal(agg[k], ring[k]) for k in ring),
+          "the secure aggregate differs from dequantize_sum(sum of quantize(u)) over the survivors")
+    plain = aggregate_flat(ups)
+    err = max(float(np.abs(agg[k] - plain[k]).max()) for k in plain)
+    check(err <= 2 * 2.0**-24, f"the secure aggregate is {err} off aggregate_flat (atol 2*2^-24)")
+    for i in (0, 1):
+        got = wire.flatten_params(results[i]["aggregate"])
+        check(all(np.array_equal(got[k], agg[k]) for k in agg), f"client {i} received another aggregate")
+        check(results[i]["state"].params[next(iter(results[i]["state"].params))].is_cuda,
+              f"client {i} adopted the aggregate off the card")
+    check(launches["fold"] == 0, f"K4 launched {launches['fold']} times in the secure round (its ring sum is numpy)")
+    flash_steps_check(results, launches, "secure")
+    n = sum(a.size for a in agg.values())
+    mask_s = {i: results[i]["exchange"]["secure_s"] for i in (0, 1)}
+    split = server.last_secure_s
+    print(
+        f"robust: {card}: secure round (double, 3 clients, client 2 dead after its shares): {len(agg)} leaves, "
+        f"{n} parameters ({n * 8 / 1e6:.1f} MB of uint64 a masked upload); aggregate == dequantize_sum over the "
+        f"survivors bit for bit, max|agg - aggregate_flat| {err:.3e} (atol {2 * 2.0**-24:.3e}); round wall "
+        f"{served['wall']:.3f} s (deadline {SECURE_DEADLINE:.0f} s waited for the dead client); masking "
+        + ", ".join(f"client {i} {s['mask']:.3f} s (keys {s['keys']:.3f} s, shares {s.get('shares', 0.0):.3f} s, "
+                    f"unmask answer {s.get('unmask', 0.0):.3f} s)" for i, s in mask_s.items())
+        + f"; server unmask round {split['unmask']:.3f} s, ring sum {split['ring_sum']:.3f} s, residues "
+        f"{split['residues']:.3f} s; launches {launches}",
+        flush=True,
+    )
+    return launches
+
+
+def robust_tree(seed: int, card: str, work: str) -> dict[str, int]:
+    """(b) a root ``serve --num-clients 2 --min-clients 1 --weighted``, two
+    ``relay --num-clients 2`` and four port clients with ranked
+    ``--parent`` lists, two rounds. Relay B's clients dial it through a
+    DeadRelayFault whose seeded kill lands in round 2's uploads; they
+    re-home to relay A and the root folds the surviving subtree."""
+    root = build_round_server(build_parser().parse_args(
+        ["serve", "--host", "127.0.0.1", "--port", "0", "--num-clients", "2", "--min-clients", "1", "--weighted",
+         "--timeout", "600", "--device", "cuda"]
+    ))
+    relays = [
+        build_relay(build_parser().parse_args(
+            ["relay", "--host", "127.0.0.1", "--port", "0", "--parent-host", "127.0.0.1",
+             "--parent-port", str(root.port), "--relay-id", str(r), "--num-clients", "2", "--rounds", "2",
+             "--timeout", "600", "--device", "cuda"]
+        ))
+        for r in range(2)
+    ]
+    check(all(rel.server.device.type == "cuda" for rel in relays), "a relay folds off the card")
+    # One dense fp32 upload of the model is ~4 bytes a parameter: the kill
+    # lands past round 1's two uploads through the fault, inside round 2's.
+    up_bytes = 4 * sum(p.numel() for p in model_skeleton(ModelConfig.distilbert_base()).state_dict().values())
+    fault = DeadRelayFault(relays[1], seed=seed, kill_window=(int(2.3 * up_bytes), int(3.2 * up_bytes)), throttle_bps=0.0)
+    parents = {
+        i: [f"127.0.0.1:{relays[0].port}", f"127.0.0.1:{relays[1].port}"] if i < 2
+        else [f"{fault.host}:{fault.port}", f"127.0.0.1:{relays[0].port}"]
+        for i in range(4)
+    }
+    relay_parents = {id(rel.parent) for rel in relays}
+    results: dict[int, dict] = {}
+    errors: list[BaseException] = []
+    rounds: list[dict] = []
+
+    def gate(fc, n, kw):
+        if id(fc) in relay_parents or fc.client_id >= 2 or n == 0:
+            return
+        # Relay A's own clients hold round 2 until the kill landed and the
+        # re-homed uploads registered there, so relay A's round stays open
+        # through the adoption.
+        check(fault.killed.wait(timeout=600), "relay B was never killed")
+        check(wait_registered(relays[0].server, [2, 3], timeout=600), "the re-homed uploads never reached relay A")
+
+    def client(i: int) -> None:
+        try:
+            results[i] = run_client(build_parser().parse_args(
+                ["client", "--client-id", str(i), "--num-clients", "4", "--synthetic", str(4 * ROBUST_ROWS),
+                 *[a for p in parents[i] for a in ("--parent", p)], "--rehome-dial-budget", "5",
+                 *ROBUST_CLIENT_ARGS, "--rounds", "2", "--seed", str(seed), "--output-dir", os.path.join(work, "tree")]
+            ))
+        except BaseException as e:
+            errors.append(e)
+
+    def serve_root() -> None:
+        try:
+            for r, deadline in enumerate((600.0, TREE_R2_DEADLINE)):
+                t0 = time.perf_counter()
+                agg = root.serve_round(deadline=deadline)
+                torch.cuda.synchronize()
+                rounds.append({
+                    "agg": agg, "wall": time.perf_counter() - t0, "fold": fold_mod.FOLD_LAUNCHES,
+                    "assignment": root.last_assignment,
+                    "partials": [rel.server.last_mean for rel in relays] if r == 0 else None,
+                    "phases": dict(root.phase_seconds),
+                })
+        except BaseException as e:
+            errors.append(e)
+
+    rehomes0 = registry_value("fedtpu_client_rehomes_total")
+    zero_with_fold()
+    with root, exchange_gate(gate):
+        try:
+            threads = [threading.Thread(target=serve_root)] + [
+                threading.Thread(target=rel.serve, args=(2,)) for rel in relays
+            ] + [threading.Thread(target=client, args=(i,)) for i in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=900)
+        finally:
+            fault.close()
+            for rel in relays:
+                rel.close()
+    launches = read_with_fold()
+    check(not any(t.is_alive() for t in threads), "tree threads hung")
+    if errors:
+        raise errors[0]
+    check(len(rounds) == 2 and all(r["agg"] is not None for r in rounds), f"root rounds {len(rounds)}")
+    ups = {r: {i: {k: np.asarray(v) for k, v in wire.flatten_params(results[i]["rounds"][r]["uploaded"]).items()}
+               for i in range(4)} for r in range(2)}
+    ns = {r: [float(results[i]["rounds"][r]["n_samples"]) for i in range(4)] for r in range(2)}
+    # Round 1: each relay's partial is the weighted barrier mean of its
+    # subtree, the root's aggregate the tree's replay, K4 3 x 102.
+    r1 = rounds[0]
+    for g, part in zip(([0, 1], [2, 3]), r1["partials"]):
+        want = aggregate_flat([ups[0][i] for i in g], [ns[0][i] for i in g])
+        check(wire.flat_crc32(part) == wire.flat_crc32(want), f"relay {g}'s round-1 partial differs from aggregate_flat")
+    check(r1["assignment"]["groups"] == [[0, 1], [2, 3]], f"round-1 assignment {r1['assignment']}")
+    want1 = aggregate_tree([ups[0][i] for i in range(4)], ns[0], [[0, 1], [2, 3]])
+    crc1 = wire.flat_crc32({k: np.asarray(v, np.float32) for k, v in r1["agg"].items()})
+    check(crc1 == wire.flat_crc32(want1), "round 1's root aggregate differs from aggregate_tree")
+    n_leaves = len(want1)
+    check(r1["fold"] == 3 * n_leaves, f"K4 launched {r1['fold']} times in round 1 (want 3 x {n_leaves})")
+    # Round 2: relay B killed, its clients re-homed to relay A, the root's
+    # degraded round the replay over the recorded assignment.
+    r2 = rounds[1]
+    groups = r2["assignment"]["groups"]
+    check(fault.killed.is_set() and groups == [[0, 1, 2, 3]], f"round-2 assignment {groups}")
+    want2 = aggregate_tree([ups[1][i] for i in range(4)], ns[1], groups)
+    crc2 = wire.flat_crc32({k: np.asarray(v, np.float32) for k, v in r2["agg"].items()})
+    check(crc2 == wire.flat_crc32(want2), "round 2's root aggregate differs from aggregate_tree over the assignment")
+    for i in range(4):
+        got = wire.flatten_params(results[i]["aggregate"])
+        check(wire.flat_crc32(got) == crc2, f"client {i} received another round-2 aggregate")
+    rehomed = {i: results[i]["client"].rehomes for i in range(4)}
+    drift = registry_value("fedtpu_client_rehomes_total") - rehomes0
+    check(all(rehomed[i] for i in (2, 3)) and not any(rehomed[i] for i in (0, 1)), f"re-homes {rehomed}")
+    check(drift == 2, f"fedtpu_client_rehomes_total rose by {drift}, want 2")
+    check(root.tree_totals["subtree_failures"] == 1, f"root tree totals {root.tree_totals}")
+    flash_steps_check(results, launches, "tree")
+    hops = {i: results[i]["rounds"][1]["exchange"] for i in range(4)}
+    print(
+        f"robust: {card}: relay tree (2 relays x 2 clients, weighted root): round 1 root crc {crc1:#010x} == "
+        f"aggregate_tree, relay partials == aggregate_flat, K4 {r1['fold']} (3 x {n_leaves}), root round "
+        f"{r1['wall']:.3f} s; round 2 relay B killed after {fault.kill_after_bytes} forwarded bytes, re-homes "
+        f"{rehomed}, assignment {groups}, root crc {crc2:#010x} == aggregate_tree, K4 {launches['fold'] - r1['fold']} "
+        f"(relay A over 4 uploads, the root, and relay B's folds before its kill), root round {r2['wall']:.3f} s "
+        f"(deadline {TREE_R2_DEADLINE:.0f} s waited for relay B); per-hop round 2: "
+        + ", ".join(f"client {i} upload {h['upload_s']:.3f} s ({h['upload_bytes'] / 1e6:.1f} MB {h['upload_shape']}), "
+                    f"reply wait {h['reply_wait_s']:.3f} s" for i, h in hops.items())
+        + f"; launches {launches}",
+        flush=True,
+    )
+    return launches
+
+
+def robust_scenario(card: str, work: str) -> dict[str, int]:
+    """(c) ``scenario`` on the card through the port's CLI: the default
+    matrix (lazy, slow, intermittent x iid, dirichlet, the auth cell, the
+    dead-relay cell), then one ``--train`` cell (``ModelConfig.tiny()``,
+    dot attention, as in the JAX package)."""
+    out: dict[str, list] = {}
+    zero_with_fold()
+    for name, extra in (
+        ("matrix", []),
+        ("train", ["--train", "--personas", "lazy", "--partitions", "iid", "--no-auth-cell", "--no-dead-relay-cell"]),
+    ):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["scenario", "--json", "--out-dir", os.path.join(work, f"scenario-{name}"), "--device", "cuda", *extra])
+        check(rc == 0, f"scenario {name} exited {rc} (contract violations)")
+        records = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+        for rec in records:
+            for r in rec["rounds"]:
+                check(r["ok"] and r["bitexact"] is True, f"scenario {rec['cell']} round {r['round']}: {r}")
+        out[name] = records
+        print(
+            f"robust: {card}: scenario {name}: {len(records)} cells, "
+            + ", ".join(f"{r['cell']} {sum(x['ok'] for x in r['rounds'])}/{len(r['rounds'])} ok crc-exact"
+                        + (f" acc {r['accuracy']}" if r["accuracy"] is not None else "") for r in records)
+            + f"; {time.perf_counter() - t0:.1f} s",
+            flush=True,
+        )
+    cells = [r["cell"] for r in out["matrix"]]
+    check(len(cells) == 8 and cells[-2:] == ["lazy|iid|auth", "dead-relay|iid"], f"matrix cells {cells}")
+    launches = read_with_fold()
+    check(launches["fold"] > 0, "no scenario server folded on the card")
+    print(f"robust: scenario K4 launches {launches['fold']}", flush=True)
+    return launches
+
+
+def robust_phase(seed: int, card: str) -> dict[str, int]:
+    """Phase 13: the robustness planes on the card: (a) a secure round
+    with a dropout, (b) a relay tree with a relay killed, (c) the
+    ``scenario`` matrix. Returns each kernel's launches during it."""
+    t_phase = time.perf_counter()
+    total = zero_launches()
+    with tempfile.TemporaryDirectory() as work:
+        for part in (robust_secure, robust_tree):
+            add_launches(total, part(seed, card, work))
+        add_launches(total, robust_scenario(card, work))
+    print(f"robust: launches {total}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3977,6 +4355,12 @@ def main() -> int:
     for row in (k1, k1_drop, k2, k3):
         row["launches"] += control_launches[row["name"]]
     k4["launches"] += control_launches["fold"]
+
+    phase("robust")
+    robust_launches = robust_phase(seed, card)
+    for row in (k1, k1_drop, k2, k3):
+        row["launches"] += robust_launches[row["name"]]
+    k4["launches"] += robust_launches["fold"]
 
     print(json.dumps({"kernels": [k1, k1_drop, k2, k3, k4]}), flush=True)
     print(json.dumps({

@@ -1,12 +1,17 @@
-"""``serve`` / ``client``: the federated round over TCP (the reference's
-socket deployment, server.py + client1.py end to end; the port of the JAX
-package's ``cli/comm.py`` without secure aggregation: dense or streamed
-uploads and replies, the bf16/int8/top-k wires, HMAC, server strategies,
-the client's FedProx, and central DP with its accountant banner).
+"""``serve`` / ``client`` / ``relay``: the federated round over TCP (the
+reference's socket deployment, server.py + client1.py end to end, and the
+fold tree's intermediate aggregator; the port of the JAX package's
+``cli/comm.py``: dense or streamed uploads and replies, the bf16/int8/top-k
+wires, HMAC, server strategies, the client's FedProx, central DP with its
+accountant banner, secure aggregation, ranked parents with re-homing, and
+the client personas of the fault harness).
 
-Both run on the card unless ``--device cpu`` is given. A JAX ``serve`` or
-``client`` interoperates with these. The HMAC key comes from the
-``FEDTPU_SECRET`` environment variable, never from argv.
+Both run on the card unless ``--device cpu`` is given. A JAX ``serve``,
+``relay`` or ``client`` interoperates with these. The HMAC key comes from
+the ``FEDTPU_SECRET`` environment variable, never from argv; under secure
+aggregation a client's own identity key from ``FEDTPU_CLIENT_SECRET`` and
+the server's registry of them from ``FEDTPU_CLIENT_SECRETS``
+(``id:secret,id:secret``).
 
 The obs flags are the JAX verbs': ``serve --trace-jsonl --metrics-port
 --flight-dir`` (round/agg/wire-reply spans, the server families on
@@ -38,20 +43,51 @@ def _auth_key() -> bytes | None:
     return secret.encode() if secret else None
 
 
-def _refuse_identity_keys(name: str) -> None:
-    """Per-client identity keys (the JAX secure tier's DH binding, from
-    ``name`` in the environment) are not ported: refused, never ignored."""
-    if os.environ.get(name):
-        raise wire.ModeError(
-            f"{name} is set: per-client identity keys (secure aggregation's "
-            "key binding) are not ported"
-        )
+def _client_identity_key() -> bytes | None:
+    """This client's own DH identity secret (FEDTPU_CLIENT_SECRET): the
+    secure key exchange binds its hello to this id."""
+    secret = os.environ.get("FEDTPU_CLIENT_SECRET")
+    return secret.encode() if secret else None
+
+
+def _server_client_keys() -> dict[int, bytes] | None:
+    """The server's registry of per-client identity secrets
+    (FEDTPU_CLIENT_SECRETS='0:alpha,1:bravo'); ids not listed are refused
+    in the secure key exchange."""
+    raw = os.environ.get("FEDTPU_CLIENT_SECRETS")
+    if not raw:
+        return None
+    keys: dict[int, bytes] = {}
+    for entry in raw.split(","):
+        cid, _, secret = entry.partition(":")
+        try:
+            keys[int(cid.strip())] = secret.encode()
+        except ValueError:
+            raise SystemExit(
+                f"malformed FEDTPU_CLIENT_SECRETS entry {entry!r} (want 'id:secret,id:secret,...')"
+            ) from None
+        if not secret:
+            raise SystemExit(f"empty secret for client {cid} in FEDTPU_CLIENT_SECRETS")
+    return keys
+
+
+def _parse_parents(entries) -> tuple[tuple[str, int] | None, list[tuple[str, int]] | None]:
+    """``--parent HOST:PORT`` (repeatable): the primary (None when absent)
+    and the ranked fallbacks (None when there are none)."""
+    if not entries:
+        return None, None
+    parsed = []
+    for entry in entries:
+        host, sep, port = str(entry).rpartition(":")
+        if not sep or not host or not port.isdigit():
+            raise SystemExit(f"malformed --parent {entry!r} (want HOST:PORT)")
+        parsed.append((host, int(port)))
+    return parsed[0], parsed[1:] or None
 
 
 def build_server(args) -> AggregationServer:
     """The aggregation server the ``serve`` flags describe, bound and
     listening (``server.port`` is the bound port), not yet serving."""
-    _refuse_identity_keys("FEDTPU_CLIENT_SECRETS")
     if not 0.0 < args.dp_participation <= 1.0:
         raise SystemExit(f"--dp-participation {args.dp_participation} must be in (0, 1]")
     _log_dp_banner(args)
@@ -65,6 +101,10 @@ def build_server(args) -> AggregationServer:
         timeout=args.timeout,
         compression=args.compression,
         auth_key=_auth_key(),
+        secure_agg=args.secure_agg,
+        client_keys=_server_client_keys(),
+        secure_protocol=args.secure_protocol,
+        secure_threshold=args.secure_threshold,
         stream_chunk_bytes=wire.stream_chunk_bytes_from_mb(args.stream_chunk_mb),
         strategy=args.strategy,
         strategy_state_path=args.strategy_state_file,
@@ -116,6 +156,14 @@ def _log_dp_banner(args) -> str | None:
         "(OS-entropy Philox) — not hardened against the Mironov "
         "floating-point precision attack (no discrete Gaussian)"
     )
+    if args.secure_agg:
+        # Masked uploads cannot be re-clipped: the bound assumes every
+        # client clips honestly.
+        banner += (
+            ". Secure-agg caveat: clipping is HONEST-CLIENT-ONLY "
+            "(masked uploads cannot be re-clipped server-side); one "
+            "dishonest client can widen the mechanism's sensitivity"
+        )
     log.info(banner)
     return banner
 
@@ -124,6 +172,49 @@ def cmd_serve(args) -> int:
     with build_server(args) as server:  # closes its /metrics endpoint too
         log.info(f"[SERVER] listening on {args.host}:{server.port} (fold on {server.device})")
         server.serve(rounds=args.rounds)
+    return 0
+
+
+def build_relay(args):
+    """The relay the ``relay`` flags describe (comm/relay.py), bound and
+    listening, not yet serving: a subtree of ``--num-clients`` folded on
+    the card (K4) and forwarded to ``--parent-host:--parent-port``."""
+    from ..comm.relay import RelayAggregator
+
+    tracer, metrics_server = _obs_setup(args, proc=f"relay-{args.relay_id}", metrics_host=args.host)
+    relay = RelayAggregator(
+        args.host,
+        args.port,
+        parent_host=args.parent_host,
+        parent_port=args.parent_port,
+        relay_id=args.relay_id,
+        num_clients=args.num_clients,
+        min_clients=args.min_clients,
+        timeout=args.timeout,
+        compression=args.compression,
+        auth_key=_auth_key(),
+        stream_chunk_bytes=wire.stream_chunk_bytes_from_mb(args.stream_chunk_mb),
+        stream=args.stream_upload,
+        subtree_deadline_factor=args.subtree_deadline_factor,
+        tracer=tracer,
+        strategy=args.strategy or "fedavg",
+        upward_topk=args.upward_topk,
+        device=args.device,
+    )
+    relay.server.metrics_server = metrics_server
+    return relay
+
+
+def cmd_relay(args) -> int:
+    """One intermediate aggregator of the fold tree: clients point at it
+    as at a root; run the root ``serve`` with ``--weighted`` so subtree
+    means recombine by their sample mass."""
+    with build_relay(args) as relay:
+        log.info(
+            f"[RELAY {args.relay_id}] listening on {args.host}:{relay.port}"
+            f" -> parent {args.parent_host}:{args.parent_port} (fold on {relay.server.device})"
+        )
+        relay.serve(rounds=args.rounds or 1)
     return 0
 
 
@@ -138,12 +229,23 @@ def run_client(args) -> dict:
     metrics (None after a failed exchange), ``rounds`` (per round: the
     params as sent, JAX layout, whose leaves are host arrays once sent;
     the aggregate as received; the metrics; the seconds per phase;
-    ``exchange``, the client's wire record; and under DP ``round_base``,
+    ``exchange``, the client's wire record; ``n_samples``, the weight the
+    upload declared; and under DP ``round_base``,
     the params the round's training started from), ``uploaded``, ``aggregate``,
     ``seconds`` and ``exchange`` of the last round (with the data and
-    model set-up before the first in ``seconds``), ``metrics_csvs``, and
-    with a checkpoint directory ``warm_step`` (the step warm-started
-    from, None for a fresh start) and ``saved_steps``.
+    model set-up before the first in ``seconds``), ``metrics_csvs``,
+    ``client`` (the FederatedClient, whose ``rehomes`` count the moves to
+    a fallback parent), and with a checkpoint directory ``warm_step``
+    (the step warm-started from, None for a fresh start) and
+    ``saved_steps``.
+
+    ``--parent HOST:PORT`` (repeatable) gives the ranked parents, the
+    first replacing ``--host/--port``. ``--persona`` runs the client as a
+    fault-harness persona: a lazy client trains a fraction of the epochs,
+    a stale one sits out every second round (waiting the round window
+    out), and the wire personas dial the server through an in-process
+    seeded fault proxy (``--fault-seed``; start the server first: behind
+    the proxy the dial succeeds while the server is down).
 
     Obs: with ``--trace-jsonl`` each round's ``client-local`` span (the
     training seconds, with the sampled step attrs under
@@ -158,21 +260,53 @@ def run_client(args) -> dict:
     past the directory's latest, since ``state.step`` alone can lag
     them. Epoch offsets start from 0 on every launch, as in the JAX
     package."""
+    t_start = time.perf_counter()
+    device = resolve_device(args.device)  # raises before any work without CUDA
+    tok, cfg, pretrained = _resolve_with_pretrained(args)
+    server_host, server_port = args.host, args.port
+    primary, fallback_parents = _parse_parents(args.parent)
+    if primary is not None:
+        server_host, server_port = primary
+    persona = proxy = None
+    if args.persona:
+        from ..faults.personas import get_persona, start_persona_proxy
+
+        persona = get_persona(args.persona)
+        # The proxy fronts the primary only; fallbacks are dialed directly.
+        proxy = start_persona_proxy(
+            persona, server_host, server_port, fault_seed=args.fault_seed, client_id=args.client_id
+        )
+        if proxy is not None:
+            server_host, server_port = proxy.host, proxy.port
+        log.info(
+            f"[CLIENT {args.client_id}] persona '{persona.name}' (fault seed {args.fault_seed})"
+            + (f": wire faults via proxy {proxy.host}:{proxy.port}" if proxy is not None else ": client-side behavior only")
+        )
+    try:
+        return _run_client_rounds(args, device, tok, cfg, pretrained, server_host, server_port,
+                                  fallback_parents, persona, t_start)
+    finally:
+        if proxy is not None:
+            proxy.close()
+
+
+def _run_client_rounds(args, device, tok, cfg, pretrained, server_host, server_port, fallback_parents,
+                       persona, t_start) -> dict:
+    """``run_client``'s rounds, against ``server_host:server_port``."""
+    from ..comm.secure import SecureAggError
     from ..obs.profile import note_memory
     from ..train.checkpoint import Checkpointer, maybe_warm_start
     from ..train.engine import Trainer
 
-    t_start = time.perf_counter()
-    device = resolve_device(args.device)  # raises before any work without CUDA
-    # Refuses what the JAX client refuses (--wire-dtype with --compression)
-    # before any data is loaded.
-    _refuse_identity_keys("FEDTPU_CLIENT_SECRET")
     fed = FederatedClient(
-        args.host, args.port, client_id=args.client_id, timeout=args.timeout,
+        server_host, server_port, client_id=args.client_id, timeout=args.timeout,
         compression=args.compression, auth_key=_auth_key(), stream=args.stream_upload,
-        wire_dtype=args.wire_dtype, dp=args.dp,
+        wire_dtype=args.wire_dtype, dp=args.dp, secure_agg=args.secure_agg,
+        num_clients=cfg.fed.num_clients, client_key=_client_identity_key(),
+        min_participants=args.min_participants, secure_protocol=args.secure_protocol,
+        secure_threshold=args.secure_threshold, fallback_parents=fallback_parents,
+        rehome_dial_budget=args.rehome_dial_budget,
     )
-    tok, cfg, pretrained = _resolve_with_pretrained(args)
     # The round loop writes its own client-local span (note_local_phase),
     # so the global tracer stays disarmed.
     fed.tracer, _metrics = _obs_setup(args, proc=f"client-{args.client_id}", cfg=cfg, install_global=False)
@@ -211,6 +345,13 @@ def run_client(args) -> dict:
     seconds: dict[str, float] = {}
     records: list[dict] = []
     for r in range(rounds):
+        if persona is not None and persona.skips_round(r):
+            # Stale persona: offline this round. Wait the round window out,
+            # or the next round's upload would land in this one.
+            log.info(f"{tag}persona '{persona.name}': sitting out round {r + 1}/{rounds}")
+            if r + 1 < rounds:
+                time.sleep(args.timeout)
+            continue
         # Central DP: the round base is what this round's training starts
         # from (the shared init in round 1, the adopted aggregate after);
         # host_params copies, so training cannot alias it.
@@ -218,7 +359,9 @@ def run_client(args) -> dict:
         t_local = time.time()
         t0 = time.perf_counter()
         state, _ = trainer.fit(
-            state, client.train, batch_size=cfg.data.batch_size, epoch_offset=r * E, tag=tag
+            state, client.train, batch_size=cfg.data.batch_size, epoch_offset=r * E, tag=tag,
+            # A lazy persona trains a fraction of the epochs (at least one).
+            epochs=persona.scaled(E) if persona is not None else None,
         )
         t1 = time.perf_counter()
         # Buffered until the exchange names the round (trace, round).
@@ -240,7 +383,7 @@ def run_client(args) -> dict:
         )
         try:
             aggregated = fed.exchange(uploaded, n_samples=len(client.train), round_base=round_base)
-        except OSError as e:  # ConnectionError included: the server is gone
+        except (OSError, SecureAggError) as e:  # ConnectionError included: the server is gone
             agg_metrics = aggregated = None
             log.info(f"{tag}round {r + 1} exchange failed ({e}); local-only reports")
             break
@@ -275,14 +418,14 @@ def run_client(args) -> dict:
         records.append({
             "uploaded": uploaded, "aggregate": aggregated, "local": local,
             "aggregated": agg_metrics, "seconds": dict(seconds), "exchange": fed.last_exchange,
-            "round_base": round_base,
+            "round_base": round_base, "n_samples": len(client.train),
         })
     paths = _write_reports(args.client_id, local, agg_metrics, cfg.output_dir)
     return {
         "config": cfg, "trainer": trainer, "state": state, "local": local,
         "aggregated": agg_metrics, "rounds": records, "uploaded": uploaded, "aggregate": aggregated,
         "seconds": seconds, "exchange": fed.last_exchange, "metrics_csvs": paths,
-        "warm_step": warm_step, "saved_steps": saved_steps,
+        "warm_step": warm_step, "saved_steps": saved_steps, "client": fed,
     }
 
 

@@ -7,9 +7,10 @@ card), serves round after round, scores every aggregate on the pooled
 validation rows on the card (K1 at rate 0), registers it as an immutable
 candidate, and moves the registry's serving pointer only through the eval
 gate. Its records, artifacts and state file are the JAX controller's, so
-either package resumes a campaign the other began. The JAX verb's secure
-aggregation (ROADMAP item 11) and its shadow, label and error-rate gates
-(item 14b) are not ported: their flags are absent.
+either package resumes a campaign the other began; ``--secure-agg``
+serves masked rounds (comm/secure.py), the gate scoring the recovered
+mean. The JAX verb's shadow, label and error-rate gates (ROADMAP item 14b)
+are not ported: their flags are absent.
 
 ``registry`` is the manual override: ``list``, ``promote``, ``rollback``
 and ``gc``. A registry root may be written by both packages in turn.
@@ -95,10 +96,9 @@ def build_controller(args) -> ControllerRun:
     and listening (``server.port``), no round served yet."""
     from ..comm import wire
     from ..control import DriftMonitor, SentinelLink, SloActuator
-    from .comm import _auth_key, _refuse_identity_keys
+    from .comm import _auth_key, _server_client_keys
     from .common import _obs_setup, _resolve_with_pretrained
 
-    _refuse_identity_keys("FEDTPU_CLIENT_SECRETS")
     tok, cfg, _ = _resolve_with_pretrained(args, load_weights=False)
     C = cfg.fed.num_clients
     ctl_kw = {f: getattr(args, flag) for flag, f in _CONTROL_FLAGS if getattr(args, flag, None) is not None}
@@ -170,6 +170,8 @@ def build_controller(args) -> ControllerRun:
         min_clients=args.min_clients,
         timeout=args.timeout,
         auth_key=_auth_key(),
+        secure_agg=args.secure_agg,
+        client_keys=_server_client_keys(),
         stream_chunk_bytes=wire.stream_chunk_bytes_from_mb(args.stream_chunk_mb),
         device=args.device,
         tracer=tracer,

@@ -2,8 +2,9 @@
 
 The verbs and flags mirror the JAX package's ``cli/parser.py``; the port
 has ``local`` (single-client training), ``federated`` (N clients in one
-process), ``serve`` and ``client`` (a federated round over TCP),
-``controller`` (the unattended round -> gate -> promote loop),
+process), ``serve``, ``relay`` and ``client`` (a federated round over
+TCP, secure or through a fold tree of relays), ``scenario`` (the fault
+harness's persona x partition matrix), ``controller`` (the unattended round -> gate -> promote loop),
 ``distill`` (teacher -> student), ``predict`` (batch inference),
 ``infer-serve`` (online scoring with hot reload), ``export-hf`` (weights
 to the HF layout), ``export-config`` (the resolved config as JSON),
@@ -14,8 +15,8 @@ the card unless ``--device cpu`` is given. The obs flags
 (``--trace-jsonl``, ``--metrics-jsonl``, ``--profile-dir``,
 ``--profile-stride``, ``--metrics-port``, ``--flight-dir``,
 ``--trace-sample``, ``--scored-jsonl``) are the JAX package's, on the
-same verbs. Flags of features the port has not reached (``--secure-agg``,
-``--data-parallel``, ``--seq-parallel``, the controller's shadow, label
+same verbs. Flags of features the port has not reached
+(``--data-parallel``, ``--seq-parallel``, the controller's shadow, label
 and error-drift gates) are absent, so argparse refuses them.
 """
 
@@ -28,7 +29,7 @@ import sys
 
 from ..data.datasets import DATASETS
 from ..models.presets import preset_names
-from .comm import cmd_client, cmd_serve
+from .comm import cmd_client, cmd_relay, cmd_serve
 from .common import resolve_config
 from .control import cmd_controller, cmd_registry
 from .distill import cmd_distill
@@ -36,6 +37,7 @@ from .federated import cmd_federated
 from .local import cmd_local
 from .obs import cmd_obs
 from .predict import cmd_export_hf, cmd_predict
+from .scenario import cmd_scenario
 from .serving import cmd_infer_serve
 
 
@@ -670,6 +672,31 @@ def build_parser() -> argparse.ArgumentParser:
         "on start; ignored when it holds another strategy",
     )
     p.add_argument(
+        "--secure-agg",
+        action="store_true",
+        help="secure aggregation: accept pairwise-masked uploads and "
+        "recover only their sum — individual client weights are never "
+        "visible to the server",
+    )
+    p.add_argument(
+        "--secure-protocol",
+        choices=["double", "reveal"],
+        default="double",
+        help="dropout recovery: double (default, full Bonawitz "
+        "double-masking — Shamir-shared seeds, survives unmask-phase "
+        "dropouts, false death claims recover nothing) or reveal "
+        "(cheaper; a reveal-phase dropout fails the round). Set "
+        "identically on clients",
+    )
+    p.add_argument(
+        "--secure-threshold",
+        type=int,
+        default=None,
+        help="Shamir threshold for double-masking (default: strict "
+        "majority of the keyed participants — the value that makes the "
+        "either/or share-reveal rule binding). Set identically on clients",
+    )
+    p.add_argument(
         "--dp-clip",
         type=float,
         default=0.0,
@@ -723,6 +750,72 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser(
+        "relay",
+        help="intermediate aggregator: fold a subtree of clients into a "
+        "partial weighted mean (on the card) and forward one upload upward",
+        epilog="Clients point at the relay exactly as at a root server "
+        "(same wire protocol, same FEDTPU_SECRET auth). Run the ROOT "
+        "`serve` with --num-clients = the relay count and --weighted, so "
+        "subtree means recombine by their sample mass. Secure aggregation "
+        "and central DP stay single-aggregator by design — run those "
+        "fleets flat.",
+    )
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=12346, help="subtree-facing listen port (default 12346)")
+    p.add_argument("--parent-host", default="127.0.0.1", help="root (or higher-tier relay) host (default 127.0.0.1)")
+    p.add_argument("--parent-port", type=int, default=12345, help="root (or higher-tier relay) port (default 12345)")
+    p.add_argument(
+        "--relay-id", type=int, required=True,
+        help="this relay's client id on the PARENT tier — the fixed subtree order at the root (ascending relay id)",
+    )
+    p.add_argument("--num-clients", type=int, default=2, help="subtree size: how many clients this relay terminates")
+    p.add_argument("--min-clients", type=int, default=None)
+    p.add_argument("--rounds", type=int, default=1)
+    p.add_argument("--timeout", type=float, default=300.0)
+    p.add_argument(
+        "--compression", default="none", type=_reply_compression,
+        help="wire encoding both ways at this hop: none|bf16|int8",
+    )
+    p.add_argument(
+        "--stream-chunk-mb", type=float, default=None,
+        help="chunk-streamed upload offer for the subtree (see `serve --stream-chunk-mb`); "
+        "0 = barrier shape below this relay",
+    )
+    p.add_argument(
+        "--no-stream-upload", dest="stream_upload", action="store_false", default=True,
+        help="send the upward partial as one dense frame (and skip the streamed-reply advert to the parent)",
+    )
+    p.add_argument(
+        "--subtree-deadline-factor", type=float, default=0.5,
+        help="per-subtree straggler deadline as a fraction of --timeout, strictly inside (0, 1): "
+        "a slow subtree sheds its stragglers (set --min-clients below the subtree size) or fails "
+        "its local quorum — so its clients can re-home — while the root is still inside ITS "
+        "deadline (default 0.5)",
+    )
+    p.add_argument(
+        "--trace-jsonl",
+        help="append obs spans (round/agg/wire-reply/relay-forward) to this events-JSONL; "
+        "merge with `obs timeline --trace-dir`",
+    )
+    _add_metrics_port(p, "Prometheus /metrics for this relay's round engine (0 = off, the default)")
+    p.add_argument(
+        "--upward-topk", type=float, default=None,
+        help="sparsify the UPWARD hop: after round 1 the relay uploads topk deltas of its subtree "
+        "partial against the last root aggregate it fanned down (error feedback carries the "
+        "dropped mass). Needs the root on lossless reply compression; value is the kept "
+        "fraction, e.g. 0.01",
+    )
+    p.add_argument(
+        "--strategy", default="fedavg",
+        help="strategy id this relay declares on every upward upload (strategies apply at the "
+        "ROOT only; the root refuses a relay whose declared strategy differs). Must name the "
+        "root's --strategy (default fedavg)",
+    )
+    _add_flight_dir(p)
+    _add_device(p, "the subtree fold runs")
+    p.set_defaults(fn=cmd_relay)
+
+    p = sub.add_parser(
         "client",
         help="TCP federated client: train -> exchange -> adopt, per round",
         epilog="Writes client{N}_local_metrics.csv and, after a round, "
@@ -733,6 +826,18 @@ def build_parser() -> argparse.ArgumentParser:
     _add_training(p)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=12345)
+    p.add_argument(
+        "--parent", action="append", metavar="HOST:PORT", default=None,
+        help="parent aggregator as HOST:PORT; REPEATABLE — the first is the primary (overrides "
+        "--host/--port), every further one a ranked fallback. When the primary's dial budget runs "
+        "out, or its connection dies mid-exchange, the client re-homes to the next parent and "
+        "re-uploads (dense, marked): the adoptive relay folds it as an EXTRA contributor",
+    )
+    p.add_argument(
+        "--rehome-dial-budget", type=float, default=8.0,
+        help="seconds of seeded dial backoff per parent when fallback parents are configured "
+        "(a dead parent costs this, not the whole --timeout; default 8)",
+    )
     p.add_argument("--client-id", type=int, required=True)
     p.add_argument("--num-clients", type=int, default=None, help="clients the data is split for (default 2)")
     p.add_argument("--rounds", type=int, default=1)
@@ -772,11 +877,57 @@ def build_parser() -> argparse.ArgumentParser:
         "server's --strategy fedprox); 0/unset = plain local training",
     )
     p.add_argument(
+        "--secure-agg",
+        action="store_true",
+        help="mask the upload with per-pair Diffie-Hellman secrets (fresh "
+        "ephemeral keys each round, relayed through the server) so the "
+        "server sees only the sum and no client can unmask another pair",
+    )
+    p.add_argument(
+        "--min-participants",
+        type=int,
+        default=None,
+        help="secure-agg quorum floor THIS client will mask over (default: "
+        "the full fleet). Set to the server's --min-clients to opt into "
+        "dropout-recovery quorums; a keys frame below the floor is "
+        "refused without retry (anti-downgrade)",
+    )
+    p.add_argument(
+        "--secure-protocol",
+        choices=["double", "reveal"],
+        default="double",
+        help="secure-agg dropout recovery; must match the server's "
+        "--secure-protocol (a mismatched advert is refused — downgrade "
+        "protection)",
+    )
+    p.add_argument(
+        "--secure-threshold",
+        type=int,
+        default=None,
+        help="Shamir threshold for double-masking; must match the "
+        "server's --secure-threshold (default: majority of the keyed "
+        "participants)",
+    )
+    p.add_argument(
         "--dp",
         action="store_true",
         help="central DP (server runs with --dp-clip): upload the clipped "
         "round delta vs this round's starting params; the clip bound and "
         "noise multiplier come from the server's advert",
+    )
+    p.add_argument(
+        "--persona",
+        choices=["honest", "lazy", "slow", "intermittent", "stale", "flaky-net"],
+        default=None,
+        help="run this client under a misbehavior persona (faults/personas.py): lazy trains "
+        "fewer epochs; slow throttles its upload through a local fault proxy; intermittent dies "
+        "mid-upload once per exchange and retries; stale sits out every second round; flaky-net "
+        "randomly resets connections (seeded). Wire faults run through a deterministic "
+        "in-process TCP proxy against the REAL server — start the server first",
+    )
+    p.add_argument(
+        "--fault-seed", type=int, default=0,
+        help="seed for the persona's deterministic wire-fault draws (same seed = same faults, byte-for-byte)",
     )
     p.add_argument(
         "--partition", choices=["sample", "disjoint", "dirichlet", "quantity"],
@@ -944,8 +1095,8 @@ def build_parser() -> argparse.ArgumentParser:
         "(same contract as `serve`). The fold (K4) and the eval gate (K1 at "
         "rate 0) run on the card unless --device cpu. Central DP is not "
         "supported here: a DP server never holds the absolute params an "
-        "artifact needs. Secure aggregation and the shadow, label and "
-        "error-drift gates are not ported.",
+        "artifact needs. The shadow, label and error-drift gates are not "
+        "ported.",
     )
     _add_training(p)  # dataset/model flags resolve the held-out gate split; --device
     p.add_argument("--host", default="0.0.0.0")
@@ -973,6 +1124,12 @@ def build_parser() -> argparse.ArgumentParser:
         help="controller-state JSONL (default: "
         "<registry-dir>/controller_state.jsonl); a restarted controller "
         "replays it and resumes the campaign mid-way",
+    )
+    p.add_argument(
+        "--secure-agg",
+        action="store_true",
+        help="accept pairwise-masked uploads (comm/secure.py); the gate "
+        "evaluates the recovered mean as usual",
     )
     p.add_argument(
         "--gate-metric",
@@ -1112,6 +1269,69 @@ def build_parser() -> argparse.ArgumentParser:
     )
     _add_flight_dir(p)
     p.set_defaults(fn=cmd_controller)
+
+    p = sub.add_parser(
+        "scenario",
+        help='the "federated in the wild" matrix: persona x partition '
+        "cells of live loopback rounds with wire-level fault injection",
+        epilog="Each cell runs a REAL AggregationServer + client fleet "
+        "on loopback (every server's fold on the card unless --device cpu), "
+        "with the row's persona driving faults through the "
+        "deterministic TCP fault proxy (faults/). Outcomes come from "
+        "the obs timeline (contributors, drop attribution, straggler "
+        "wait); every successful round's aggregate is crc-pinned "
+        "bit-exact against the clean barrier mean over the same "
+        "survivor set. Exits 1 on any contract violation.",
+    )
+    p.add_argument(
+        "--personas", default="lazy,slow,intermittent",
+        help="comma list of matrix rows (honest|lazy|slow|intermittent|stale|flaky-net; "
+        "default lazy,slow,intermittent)",
+    )
+    p.add_argument(
+        "--partitions", default="iid,dirichlet",
+        help="comma list of matrix columns (iid|dirichlet|quantity; default iid,dirichlet)",
+    )
+    p.add_argument(
+        "--dirichlet-alpha", type=float, default=0.1,
+        help="skew concentration for the dirichlet/quantity columns (default 0.1 — heavily non-IID)",
+    )
+    p.add_argument("--clients", type=int, default=3)
+    p.add_argument("--rounds", type=int, default=2)
+    p.add_argument("--payload-kb", type=int, default=64, help="synthetic per-client model payload size (default 64)")
+    p.add_argument("--deadline", type=float, default=8.0, help="per-round straggler deadline seconds (default 8)")
+    p.add_argument("--fault-seed", type=int, default=0)
+    p.add_argument(
+        "--out-dir", default="outputs/scenario",
+        help="grid.txt + scenario.jsonl + per-cell trace JSONLs land here (default outputs/scenario)",
+    )
+    p.add_argument(
+        "--train", action="store_true",
+        help="train a tiny real model per client on the partitioned shards (adds the per-cell "
+        "accuracy column; slower)",
+    )
+    p.add_argument("--no-auth-cell", action="store_true", help="skip the extra HMAC-authenticated cell")
+    p.add_argument(
+        "--no-dead-relay-cell", action="store_true",
+        help="skip the dead-relay cell (depth-2 fold tree with a seeded mid-round relay kill: the "
+        "victim subtree's clients re-home to the surviving relay and the root completes a degraded "
+        "round, crc-pinned against the actual-contributor replay)",
+    )
+    p.add_argument(
+        "--no-stream", action="store_true",
+        help="dense single-frame uploads in every cell (default: the server advertises "
+        "chunk-streamed uploads, so round 2+ streams)",
+    )
+    p.add_argument(
+        "--strategies", default=None,
+        help="';'-separated server strategy specs (NAME[:k=v,...], see `serve --strategy`; plain "
+        "',' also works for bare names) to APPEND as extra matrix cells — each persona x "
+        "partition pair re-runs under every listed non-fedavg strategy, with the base cells as "
+        "the fedavg baseline (add --train for the accuracy comparator)",
+    )
+    p.add_argument("--json", action="store_true", help="print one JSON record per cell instead of the grid")
+    _add_device(p, "every cell's fold (and a --train cell's clients) runs")
+    p.set_defaults(fn=cmd_scenario)
 
     p = sub.add_parser("distill", help="teacher -> student knowledge distillation")
     _add_training(p)

@@ -40,7 +40,17 @@ interoperates:
 * a plain client whose first attempt failed peeks at the server's first
   frame, and names the fix when the server runs DP or auth.
 
-Not ported: secure aggregation and re-homing to fallback parents.
+* with ``secure_agg`` (``--secure-agg``) the client reads the secure
+  round advert, sends its DH hello, masks its update over the relayed key
+  set (under double masking after dealing Shamir shares of its seeds) and
+  answers the unmask or reveal request; the three retry pins of the JAX
+  client hold (the keyed set and U2 per round, the answered unmask
+  partition, and the ``min_participants`` floor);
+* with ``fallback_parents`` a dead parent (its dial budget spent, or its
+  connection lost mid-exchange) moves the client to the next parent of
+  the ranked list for good; every later upload carries
+  ``wire.META_REHOMED`` and ``fedtpu_client_rehomes_total`` counts the
+  move.
 
 With a ``tracer`` the client writes its round's spans once the reply
 reveals the round's (trace, round) identity: the caller's buffered
@@ -54,9 +64,11 @@ from __future__ import annotations
 
 import hmac
 import logging
+import os
 import random
 import socket
 import struct
+import threading
 import time
 from typing import Any, Iterator, Mapping
 
@@ -64,7 +76,7 @@ import numpy as np
 
 from ..obs import metrics as obs_metrics
 
-from . import framing, wire
+from . import framing, secure, shamir, wire
 
 log = logging.getLogger(__name__)
 
@@ -75,9 +87,8 @@ REHOME_REASONS = ("dial-exhausted", "mid-exchange")
 
 def _rehome_counters() -> dict:
     """Per-reason re-home counters on the default registry, registered as
-    the JAX client registers them. The port's client has no fallback
-    parent, so they stay at 0; /metrics shows the same families either
-    way."""
+    the JAX client registers them (get-or-create: every client of a
+    process shares the family)."""
     m = obs_metrics.default_registry()
     return {
         # fedtpu: allow(obs-metric-once): the JAX package's comm/client.py family, same name/kind/labels/help
@@ -123,20 +134,28 @@ def connect_with_retry(
     poll_interval: float = 1.0,  # the reference's 1 s first-probe cadence
     max_interval: float = 15.0,
     retry_seed: int | None = None,
+    abort_event: threading.Event | None = None,
 ) -> socket.socket:
     """Dial until the server is up or ``timeout`` elapses, retrying on
-    the :func:`backoff_intervals` schedule."""
+    the :func:`backoff_intervals` schedule; ``abort_event`` (a closing
+    relay) interrupts the backoff."""
     deadline = time.monotonic() + timeout
     last: Exception | None = None
     sched = backoff_intervals(base=poll_interval, cap=max_interval, seed=retry_seed)
     while time.monotonic() < deadline:
+        if abort_event is not None and abort_event.is_set():
+            raise ConnectionError(f"dial of {host}:{port} aborted")
         try:
             return socket.create_connection(
                 (host, port), timeout=max(0.1, deadline - time.monotonic())
             )
         except OSError as e:
             last = e
-            time.sleep(min(next(sched), max(0.0, deadline - time.monotonic())))
+            pause = min(next(sched), max(0.0, deadline - time.monotonic()))
+            if abort_event is None:
+                time.sleep(pause)
+            elif abort_event.wait(pause):
+                raise ConnectionError(f"dial of {host}:{port} aborted") from e
     raise ConnectionError(f"server {host}:{port} unreachable after {timeout}s: {last}")
 
 
@@ -159,9 +178,80 @@ class FederatedClient:
         stream: bool = True,
         wire_dtype: str = "fp32",
         dp: bool = False,
+        secure_agg: bool = False,
+        num_clients: int | None = None,
+        fp_bits: int = secure.DEFAULT_FP_BITS,
+        client_key: bytes | None = None,
+        min_participants: int | None = None,
+        secure_protocol: str = "double",
+        secure_threshold: int | None = None,
+        fallback_parents: list[tuple[str, int]] | None = None,
+        rehome_dial_budget: float = 8.0,
         tracer=None,
     ):
         _, self._topk_frac = wire.parse_compression(compression)
+        if wire_dtype != "fp32" and secure_agg:
+            raise ValueError(
+                "wire_dtype quantization is incompatible with secure "
+                "aggregation: masked uploads are uniform ring "
+                "elements — quantizing them destroys mask "
+                "cancellation"
+            )
+        if fallback_parents and (secure_agg or dp):
+            # A secure session is keyed to one server's (session, round),
+            # a DP base to one server's history.
+            raise ValueError(
+                "fallback_parents (client re-homing) is a plain/relay-"
+                "tree feature: secure aggregation and central DP bind "
+                "the exchange to a single aggregator"
+            )
+        if rehome_dial_budget <= 0.0:
+            raise ValueError(f"rehome_dial_budget={rehome_dial_budget} must be > 0")
+        if client_key is not None and auth_key is None:
+            raise ValueError(
+                "client_key (per-client DH identity binding) requires "
+                "auth_key: the rest of the exchange is authenticated "
+                "under the group key"
+            )
+        if secure_agg and num_clients is None:
+            raise ValueError(
+                "secure aggregation needs num_clients: each client must "
+                "mask against the full advertised participant set"
+            )
+        if secure_protocol not in ("reveal", "double"):
+            raise ValueError(f"secure_protocol {secure_protocol!r} must be reveal|double")
+        if secure_threshold is not None and secure_threshold < 2:
+            raise ValueError(
+                "secure_threshold < 2 would let the server reconstruct "
+                "secrets from a single holder"
+            )
+        if secure_agg and secure_protocol == "double" and num_clients > 254:
+            raise ValueError("double-masking Shamir x-coordinates support <= 254 clients")
+        if secure_agg:
+            # The client-side floor on the mask-partner set (default: the
+            # whole fleet): a compromised server cannot shrink it to one
+            # colluder.
+            floor = num_clients if min_participants is None else int(min_participants)
+            if not 2 <= floor <= num_clients:
+                raise ValueError(
+                    f"min_participants={min_participants} must be in "
+                    f"[2, num_clients={num_clients}]"
+                )
+            self.min_participants = floor
+        else:
+            if min_participants is not None:
+                raise ValueError(
+                    "min_participants is a secure-aggregation knob (the "
+                    "mask-partner quorum floor); it has no meaning "
+                    "without secure_agg"
+                )
+            self.min_participants = None
+        if secure_agg and self._topk_frac is not None:
+            raise ValueError(
+                "topk compression is incompatible with secure "
+                "aggregation: masked uploads are uniform ring elements "
+                "with no sparsity to exploit"
+            )
         if dp and self._topk_frac is not None:
             raise ValueError(
                 "central DP uploads are clipped dense deltas; the sparse "
@@ -192,6 +282,36 @@ class FederatedClient:
         #: Central DP: uploads are clipped round deltas (the server's
         #: --dp-clip), and replies are noised mean deltas.
         self.dp = bool(dp)
+        #: Secure aggregation: the fleet size, fixed-point bits, recovery
+        #: protocol and Shamir threshold; the per-client identity key (own
+        #: key when provisioned, else the group key) the hello, reveal,
+        #: share and unmask frames ride; per (session, round) the DH
+        #: keypair and dealt shares (retries reuse them), and per session
+        #: the last round masked (a replayed round is refused).
+        self.secure_agg = bool(secure_agg)
+        self.num_clients = num_clients
+        self.fp_bits = int(fp_bits)
+        self.secure_protocol = secure_protocol
+        self.secure_threshold = secure_threshold
+        self.client_key = client_key
+        self._identity_key = client_key if client_key is not None else auth_key
+        self._round_keys: dict[tuple[bytes, int], tuple[bytes, int, bytes]] = {}
+        self._round_shares: dict[tuple[bytes, int], dict] = {}
+        self._used_rounds: dict[bytes, int] = {}
+        #: The ranked parent list (primary first); a re-home advances it
+        #: for good and marks every later upload.
+        self._parents: list[tuple[str, int]] = [(host, int(port))] + [
+            (h, int(p)) for h, p in (fallback_parents or [])
+        ]
+        self._parent_idx = 0
+        self.rehome_dial_budget = float(rehome_dial_budget)
+        self._rehomed = False
+        #: Re-homes performed, by reason (the counter's labels).
+        self.rehomes: dict[str, int] = {}
+        # abort(): the live socket, shut down from another thread.
+        self._abort = threading.Event()
+        self._sock_lock = threading.Lock()
+        self._live_sock: socket.socket | None = None
         #: The server's last offers (one reply behind): its chunk bytes
         #: (None = no stream offer) and the stream encodings it decodes.
         self._server_stream: int | None = None
@@ -218,6 +338,14 @@ class FederatedClient:
         # Observability: spans are written only once the reply reveals the
         # round's (trace, round), so both sides of the wire share it.
         self.tracer = tracer
+        if self.secure_agg and auth_key is None:
+            log.warning(
+                f"[CLIENT {client_id}] --secure-agg without an auth key "
+                "(FEDTPU_SECRET): the DH key exchange has no integrity — "
+                "an ACTIVE on-path attacker could substitute keys and "
+                "unmask uploads; protection is against passive observers "
+                "and the curious server only"
+            )
         self.last_trace: tuple[str | None, int | None] = (None, None)
         self._pending_spans: list[tuple[str, float, float, dict]] = []
         # Wire-codec step profiler (--profile-stride): samples the streamed
@@ -239,14 +367,26 @@ class FederatedClient:
         numpy arrays).
 
         Retries the whole round trip on connection errors and on a
-        malformed reply; a :class:`~.wire.ModeError` is not retried. With
-        a topk compression the caller must adopt the returned aggregate as
-        its model (the error feedback assumes it). Under DP ``round_base``
-        is the params this round's training started from (the adopted
+        malformed reply; a :class:`~.wire.ModeError` or
+        :class:`~.secure.SecureAggError` is not retried. With a topk
+        compression the caller must adopt the returned aggregate as its
+        model (the error feedback assumes it). Under DP ``round_base`` is
+        the params this round's training started from (the adopted
         aggregate, or the shared init in round 1); the upload is
-        ``clip(params - round_base)`` and the return is absolute."""
+        ``clip(params - round_base)`` and the return is absolute.
+
+        With ``secure_agg`` the upload is the pairwise-masked fixed-point
+        form of the params (of the clipped delta under DP), masked over
+        the key set the server relays; one DH keypair per (session,
+        round), reused by the retries of this exchange. With fallback
+        parents a dead parent (its dial budget spent, or its connection
+        lost mid-exchange) moves this client to the next one for good."""
         base_meta = {"client_id": self.client_id, "n_samples": int(n_samples), **dict(meta or {})}
-        if self.stream:
+        if self._rehomed:
+            # Sticky: the adoptive parent folds this client as an extra
+            # contributor every round.
+            base_meta[wire.META_REHOMED] = 1
+        if self.stream and not self.secure_agg:
             base_meta[wire.META_STREAM_REPLY] = 1
             base_meta[wire.META_REPLY_DTYPES] = sorted(set(wire.WIRE_DTYPE_ENCS.values()))
         flat = wire.flatten_lazy(params)
@@ -261,16 +401,36 @@ class FederatedClient:
             dp_delta = {k: np.asarray(flat[k], np.float32) - dp_base[k] for k in flat}
             base_meta["dp"] = True
             base_meta["dp_base_crc"] = wire.flat_crc32(dp_base)
-        msg = None  # a dense frame, encoded once unless auth or topk re-encode it
+        elif self.secure_agg:
+            # The masks need every leaf on the host, once.
+            flat = {k: np.asarray(v) for k, v in flat.items()}
+        msg = None  # a dense frame, encoded once unless auth, topk, DP or masks re-encode it
         last: Exception | None = None
+        #: The (session, round) this exchange masked for: its retries may
+        #: re-mask the same params under it, nothing else may.
+        sec: dict = {"this_call": None}
+        fresh_parent = False  # just re-homed: the next dial is this parent's first
         for attempt in range(1, max_retries + 1):
             sock = None
             sparse_in_flight = False
+            upload_started = None  # (unix start, monotonic start, bytes) once the send began
             try:
+                if self._abort.is_set():
+                    raise ConnectionError(f"client {self.client_id}: exchange aborted")
+                # With fallback parents each dial gets the re-home budget:
+                # a dead parent costs seconds, not the exchange timeout.
                 sock = connect_with_retry(
-                    self.host, self.port, timeout=self.timeout, retry_seed=self.client_id
+                    self.host, self.port,
+                    timeout=min(self.timeout, self.rehome_dial_budget) if len(self._parents) > 1 else self.timeout,
+                    retry_seed=self.client_id, abort_event=self._abort,
                 )
                 sock.settimeout(self.timeout)
+                with self._sock_lock:
+                    self._live_sock = sock
+                if self._abort.is_set():
+                    # abort() landed between the dial and the registration.
+                    raise ConnectionError(f"client {self.client_id}: exchange aborted")
+                first_contact, fresh_parent = fresh_parent, False
                 nonce_hex = None
                 attempt_meta = dict(base_meta)
                 if self.auth_key is not None:
@@ -279,21 +439,28 @@ class FederatedClient:
                         raise wire.WireError("bad auth challenge from server")
                     nonce_hex = bytes(chal[len(wire.NONCE_MAGIC) :]).hex()
                     attempt_meta.update(role="client", nonce=nonce_hex)
-                if not self.dp and attempt > 1:
+                if not self.secure_agg and not self.dp and attempt > 1 and not first_contact:
+                    # A re-homed attempt is the adoptive parent's first
+                    # contact: no peek for a failure that happened elsewhere.
                     self._diagnose_mode(sock)
                 upload, delta_flat, sent_flat = flat, None, None
                 sitting_out = False
+                to_mask = flat
                 if self.dp:
                     clipped = self._dp_handshake(sock, nonce_hex, dp_delta)
                     sitting_out = clipped is None
-                    upload = clipped
+                    upload = to_mask = clipped
+                sec_round = None
+                if self.secure_agg and not sitting_out:
+                    upload, sec_round = self._secure_upload(sock, to_mask, attempt_meta, sec)
                 if self._topk_frac is not None:
                     upload, delta_flat, sent_flat = self._prepare_topk_upload(flat, attempt, attempt_meta)
                 # Streamed on the first attempt only: a retry may be
                 # recovering from a server that stopped streaming. Never
-                # under DP (the clipped delta goes in one frame).
+                # under DP (the clipped delta goes in one frame) nor
+                # secure aggregation (masked uploads are single-frame).
                 use_stream = (
-                    self.stream and not self.dp and self._topk_frac is None
+                    self.stream and not self.dp and not self.secure_agg and self._topk_frac is None
                     and self._server_stream is not None and attempt == 1
                 )
                 t_up_unix = time.time()
@@ -307,6 +474,7 @@ class FederatedClient:
                     if self.wire_dtype != "fp32" and enc in self._server_wire_dtypes:
                         stream_comp, used_dtype = enc, self.wire_dtype
                         attempt_meta["wire_dtype"] = self.wire_dtype
+                    upload_started = (t_up_unix, t0, 0)
                     sent, chunks, overlap_s, wire_attrs = self._stream_upload(
                         sock, upload, attempt_meta, stream_comp, nonce_hex
                     )
@@ -314,7 +482,10 @@ class FederatedClient:
                           "chunks": chunks, "overlap_s": overlap_s}
                 else:
                     self._log_dense_fallback(attempt)
-                    if msg is None or self.auth_key is not None or self._topk_frac is not None or self.dp:
+                    if (
+                        msg is None or self.auth_key is not None or self._topk_frac is not None
+                        or self.dp or self.secure_agg
+                    ):
                         # A topk client's frame is raw (dense rounds) or
                         # carries its pre-encoded top-k leaves.
                         comp = "none" if self._topk_frac is not None else self.compression
@@ -324,11 +495,14 @@ class FederatedClient:
                         f"(attempt {attempt}/{max_retries})"
                     )
                     sparse_in_flight = delta_flat is not None
+                    upload_started = (t_up_unix, t0, len(msg))
                     framing.send_frame(sock, msg)
                     up = {"upload_shape": "dense", "wire_dtype": "fp32", "upload_bytes": len(msg)}
                 t1 = time.monotonic()
                 t_rep_unix = time.time()
                 reply = framing.recv_frame(sock)
+                if sec_round is not None:
+                    reply = self._secure_sub_round(sock, reply, sec_round)
                 reply_attrs: dict = {}
                 if bytes(reply[:4]) == wire.STREAM_MAGIC:
                     agg_flat, agg_meta, reply_bytes, reply_attrs = self._recv_stream_reply(sock, reply, nonce_hex)
@@ -350,6 +524,8 @@ class FederatedClient:
                     **up, "upload_s": t1 - t0, "reply_wait_s": t2 - t1,
                     "reply_bytes": reply_bytes, "reply_shape": reply_shape, "meta": agg_meta,
                 }
+                if sec_round is not None:
+                    self.last_exchange["secure_s"] = dict(sec_round["seconds"])
                 upload_span = None
                 if not sitting_out:
                     upload_attrs = (
@@ -359,6 +535,13 @@ class FederatedClient:
                     )
                     upload_span = (t_up_unix, t1 - t0, up["upload_bytes"], upload_attrs)
                 self._flush_spans(agg_meta, upload_span, (t_rep_unix, t2 - t1, reply_bytes, reply_attrs or None))
+                if sec["this_call"] is not None:
+                    # Round complete: this round's (and older) keypairs and
+                    # shares must not linger.
+                    done_session, done_round = sec["this_call"]
+                    for store in (self._round_keys, self._round_shares):
+                        for k in [k for k in store if k[0] == done_session and k[1] <= done_round]:
+                            del store[k]
                 log.info(
                     f"[CLIENT {self.client_id}] received the aggregate "
                     f"({reply_bytes / 1e6:.1f} MB {reply_shape}, clients {agg_meta.get('round_clients')})"
@@ -376,14 +559,380 @@ class FederatedClient:
                     # retry must not deliver twice.
                     self._residual = None
                 log.info(f"[CLIENT {self.client_id}] round attempt {attempt} failed: {e}")
+                if self._abort.is_set():
+                    # Teardown: the remaining retries would hold the caller.
+                    break
+                failed_upload = None
+                if upload_started is not None:
+                    failed_upload = (upload_started[0], time.monotonic() - upload_started[1], upload_started[2])
+                if attempt < max_retries and self._rehome(
+                    "dial-exhausted" if sock is None else "mid-exchange", err=e, failed_upload=failed_upload
+                ):
+                    # The next attempt dials the adoptive parent now: the
+                    # backoff is for a server that may come back.
+                    base_meta[wire.META_REHOMED] = 1
+                    msg = None  # re-encode: the meta gains the marker
+                    fresh_parent = True
+                    continue
                 if attempt < max_retries:
                     time.sleep(min(2.0**attempt, 10.0))
             finally:
+                with self._sock_lock:
+                    self._live_sock = None
                 if sock is not None:
                     sock.close()
         raise ConnectionError(
             f"client {self.client_id}: round failed after {max_retries} attempts: {last}"
         )
+
+    # ------------------------------------------------ re-homing and abort
+    def _rehome(self, reason: str, *, err: Exception | None = None, failed_upload=None) -> bool:
+        """Move to the next parent of the ranked list; False when none is
+        left (the caller then retries the last one). The move is sticky.
+        Offers and the sparse base learned from the dead parent do not
+        carry over. A failed attempt whose upload reached the wire is kept
+        as a ``wire-upload`` span with ``rehome_failed=1``, written with
+        the adoptive round's spans."""
+        if self._parent_idx + 1 >= len(self._parents):
+            return False
+        self._parent_idx += 1
+        self.host, self.port = self._parents[self._parent_idx]
+        self._rehomed = True
+        self._server_stream = None
+        self._server_wire_dtypes = ()
+        self._base = self._base_round = None
+        self.rehomes[reason] = self.rehomes.get(reason, 0) + 1
+        self._m_rehomes[reason].inc()
+        if failed_upload is not None:
+            self.note_phase(
+                "wire-upload", failed_upload[0], failed_upload[1],
+                client=self.client_id, bytes=failed_upload[2], rehome_failed=1,
+            )
+        log.warning(
+            f"[CLIENT {self.client_id}] re-homing ({reason}"
+            + (f": {err}" if err is not None else "")
+            + f") -> fallback parent {self.host}:{self.port} "
+            f"({self._parent_idx}/{len(self._parents) - 1})"
+        )
+        return True
+
+    def abort(self) -> None:
+        """Tear an in-flight exchange down now (a closing relay): stop the
+        dial backoff and shut the live socket, so a blocked recv fails
+        instead of waiting out its timeout. A later exchange raises."""
+        self._abort.set()
+        with self._sock_lock:
+            s = self._live_sock
+        if s is not None:
+            # shutdown first: close() alone waits while another thread is
+            # blocked on the descriptor.
+            try:
+                s.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                s.close()
+            except OSError:
+                pass
+
+    # ------------------------------------------------- secure aggregation
+    def _secure_upload(self, sock: socket.socket, flat: dict, attempt_meta: dict, sec: dict) -> tuple[dict, dict]:
+        """The secure handshake of one attempt: read the round advert
+        (refusing another protocol and a replayed round), send the DH
+        hello, take the key set, deal and collect shares under double
+        masking, and mask ``flat`` over the round's mask set. Returns the
+        masked upload and the round's state for the unmask sub-round."""
+        secs: dict[str, float] = {}
+        t0 = time.monotonic()
+        # A secure server adverts at once; silence means it is not one.
+        sock.settimeout(min(self.timeout, 30.0))
+        try:
+            adv = bytes(framing.recv_frame(sock))
+        except socket.timeout:
+            raise secure.SecureAggError("server sent no round advert — is it running with --secure-agg?") from None
+        finally:
+            sock.settimeout(self.timeout)
+        n_magic = len(wire.ROUND_MAGIC)
+        if len(adv) != n_magic + 8 + wire.SESSION_LEN + 1 or not adv.startswith(wire.ROUND_MAGIC):
+            raise wire.WireError("bad round advert from server")
+        round_no = struct.unpack("<Q", adv[n_magic : n_magic + 8])[0]
+        if round_no >= 2**63:
+            raise wire.WireError(f"round advert {round_no} out of range")
+        session = adv[n_magic + 8 : n_magic + 8 + wire.SESSION_LEN]
+        # A pin, not a negotiation: an advert cannot downgrade double
+        # masking to the reveal round.
+        want_proto = secure.PROTO_DOUBLE if self.secure_protocol == "double" else secure.PROTO_REVEAL
+        if adv[-1] != want_proto:
+            raise secure.SecureAggError(
+                f"server advertises secure protocol "
+                f"{'double' if adv[-1] else 'reveal'}, this "
+                f"client is configured for "
+                f"{self.secure_protocol} — refusing (set "
+                "--secure-protocol identically on both ends)"
+            )
+        # Retries of this exchange may re-mask the same params for the
+        # same (session, round); an earlier round replayed would mask
+        # other params under the same stream (the differencing attack).
+        prev = self._used_rounds.get(session, -1)
+        if round_no <= prev and (session, round_no) != sec["this_call"]:
+            raise secure.SecureAggError(
+                f"server replayed round {round_no} (already "
+                f"masked up to round {prev} this session) — "
+                "refusing to reuse a mask stream"
+            )
+        sec["this_call"] = (session, round_no)
+        if (session, round_no) not in self._round_keys:
+            # A seed-derived keypair: double masking Shamir-shares the seed.
+            sk_seed = os.urandom(secure.SEED_LEN)
+            self._round_keys[(session, round_no)] = (sk_seed, *secure.dh_keypair(entropy=sk_seed))
+        sk_seed, priv, pub = self._round_keys[(session, round_no)]
+        hello = wire.PUBKEY_MAGIC + struct.pack("<q", self.client_id) + pub
+        if self.auth_key is not None:
+            hello += secure.pubkey_tag(self._identity_key, session, round_no, self.client_id, pub)
+        framing.send_frame(sock, hello)
+        participants, pair_secrets = self._parse_keys_frame(bytes(framing.recv_frame(sock)), priv, session, round_no)
+        secs["keys"] = time.monotonic() - t0
+        share_st = None
+        mask_set = participants
+        if self.secure_protocol == "double":
+            t1 = time.monotonic()
+            share_st = self._double_share_exchange(sock, participants, pair_secrets, sk_seed, session, round_no)
+            mask_set = share_st["u2"]
+            secs["shares"] = time.monotonic() - t1
+        t1 = time.monotonic()
+        upload = secure.masked_upload(
+            flat, pair_secrets=pair_secrets, round_index=round_no, client_id=self.client_id,
+            participants=mask_set, fp_bits=self.fp_bits, session=session,
+        )
+        if share_st is not None:
+            # The self-mask stays on until the unmask round rebuilds b from
+            # other holders' shares.
+            secure.apply_self_stream(upload, share_st["b_seed"], session, round_no, self.client_id, add=True)
+        secs["mask"] = time.monotonic() - t1
+        self._used_rounds[session] = max(prev, round_no)
+        attempt_meta.update(secure=True, fp_bits=self.fp_bits, round=round_no, participants=len(mask_set))
+        return upload, {
+            "session": session, "round": round_no, "share_st": share_st,
+            "pair_secrets": pair_secrets, "seconds": secs,
+        }
+
+    def _secure_sub_round(self, sock: socket.socket, reply, st: dict):
+        """Answer the round's unmask request (double masking) or reveal
+        request (the reveal protocol, after a dropout) and return the
+        frame after it; any other frame is the reply itself."""
+        magic = bytes(reply[:4])
+        session, round_no = st["session"], st["round"]
+        t0 = time.monotonic()
+        if st["share_st"] is not None and magic == wire.UNMASK_MAGIC:
+            reply = self._answer_unmask(sock, bytes(reply), st["share_st"], session, round_no)
+            st["seconds"]["unmask"] = time.monotonic() - t0
+        elif self.secure_protocol == "reveal" and magic == wire.REVEAL_MAGIC:
+            # A revealed secret unlocks only this round's streams of pairs
+            # whose other end contributed nothing.
+            dead = secure.parse_reveal_request(
+                bytes(reply), session=session, round_index=round_no, auth_key=self._identity_key
+            )
+            bad = [d for d in dead if d == self.client_id or d not in st["pair_secrets"]]
+            if bad:
+                raise secure.SecureAggError(f"reveal request names invalid partners {bad}")
+            framing.send_frame(
+                sock,
+                secure.build_reveal_response(
+                    {d: st["pair_secrets"][d] for d in dead}, session=session, round_index=round_no,
+                    client_id=self.client_id, auth_key=self._identity_key,
+                ),
+            )
+            reply = framing.recv_frame(sock)
+            st["seconds"]["reveal"] = time.monotonic() - t0
+        return reply
+
+    def _parse_keys_frame(
+        self, frame: bytes, priv: int, session: bytes, round_no: int
+    ) -> tuple[list[int], dict[int, bytes]]:
+        """The keys frame -> (sorted participant ids, {partner: DH pair
+        secret}), each public value checked and, under auth, its tag. The
+        set may be a quorum subset of the fleet; it must hold this client
+        and at least ``min_participants`` members (the floor that stops a
+        compromised server shrinking the mask partners to a colluder: a
+        SecureAggError, not retried)."""
+        entry = 8 + secure.DH_PUB_LEN + (wire.AUTH_TAG_LEN if self.auth_key is not None else 0)
+        n_magic = len(wire.KEYS_MAGIC)
+        if not frame.startswith(wire.KEYS_MAGIC) or (len(frame) - n_magic) % entry != 0:
+            raise wire.WireError("bad DH keys frame from server")
+        seen: dict[int, bytes] = {}
+        for off in range(n_magic, len(frame), entry):
+            cid = struct.unpack("<q", frame[off : off + 8])[0]
+            if cid in seen:
+                raise wire.WireError(f"duplicate client {cid} in keys frame")
+            pub = frame[off + 8 : off + 8 + secure.DH_PUB_LEN]
+            if self.auth_key is not None:
+                secure.verify_pubkey_tag(
+                    self.auth_key, session, round_no, cid, pub, frame[off + 8 + secure.DH_PUB_LEN : off + entry]
+                )
+            seen[cid] = pub
+        participants = sorted(seen)
+        if not all(0 <= c < self.num_clients for c in participants):
+            raise wire.WireError(
+                f"DH keys frame covers unknown clients {participants} (fleet is 0..{self.num_clients - 1})"
+            )
+        if self.client_id not in seen or len(seen) < 2:
+            raise wire.WireError(
+                f"DH keys frame covers {participants}: it must include "
+                f"this client ({self.client_id}) and at least one partner"
+            )
+        if len(seen) < self.min_participants:
+            raise secure.SecureAggError(
+                f"DH keys frame covers only {len(seen)} participants "
+                f"{participants}; this client's floor is "
+                f"min_participants={self.min_participants} — refusing the "
+                "downgraded set (pass min_participants to opt into "
+                "dropout-recovery quorums)"
+            )
+        return participants, {
+            cid: secure.dh_pair_secret(priv, pub) for cid, pub in seen.items() if cid != self.client_id
+        }
+
+    def _double_share_exchange(
+        self, sock, participants: list[int], pair_secrets: dict[int, bytes], sk_seed: bytes,
+        session: bytes, round_no: int,
+    ) -> dict:
+        """Deal Shamir shares of this client's self-mask seed and DH key
+        seed to the keyed participants (each blob encrypted under the pair
+        secret), send them through the server, and adopt the relayed
+        share-complete set U2. The state is cached per (session, round):
+        retries resend the same shares, and a retry that relays another
+        U2 or other shares is refused (the U2 pin)."""
+        t = self.secure_threshold if self.secure_threshold is not None else secure.majority_threshold(len(participants))
+        if not 2 <= t <= len(participants):
+            raise secure.SecureAggError(f"Shamir threshold {t} infeasible for {len(participants)} participants")
+        key = (session, round_no)
+        st = self._round_shares.get(key)
+        if st is not None and (st["participants"] != list(participants) or st["t"] != t):
+            raise secure.SecureAggError("keyed participant set changed across retries of one round")
+        if st is None:
+            b_seed = os.urandom(secure.SEED_LEN)
+            xs = [secure.share_x(p) for p in participants]
+            shares_b = shamir.split(b_seed, xs, t)
+            shares_sk = shamir.split(sk_seed, xs, t)
+            st = {
+                "participants": list(participants),
+                "t": t,
+                "b_seed": b_seed,
+                "own_b_share": shares_b[secure.share_x(self.client_id)],
+                "commit": secure.b_seed_commitment(b_seed, session, round_no, self.client_id),
+                "blobs": {
+                    p: secure.encrypt_share_blob(
+                        pair_secrets[p], session, round_no, self.client_id, p,
+                        shares_b[secure.share_x(p)], shares_sk[secure.share_x(p)],
+                    )
+                    for p in participants
+                    if p != self.client_id
+                },
+            }
+            self._round_shares[key] = st
+        wire_key = self._identity_key if self.auth_key is not None else None
+        framing.send_frame(
+            sock,
+            secure.build_shares_frame(
+                self.client_id, st["commit"], st["blobs"], threshold=t, session=session,
+                round_index=round_no, auth_key=wire_key,
+            ),
+        )
+        u2, entries = secure.parse_shareset_frame(
+            bytes(framing.recv_frame(sock)), session=session, round_index=round_no, auth_key=wire_key
+        )
+        u2_sorted = sorted(u2)
+        u2set = set(u2_sorted)
+        if self.client_id not in u2set:
+            raise secure.SecureAggError(f"share-complete set {u2_sorted} excludes this client")
+        if not u2set <= set(participants):
+            raise wire.WireError(
+                f"shareset U2 {u2_sorted} is not a subset of the keyed participants {sorted(participants)}"
+            )
+        if len(u2_sorted) < self.min_participants:
+            raise secure.SecureAggError(
+                f"share-complete set covers only {len(u2_sorted)} "
+                f"participants {u2_sorted}; this client's floor is "
+                f"min_participants={self.min_participants} — refusing the "
+                "downgraded set"
+            )
+        if len(u2_sorted) < t:
+            raise secure.SecureAggError(
+                f"share-complete set {u2_sorted} is smaller than the "
+                f"Shamir threshold {t} — the round could never unmask"
+            )
+        if set(entries) != u2set - {self.client_id}:
+            raise wire.WireError(
+                f"shareset entries cover dealers {sorted(entries)}, expected {sorted(u2set - {self.client_id})}"
+            )
+        holder_shares = {
+            dealer: secure.decrypt_share_blob(pair_secrets[dealer], session, round_no, dealer, self.client_id, blob)
+            for dealer, blob in entries.items()
+        }
+        # The U2 pin: a retried connection relaying another set, or other
+        # shares, would steer this client between mask partitions.
+        if "u2" in st:
+            if st["u2"] != u2_sorted:
+                raise secure.SecureAggError(
+                    "share-complete set changed across retries of one "
+                    f"round (pinned {st['u2']}, relayed {u2_sorted}) — "
+                    "refusing the substituted shareset"
+                )
+            if st["holder_shares"] != holder_shares:
+                changed = sorted(d for d in holder_shares if st["holder_shares"].get(d) != holder_shares[d])
+                raise secure.SecureAggError(
+                    f"dealers {changed} re-dealt different shares on a "
+                    "retry of one round (U2 unchanged) — refusing the "
+                    "substituted shareset"
+                )
+        st["u2"] = u2_sorted
+        st["holder_shares"] = holder_shares
+        return st
+
+    def _answer_unmask(self, sock, request: bytes, share_st: dict, session: bytes, round_no: int) -> bytes:
+        """Check an unmask request against this round's U2, answer with
+        the either/or shares (b-shares of the alive, key-seed shares of
+        the dead, never both for one id), return the next frame. The
+        first answered partition is pinned: a retry that asks another is
+        the answer-then-drop share harvest, refused."""
+        alive, dead = secure.parse_unmask_request(
+            request, session=session, round_index=round_no, auth_key=self._identity_key
+        )
+        u2set = set(share_st["u2"])
+        if self.client_id not in alive:
+            raise secure.SecureAggError(
+                "unmask request claims this client did not contribute — "
+                "refusing (it would expose our self-mask while the server "
+                "holds our upload)"
+            )
+        if set(alive) | set(dead) != u2set:
+            raise secure.SecureAggError(
+                f"unmask request partition alive={sorted(alive)} / "
+                f"dead={sorted(dead)} does not cover this round's "
+                f"participant set {sorted(u2set)} exactly"
+            )
+        partition = (tuple(sorted(alive)), tuple(sorted(dead)))
+        pinned = share_st.get("unmask_partition")
+        if pinned is not None and pinned != partition:
+            raise secure.SecureAggError(
+                "unmask request partition changed across retries of one "
+                f"round (answered alive={list(pinned[0])}/"
+                f"dead={list(pinned[1])}, now asked alive={sorted(alive)}/"
+                f"dead={sorted(dead)}) — refusing the replayed unmask "
+                "(answer-then-drop share harvest)"
+            )
+        share_st["unmask_partition"] = partition
+        holder = share_st["holder_shares"]
+        b_shares = {d: share_st["own_b_share"] if d == self.client_id else holder[d][0] for d in alive}
+        sk_shares = {d: holder[d][1] for d in dead}
+        framing.send_frame(
+            sock,
+            secure.build_unmask_response(
+                b_shares, sk_shares, session=session, round_index=round_no,
+                client_id=self.client_id, auth_key=self._identity_key,
+            ),
+        )
+        return framing.recv_frame(sock)
 
     # ---------------------------------------------------------- central DP
     def _diagnose_mode(self, sock: socket.socket) -> None:
@@ -401,6 +950,16 @@ class FederatedClient:
         if stray is None:
             return
         magic = bytes(stray[:4])
+        if magic == wire.ROUND_MAGIC:
+            raise secure.SecureAggError(
+                "server is running --secure-agg; run this client with --secure-agg"
+                + (
+                    " (and drop topk: sparse deltas cannot be masked — masked "
+                    "uploads are uniform ring elements with no sparsity)"
+                    if self._topk_frac is not None
+                    else ""
+                )
+            )
         if magic == wire.DP_MAGIC:
             raise wire.ModeError("server is running --dp-clip; run this client with --dp")
         if magic == wire.NONCE_MAGIC:
@@ -641,6 +1200,8 @@ class FederatedClient:
             reason = "--no-stream-upload"
         elif self.dp:
             reason = "central DP (the clipped delta goes in one frame)"
+        elif self.secure_agg:
+            reason = "secure-agg (masked uploads are single-frame by design)"
         elif self._topk_frac is not None:
             reason = "topk (payload size is data-dependent; nothing to plan)"
         elif self._server_stream is None:

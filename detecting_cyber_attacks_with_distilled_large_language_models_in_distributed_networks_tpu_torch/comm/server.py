@@ -55,8 +55,24 @@ round's trace id (stamped into every reply's meta, so the clients' spans
 share it); a failed round dumps a flight-recorder bundle, and every round
 snapshots device memory at its aggregation boundary.
 
-Not ported: secure aggregation, relays and re-homing. An upload that asks
-for one of them is refused with :class:`.wire.ModeError`.
+Secure aggregation (``secure_agg``, comm/secure.py): every connection
+opens with the round advert (round, session, protocol), relays the DH
+public keys of the round's keyed participants, and under the ``double``
+protocol the Shamir share blobs; uploads are pairwise-masked uint64 ring
+elements, dense and single-frame. Their ring sum is host numpy (it is not
+a fold), followed by the unmask round (``double``: every round; ``reveal``:
+when a keyed participant died) and de-quantization. The server never holds
+a private key or a raw update.
+
+Fold trees (comm/relay.py): a relay is this server with ``reply_via``
+set, which ships the subtree's folded mean to the parent and fans the
+root's aggregate back down. A relay's upward upload carries its
+contributor record (``wire.META_SUBTREE_IDS``); the root keeps the
+round's assignment (``last_assignment``), refuses a client claimed by two
+subtrees and a relay that claims another strategy, and completes a
+degraded round without a dead subtree. A re-homed client
+(``wire.META_REHOMED``) is folded as an extra contributor that never
+counts toward the round's own quorum.
 """
 
 from __future__ import annotations
@@ -82,19 +98,10 @@ from ..obs import metrics as obs_metrics
 from ..obs.profile import note_memory
 from ..obs.trace import new_trace_id
 from ..strategies import Strategy, make_strategy
-from . import framing, wire
+from . import framing, secure, shamir, wire
 from .stream_agg import StreamAgg
 
 log = logging.getLogger(__name__)
-
-#: Upload meta fields of the JAX package's modes the port does not fold.
-_UNPORTED_UPLOAD_MODES = {
-    "secure": "secure aggregation",
-    "subtree_ids": "a relay's subtree upload",
-    "rehomed": "client re-homing",
-    wire.META_STRATEGY: "a relay's strategy claim",
-}
-
 
 def aggregate_flat(
     models: list[dict[str, np.ndarray]], weights: list[float] | None = None
@@ -162,8 +169,25 @@ class _Round:
     cohort: set | None = None
     skip_conns: dict[int, socket.socket] = field(default_factory=dict)
     #: ``StreamAgg.stats()`` once the round folded (None before, and for
-    #: a failed or no-op round).
+    #: a failed, no-op or secure round).
     fold_stats: dict | None = None
+    #: Secure aggregation: each upload's masked uint64 tree (there is no
+    #: fold), each keyed participant's (public value, tag) hello, the key
+    #: set U1 the keys frame covered; under double masking each dealer's
+    #: share blobs and commitment and the share-complete set U2.
+    secure_models: dict[int, dict] = field(default_factory=dict)
+    pubkeys: dict[int, bytes] = field(default_factory=dict)
+    key_set: list | None = None
+    keys_ready: threading.Event = field(default_factory=threading.Event)
+    share_blobs: dict[int, dict] = field(default_factory=dict)
+    share_commits: dict[int, bytes] = field(default_factory=dict)
+    share_set: list | None = None
+    shares_ready: threading.Event = field(default_factory=threading.Event)
+    #: Re-homed ids adopted as extra contributors (never counted toward
+    #: ``expected``), and per relay upload the client ids its partial
+    #: folded.
+    adopted: set = field(default_factory=set)
+    subtree_ids: dict[int, list] = field(default_factory=dict)
 
 
 class AggregationServer:
@@ -188,6 +212,12 @@ class AggregationServer:
         timeout: float = 300.0,  # the reference's TIMEOUT (server.py:10)
         compression: str = "none",
         auth_key: bytes | None = None,
+        secure_agg: bool = False,
+        fp_bits: int = secure.DEFAULT_FP_BITS,
+        key_grace: float | None = None,
+        client_keys: dict[int, bytes] | None = None,
+        secure_protocol: str = "double",
+        secure_threshold: int | None = None,
         stream_chunk_bytes: int = wire.DEFAULT_STREAM_CHUNK,
         strategy: str | Strategy | None = None,
         strategy_state_path: str | None = None,
@@ -201,12 +231,37 @@ class AggregationServer:
         tracer=None,
     ):
         self.device = resolve_device(device)
+        if client_keys is not None and auth_key is None:
+            raise ValueError(
+                "client_keys (per-client DH identity binding) requires "
+                "auth_key: the wire messages and the relayed keys frame "
+                "are authenticated under the group key"
+            )
         if dp_noise_multiplier > 0.0 and dp_clip <= 0.0:
             raise ValueError("dp_noise_multiplier needs dp_clip > 0")
         if dp_clip > 0.0 and weighted:
             raise ValueError(
                 "central DP is a uniform mean over clipped updates; "
                 "weighted=True is incompatible"
+            )
+        if secure_agg and weighted:
+            raise ValueError(
+                "secure aggregation is an unweighted ring sum; "
+                "weighted=True is incompatible"
+            )
+        if secure_agg and min_clients is not None and min_clients < 2:
+            raise ValueError(
+                "secure aggregation needs min_clients >= 2: a lone "
+                "survivor's 'sum' is its raw update"
+            )
+        if secure_protocol not in ("reveal", "double"):
+            raise ValueError(f"secure_protocol {secure_protocol!r} must be reveal|double")
+        if secure_agg and secure_protocol == "double" and num_clients > 254:
+            raise ValueError("double-masking Shamir x-coordinates support <= 254 clients")
+        if secure_threshold is not None and secure_threshold < 2:
+            raise ValueError(
+                "secure_threshold < 2 would let the server reconstruct "
+                "secrets from a single holder"
             )
         if not 0.0 < dp_participation <= 1.0:
             raise ValueError(f"dp_participation={dp_participation} must be in (0, 1]")
@@ -223,6 +278,11 @@ class AggregationServer:
             )
         if reply_dtype not in wire.WIRE_DTYPE_ENCS:
             raise ValueError(f"reply_dtype {reply_dtype!r} must be one of {sorted(wire.WIRE_DTYPE_ENCS)}")
+        if reply_dtype != "fp32" and secure_agg:
+            raise ValueError(
+                "lossy reply_dtype is refused under secure aggregation:"
+                " the unmask release is bit-exact by contract"
+            )
         if reply_dtype != "fp32" and compression != "none":
             raise ValueError(
                 "reply_dtype and a reply compression are two encoders for the "
@@ -240,7 +300,32 @@ class AggregationServer:
         self.auth_key = auth_key
         self.stream_chunk_bytes = int(stream_chunk_bytes)
         self.reply_dtype = reply_dtype
+        #: Secure aggregation: the recovery protocol (``double``: Bonawitz
+        #: double masking, an unmask round every round; ``reveal``: an
+        #: unmask round only after a dropout), the Shamir threshold (None:
+        #: a strict majority of U1), the fixed-point bits, and the per-run
+        #: session nonce advertised with the round (mask streams are keyed
+        #: by (session, round): fresh across rounds and restarts).
+        self.secure_agg = bool(secure_agg)
+        self.secure_protocol = secure_protocol
+        self.secure_threshold = secure_threshold
+        self.fp_bits = int(fp_bits)
+        self._session = os.urandom(wire.SESSION_LEN)
+        #: Per-client DH identity keys: a hello claiming id i must carry a
+        #: tag under client i's own key.
+        self.client_keys = dict(client_keys) if client_keys else None
+        #: After this long without every hello (or every dealer's shares),
+        #: the key set (U2) closes at the quorum that did arrive.
+        self.key_grace = timeout / 2.0 if key_grace is None else float(key_grace)
         self._strategy = make_strategy(strategy, device=self.device)
+        if self._strategy.name != "fedavg" and secure_agg:
+            raise ValueError(
+                f"strategy {self._strategy.name!r} is incompatible "
+                "with secure aggregation: the unmask protocol "
+                "releases exactly the masked SUM; a server-side "
+                "post-transform would operate on (and leak through) "
+                "a different release"
+            )
         if self._strategy.name != "fedavg" and dp_clip > 0.0:
             raise ValueError(
                 f"strategy {self._strategy.name!r} is incompatible "
@@ -290,6 +375,26 @@ class AggregationServer:
         if strategy_state_path:
             self._load_strategy_state()
         self._cur_rnd: _Round | None = None
+        #: The fold-tree hook (comm/relay.py): when set, the round's folded
+        #: mean goes through ``reply_via(mean, info)`` between aggregation
+        #: and the reply fan-out, and what it returns (the root's
+        #: aggregate) is what the subtree's clients receive. Refused under
+        #: central DP and secure aggregation.
+        self.reply_via = None
+        #: Per-server totals for harnesses that hold the server object:
+        #: streamed uploads and replies, dense fallbacks, and the peak fold
+        #: state over all rounds; dropped subtrees, shed stragglers and
+        #: degraded rounds.
+        self._totals_lock = threading.Lock()
+        self.stream_totals = {"stream_uploads": 0, "stream_replies": 0, "stream_fallbacks": 0, "peak_agg_bytes": 0}
+        self.tree_totals = {"subtree_failures": 0, "stragglers_shed": 0, "degraded_rounds": 0}
+        #: The last completed round's assignment, ``{"round", "groups"}``:
+        #: per contributor in fold order its id, or the client ids its
+        #: subtree partial folded (``comm.relay.aggregate_tree``'s groups).
+        self.last_assignment: dict | None = None
+        #: The last double-masked round's split: the unmask sub-round, the
+        #: ring sum and the residue subtraction (seconds).
+        self.last_secure_s: dict[str, float] = {}
         #: Where each round's wall went: wait (accept + uploads, with the
         #: folds that overlapped them), agg (the rest of the fold, the
         #: strategy and the replies' encode), reply (the fan-out).
@@ -407,10 +512,8 @@ class AggregationServer:
             )
             for p in ("wait", "agg", "reply")
         }
-        # Registered as the JAX server registers them; the port has no
-        # relays, so a subtree failure never counts here, and a quorum
-        # round that completes without some clients counts them as shed
-        # stragglers.
+        # A degraded round counts its missing children as dropped
+        # subtrees at a parent of relays, as shed stragglers elsewhere.
         # fedtpu: allow(obs-metric-once): the JAX package's comm/server.py family, same name/kind/labels/help
         self._m_subtree_failures = m.counter(
             "fedtpu_relay_subtree_failures_total",
@@ -441,7 +544,13 @@ class AggregationServer:
     def set_strategy(self, spec) -> Strategy:
         """Swap the aggregation strategy BETWEEN rounds; its optimizer
         state starts fresh."""
-        self._strategy = make_strategy(spec, device=self.device)
+        strat = make_strategy(spec, device=self.device)
+        if strat.name != "fedavg" and (self.secure_agg or self.dp_clip > 0.0):
+            raise ValueError(
+                f"strategy {strat.name!r} is incompatible with "
+                "secure-agg/DP rounds (see the constructor's rationale)"
+            )
+        self._strategy = strat
         return self._strategy
 
     # ------------------------------------------------------------- lifecycle
@@ -487,9 +596,9 @@ class AggregationServer:
 
     # --------------------------------------------------------------- uploads
     def _validate_upload(self, meta, nonce_hex: str | None, dpid: int | None = None) -> int:
-        """Freshness, identity and mode checks the dense and the streamed
-        upload share; returns the client id (which must be the DP id
-        hello's, under DP)."""
+        """Freshness and identity checks the dense and the streamed upload
+        share; returns the client id (which must be the DP id hello's,
+        under DP)."""
         if self.auth_key is not None and (
             meta.get("role") != "client" or meta.get("nonce") != nonce_hex
         ):
@@ -500,12 +609,6 @@ class AggregationServer:
         client_id = int(meta.get("client_id", -1))
         if dpid is not None and client_id != dpid:
             raise wire.WireError(f"upload claims client {client_id} but the DP id hello said {dpid}")
-        for key, mode in _UNPORTED_UPLOAD_MODES.items():
-            if meta.get(key):
-                raise wire.ModeError(
-                    f"client {client_id} uploaded with {key}={meta[key]!r}: "
-                    f"{mode} is not ported"
-                )
         return client_id
 
     def _validate_dp_meta(self, meta, *, is_delta: bool) -> tuple[bool, int | None]:
@@ -538,10 +641,15 @@ class AggregationServer:
         return flat
 
     def _round_done(self, rnd: _Round) -> bool:
-        """Caller holds ``rnd.lock``: every expected upload arrived and,
-        under a Poisson cohort, every non-sampled client connected for its
+        """Caller holds ``rnd.lock``: every expected upload arrived (the
+        fleet, the secure key set or the cohort; adopted re-homed ids do
+        not count toward it, but each must itself complete) and, under a
+        Poisson cohort, every non-sampled client connected for its
         reply."""
-        uploads_done = len(rnd.done) >= rnd.expected
+        own = len(rnd.done - rnd.adopted)
+        uploads_done = (own >= rnd.expected and rnd.adopted <= rnd.done) or (
+            self.secure_agg and rnd.key_set is not None and set(rnd.key_set) <= rnd.done
+        )
         if rnd.cohort is None:
             return uploads_done
         return uploads_done and len(rnd.skip_conns) >= self.num_clients - len(rnd.cohort)
@@ -621,7 +729,9 @@ class AggregationServer:
             if isinstance(encs, (list, tuple)):
                 rnd.reply_dtype_encs[client_id] = tuple(str(e) for e in encs)
 
-    def _handle_upload(self, conn: socket.socket, rnd: _Round) -> None:
+    def _handle_upload(self, conn: socket.socket, rnd: _Round, deadline: float | None = None) -> None:
+        if deadline is None:
+            deadline = time.monotonic() + self.timeout
         with self._conn_lock:
             self._open_conns.add(conn)
         try:
@@ -638,6 +748,8 @@ class AggregationServer:
                 dpid, sampled = self._dp_handshake(conn, rnd, nonce_hex)
                 if not sampled:
                     return
+            if self.secure_agg and not self._secure_handshake(conn, rnd, deadline):
+                return
             payload = framing.recv_frame(conn)
             if bytes(payload[:4]) == wire.STREAM_MAGIC:
                 self._handle_stream_upload(conn, payload, rnd, nonce_hex=nonce_hex, dpid=dpid)
@@ -648,12 +760,24 @@ class AggregationServer:
             flat = wire.flatten_params(flat)
             is_delta = bool(meta.get("delta", False))
             if is_delta:
+                if self.secure_agg:
+                    raise wire.WireError("sparse-delta upload in secure-aggregation mode")
                 self._check_delta(flat, meta)
+            if bool(meta.get("secure", False)) != self.secure_agg:
+                raise wire.WireError(
+                    f"secure-aggregation mode mismatch: server "
+                    f"secure_agg={self.secure_agg}, upload "
+                    f"secure={meta.get('secure', False)}"
+                )
             dp_mode, dp_crc = self._validate_dp_meta(meta, is_delta=is_delta)
-            if dp_mode:
+            if dp_mode and not self.secure_agg:
                 # Enforced, not trusted: a client that skipped its clip
-                # cannot widen the mechanism's sensitivity.
+                # cannot widen the mechanism's sensitivity. (A masked
+                # upload cannot be re-clipped: there the guarantee
+                # assumes honest clients clip.)
                 flat = self._reclip(flat, client_id, "delta")
+            if self.secure_agg:
+                self._check_secure_meta(rnd, meta)
             n_samples = float(meta.get("n_samples", 1.0))
             with rnd.lock:
                 if rnd.closed:
@@ -663,8 +787,16 @@ class AggregationServer:
                     )
                     conn.close()
                     return
+                if not self._register_tree_meta(rnd, conn, client_id, meta):
+                    return
                 dup_folded = False
-                if client_id in rnd.done or client_id in rnd.stream.intents:
+                if self.secure_agg:
+                    # A masked retry replaces the first upload (there is
+                    # no fold to have consumed it).
+                    old = rnd.conns.pop(client_id, None)
+                    if old is not None and old is not conn:
+                        old.close()
+                elif client_id in rnd.done or client_id in rnd.stream.intents:
                     # A retry replaces the first upload, unless folds
                     # already consumed it: then the folded original stands
                     # and only the connection is adopted, so the client
@@ -695,22 +827,26 @@ class AggregationServer:
                     rnd.uploads[client_id] = {"shape": "dense", "wire_dtype": "fp32", "bytes": len(payload)}
                     if dp_crc is not None:
                         rnd.dp_crcs[client_id] = dp_crc
+                    if self.secure_agg:
+                        rnd.secure_models[client_id] = flat
                 if is_delta or bool(meta.get("wants_delta", False)):
                     rnd.wants_delta = True
                 self._note_reply_caps(rnd, client_id, meta)
                 rnd.conns[client_id] = conn
                 if nonce_hex is not None:
                     rnd.nonces[client_id] = nonce_hex
-                if not dup_folded:
+                if not dup_folded and not self.secure_agg:
                     rnd.stream.register(
                         client_id, keys=tuple(flat), n_samples=n_samples, delta=is_delta, dp_crc=dp_crc
                     )
                     rnd.stream.add_dense(client_id, flat)
                     self._try_freeze_stream(rnd)
                 done = self._round_done(rnd)
-            if self.stream_chunk_bytes > 0 and not dup_folded:
+            if self.stream_chunk_bytes > 0 and not self.secure_agg and not dup_folded:
                 # Dense while streaming was offered: a fallback (round 1,
                 # topk, DP, a retry or an old peer).
+                with self._totals_lock:
+                    self.stream_totals["stream_fallbacks"] += 1
                 self._m_stream_fallbacks.inc()
             self._m_uploads.inc()
             log.info(
@@ -741,7 +877,9 @@ class AggregationServer:
                 return
             ids = sorted(rnd.cohort)
         else:
-            if len(have) < rnd.expected:
+            # Adopted (re-homed) intents join the fold set but do not
+            # satisfy the expected count.
+            if len(have - rnd.adopted) < rnd.expected:
                 return
             ids = sorted(have)
         if self.dp_clip > 0.0:
@@ -779,6 +917,11 @@ class AggregationServer:
         lossy-encoded stream is held whole and re-clipped before it joins
         the fold (its decode can inflate an honest clip)."""
         st = rnd.stream
+        if self.secure_agg:
+            raise wire.WireError(
+                "streamed upload refused: this round aggregates masked "
+                "uploads (secure-agg), which are single-frame by design"
+            )
         tensors, meta, _chunk_bytes, payload_nbytes = wire.decode_stream_header(
             header, auth_key=self.auth_key, max_payload=framing.MAX_FRAME, direction="up"
         )
@@ -787,6 +930,11 @@ class AggregationServer:
             raise wire.WireError(
                 "sparse-delta uploads are single-frame (topk payload sizes are "
                 "data-dependent; nothing to stream)"
+            )
+        if bool(meta.get("secure", False)):
+            raise wire.WireError(
+                "secure-aggregation mode mismatch: server "
+                "secure_agg=False, upload secure=True"
             )
         dp_mode, dp_crc = self._validate_dp_meta(meta, is_delta=False)
         n_samples = float(meta.get("n_samples", 1.0))
@@ -798,6 +946,8 @@ class AggregationServer:
         with rnd.lock:
             if rnd.closed:
                 conn.close()
+                return
+            if not self._register_tree_meta(rnd, conn, client_id, meta):
                 return
             if client_id in rnd.done or client_id in st.intents:
                 folded = not st.drop_client(client_id, poison=False)
@@ -901,6 +1051,8 @@ class AggregationServer:
                 rnd.nonces[client_id] = nonce_hex
             done = self._round_done(rnd)
         if not discard:
+            with self._totals_lock:
+                self.stream_totals["stream_uploads"] += 1
             self._m_uploads.inc()
             self._m_stream_uploads.inc()
             self._m_uploads_by_dtype(up_dtype).inc()
@@ -912,6 +1064,420 @@ class AggregationServer:
         )
         if done:
             rnd.complete.set()
+
+    # ---------------------------------------------------- secure aggregation
+    def _secure_handshake(self, conn: socket.socket, rnd: _Round, deadline: float) -> bool:
+        """One connection's key exchange: advertise (round, session,
+        protocol), take the client's DH hello (tag checked under its own
+        identity key when provisioned, re-tagged under the group key for
+        the relay), wait for the fleet's hellos (after ``key_grace`` the
+        key set closes at the quorum that arrived), relay the key set and,
+        under double masking, run the share exchange. Returns False when
+        the connection was dropped (a conflicting or late hello, a client
+        outside the closed set)."""
+        proto = secure.PROTO_DOUBLE if self.secure_protocol == "double" else secure.PROTO_REVEAL
+        framing.send_frame(
+            conn, wire.ROUND_MAGIC + struct.pack("<Q", rnd.round_no) + self._session + bytes([proto])
+        )
+        hello = bytes(framing.recv_frame(conn))
+        tag_len = wire.AUTH_TAG_LEN if self.auth_key is not None else 0
+        want_len = len(wire.PUBKEY_MAGIC) + 8 + secure.DH_PUB_LEN + tag_len
+        if len(hello) != want_len or not hello.startswith(wire.PUBKEY_MAGIC):
+            raise wire.WireError("bad DH pubkey hello")
+        off = len(wire.PUBKEY_MAGIC)
+        hello_id = struct.unpack("<q", hello[off : off + 8])[0]
+        pub_and_tag = hello[off + 8 :]
+        pub = pub_and_tag[: secure.DH_PUB_LEN]
+        secure.check_dh_public(pub)
+        if self.auth_key is not None:
+            hello_key = self.auth_key
+            if self.client_keys is not None:
+                # Identity binding: the tag must verify under the claimed
+                # id's own key.
+                hello_key = self.client_keys.get(hello_id)
+                if hello_key is None:
+                    raise wire.WireError(f"DH hello from client {hello_id} with no registered per-client key")
+            secure.verify_pubkey_tag(
+                hello_key, self._session, rnd.round_no, hello_id, pub, pub_and_tag[secure.DH_PUB_LEN :]
+            )
+            if self.client_keys is not None:
+                # Receivers hold the group key, not each other's identity
+                # keys: the server attests what it verified.
+                pub_and_tag = pub + secure.pubkey_tag(self.auth_key, self._session, rnd.round_no, hello_id, pub)
+        with rnd.lock:
+            if rnd.closed:
+                conn.close()
+                return False
+            if not 0 <= hello_id < self.num_clients:
+                raise wire.WireError(f"DH hello from unknown client id {hello_id}")
+            prev_hello = rnd.pubkeys.get(hello_id)
+            if prev_hello is not None and prev_hello != pub_and_tag:
+                # First registration wins: another key for a registered id
+                # is an impersonation or a client that lost its keypair.
+                log.info(f"[SERVER] conflicting DH hello for client {hello_id}; dropping connection")
+                conn.close()
+                return False
+            if prev_hello is None and rnd.keys_ready.is_set():
+                # A new key after distribution could never cancel.
+                log.info(f"[SERVER] late DH hello from client {hello_id} after key distribution; dropping connection")
+                conn.close()
+                return False
+            # A fresh registration, or a retry's idempotent re-hello (the
+            # same per-round keypair), which re-binds the connection.
+            old = rnd.conns.pop(hello_id, None)
+            if old is not None and old is not conn:
+                old.close()
+            rnd.pubkeys[hello_id] = pub_and_tag
+            # Registered now: a failed round's cleanup closes this socket.
+            rnd.conns[hello_id] = conn
+            if len(rnd.pubkeys) >= rnd.expected:
+                rnd.key_set = sorted(rnd.pubkeys)
+                rnd.keys_ready.set()
+        log.info(f"[SERVER] DH pubkey from client {hello_id} ({len(rnd.pubkeys)}/{rnd.expected})")
+        self._wait_closed_set(
+            rnd, rnd.keys_ready, deadline, floor=max(2, self.min_clients),
+            close=lambda: setattr(rnd, "key_set", sorted(rnd.pubkeys)),
+            have=lambda: len(rnd.pubkeys), what="remaining participants' DH public keys", label="key set",
+        )
+        with rnd.lock:
+            key_set = list(rnd.key_set or [])
+            entries = b"".join(struct.pack("<q", cid) + rnd.pubkeys[cid] for cid in key_set)
+        if hello_id not in key_set:
+            log.info(f"[SERVER] client {hello_id} missed the key set {key_set}; dropping connection")
+            conn.close()
+            return False
+        framing.send_frame(conn, wire.KEYS_MAGIC + entries)
+        if self.secure_protocol == "double":
+            return self._shares_exchange(conn, rnd, hello_id, key_set, deadline)
+        return True
+
+    def _wait_closed_set(
+        self, rnd: _Round, ready: threading.Event, deadline: float, *, floor: int, close, have, what: str, label: str
+    ) -> None:
+        """Wait for ``ready`` (the full key set, or U2); once ``key_grace``
+        passed, close the set at ``floor`` or more members (``close()``
+        under the round lock). Raises at the round deadline."""
+        grace_end = time.monotonic() + self.key_grace
+        while not ready.is_set():
+            now = time.monotonic()
+            if now >= deadline:
+                raise wire.WireError(f"round deadline passed waiting for the {what}")
+            # Before the grace ends wake at its end to try the quorum
+            # close; after it, another handler closes the set and wakes us.
+            if ready.wait(timeout=max(0.0, (grace_end if now < grace_end else deadline) - now)):
+                break
+            with rnd.lock:
+                if not ready.is_set() and time.monotonic() >= grace_end and have() >= floor:
+                    close()
+                    ready.set()
+                    log.info(f"[SERVER] grace expired; closing the {label} at quorum")
+                    break
+
+    def _check_secure_meta(self, rnd: _Round, meta) -> None:
+        """A masked upload must match the server's fixed-point bits, be
+        masked over the round's distributed mask set, and be keyed to this
+        round."""
+        if int(meta.get("fp_bits", -1)) != self.fp_bits:
+            raise wire.WireError(
+                f"secure upload fp_bits={meta.get('fp_bits')} != server "
+                f"fp_bits={self.fp_bits}: de-quantization would be wrong"
+            )
+        with rnd.lock:
+            n_mask = len((rnd.share_set if self.secure_protocol == "double" else rnd.key_set) or [])
+        if int(meta.get("participants", -1)) != n_mask:
+            # Masked against another set, its pair masks would not cancel.
+            raise wire.WireError(
+                f"secure upload masked for {meta.get('participants')} participants, "
+                f"server distributed the round's mask set to {n_mask}"
+            )
+        if int(meta.get("round", -1)) != rnd.round_no:
+            raise wire.WireError(f"secure upload keyed to round {meta.get('round')}, server round is {rnd.round_no}")
+
+    def _client_wire_key(self, cid: int) -> bytes | None:
+        """The key the reveal, unmask and share frames for ``cid`` ride:
+        its identity key when provisioned, else the group key (None
+        without auth)."""
+        if self.auth_key is None:
+            return None
+        if self.client_keys is not None:
+            return self.client_keys[cid]
+        return self.auth_key
+
+    def _shares_exchange(self, conn: socket.socket, rnd: _Round, hello_id: int, key_set: list, deadline: float) -> bool:
+        """Double masking's share distribution for one connection: take
+        this dealer's encrypted share blobs, wait for the keyed fleet's
+        (after the grace U2 closes at the dealers that delivered, never
+        below the Shamir threshold), relay this holder's shareset."""
+        dealer, dealt_t, commit, blobs = secure.parse_shares_frame(
+            bytes(framing.recv_frame(conn)), session=self._session, round_index=rnd.round_no,
+            auth_key=self._client_wire_key(hello_id),
+        )
+        if dealer != hello_id:
+            raise wire.WireError(f"shares frame claims dealer {dealer} on client {hello_id}'s connection")
+        want_t = self.secure_threshold if self.secure_threshold is not None else secure.majority_threshold(len(key_set))
+        if dealt_t != want_t:
+            raise wire.WireError(
+                f"client {hello_id} dealt shares at threshold {dealt_t}, "
+                f"server expects {want_t} (set secure_threshold "
+                "identically on both ends)"
+            )
+        want = set(key_set) - {hello_id}
+        if set(blobs) != want:
+            raise wire.WireError(
+                f"shares frame covers holders {sorted(blobs)}, expected every other keyed participant {sorted(want)}"
+            )
+        with rnd.lock:
+            if rnd.closed:
+                conn.close()
+                return False
+            prev = rnd.share_blobs.get(hello_id)
+            if prev is not None and (prev != blobs or rnd.share_commits.get(hello_id) != commit):
+                log.info(f"[SERVER] conflicting shares from client {hello_id}; dropping connection")
+                conn.close()
+                return False
+            if prev is None and rnd.shares_ready.is_set():
+                log.info(f"[SERVER] late shares from client {hello_id} after shareset distribution; dropping connection")
+                conn.close()
+                return False
+            rnd.share_blobs[hello_id] = blobs
+            rnd.share_commits[hello_id] = commit
+            if set(key_set) <= set(rnd.share_blobs):
+                rnd.share_set = sorted(rnd.share_blobs)
+                rnd.shares_ready.set()
+        # U2 below the threshold could never unmask: refuse it at the close.
+        self._wait_closed_set(
+            rnd, rnd.shares_ready, deadline, floor=max(2, self.min_clients, want_t),
+            close=lambda: setattr(rnd, "share_set", sorted(rnd.share_blobs)),
+            have=lambda: len(rnd.share_blobs), what="remaining participants' secret shares", label="share set U2",
+        )
+        with rnd.lock:
+            u2 = list(rnd.share_set or [])
+            entries = {d: rnd.share_blobs[d][hello_id] for d in u2 if d != hello_id}
+        if hello_id not in u2:
+            log.info(f"[SERVER] client {hello_id} missed the share set {u2}; dropping connection")
+            conn.close()
+            return False
+        framing.send_frame(
+            conn,
+            secure.build_shareset_frame(
+                u2, entries, session=self._session, round_index=rnd.round_no, auth_key=self._client_wire_key(hello_id)
+            ),
+        )
+        return True
+
+    def _ask_all(self, ids: list[int], conns: dict, request) -> tuple[dict, dict]:
+        """One request/answer sub-round to every id in parallel under a
+        bounded budget (a stalled client neither blocks the others nor
+        extends the round by a socket timeout). ``request(cid, conn)``
+        sends and parses; returns ``(answers, errors)``."""
+        budget = min(self.timeout, 30.0)
+        answers: dict[int, object] = {}
+        errors: dict[int, Exception] = {}
+
+        def _one(cid: int) -> None:
+            conn = conns[cid]
+            try:
+                conn.settimeout(budget)
+                answers[cid] = request(cid, conn)
+                conn.settimeout(self.timeout)
+            except (OSError, wire.WireError, secure.SecureAggError) as e:
+                errors[cid] = e
+
+        threads = [threading.Thread(target=_one, args=(cid,), daemon=True) for cid in ids]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=budget + 5.0)
+        return answers, errors
+
+    def _aggregate_secure(self, rnd: _Round, ids: list[int], models: dict, conns: dict) -> dict:
+        """The round's mean from the masked uploads: the ring sum in host
+        numpy (there is no fold), the protocol's unmask round,
+        de-quantization."""
+        if self.secure_protocol == "double":
+            agg = self._aggregate_double(rnd, models, conns)
+            log.info(
+                f"[SERVER] secure-aggregated {len(ids)} masked models "
+                "(double-masking; server never saw raw weights)"
+            )
+            return agg
+        key_set = list(rnd.key_set or [])
+        extra = [i for i in ids if i not in key_set]
+        if extra:
+            raise RuntimeError(f"secure uploads from clients {extra} outside the key set {key_set}")
+        dead = [i for i in key_set if i not in models]
+        if not dead:
+            agg = secure.aggregate_masked([models[i] for i in ids], self.fp_bits)
+        else:
+            # Reveal round: survivors disclose their pair secrets with the
+            # dead, whose uncancelled mask halves leave the ring sum.
+            log.info(f"[SERVER] secure round lost clients {dead}; asking {ids} to reveal their pair secrets")
+
+            def reveal(cid: int, conn: socket.socket):
+                key = self._client_wire_key(cid)
+                framing.send_frame(
+                    conn, secure.build_reveal_request(dead, session=self._session, round_index=rnd.round_no, auth_key=key)
+                )
+                return secure.parse_reveal_response(
+                    bytes(framing.recv_frame(conn)), session=self._session, round_index=rnd.round_no,
+                    client_id=cid, expect_dead=dead, auth_key=key,
+                )
+
+            revealed, errs = self._ask_all(ids, conns, reveal)
+            if errs or set(revealed) != set(ids):
+                # A dropout during the reveal cannot be recovered.
+                raise RuntimeError(
+                    f"reveal round failed for clients {sorted(set(ids) - set(revealed))}: "
+                    f"{ {c: str(e) for c, e in errs.items()} }"
+                )
+            summed = secure.sum_masked([models[i] for i in ids])
+            residue = secure.residual_mask_sum(summed, revealed, session=self._session, round_index=rnd.round_no)
+            agg = secure.dequantize_sum({k: summed[k] - residue[k] for k in summed}, len(ids), self.fp_bits)
+        log.info(
+            f"[SERVER] secure-aggregated {len(ids)} masked models "
+            + (f"after revealing {len(dead)} dropout(s) " if dead else "")
+            + "(server never saw raw weights)"
+        )
+        return agg
+
+    def _aggregate_double(self, rnd: _Round, models: dict, conns: dict) -> dict:
+        """Double masking's completion, every round: the unmask round
+        (any t responders suffice), Shamir reconstruction of the
+        contributors' self-mask seeds and the dead participants' key seeds
+        (each checked against its commitment or public key), then the
+        residues leave the ring sum and it is de-quantized. Its split
+        lands in ``last_secure_s`` (``unmask``, ``ring_sum``)."""
+        with rnd.lock:
+            u2 = list(rnd.share_set or [])
+            u1 = list(rnd.key_set or [])
+            commits = dict(rnd.share_commits)
+            pubs = {cid: rnd.pubkeys[cid][: secure.DH_PUB_LEN] for cid in rnd.pubkeys}
+        alive = sorted(models)
+        extra = [i for i in alive if i not in u2]
+        if extra:
+            raise RuntimeError(f"secure uploads from clients {extra} outside the share set {u2}")
+        dead = [i for i in u2 if i not in alive]
+        # t comes from U1, the set the shares were dealt over.
+        t = self.secure_threshold if self.secure_threshold is not None else secure.majority_threshold(len(u1))
+        if len(alive) < t:
+            raise RuntimeError(
+                f"only {len(alive)} secure uploads survived, below the "
+                f"Shamir threshold {t} — the self-masks cannot be "
+                "reconstructed (dropouts exceeded the double-masking "
+                "tolerance)"
+            )
+
+        def unmask(cid: int, conn: socket.socket):
+            key = self._client_wire_key(cid)
+            framing.send_frame(
+                conn,
+                secure.build_unmask_request(alive, dead, session=self._session, round_index=rnd.round_no, auth_key=key),
+            )
+            return secure.parse_unmask_response(
+                bytes(framing.recv_frame(conn)), session=self._session, round_index=rnd.round_no, client_id=cid,
+                expect_alive=alive, expect_dead=dead, auth_key=key,
+            )
+
+        t0 = time.monotonic()
+        responses, errs = self._ask_all(alive, conns, unmask)
+        unmask_s = time.monotonic() - t0
+        if len(responses) < t:
+            raise RuntimeError(
+                f"unmask round got {len(responses)} responses "
+                f"(clients {sorted(responses)}), need the Shamir "
+                f"threshold {t}; failures: "
+                f"{ {c: str(e) for c, e in errs.items()} }"
+            )
+        b_seeds: dict[int, bytes] = {}
+        for d in alive:
+            seed = shamir.combine({secure.share_x(h): responses[h][0][d] for h in responses})
+            if secure.b_seed_commitment(seed, self._session, rnd.round_no, d) != commits[d]:
+                raise RuntimeError(
+                    f"reconstructed self-mask seed for client {d} fails its commitment — inconsistent shares"
+                )
+            b_seeds[d] = seed
+        revealed: dict[int, dict[int, bytes]] = {}
+        for d in dead:
+            sk_seed = shamir.combine({secure.share_x(h): responses[h][1][d] for h in responses})
+            priv, pub = secure.dh_keypair(entropy=sk_seed)
+            if pub != pubs.get(d):
+                raise RuntimeError(
+                    f"reconstructed key seed for dead client {d} does not "
+                    "match its registered public key — inconsistent shares"
+                )
+            for s in alive:
+                revealed.setdefault(s, {})[d] = secure.dh_pair_secret(priv, pubs[s])
+        t0 = time.monotonic()
+        summed = secure.sum_masked([models[i] for i in alive])
+        ring_sum_s = time.monotonic() - t0
+        self_res = secure.self_mask_sum(summed, b_seeds, session=self._session, round_index=rnd.round_no)
+        out = {k: summed[k] - self_res[k] for k in summed}
+        if revealed:
+            pair_res = secure.residual_mask_sum(summed, revealed, session=self._session, round_index=rnd.round_no)
+            out = {k: out[k] - pair_res[k] for k in out}
+        self.last_secure_s = {"unmask": unmask_s, "ring_sum": ring_sum_s, "residues": time.monotonic() - t0 - ring_sum_s}
+        log.info(
+            f"[SERVER] double-mask unmasked {len(alive)} uploads with "
+            f"{len(responses)}/{len(alive)} responders (threshold {t})"
+            + (f", {len(dead)} dropout(s) recovered" if dead else "")
+        )
+        return secure.dequantize_sum(out, len(alive), self.fp_bits)
+
+    # ------------------------------------------------------------ fold trees
+    def _register_tree_meta(self, rnd: _Round, conn: socket.socket, client_id: int, meta) -> bool:
+        """Caller holds ``rnd.lock``; the dense and the streamed upload
+        share it. Records a relay upload's contributor list, refuses a
+        relay that claims another strategy, and adopts a re-homed new id
+        as an extra contributor (un-freezing a fold set no fold consumed
+        yet; refused once folds did). Returns False when the adoption was
+        refused: the connection is closed and the client retries its next
+        parent or the next round."""
+        sub = meta.get(wire.META_SUBTREE_IDS)
+        if sub is not None:
+            try:
+                rnd.subtree_ids[client_id] = [int(c) for c in sub]
+            except (TypeError, ValueError):
+                raise wire.WireError(
+                    f"malformed {wire.META_SUBTREE_IDS} meta {sub!r} (want a list of client ids)"
+                ) from None
+        claimed = meta.get(wire.META_STRATEGY)
+        if claimed is not None:
+            name = claimed.get("name") if isinstance(claimed, dict) else claimed
+            if str(name) != self._strategy.name:
+                raise wire.WireError(
+                    f"relay {client_id} fans down strategy {name!r} but "
+                    f"this root runs {self._strategy.name!r}; refusing "
+                    "the split-brain round (restart the relay with the "
+                    "root's --strategy)"
+                )
+        if not bool(meta.get(wire.META_REHOMED, False)) or self.secure_agg or self.dp_clip > 0.0:
+            # Single-aggregator modes never sit behind a fold tree.
+            return True
+        if client_id in rnd.done or client_id in rnd.stream.intents or client_id in rnd.adopted:
+            # An adopted client's retry: the duplicate rules apply.
+            return True
+        if not rnd.stream.admit(client_id):
+            log.info(
+                f"[SERVER] re-homed client {client_id} arrived after "
+                "folds began; refusing the adoption (it retries against "
+                "its next parent or the next round)"
+            )
+            conn.close()
+            return False
+        rnd.adopted.add(client_id)
+        log.info(f"[SERVER] adopted re-homed client {client_id} into round {rnd.round_no} as an extra contributor")
+        return True
+
+    def _round_quorum(self, cohort: set | None) -> int:
+        """The round's upload quorum: ``min_clients``, clamped to a drawn
+        cohort but never below 2 under secure aggregation (a one-member
+        'sum' is that client's raw update)."""
+        quorum = self.min_clients
+        if cohort is not None:
+            quorum = min(quorum, len(cohort))
+        if self.secure_agg:
+            quorum = max(2, quorum)
+        return quorum
 
     # ----------------------------------------------------------------- round
     def serve_round(
@@ -928,6 +1494,13 @@ class AggregationServer:
         ones after it (a resumed controller campaign numbers its rounds
         from its state file); the replies' meta and ``last_trace`` carry
         it."""
+        if self.reply_via is not None and (self.dp_clip > 0.0 or self.secure_agg):
+            raise ValueError(
+                "reply_via (the relay tier's parent-forward hook) is "
+                "incompatible with central DP (the subtree partial would "
+                "be an un-noised release) and secure aggregation (the "
+                "unmask protocol needs the single-aggregator shape)"
+            )
         rnd = _Round(
             expected=self.num_clients,
             round_no=self._round_counter if round_index is None else int(round_index),
@@ -950,9 +1523,11 @@ class AggregationServer:
         # Quorum deployments fold at close: an eager fold commits to the
         # full contributor set, and one mid-stream death would then fail
         # a round the barrier completes over the survivors.
+        # A secure round folds nothing (its masked uploads are summed in
+        # the ring); its StreamAgg stays empty.
         rnd.stream = StreamAgg(
             device=self.device,
-            eager=self.stream_chunk_bytes > 0 and self.min_clients >= self.num_clients,
+            eager=self.stream_chunk_bytes > 0 and self.min_clients >= self.num_clients and not self.secure_agg,
             base=self._last_agg,
         )
         t0 = time.monotonic()
@@ -962,7 +1537,7 @@ class AggregationServer:
         # Once every cohort upload landed, a missing sitting-out client
         # gets a short grace, not the round's whole deadline.
         uploads_done_at = None
-        skip_grace = min(self.timeout / 2.0, 10.0)
+        skip_grace = min(self.key_grace, 10.0)
         while not rnd.complete.is_set() and time.monotonic() < deadline:
             if rnd.cohort is not None:
                 with rnd.lock:
@@ -989,7 +1564,7 @@ class AggregationServer:
                 listener_closed = self._stop.is_set()
                 break
             try:
-                futures.append(self._pool.submit(self._handle_upload, conn, rnd))
+                futures.append(self._pool.submit(self._handle_upload, conn, rnd, deadline))
             except RuntimeError:  # close() shut the pool between accept and submit
                 conn.close()
                 listener_closed = True
@@ -1009,6 +1584,9 @@ class AggregationServer:
             skip_conns = dict(rnd.skip_conns)
             nonces = dict(rnd.nonces)
             dp_crcs = dict(rnd.dp_crcs)
+            secure_models = dict(rnd.secure_models)
+            adopted = set(rnd.adopted)
+            subtree_ids = {k: list(v) for k, v in rnd.subtree_ids.items()}
         # Failure cleanup covers contributors and sitting-out clients alike.
         all_conns = {**skip_conns, **conns}
         t_agg_unix = time.time()
@@ -1022,7 +1600,7 @@ class AggregationServer:
                     f"replying noop to {len(skip_conns)} client(s)"
                 )
                 noop_meta = {"round_clients": [], "agg_round": rnd.round_no, "dp_reply": "noop", "trace": rnd.trace}
-                if self.stream_chunk_bytes > 0:
+                if self.stream_chunk_bytes > 0 and not self.secure_agg:
                     noop_meta[wire.META_STREAM] = self.stream_chunk_bytes
                     noop_meta[wire.META_WIRE_DTYPES] = sorted(set(wire.WIRE_DTYPE_ENCS.values()))
                 replies = {cid: self._encode_reply({}, noop_meta, nonces.get(cid)) for cid in skip_conns}
@@ -1031,7 +1609,7 @@ class AggregationServer:
                 self._m_bytes_out.inc(float(self._reply_all(replies, skip_conns, {})))
                 self._finish_round(rnd, t_round_unix, t0, wait_s, agg_s, time.monotonic() - t_rep)
                 return None
-            quorum = self.min_clients if rnd.cohort is None else min(self.min_clients, len(rnd.cohort))
+            quorum = self._round_quorum(rnd.cohort)
             if len(done) < quorum:
                 raise RuntimeError(
                     f"only {len(done)}/{self.num_clients} clients arrived "
@@ -1040,48 +1618,76 @@ class AggregationServer:
                     + ")"
                 )
             ids = sorted(done)
+            # Missing expected contributors (adopted re-homed ids do not
+            # count), and the double-count tripwire: one client in two
+            # subtree partials means a re-homed upload was also folded by
+            # its surviving old parent; no mean can repair that.
+            missing_n = max(0, rnd.expected - len(done - adopted))
+            listed = [c for i in ids for c in subtree_ids.get(i, [])]
+            if len(listed) != len(set(listed)):
+                raise RuntimeError(
+                    f"clients {sorted({c for c in listed if listed.count(c) > 1})} appear in more than one "
+                    "subtree's contributor record — a re-homed upload "
+                    "was double-counted; failing the round"
+                )
             stale_resync: dict[int, int] = {}  # client id -> history index
             crc_set: set = set()
             if self.dp_clip > 0.0:
                 ids, stale_resync, crc_set = self._dp_partition(rnd, ids, dp_crcs, quorum, all_conns, nonces)
-            missing_n = max(0, rnd.expected - len(done)) if rnd.cohort is None else 0
-            weights = [n_samples[i] for i in ids] if self.weighted else None
-            try:
-                mean = rnd.stream.finalize(ids, weights)
-            except wire.WireError as e:
-                raise RuntimeError(f"aggregation failed: {e}") from e
-            self.last_fold_stats = rnd.fold_stats = rnd.stream.stats()
+            if self.secure_agg:
+                mean = self._aggregate_secure(rnd, ids, secure_models, conns)
+            else:
+                weights = [n_samples[i] for i in ids] if self.weighted else None
+                try:
+                    mean = rnd.stream.finalize(ids, weights)
+                except wire.WireError as e:
+                    raise RuntimeError(f"aggregation failed: {e}") from e
+                self.last_fold_stats = rnd.fold_stats = rnd.stream.stats()
+                log.info(
+                    f"[SERVER] aggregated {len(ids)} models (clients {ids}; "
+                    f"{self.last_fold_stats['overlap_frac']:.0%} of fold input consumed "
+                    "during the wire phase)"
+                )
             self.last_uploads = {i: dict(rnd.uploads[i]) for i in ids}
             self.last_mean = mean
-            log.info(
-                f"[SERVER] aggregated {len(ids)} models (clients {ids}; "
-                f"{self.last_fold_stats['overlap_frac']:.0%} of fold input consumed "
-                "during the wire phase)"
-            )
+            if self.reply_via is not None:
+                # The fold tree: the subtree's mean goes to the parent, and
+                # the root's aggregate comes back for this subtree's
+                # clients (a parent failure fails the round here).
+                mean = {
+                    k: np.asarray(v, np.float32)
+                    for k, v in self.reply_via(
+                        mean,
+                        {"ids": list(ids), "n_samples": {i: n_samples[i] for i in ids},
+                         "round": rnd.round_no, "trace": rnd.trace},
+                    ).items()
+                }
             resync_payloads: dict[int, tuple[dict, int]] = {}
             if self.dp_clip > 0.0:
                 agg, reply_meta, resync_payloads = self._dp_release(rnd, ids, mean, crc_set, stale_resync)
             else:
-                agg = self._strategy.apply(
-                    self._last_agg, mean, round_no=rnd.round_no, client_stats=rnd.stream.client_stats()
-                )
+                agg = mean
+                if self.reply_via is None:
+                    # A relay never transforms: the root already did, and
+                    # a subtree partial is not a global.
+                    agg = self._strategy.apply(
+                        self._last_agg, mean, round_no=rnd.round_no,
+                        client_stats=None if self.secure_agg else rnd.stream.client_stats(),
+                    )
+                    self._m_strategy_rounds(self._strategy.name).inc()
                 # The post-strategy global is what clients adopt, so it is
                 # the next round's strategy input and sparse-delta base.
-                self._m_strategy_rounds(self._strategy.name).inc()
                 self._last_agg = agg
                 self._last_agg_round = rnd.round_no
                 self._persist_strategy_state()
-                reply_meta = {
-                    "round_clients": ids,
-                    "agg_round": rnd.round_no,
-                    "trace": rnd.trace,
-                    wire.META_STRATEGY: self._strategy.describe(),
-                }
-                if rnd.wants_delta:
+                reply_meta = {"round_clients": ids, "agg_round": rnd.round_no, "trace": rnd.trace}
+                if self.reply_via is None:
+                    reply_meta[wire.META_STRATEGY] = self._strategy.describe()
+                if rnd.wants_delta and not self.secure_agg:
                     # The base-agreement stamp: a sparse client adopts the
                     # decoded reply as its delta base only if it hashes to this.
                     reply_meta["agg_crc"] = wire.flat_crc32(agg)
-            if self.stream_chunk_bytes > 0:
+            if self.stream_chunk_bytes > 0 and not self.secure_agg:
                 reply_meta[wire.META_STREAM] = self.stream_chunk_bytes
                 reply_meta[wire.META_WIRE_DTYPES] = sorted(set(wire.WIRE_DTYPE_ENCS.values()))
             # Sitting-out clients get the identical reply (their bases must
@@ -1103,13 +1709,49 @@ class AggregationServer:
             self._finish_round(rnd, t_round_unix, t0, wait_s, time.monotonic() - t_agg, 0.0, failed=True)
             raise
         agg_s = time.monotonic() - t_agg
-        if missing_n:
-            # Quorum semantics: the round completed over the survivors;
-            # the missing clients were shed at this aggregator's deadline.
-            self._m_stragglers_shed.inc(float(missing_n))
+        self.last_assignment = {
+            "round": rnd.round_no,
+            "groups": [list(subtree_ids[i]) if i in subtree_ids else int(i) for i in ids],
+        }
+        degraded = missing_n > 0 and rnd.cohort is None and not self.secure_agg
+        if degraded:
+            # Quorum semantics: the round completed over the survivors.
+            # At a parent of relays the missing children are whole
+            # subtrees (counted, and their evidence kept in a flight
+            # bundle); elsewhere stragglers shed at the local deadline.
+            tree_key = "subtree_failures" if subtree_ids else "stragglers_shed"
+            with self._totals_lock:
+                self.tree_totals[tree_key] += missing_n
+                self.tree_totals["degraded_rounds"] += 1
+            if subtree_ids:
+                self._m_subtree_failures.inc(float(missing_n))
+                log.warning(
+                    f"[SERVER] round {rnd.round_no} completed DEGRADED: "
+                    f"{missing_n} expected subtree(s) never uploaded "
+                    f"within the deadline; folded the surviving "
+                    f"contributors {ids} (mean renormalized over their mass)"
+                )
+                recorder = obs_flight.get_global_recorder()
+                if recorder is not None:
+                    try:
+                        recorder.maybe_dump(
+                            "subtree-failure",
+                            extra={"round": rnd.round_no, "trace": rnd.trace, "expected": rnd.expected,
+                                   "missing_subtrees": missing_n, "survivors": [int(i) for i in ids]},
+                        )
+                    except OSError as e:
+                        log.warning(f"[SERVER] subtree-failure postmortem dump failed (non-fatal): {e}")
+            else:
+                self._m_stragglers_shed.inc(float(missing_n))
         if self.tracer is not None:
-            extra: dict = {"stragglers_shed": missing_n} if missing_n else {}
-            if self.dp_clip <= 0.0:
+            extra: dict = {}
+            if degraded:
+                extra["missing_subtrees" if subtree_ids else "stragglers_shed"] = missing_n
+            if adopted:
+                extra["adopted"] = sorted(int(i) for i in adopted)
+            if subtree_ids:
+                extra["assignment"] = self.last_assignment["groups"]
+            if self.dp_clip <= 0.0 and self.reply_via is None:
                 # Which strategy produced this round's global.
                 extra["strategy"] = self._strategy.name
                 s_params = self._strategy.params()
@@ -1130,6 +1772,8 @@ class AggregationServer:
         out_bytes = self._reply_all(replies, all_conns, stream_jobs)
         reply_s = time.monotonic() - t_rep
         if stream_jobs:
+            with self._totals_lock:
+                self.stream_totals["stream_replies"] += len(stream_jobs)
             self._m_stream_replies.inc(float(len(stream_jobs)))
         self._m_bytes_out.inc(float(out_bytes))
         if self.tracer is not None:
@@ -1155,8 +1799,9 @@ class AggregationServer:
         on their base, or (after healing the stale ones with the retained
         rounds alone) when too few current clients remain."""
         stale_resync: dict[int, int] = {}
-        if self.compression == "none":
-            # Latest entry wins on a crc collision.
+        if self.compression == "none" and not self.secure_agg:
+            # Latest entry wins on a crc collision. (A masked upload cannot
+            # be left out of the ring sum: no resync under secure DP.)
             hist_index = {crc: j for j, (crc, _) in enumerate(self._dp_history)}
             stale_resync = {i: hist_index[dp_crcs[i]] for i in ids if dp_crcs[i] in hist_index}
         current = [i for i in ids if i not in stale_resync]
@@ -1226,7 +1871,7 @@ class AggregationServer:
             # condition on it); with everyone in, it is public anyway.
             reply_meta["round_clients"] = ids
         resync_payloads: dict[int, tuple[dict, int]] = {}
-        if self.compression == "none":
+        if self.compression == "none" and not self.secure_agg:
             # An exactly-zero delta is not retained: its base crc would
             # equal every current client's next declaration.
             if any(np.any(v) for v in agg.values()):
@@ -1358,6 +2003,8 @@ class AggregationServer:
             self._m_round_failures.inc()
         s = rnd.fold_stats
         if s is not None:
+            with self._totals_lock:
+                self.stream_totals["peak_agg_bytes"] = max(self.stream_totals["peak_agg_bytes"], int(s["peak_bytes"]))
             self._g_peak_agg.set(float(s["peak_bytes"]))
             if s["fold_s"] > 0.0:
                 self._g_fold_throughput.set(float(s["fold_throughput_gbps"]))
@@ -1442,7 +2089,9 @@ class AggregationServer:
         chunks of each encoding are built once and shared. ``dense_extra``
         (the sitting-out clients) get the dense reply."""
         stream_ids = (
-            [cid for cid in ids if cid in rnd.stream_replies] if self.stream_chunk_bytes > 0 else []
+            [cid for cid in ids if cid in rnd.stream_replies]
+            if self.stream_chunk_bytes > 0 and not self.secure_agg
+            else []
         )
         quant_enc = wire.WIRE_DTYPE_ENCS[self.reply_dtype]
         quant_ids = (

@@ -111,6 +111,24 @@ DPID_MAGIC = b"DPID"  # fedtpu: allow(wire-magic-coverage): the JAX package's DP
 DPCOHORT_MAGIC = b"DPCO"  # fedtpu: allow(wire-magic-coverage): the JAX package's DP cohort-verdict magic, copied byte for byte so both packages run one central-DP handshake
 DPSKIP_MAGIC = b"DPSK"  # fedtpu: allow(wire-magic-coverage): the JAX package's DP sit-out-ack magic, copied byte for byte so both packages run one central-DP handshake
 DPSKIP_DOMAIN = b"fedtpu-dp-skip-v1"
+#: Secure aggregation (comm/secure.py). A secure server opens with the
+#: round advert ROUND_MAGIC + u64 round + SESSION_LEN session bytes + u8
+#: protocol (0 reveal, 1 double); the client answers PUBKEY_MAGIC + i64 id
+#: + its DH public value [+ tag], and the server relays every keyed
+#: participant's as KEYS_MAGIC + n x (i64 id + public value [+ tag]).
+ROUND_MAGIC = b"RNDX"  # fedtpu: allow(wire-magic-coverage): the JAX package's secure round-advert magic, copied byte for byte so both packages mask one round
+SESSION_LEN = 16
+PUBKEY_MAGIC = b"DHPK"  # fedtpu: allow(wire-magic-coverage): the JAX package's DH hello magic, copied byte for byte so both packages mask one round
+KEYS_MAGIC = b"DHKS"  # fedtpu: allow(wire-magic-coverage): the JAX package's DH keys-relay magic, copied byte for byte so both packages mask one round
+#: The dropout reveal round (protocol "reveal"): request and answer.
+REVEAL_MAGIC = b"RVLQ"  # fedtpu: allow(wire-magic-coverage): the JAX package's reveal-request magic, copied byte for byte so both packages unmask one round
+REVEAL_RESP_MAGIC = b"RVLA"  # fedtpu: allow(wire-magic-coverage): the JAX package's reveal-answer magic, copied byte for byte so both packages unmask one round
+#: Double masking: a dealer's share blobs, the holder's relayed shareset,
+#: the unmask request and its answer.
+SHARES_MAGIC = b"SHRS"  # fedtpu: allow(wire-magic-coverage): the JAX package's share-deal magic, copied byte for byte so both packages unmask one round
+SHARESET_MAGIC = b"SHST"  # fedtpu: allow(wire-magic-coverage): the JAX package's shareset magic, copied byte for byte so both packages unmask one round
+UNMASK_MAGIC = b"UMRQ"  # fedtpu: allow(wire-magic-coverage): the JAX package's unmask-request magic, copied byte for byte so both packages unmask one round
+UNMASK_RESP_MAGIC = b"UMRS"  # fedtpu: allow(wire-magic-coverage): the JAX package's unmask-answer magic, copied byte for byte so both packages unmask one round
 #: Reply meta: the server's preferred upload chunk bytes (the stream offer).
 META_STREAM = "stream"
 #: Upload meta: a truthy value means this client decodes streamed replies.
@@ -121,6 +139,12 @@ META_STRATEGY = "strategy"
 META_WIRE_DTYPES = "wire_dtypes"
 #: Upload meta: the lossy stream leaf encodings the client dequantizes.
 META_REPLY_DTYPES = "reply_dtypes"
+#: Upload meta: a truthy value marks a client re-homed off a dead parent;
+#: the adoptive server folds it as an extra contributor.
+META_REHOMED = "rehomed"
+#: Upload meta on a relay's upward upload: the ascending client ids its
+#: subtree partial folded (the root's assignment record).
+META_SUBTREE_IDS = "subtree_ids"
 #: ``--wire-dtype`` / ``--reply-dtype`` values -> the stream leaf encoding
 #: each negotiates (``int8`` is the per-chunk-scale codec, comm/quant.py).
 WIRE_DTYPE_ENCS = {"fp32": "raw", "bf16": "bf16", "int8": "int8c"}

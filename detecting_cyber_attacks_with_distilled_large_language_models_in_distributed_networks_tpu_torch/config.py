@@ -276,9 +276,9 @@ class FedConfig:
     # is evaluated as a third "personalized" phase.
     personalize_epochs: int = 0
     personalize_scope: str = "full"
-    # Relay subtree deadline (the TCP tier's relays; not ported) and the
-    # streamed-upload wire dtype (validated and kept so configs load, as in
-    # the JAX package; the client's --wire-dtype flag drives the client).
+    # Relay subtree deadline as a fraction of the round timeout (the
+    # ``relay --subtree-deadline-factor``), and the streamed-upload wire
+    # dtype (the client's --wire-dtype flag drives the client).
     subtree_deadline_factor: float = 0.5
     wire_dtype: str = "fp32"
 
@@ -392,11 +392,6 @@ class FedConfig:
         if not 0.0 <= self.server_momentum < 1.0:
             raise ValueError(
                 f"server_momentum={self.server_momentum} must be in [0, 1)"
-            )
-        if self.subtree_deadline_factor != 0.5:
-            raise NotImplementedError(
-                "relay deadlines (subtree_deadline_factor) are not ported yet "
-                "(ROADMAP queue 1, item 11)"
             )
 
 

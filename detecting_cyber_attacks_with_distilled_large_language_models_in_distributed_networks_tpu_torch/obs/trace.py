@@ -152,6 +152,12 @@ _RUN_LOCK = threading.Lock()
 _RUN_ID: str | None = None
 
 
+def wall_clock() -> float:
+    """Unix seconds: the start time every span records (timing only, never
+    a value a fold or a fault plan reads)."""
+    return time.time()
+
+
 def new_trace_id() -> str:
     """64 random bits of hex — one per round, minted by the round owner."""
     return os.urandom(8).hex()

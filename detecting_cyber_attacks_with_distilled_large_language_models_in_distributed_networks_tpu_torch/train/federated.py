@@ -369,21 +369,32 @@ class FederatedTrainer:
         round_index: int,
         weights: np.ndarray | None = None,
         base_mask: np.ndarray | None = None,
+        faults: np.ndarray | None = None,
         anchor: Any | None = None,
     ) -> FedState:
         """One round's participation sampling, gating and aggregation
         (:meth:`run`'s round boundary).
 
         ``min_client_fraction`` gates the clients ``base_mask`` excludes
-        (those with no train rows), never the Poisson draw; an empty
-        effective Poisson cohort makes the round a no-op."""
+        (those with no train rows) and the crashed ones ``faults`` drops,
+        never the Poisson draw; an empty effective Poisson cohort makes the
+        round a no-op, while a drawn cohort whose every member crashed
+        fails the round."""
         mask = self.participation_mask(round_index)
         poisson = mask is not None and self.cfg.fed.resolve_participation_mode() == "poisson"
+        gate = base_mask
         if base_mask is not None:
-            if poisson:
-                check_survivors(float(base_mask.sum()), self.C, self.cfg.fed.min_client_fraction)
             mask = base_mask if mask is None else mask * base_mask
-        if poisson and float(mask.sum()) == 0.0:
+        # Keyed on the draw gated by the structural base_mask only: a crash
+        # is a fault event, not a benign sampling outcome.
+        draw_empty = poisson and float(mask.sum()) == 0.0
+        if faults is not None:
+            faults = np.asarray(faults, np.float64)
+            mask = faults if mask is None else mask * faults
+            gate = faults if gate is None else gate * faults
+        if poisson and gate is not None:
+            check_survivors(float(gate.sum()), self.C, self.cfg.fed.min_client_fraction)
+        if draw_empty:
             log.info(
                 f"[FED] round {round_index + 1}: empty effective Poisson "
                 "cohort (no sampled client holds data); aggregation skipped"
@@ -488,6 +499,7 @@ class FederatedTrainer:
         val_splits: Sequence[TokenizedSplit] | None = None,
         start_round: int = 0,
         on_round: Callable[[FedState, RoundRecord], None] | None = None,
+        fault_mask_fn: Callable[[int], np.ndarray | None] | None = None,
     ) -> tuple[FedState, list[RoundRecord]]:
         """The federated flow, rounds ``start_round .. fed.rounds - 1``: local
         epochs -> local eval -> FedAvg -> aggregated eval (the reference's
@@ -498,7 +510,12 @@ class FederatedTrainer:
         (the reference scores val and test, client1.py:383-385,398-400).
         ``on_round(state, record)`` runs after each round's aggregated
         evaluation and before the reset; the CLI saves its checkpoint and
-        registry artifact there."""
+        registry artifact there. ``fault_mask_fn(round) -> [C] 0/1 mask |
+        None`` injects deterministic client failures for a round: a
+        dropped client is left out of the masked mean as a crashed one
+        would be, both masks must keep a client under partial
+        participation, and ``min_client_fraction`` still gates the round
+        (below it the round raises)."""
         R = self.cfg.fed.rounds
         E = self.cfg.train.epochs_per_round
         weights, base_mask = self.fleet_weights(stacked_train)
@@ -520,7 +537,17 @@ class FederatedTrainer:
             local_val, local = evaluate()
             sec["local_eval"] = time.perf_counter() - t
             t = time.perf_counter()
-            state = self.round_aggregate(state, round_index=r, weights=weights, base_mask=base_mask, anchor=anchor)
+            faults = None
+            if fault_mask_fn is not None:
+                faults = fault_mask_fn(r)
+                if faults is not None:
+                    faults = np.asarray(faults, np.float64)
+                    dropped = [c for c in range(self.C) if faults[c] == 0]
+                    if dropped:
+                        log.info(f"[FED] round {r + 1}: injected faults drop clients {dropped}")
+            state = self.round_aggregate(
+                state, round_index=r, weights=weights, base_mask=base_mask, faults=faults, anchor=anchor
+            )
             self._sync()
             sec["aggregate"] = time.perf_counter() - t
             t = time.perf_counter()

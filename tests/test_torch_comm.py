@@ -29,6 +29,7 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     AggregationServer,
     FederatedClient,
     ModeError,
+    StreamAgg,
     WireError,
     wire as pwire,
 )
@@ -82,22 +83,27 @@ def test_each_side_decodes_the_others_bytes():
 
 
 def test_unported_modes_raise_mode_error():
-    """What the port's server still refuses: an upload in a JAX mode it
-    does not fold (secure aggregation, a relay's subtree upload, a
-    re-homed client, a relay's strategy claim) raises ModeError; a DP
-    upload to a plain server fails the mode check; and a sparse delta without a base raises WireError (the
-    JAX server's refusal: the client then resends dense)."""
+    """The JAX modes the port's server once refused are folded now: an
+    upload's relay record, re-home marker and strategy claim pass
+    validation (a split-brain strategy claim is a WireError, as in the
+    JAX server); a DP upload to a plain server fails the mode check; and
+    a sparse delta without a base raises WireError (the JAX server's
+    refusal: the client then resends dense)."""
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.comm.server import (
+        _Round,
+    )
+
     rng = np.random.default_rng(3)
     flat = pwire.flatten_params(_params(rng))
     with AggregationServer(port=0, num_clients=1, timeout=5, device="cpu") as server:
-        for key, value, what in (
-            ("secure", True, "secure aggregation"),
-            ("subtree_ids", [0, 1], "relay"),
-            ("rehomed", 1, "re-homing"),
-            ("strategy", {"name": "fedavg"}, "relay"),
-        ):
-            with pytest.raises(ModeError, match=f"{what}.* not ported"):
-                server._validate_upload({"client_id": 0, key: value}, None)
+        for key, value in (("subtree_ids", [0, 1]), ("rehomed", 1), ("strategy", {"name": "fedavg"})):
+            assert server._validate_upload({"client_id": 0, key: value}, None) == 0
+        rnd = _Round(expected=1)
+        rnd.stream = StreamAgg(device="cpu")
+        assert server._register_tree_meta(rnd, None, 0, {"subtree_ids": [3, 1]})
+        assert rnd.subtree_ids == {0: [3, 1]}
+        with pytest.raises(WireError, match="split-brain"):
+            server._register_tree_meta(rnd, None, 0, {"strategy": {"name": "fedprox"}})
         assert server._validate_upload({"client_id": 4, "dp": False}, None) == 4
         # Central DP is ported: a DP upload to a plain server is a mode
         # mismatch (the JAX server's WireError), not an unported mode.
@@ -224,8 +230,8 @@ def test_port_server_refuses_modes_it_does_not_fold():
 def test_cli_refuses_what_the_jax_cli_refuses(monkeypatch):
     """The combinations the JAX CLI refuses are refused here the same way
     (argparse, or ValueError from the server and the client), unported
-    flags are unknown to argparse, and per-client identity keys raise
-    ModeError instead of being ignored."""
+    flags are unknown to argparse, and the per-client identity keys are
+    honoured as the JAX CLI honours them."""
     from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu.cli import (
         build_parser as jax_parser,
     )
@@ -257,7 +263,10 @@ def test_cli_refuses_what_the_jax_cli_refuses(monkeypatch):
     with pytest.raises(ValueError, match="wire_dtype"):
         run_client(args)
     for argv in (["serve", "--secure-agg"], ["client", "--client-id", "0", "--parent", "h:1"],
-                 ["client", "--client-id", "0", "--secure-agg"]):
+                 ["client", "--client-id", "0", "--secure-agg"], ["relay", "--relay-id", "0"], ["scenario"]):
+        build_parser().parse_args(argv)  # ported: valid in both packages
+        jax_parser().parse_args(argv)
+    for argv in (["client", "--client-id", "0", "--data-parallel", "2"],):
         with pytest.raises(SystemExit):
             build_parser().parse_args(argv)
         jax_parser().parse_args(argv)  # valid in the JAX package
@@ -271,9 +280,23 @@ def test_cli_refuses_what_the_jax_cli_refuses(monkeypatch):
         jargs = jax_parser().parse_args(["serve", "--port", "0", *bad])
         with pytest.raises(err):
             jargs.fn(jargs)
+    # The identity keys are read as the JAX CLI reads them: without the
+    # group key both refuse them, a malformed registry exits.
+    monkeypatch.delenv("FEDTPU_SECRET", raising=False)
     monkeypatch.setenv("FEDTPU_CLIENT_SECRETS", "0:a,1:b")
-    with pytest.raises(ModeError, match="identity keys"):
+    with pytest.raises(ValueError, match="client_keys"):
         build_server(build_parser().parse_args(["serve", "--port", "0", "--device", "cpu"]))
+    jargs = jax_parser().parse_args(["serve", "--port", "0"])
+    with pytest.raises(ValueError, match="client_keys"):
+        jargs.fn(jargs)
+    monkeypatch.setenv("FEDTPU_CLIENT_SECRETS", "0:a,x:b")
+    with pytest.raises(SystemExit, match="malformed"):
+        build_server(build_parser().parse_args(["serve", "--port", "0", "--device", "cpu"]))
+    monkeypatch.setenv("FEDTPU_SECRET", "group")
+    monkeypatch.setenv("FEDTPU_CLIENT_SECRETS", "0:a,1:b")
+    with build_server(build_parser().parse_args(["serve", "--port", "0", "--device", "cpu"])) as server:
+        assert server.client_keys == {0: b"a", 1: b"b"}
+    monkeypatch.delenv("FEDTPU_SECRET")
     monkeypatch.setenv("FEDTPU_CLIENT_SECRET", "a")
-    with pytest.raises(ModeError, match="identity keys"):
+    with pytest.raises(ValueError, match="client_key"):
         run_client(build_parser().parse_args(["client", "--client-id", "0", "--device", "cpu"]))

@@ -961,6 +961,7 @@ def test_serve_round_index_stamps_replies_like_jax(round_index, tmp_path):
 # --------------------------------------------------------------- the verb
 #: (flag, value, dest) of every JAX ``controller`` flag the port keeps.
 CONTROLLER_FLAGS = [
+    ("--secure-agg", None, "secure_agg"),
     ("--host", "127.0.0.1", "host"), ("--port", "9", "port"), ("--num-clients", "3", "num_clients"),
     ("--min-clients", "1", "min_clients"), ("--timeout", "12.5", "timeout"), ("--rounds", "4", "rounds"),
     ("--state-jsonl", "s.jsonl", "state_jsonl"), ("--gate-metric", "F1-Score", "gate_metric"),
@@ -987,10 +988,11 @@ def test_controller_flag_parses_to_the_jax_value(flag, value, dest):
         assert port == want and type(port) is type(want), (argv, port, want)
 
 
-#: The JAX controller's flags of paths not ported: secure aggregation
-#: (ROADMAP item 11) and the shadow, label and error-drift gates (14b).
+#: The JAX controller's flags of paths not ported: the shadow, label and
+#: error-drift gates (ROADMAP item 14b). (``--secure-agg`` is ported: a
+#: case of ``test_controller_flag_parses_to_the_jax_value``.)
 UNPORTED_FLAGS = [
-    ["--secure-agg"], ["--shadow-gate"], ["--shadow-min-pairs", "8"], ["--shadow-timeout", "5"],
+    ["--shadow-gate"], ["--shadow-min-pairs", "8"], ["--shadow-timeout", "5"],
     ["--shadow-max-flip-rate", "0.1"], ["--shadow-psi-threshold", "0.2"], ["--label-gate"],
     ["--label-journal", "j.jsonl"], ["--label-min-joined", "8"], ["--label-coverage-floor", "0.1"],
     ["--label-max-regression", "0.1"], ["--error-drift"],

@@ -1,6 +1,6 @@
 """Central DP on the port's TCP tier, held against the JAX package's, on
-the CPU (after tests/test_dp_tcp.py, every case but the two secure-agg
-ones, which stay with the unported secure tier).
+the CPU (after tests/test_dp_tcp.py, every case, the two secure-agg ones
+included).
 
 * The port's server and client run each JAX case: the noiseless round is
   ``base + mean(clip(delta_i))`` (atol 1e-5, the JAX test's bound), the
@@ -16,6 +16,10 @@ ones, which stay with the unported secure tier).
   server with port clients agree with the all-port arithmetic, and the
   clients' bases are bit-equal; the handshake frames, the clipped upload
   frame and the reply meta are byte-equal between the packages.
+* Secure aggregation with central DP: masked clipped deltas, the noiseless
+  mean within the JAX test's atol 1e-5 of ``base + mean(delta)``, equal
+  bit for bit across the packages in both directions; the serve banner
+  states the honest-client-only clipping, word for word the JAX one.
 """
 
 import logging
@@ -681,3 +685,61 @@ def test_wire_dp_constants_and_clip_equal_jax(rng):
         assert got[1:] == want[1:]
         for k in flat:
             np.testing.assert_array_equal(got[0][k], want[0][k])
+
+
+@pytest.mark.parametrize("auth", [False, True])
+@pytest.mark.parametrize("server_kind,client_kinds", [
+    ("port", ("port", "port")), ("jax", ("port", "port")), ("port", ("jax", "jax")), ("jax", ("jax", "jax")),
+])
+def test_secure_dp_composition(rng, auth, server_kind, client_kinds):
+    """--secure-agg + central DP: masked clipped-delta uploads, noise on
+    the recovered sum; the noiseless mean matches the plain-DP math to
+    the fixed-point tolerance, and every package mix lands on the same
+    bits."""
+    auth_key = b"dp-secure" if auth else None
+    base = {"w": rng.normal(size=(6, 3)).astype(np.float32)}
+    deltas = [{"w": rng.normal(size=(6, 3)).astype(np.float32) * 0.05} for _ in range(2)]
+    params = [{"w": base["w"] + d["w"]} for d in deltas]
+    results = {}
+    with _server(server_kind, num_clients=2, timeout=20, secure_agg=True, dp_clip=10.0,
+                 dp_noise_multiplier=0.0, auth_key=auth_key) as server:
+        st = _serve_one(server, results)
+        clients = [
+            _client(kind, server.port, i, timeout=20, dp=True, secure_agg=True, num_clients=2, auth_key=auth_key)
+            for i, kind in enumerate(client_kinds)
+        ]
+        _run_clients(clients, params, [base, base], results)
+        st.join(timeout=30)
+    want = base["w"] + 0.5 * (deltas[0]["w"] + deltas[1]["w"])
+    got = flatten_params(results[0])["w"]
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    np.testing.assert_array_equal(got, flatten_params(results[1])["w"])
+    _SECURE_DP_BITS.setdefault(auth, got)
+    np.testing.assert_array_equal(got, _SECURE_DP_BITS[auth])
+
+
+#: The first mix's result per auth mode: every other mix must equal it.
+_SECURE_DP_BITS: dict = {}
+
+
+def test_secure_dp_banner_states_honest_clipping():
+    """The secure+DP serve banner says the guarantee is honest-client-only
+    (masked uploads cannot be re-clipped server-side), word for word the
+    JAX banner."""
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu.cli import (
+        main as jax_main,
+    )
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli import (
+        main,
+    )
+
+    argv = [
+        "serve", "--port", "0", "--num-clients", "2", "--secure-agg", "--dp-clip", "0.5",
+        "--dp-noise-multiplier", "1.0", "--rounds", "1", "--timeout", "0.3",
+    ]
+    rc, banner = _capture_logs(lambda: main(argv + ["--device", "cpu"]), "detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch")
+    assert rc == 0 and banner
+    assert "HONEST-CLIENT-ONLY" in banner[0]
+    assert "cannot be re-clipped server-side" in banner[0]
+    jrc, jbanner = _capture_logs(lambda: jax_main(argv), "fedtpu")
+    assert jrc == 0 and jbanner == banner

@@ -46,7 +46,7 @@ BLOCKED = (
 #: The frame magics the port's wire copies from the JAX package.
 PORT_MAGICS = {
     "SCRQ", "SCRP", "SCRJ", "SCAU", "SCST", "SCSR", "SCRL", "SCRD", "FTPW", "NONC", "STRH", "STRC", "STRT",
-    "DPAD", "DPID", "DPCO", "DPSK",
+    "DPAD", "DPID", "DPCO", "DPSK", "RNDX", "DHPK", "DHKS", "RVLQ", "RVLA", "SHRS", "SHST", "UMRQ", "UMRS",
 }
 
 
@@ -89,7 +89,8 @@ print(" ".join(names))
         "serving.client", "serving.protocol", "serving.server",
         "models.safetensors", "models.hf_convert", "train.distill", "cli.distill", "comm.native",
         "parallel.dp", "data.streaming", "control", "control.drift", "control.controller", "obs.slo",
-        "obs.fleet", "obs.sentinel",
+        "obs.fleet", "obs.sentinel", "comm.secure", "comm.shamir", "comm.relay", "faults", "faults.proxy",
+        "faults.personas", "faults.deadrelay", "faults.scenario", "cli.scenario",
     ):
         assert f"{PORT_PKG}.{mod}" in imported.split(), mod
 
@@ -169,8 +170,8 @@ def test_checker_suffixes_resolve_inside_the_jax_package():
 
 #: The port modules that register the JAX package's metric families.
 METRIC_TWIN_MODULES = (
-    "comm/client.py", "comm/server.py", "control/controller.py", "obs/fleet.py", "obs/profile.py",
-    "obs/sentinel.py", "serving/server.py",
+    "comm/client.py", "comm/relay.py", "comm/server.py", "control/controller.py", "faults/scenario.py",
+    "obs/fleet.py", "obs/profile.py", "obs/sentinel.py", "serving/server.py",
 )
 
 
@@ -264,11 +265,14 @@ def test_round_entry_points_raise_without_cuda(monkeypatch):
 
 def test_the_guards_left_are_the_unported_paths():
     """Every ``raise NotImplementedError`` left in the port guards a path
-    that is not ported: relay deadlines (config), the controller's shadow,
-    label and error-rate gates, ring attention (the model), beside the
-    abstract strategy's ``apply``. The server's secure, relay and
-    re-homing uploads and the client's identity keys refuse with
-    ModeError instead."""
+    that is not ported: the controller's shadow, label and error-rate
+    gates, ring attention (the model), beside the abstract strategy's
+    ``apply``. The server folds secure, relay and re-homed uploads, so it
+    keeps no table of unported upload modes, and the CLI reads the
+    identity keys instead of refusing them."""
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli import (
+        comm as cli_comm,
+    )
     from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.comm import (
         server,
     )
@@ -282,8 +286,9 @@ def test_the_guards_left_are_the_unported_paths():
                 exc = node.exc.func if isinstance(node.exc, ast.Call) else node.exc
                 if getattr(exc, "id", None) == "NotImplementedError":
                     found.append(os.path.relpath(path, REPO_ROOT).split("/", 1)[-1])
-    assert sorted(found) == ["config.py", "control/controller.py", "models/distilbert.py", "strategies/core.py"]
-    assert set(server._UNPORTED_UPLOAD_MODES) == {"secure", "subtree_ids", "rehomed", "strategy"}
+    assert sorted(found) == ["control/controller.py", "models/distilbert.py", "strategies/core.py"]
+    assert not hasattr(server, "_UNPORTED_UPLOAD_MODES")
+    assert not hasattr(cli_comm, "_refuse_identity_keys")
 
 
 def test_chip_smoke_defines_each_top_level_name_once():

@@ -219,14 +219,10 @@ def test_fed_config_fields_and_validation_match_jax():
     ],
 )
 def test_unported_fed_options_raise(kw, item):
-    """Items 9 (DP-FedAvg) and 16 (personalization) are ported: their
-    fields give the JAX package's config. Item 11's relay deadline still
-    raises rather than being ignored."""
+    """Items 9 (DP-FedAvg), 11 (the relay's subtree deadline) and 16
+    (personalization) are ported: their fields give the JAX package's
+    config, and none raises any more."""
     want = jcfg.FedConfig(**kw)  # valid in the JAX package
-    if item == "item 11":
-        with pytest.raises(NotImplementedError, match=item):
-            pcfg.FedConfig(**kw)
-        return
     got = pcfg.FedConfig(**kw)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert got.dp_enabled() == want.dp_enabled() and got.dp_sampling_rate() == want.dp_sampling_rate()
