@@ -353,20 +353,52 @@ Phases; any failure exits non-zero before the last line is printed:
             the auth cell, the dead-relay cell) and one ``--train`` cell
             through ``cli_main``: exit 0, every round ok and crc-exact,
             K4 launched by the cells' servers;
-14. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
+14. gates  — the gate stack, through the port's parser, at full width,
+            one secret (``FEDTPU_SECRET``) keying the whole phase. (a)
+            ``fleet --replicas 2 --buckets 1,8,32 --auth --shadow-sample
+            2`` following a registry: 256 flows' replies within bf16 atol
+            1e-2 of a lone ``ScoreEngine`` on the artifact; a 256-flow
+            closed loop (8 connections) answered by both replicas, whose
+            stats frames name replicas 0 and 1; a second artifact (its
+            head shifted so its scores differ by more than 0.1 on every
+            flow) promoted under a 1024-flow closed loop: 0 rejected, a
+            sampler's every reply within 1e-2 of the lone engine of the
+            round it names, one registry ``reload`` event and one
+            ``replica-drain`` span per replica, every reply after the
+            sweep round 2; ``route --auth`` in front of the replicas:
+            replies equal to a replica's own, a keyless client refused.
+            (b) the shadow gate on exactly 64 mirrored pairs (stride 2):
+            the serving weights with the bias nudged 1e-6 pass (flip rate
+            0) and the fleet rolls onto them; the head negated fails
+            (flip rate 1), is rejected with the verdict on the registry's
+            ``rejected`` event, the pointer held; each verdict equals
+            ``evaluate_status`` of the pairs JSONL recomputed. (c)
+            ``controller --shadow-gate --label-gate --error-drift`` (the
+            shadow thresholds open, so the label rung rules) runs the
+            round cell for one round; 112 labelled flows through the
+            router, their truth ingested, then 16 more: the record's
+            shadow verdict equals ``evaluate_status`` and its label
+            verdict ``evaluate_supervised`` recomputed from the pairs
+            and the journal, the registry's event agrees with the
+            record, the shadow pointer is cleared; K4 102, K1-dropout, K2
+            and K3 once per layer of every client step. Prints the live
+            p99 without and with the mirror, each replica's sweep time;
+15. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
    serving shape and dropout at the training shape, then K2, K3 and K4;
    K1's rate-0 launches count phase 5, phase 6's evaluation, the
    lifecycle's predict and reload serving, the federated phase's
    evaluations, predicts and serving, the train-options, distill,
    migrate, privacy, dp-rounds and stream phases, the rounds phase's
    evaluations, the serving phase, the obs phase, the control phase
-   and the robust phase's clients; K1 with dropout, K2 and K3 count
+   the robust phase's clients and the gates phase's replicas, shadow
+   replicas and gate; K1 with dropout, K2 and K3 count
    phase 6, the federated, train-options, distill, migrate, privacy,
    dp-rounds, stream and rounds phases, the serving phase's ``local``,
-   the obs phase, the control phase's and the robust phase's clients;
+   the obs phase, the control, robust and gates phases' clients;
    K4 the migrate and dp-rounds phases, phases 8 and 9, the obs
-   phase's round, the control phase's two rounds and the robust
-   phase's relays, roots and scenario servers),
+   phase's round, the control phase's two rounds, the robust
+   phase's relays, roots and scenario servers and the gates phase's
+   round),
    then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -458,12 +490,19 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     build_hub,
     build_sentinel,
 )
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.router import (
+    build_fleet,
+    build_router,
+)
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.serving import (
     build_server,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.config import (
     ModelConfig,
     TrainConfig,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.control.drift import (
+    psi as drift_psi,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.data import (
     FLOW_TEXT_COLUMNS,
@@ -483,6 +522,11 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.data.synthetic import (
     make_synthetic,
     make_synthetic_flows,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.labels import (
+    LabelStore,
+    evaluate_supervised,
+    journal_path as label_journal_path,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.models import (
     init_params,
@@ -516,11 +560,17 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.serving import (
     AsyncScoringClient,
+    PipelinedScoringClient,
     ScoreEngine,
     ScoringClient,
     fetch_stats,
     load_arrival_trace,
     run_load,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.shadow import (
+    ShadowGate,
+    evaluate_status,
+    pairs_path as shadow_pairs_path,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.checkpoint import (
     STATE_FILE,
@@ -1289,14 +1339,14 @@ def predict_check(card: str, csv_path: str, ckpt_dir: str, out: str) -> tuple[np
     return probs, launches
 
 
-def score_texts(port: int, texts: list[str], threads: int = 8) -> list[dict]:
+def score_texts(port: int, texts: list[str], threads: int = 8, auth_key: bytes | None = None) -> list[dict]:
     """Score ``texts`` through the port's client on ``threads`` connections."""
     replies: dict[int, dict] = {}
     errors: list[BaseException] = []
 
     def drive(rows):
         try:
-            with ScoringClient("127.0.0.1", port, timeout=120) as c:
+            with ScoringClient("127.0.0.1", port, timeout=120, auth_key=auth_key) as c:
                 for i in rows:
                     replies[i] = c.score(text=texts[i])
         except BaseException as e:  # re-raised below, after the join
@@ -4255,6 +4305,419 @@ def robust_phase(seed: int, card: str) -> dict[str, int]:
     return total
 
 
+# ---------------------------------------------------------------- slice 15
+GATE_SECRET = "chip-smoke-gates-secret"
+GATE_FLOWS = 256
+GATE_SWEEP_FLOWS = 1024  # closed-loop load the rolling reload runs under
+GATE_MIN_PAIRS = 64  # a multiple of the comparator's status stride (8)
+GATE_BINS = 10  # ShadowConfig.bins
+GATE_CLIENT_ARGS = [*CONTROL_CLIENT_ARGS[:8], "--rounds", "1", "--timeout", "600"]
+GATE_SHADOW_FLAGS = ["--shadow-gate", "--shadow-min-pairs", str(GATE_MIN_PAIRS), "--shadow-timeout", "600",
+                     # The shadow rung passes on any evidence here, so the
+                     # label rung behind it rules too; (b) forces it both ways.
+                     "--shadow-max-flip-rate", "1.0", "--shadow-psi-threshold", "1e9"]
+GATE_LABEL_FLAGS = ["--label-gate", "--label-min-joined", "32", "--label-coverage-floor", "0.05", "--error-drift"]
+
+
+def head_variant(params: dict, *, bias=(0.0, 0.0), sign: float = 1.0) -> dict:
+    """``params`` with the classifier's logits times ``sign`` plus ``bias``:
+    a distinct artifact whose scores are known from the original's."""
+    out = dict(params)
+    out["classifier.weight"] = params["classifier.weight"] * sign
+    out["classifier.bias"] = params["classifier.bias"] * sign + torch.tensor(bias, dtype=torch.float32)
+    return out
+
+
+def pair_records(path: str) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def pairs_status(recs: list[dict]) -> dict:
+    """The comparator's evidence recomputed from its pairs JSONL alone:
+    counts, flip rate, the fixed [0, 1] bins and their PSI."""
+    s = np.array([r["serving_prob"] for r in recs], np.float64)
+    c = np.array([r["shadow_prob"] for r in recs], np.float64)
+    flips = int(((s >= 0.5) != (c >= 0.5)).sum())
+    hist = [np.bincount(np.minimum((np.clip(x, 0.0, 1.0) * GATE_BINS).astype(int), GATE_BINS - 1),
+                        minlength=GATE_BINS) for x in (s, c)]
+    check(flips == sum(r["flip"] for r in recs), "a pair record's flip disagrees with its probabilities")
+    return {"pairs": len(recs), "flips": flips, "flip_rate": flips / len(recs) if recs else 0.0,
+            "psi": round(drift_psi(hist[0], hist[1]), 6)}
+
+
+def journal_labels(path: str) -> dict[str, int]:
+    """rid -> label from a ground-truth journal, last writer (by ts) wins."""
+    best: dict[str, tuple[float, int]] = {}
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            if "rid" in rec and rec["ts"] >= best.get(rec["rid"], (-np.inf, 0))[0]:
+                best[rec["rid"]] = (rec["ts"], rec["label"])
+    return {rid: label for rid, (_, label) in best.items()}
+
+
+def supervised_report(recs: list[dict], labels: dict[str, int]) -> dict:
+    """The label join recomputed: each side's error over the pairs whose
+    request id has a label, and the coverage of all pairs."""
+    hits = [(r, labels[r["rid"]]) for r in recs if r.get("rid") in labels]
+    models = {}
+    for side, key in (("serving", "serving_prob"), ("candidate", "shadow_prob")):
+        wrong = sum(int(r[key] >= 0.5) != int(y != 0) for r, y in hits)
+        models[side] = {"error": wrong / len(hits) if hits else None}
+    return {"joined": len(hits), "total": len(recs), "coverage": len(hits) / len(recs) if recs else 0.0,
+            "models": models}
+
+
+def wait_pairs(path: str, n: int, errors: list | None = None) -> list[dict]:
+    wait_for(lambda: (os.path.exists(path) and len(pair_records(path)) >= n) or bool(errors), 120, f"{n} mirrored pairs")
+    recs = pair_records(path)
+    check(len(recs) == n, f"{len(recs)} mirrored pairs, want {n}")
+    return recs
+
+
+def gates_fleet(seed: int, card: str, ctx: dict) -> None:
+    """(a) Two replicas behind the router, following the registry: replies
+    against a lone engine, both replicas answering, a promotion rolled
+    across them under load, and the ``route`` verb in front of them."""
+    fleet, key, reg, texts, refs = ctx["fleet"], ctx["key"], ctx["reg"], ctx["texts"], ctx["refs"]
+    replies = score_texts(fleet.port, texts, auth_key=key)
+    diff = float(np.abs(np.array([r["prob"] for r in replies]) - refs[1]).max())
+    print(f"gates (a): {len(replies)} replies through the router, max|prob - lone engine| {diff:.3e} (bf16 atol 1e-2)",
+          flush=True)
+    check(diff <= 1e-2 and {r["round"] for r in replies} == {1}, f"router replies: diff {diff}, "
+          f"rounds {sorted({r['round'] for r in replies})}")
+    res = run_load("127.0.0.1", fleet.port, texts, concurrency=8, requests=GATE_FLOWS, timeout=120, auth_key=key)
+    ctx["p99"] = {"no mirror": res["p99_ms"]}
+    load_line(card, "gates (a): closed loop through the router, 8 connections", res)
+    check(res["scored"] == GATE_FLOWS and res["rejected"] == 0, f"load: {res['scored']} scored, {res['rejected']} rejected")
+    per_rep = [fetch_stats("127.0.0.1", r.port, auth_key=key) for r in fleet.replicas]
+    s = fleet.stats()
+    print(f"gates (a): replicas scored {[p['scored'] for p in per_rep]}, stats ids {[p['replica'] for p in per_rep]}; "
+          f"router backends {[(b['replica'], b['healthy'], b['round']) for b in s['backends']]}", flush=True)
+    check([p["replica"] for p in per_rep] == [0, 1] and all(p["scored"] > 0 for p in per_rep),
+          f"replica stats {[(p['replica'], p['scored']) for p in per_rep]}")
+    check([b["replica"] for b in s["backends"]] == [0, 1] and s["healthy"] == 2, f"router stats {s}")
+
+    # The rolling reload under load: a sampler through the router records
+    # (round, prob) of one flow all along, next to a closed-loop load.
+    samples: list[tuple[int, float]] = []
+    stop, errors, out = threading.Event(), [], {}
+
+    def sampler() -> None:
+        try:
+            with ScoringClient("127.0.0.1", fleet.port, timeout=120, auth_key=key) as c:
+                while not stop.is_set():
+                    r = c.score(text=texts[0])
+                    samples.append((r["round"], r["prob"]))
+        except BaseException as e:  # re-raised below, after the join
+            errors.append(e)
+
+    def loader() -> None:
+        try:
+            out.update(run_load("127.0.0.1", fleet.port, texts, concurrency=8, requests=GATE_SWEEP_FLOWS,
+                                timeout=300, auth_key=key))
+        except BaseException as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=sampler), threading.Thread(target=loader)]
+    for t in threads:
+        t.start()
+    try:
+        time.sleep(0.5)
+        a2 = publish(reg, ctx["params2"], 2, ctx["cfg"])
+        wait_for(lambda: fleet.stats()["reloads"] >= 1 or errors, 120, "the rolling reload")
+        time.sleep(0.5)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=300)
+    check(not any(t.is_alive() for t in threads), "sampler or load threads hung")
+    if errors:
+        raise errors[0]
+    rounds = sorted({r for r, _ in samples})
+    worst = max(abs(p - refs[r][0]) for r, p in samples)
+    print(f"gates (a): rolling reload to {a2} under {out['scored']} closed-loop requests: rejected {out['rejected']}; "
+          f"sampler {len(samples)} replies over rounds {rounds}, max|prob - its round's lone engine| {worst:.3e}", flush=True)
+    check(out["scored"] == GATE_SWEEP_FLOWS and out["rejected"] == 0, f"sweep load {out['scored']} / {out['rejected']}")
+    check(rounds == [1, 2] and worst <= 1e-2, "a reply during the sweep does not carry its weights' round")
+    check([r.round_id for r in fleet.replicas] == [2, 2], f"replica rounds {[r.round_id for r in fleet.replicas]}")
+    with open(os.path.join(reg, "events.jsonl")) as f:
+        reloads = [e for e in map(json.loads, f) if e["event"] == "reload"]
+    check(sorted((e["artifact"], e["consumer"]) for e in reloads) == [(a2, "replica-0"), (a2, "replica-1")],
+          f"registry reload events {reloads}")
+    drains = [s for s in obs_mod.load_spans([ctx["spans"]]) if s["span"] == "replica-drain"]
+    print(f"gates (a): {card}: replica-drain per replica " + ", ".join(
+        f"r{s['replica']} {s['dur_s'] * 1e3:.1f} ms (drained {s['drained']})" for s in drains), flush=True)
+    check(sorted((s["replica"], s["round"], s["artifact"]) for s in drains) == [(0, 2, a2), (1, 2, a2)],
+          f"replica-drain spans {drains}")
+    after = score_texts(fleet.port, texts[:64], auth_key=key)
+    diff2 = float(np.abs(np.array([r["prob"] for r in after]) - refs[2][:64]).max())
+    check({r["round"] for r in after} == {2} and diff2 <= 1e-2, f"after the sweep: rounds "
+          f"{sorted({r['round'] for r in after})}, diff {diff2}")
+
+    # The route verb through the port's CLI, keyed, in front of the same replicas.
+    route = build_router(build_parser().parse_args([
+        "route", *(a for r in fleet.replicas for a in ("--backend", f"127.0.0.1:{r.port}")), "--auth",
+        "--host", "127.0.0.1", "--port", "0", "--probe-interval", "0.2",
+    ]))
+    with route.router as router:
+        with ScoringClient("127.0.0.1", router.port, timeout=120, auth_key=key) as c:
+            via = [c.score(text=t) for t in texts[:8]]
+        with ScoringClient("127.0.0.1", fleet.replicas[0].port, timeout=120, auth_key=key) as c:
+            direct = [c.score(text=t) for t in texts[:8]]
+        try:
+            with ScoringClient("127.0.0.1", router.port, timeout=30) as c:
+                c.score(text=texts[0])
+            refused = False
+        except WireError:
+            refused = True
+    print(f"gates (a): route --auth: 8 replies equal to the replica's own {[a['prob'] for a in via] == [d['prob'] for d in direct]}"
+          f"; a keyless client refused {refused}", flush=True)
+    check([(a["prob"], a["round"]) for a in via] == [(d["prob"], d["round"]) for d in direct], "route replies differ")
+    check(refused, "the keyed router answered a keyless client")
+
+
+def shadow_verdict(ctx: dict, params: dict, round_id: int) -> tuple[str, bool, dict, list[dict]]:
+    """Add ``params`` and enter them into the shadow state, mirror exactly
+    GATE_MIN_PAIRS pairs (stride 2) and rule with the shadow gate; the
+    verdict must equal ``evaluate_status`` of the pairs JSONL recomputed.
+    Returns the artifact, the verdict and the pairs."""
+    fleet, reg, key = ctx["fleet"], ctx["reg"], ctx["key"]
+    registry = ModelRegistry(reg)
+    aid = registry.add(params, round_index=round_id, model_config=ctx["cfg"])
+    registry.promote(aid, to="shadow")
+    t0 = time.perf_counter()
+    wait_for(lambda: fleet.stats()["shadow_artifact"] == aid, 120, f"the shadow plane armed for {aid}")
+    armed_s = time.perf_counter() - t0
+    shadow = fleet._shadow_replica
+    check(shadow.engine.device.type == "cuda" and shadow.round_id == round_id, "the shadow replica")
+    res = run_load("127.0.0.1", fleet.port, ctx["texts"], concurrency=8, requests=2 * GATE_MIN_PAIRS, timeout=120,
+                   auth_key=key)
+    check(res["rejected"] == 0, "a live request was rejected while mirroring")
+    recs = wait_pairs(shadow_pairs_path(reg, aid), GATE_MIN_PAIRS)
+    ok, verdict = ShadowGate(reg, min_pairs=GATE_MIN_PAIRS, timeout_s=60.0, poll_s=0.1).wait(aid)
+    status = pairs_status(recs)
+    want = evaluate_status(status, min_pairs=GATE_MIN_PAIRS, max_flip_rate=0.02, psi_threshold=0.25)
+    mstats = fleet.stats()["shadow_mirror"]
+    print(f"gates (b): {aid} armed in {armed_s:.2f} s, mirror {mstats}; gate {'PASS' if ok else 'FAIL'}: "
+          f"{verdict['reason']}; recomputed from the pairs file {status}", flush=True)
+    check((ok, verdict["reason"]) == want, f"gate {(ok, verdict['reason'])} vs recomputed {want}")
+    check(verdict["pairs"] == status["pairs"] and verdict["flip_rate"] == status["flip_rate"]
+          and verdict["psi"] == status["psi"], f"gate evidence {verdict} vs {status}")
+    return aid, ok, verdict, recs
+
+
+def gates_shadow(seed: int, card: str, ctx: dict) -> None:
+    """(b) The shadow gate forced both ways: an agreeing candidate
+    promotes and the fleet rolls onto it; a negated head is rejected with
+    the verdict on the registry event and the pointer held."""
+    fleet, reg, key = ctx["fleet"], ctx["reg"], ctx["key"]
+    registry = ModelRegistry(reg)
+    pa = head_variant(ctx["params2"], bias=(0.0, 1e-6))
+    aa, ok, verdict, recs = shadow_verdict(ctx, pa, 3)
+    worst = max(abs(r["serving_prob"] - r["shadow_prob"]) for r in recs)
+    check(ok and verdict["flip_rate"] == 0.0 and worst <= 1e-2, f"the agreeing candidate: {verdict}, max|dprob| {worst}")
+    # The mirror armed: the live p99 of the same closed loop as (a)'s.
+    res = run_load("127.0.0.1", fleet.port, ctx["texts"], concurrency=8, requests=GATE_FLOWS, timeout=120, auth_key=key)
+    ctx["p99"]["mirror 1/2"] = res["p99_ms"]
+    load_line(card, "gates (b): the same closed loop with the mirror armed (1/2)", res)
+    check(res["rejected"] == 0, "rejects with the mirror armed")
+    registry.promote(aa, to="serving")
+    wait_for(lambda: fleet.stats()["reloads"] >= 2 and fleet.stats()["shadow_artifact"] is None, 120,
+             "the fleet rolling onto the agreeing candidate")
+    check([r.round_id for r in fleet.replicas] == [3, 3], f"replica rounds {[r.round_id for r in fleet.replicas]}")
+
+    ab, ok, verdict, recs = shadow_verdict(ctx, head_variant(pa, sign=-1.0), 4)
+    worst = max(abs(r["shadow_prob"] - (1.0 - r["serving_prob"])) for r in recs)
+    check(not ok and verdict["flip_rate"] >= 0.99 and worst <= 2e-2,
+          f"the negated head: {verdict}, max|p_shadow - (1 - p_serving)| {worst}")
+    registry.reject(ab, reason=verdict["reason"], verdict=verdict)
+    with open(os.path.join(reg, "events.jsonl")) as f:
+        rej = [e for e in map(json.loads, f) if e["event"] == "rejected" and e["artifact"] == ab]
+    check(len(rej) == 1 and rej[0]["verdict"] == verdict, f"the rejected event {rej}")
+    check(registry.serving_info()["artifact"] == aa and registry.shadow_info() is None, "pointers after the rejection")
+    wait_for(lambda: fleet.stats()["shadow_artifact"] is None, 60, "the shadow plane torn down")
+
+
+def gates_controller(seed: int, card: str, ctx: dict, work: str) -> dict[str, int]:
+    """(c) The controller with --shadow-gate --label-gate --error-drift over
+    the fleet: one round of the control cell, its candidate mirrored by
+    live labelled flows whose truth lands in the journal between two
+    bursts. Returns each kernel's launches during the round."""
+    fleet, reg, key = ctx["fleet"], ctx["reg"], ctx["key"]
+    run = build_controller(build_parser().parse_args([
+        "controller", "--host", "127.0.0.1", "--port", "0", "--num-clients", "2", "--rounds", "1",
+        "--registry-dir", reg, "--gate-min-delta", "100", "--round-deadline", "600", "--timeout", "600",
+        "--seed", str(seed), *GATE_SHADOW_FLAGS, *GATE_LABEL_FLAGS, *CONTROL_CLIENT_ARGS[:6], "--device", "cuda",
+    ]))
+    ctl = run.controller
+    check(dataclasses.asdict(run.cfg.model) == dataclasses.asdict(ctx["cfg"]), "the controller's model config")
+    check(ctl.shadow_gate is not None and ctl.label_gate is not None and ctl.error_monitor is not None, "gates unarmed")
+    registry = ModelRegistry(reg)
+    incumbent = registry.serving_info()["artifact"]
+    results: dict[int, dict] = {}
+    errors: list[BaseException] = []
+
+    def controller() -> None:
+        try:
+            with run.server:
+                ctl.run(max_rounds=1)
+        except BaseException as e:  # re-raised below, after the join
+            errors.append(e)
+
+    def client(i: int) -> None:
+        try:
+            results[i] = run_client(build_parser().parse_args(
+                ["client", "--client-id", str(i), "--host", "127.0.0.1", "--port", str(run.server.port),
+                 *GATE_CLIENT_ARGS, "--seed", str(seed), "--output-dir", os.path.join(work, "gate-clients")]
+            ))
+        except BaseException as e:
+            errors.append(e)
+
+    flows = make_synthetic_flows(2 * GATE_MIN_PAIRS, seed=seed + 83, inf_fraction=0.0, nan_fraction=0.0)
+    texts = frame_texts(flows)
+    truth = (np.asarray(flows["Label"]) != "BENIGN").astype(int)
+    first = 2 * (GATE_MIN_PAIRS - 8)  # 56 pairs: one status stride short of the gate
+    zero_with_fold()
+    threads = [threading.Thread(target=controller)] + [threading.Thread(target=client, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    try:
+        def armed() -> bool:
+            aid = (registry.shadow_info() or {}).get("artifact")
+            return aid not in (None, incumbent) and fleet.stats()["shadow_artifact"] == aid
+
+        wait_for(lambda: errors or armed(), 900, "the round's candidate armed in the shadow plane")
+        if errors:
+            raise errors[0]
+        cand = registry.shadow_info()["artifact"]
+        store = LabelStore(label_journal_path(reg))
+        with PipelinedScoringClient("127.0.0.1", fleet.port, timeout=120, auth_key=key) as c:
+            replies = [f.result(timeout=120) for f in [c.submit(text=t) for t in texts[:first]]]
+            wait_pairs(shadow_pairs_path(reg, cand), first // 2, errors)
+            # The delayed truth of the first burst lands before the last
+            # pairs that let the shadow gate rule.
+            for i, (r, y) in enumerate(zip(replies, truth)):
+                store.ingest(str(r["id"]), int(y), ts=float(i))
+            store.advance_watermark(float(first))
+            replies += [f.result(timeout=120) for f in [c.submit(text=t) for t in texts[first:]]]
+        check(all(r["round"] == 3 for r in replies), "the live replies came from another model than the incumbent")
+        for t in threads:
+            t.join(timeout=900)
+    finally:
+        for t in threads:
+            t.join(timeout=1)
+    check(not any(t.is_alive() for t in threads), "controller or client threads hung")
+    if errors:
+        raise errors[0]
+    launches = read_with_fold()
+    obs_mod.set_global_tracer(None)
+    with open(os.path.join(reg, "controller_state.jsonl")) as f:
+        (rec,) = [json.loads(line) for line in f]
+    recs = pair_records(shadow_pairs_path(reg, cand))
+    status = pairs_status(recs)
+    want_shadow = evaluate_status(status, min_pairs=GATE_MIN_PAIRS, max_flip_rate=1.0, psi_threshold=1e9)
+    print(f"gates (c): round 0 -> {rec['event']} ({cand}); shadow verdict {rec['shadow_verdict']}; recomputed "
+          f"{status}", flush=True)
+    check(rec["artifact"] == cand and rec["shadow_verdict"]["reason"] == want_shadow[1]
+          and rec["shadow_verdict"]["pairs"] == status["pairs"] == GATE_MIN_PAIRS
+          and rec["shadow_verdict"]["flip_rate"] == status["flip_rate"] and rec["shadow_verdict"]["psi"] == status["psi"],
+          f"the controller's shadow verdict {rec['shadow_verdict']} vs recomputed {status} {want_shadow}")
+    report = supervised_report(recs, journal_labels(label_journal_path(reg)))
+    want_label = evaluate_supervised(report, min_joined=32, coverage_floor=0.05, max_regression=0.0)
+    got = rec["label_verdict"]
+    print(f"gates (c): label verdict {got}; recomputed {report} -> {want_label}", flush=True)
+    check(got["reason"] == want_label[1] and got["joined"] == report["joined"] == first // 2
+          and got["coverage"] == round(report["coverage"], 6)
+          and got["serving_error"] == report["models"]["serving"]["error"]
+          and got["candidate_error"] == report["models"]["candidate"]["error"],
+          f"the controller's label verdict {got} vs recomputed {report} {want_label}")
+    check(rec["event"] == ("promoted" if want_label[0] else "label_rejected"), f"record {rec['event']} vs {want_label}")
+    with open(os.path.join(reg, "events.jsonl")) as f:
+        events = [e for e in map(json.loads, f) if e.get("artifact") == cand]
+    if rec["event"] == "promoted":
+        check(registry.serving_info()["artifact"] == cand and events[-1]["event"] == "serving", f"registry {events[-1]}")
+        check(ctl.error_monitor.has_reference, "promotion did not anchor the error-rate reference")
+        wait_for(lambda: fleet.stats()["reloads"] >= 3, 120, "the fleet rolling onto the promoted candidate")
+    else:
+        verdict = events[-1].get("verdict") or {}
+        check(events[-1]["event"] == "rejected" and events[-1]["reason"] == got["reason"]
+              and all(verdict.get(k) == v for k, v in got.items()), f"registry {events[-1]} vs record {got}")
+        check(registry.serving_info()["artifact"] == incumbent, "the pointer moved on a rejection")
+    check(registry.shadow_info() is None, f"shadow pointer {registry.shadow_info()}")
+    wait_for(lambda: fleet.stats()["shadow_artifact"] is None, 60, "the shadow plane torn down")
+    steps = sum(results[i]["state"].step for i in range(2))
+    n_layers = ctx["cfg"].n_layers
+    check(launches["fold"] == 102, f"K4 launched {launches['fold']} times in one round, want 102")
+    check(launches["flash_fwd_dropout"] == launches["flash_bwd_dkdv"] == launches["flash_bwd_dq"] == n_layers * steps,
+          f"K1-dropout/K2/K3 launches {launches} for {steps} client steps")
+    return launches
+
+
+def gates_phase(seed: int, card: str) -> dict[str, int]:
+    """Phase 14: the gate stack on the card, through the port's parser:
+    (a) ``fleet`` and ``route``, (b) the shadow gate forced both ways,
+    (c) the controller gated on live evidence. Returns each kernel's
+    launches during it."""
+    t_phase = time.perf_counter()
+    tok = default_tokenizer()
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.common import (
+        resolve_config,
+    )
+
+    cfg = resolve_config(build_parser().parse_args(["controller", "--registry-dir", "-", *CONTROL_CLIENT_ARGS[:4]]),
+                         vocab_size=len(tok.vocab)).model
+    check((cfg.dim, cfg.n_layers, cfg.attention_impl, cfg.compute_dtype) == (768, 6, "flash", "bfloat16"),
+          f"not full width: {cfg}")
+    params = head_variant(init_params(cfg, torch.Generator().manual_seed(seed + 71)), bias=(-1.0, 1.0))
+    params2 = head_variant(init_params(cfg, torch.Generator().manual_seed(seed + 72)), bias=(1.0, -1.0))
+    texts = [flow_to_text(r) for r in flow_records(seed + 81, GATE_FLOWS)]
+    enc = tok.batch_encode(texts, max_len=cfg.max_len)
+    refs = {}
+    for r, p in ((1, params), (2, params2)):  # a lone engine's answers: the check's, before the counts
+        lone = ScoreEngine(cfg, p, pad_id=tok.pad_id, buckets=(1, 8, 32))
+        refs[r] = np.concatenate([lone.score(enc["input_ids"][i:i + 32], enc["attention_mask"][i:i + 32])[0]
+                                  for i in range(0, GATE_FLOWS, 32)])
+        del lone
+    check(float(np.abs(refs[1] - refs[2]).min()) > 0.1, "the two artifacts' scores are not told apart")
+    total = zero_launches()
+    with tempfile.TemporaryDirectory() as work:
+        reg = os.path.join(work, "registry")
+        spans = os.path.join(work, "fleet-spans.jsonl")
+        publish(reg, params, 1, cfg)
+        # One secret keys the whole phase: the fleet's front and replicas,
+        # the route verb, the shadow mirror and the controller's round.
+        os.environ["FEDTPU_SECRET"] = GATE_SECRET
+        zero_with_fold()
+        try:
+            fleet = build_fleet(build_parser().parse_args([
+                "fleet", "--registry-dir", reg, "--replicas", "2", "--buckets", "1,8,32", "--auth",
+                "--host", "127.0.0.1", "--port", "0", "--reload-poll", "0.2", "--max-wait-ms", "5",
+                "--shadow-sample", "2", "--trace-jsonl", spans, "--device", "cuda",
+            ])).fleet
+            check(all(r.engine.device.type == "cuda" and dataclasses.asdict(r.engine.model_cfg) == dataclasses.asdict(cfg)
+                      for r in fleet.replicas), "replicas not on the card at full width")
+            ctx = {"fleet": fleet, "key": GATE_SECRET.encode(), "reg": reg, "texts": texts, "refs": refs, "cfg": cfg,
+                   "params2": params2, "spans": spans}
+            with fleet:
+                t0 = time.perf_counter()
+                gates_fleet(seed, card, ctx)
+                t1 = time.perf_counter()
+                gates_shadow(seed, card, ctx)
+                add_launches(total, read_with_fold())
+                t2 = time.perf_counter()
+                add_launches(total, gates_controller(seed, card, ctx, work))
+        finally:
+            del os.environ["FEDTPU_SECRET"]
+            obs_mod.set_global_tracer(None)
+    print(f"gates: {card}: live p99 {ctx['p99']} ms (mirror's added p99 "
+          f"{ctx['p99']['mirror 1/2'] - ctx['p99']['no mirror']:+.2f} ms); (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, "
+          f"(c) {time.perf_counter() - t2:.1f} s; launches {total}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(total["flash_fwd"] > 0 and total["flash_fwd"] % cfg.n_layers == 0, f"K1 rate-0 launches {total['flash_fwd']}")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4361,6 +4824,12 @@ def main() -> int:
     for row in (k1, k1_drop, k2, k3):
         row["launches"] += robust_launches[row["name"]]
     k4["launches"] += robust_launches["fold"]
+
+    phase("gates")
+    gates_launches = gates_phase(seed, card)
+    for row in (k1, k1_drop, k2, k3):
+        row["launches"] += gates_launches[row["name"]]
+    k4["launches"] += gates_launches["fold"]
 
     print(json.dumps({"kernels": [k1, k1_drop, k2, k3, k4]}), flush=True)
     print(json.dumps({

@@ -9,8 +9,11 @@ candidate, and moves the registry's serving pointer only through the eval
 gate. Its records, artifacts and state file are the JAX controller's, so
 either package resumes a campaign the other began; ``--secure-agg``
 serves masked rounds (comm/secure.py), the gate scoring the recovered
-mean. The JAX verb's shadow, label and error-rate gates (ROADMAP item 14b)
-are not ported: their flags are absent.
+mean. ``--shadow-gate`` holds each eval-passing candidate in the shadow
+state until a ``fleet --shadow-sample`` has mirrored enough live traffic
+onto it; ``--label-gate`` then rules on the delayed ground truth joined
+against those pairs, and ``--error-drift`` turns the same joined evidence
+into a round trigger.
 
 ``registry`` is the manual override: ``list``, ``promote``, ``rollback``
 and ``gc``. A registry root may be written by both packages in turn.
@@ -49,6 +52,30 @@ _CONTROL_FLAGS = (
     ("cohort_min_frac", "cohort_min_frac"),
     ("cohort_max_frac", "cohort_max_frac"),
 )
+#: controller flag -> ShadowConfig field.
+_SHADOW_FLAGS = (
+    ("shadow_min_pairs", "min_pairs"),
+    ("shadow_timeout", "timeout_s"),
+    ("shadow_max_flip_rate", "max_flip_rate"),
+    ("shadow_psi_threshold", "psi_threshold"),
+)
+#: controller flag -> LabelsConfig field.
+_LABEL_FLAGS = (
+    ("label_journal", "journal"),
+    ("label_min_joined", "min_joined"),
+    ("label_coverage_floor", "coverage_floor"),
+    ("label_max_regression", "max_regression"),
+)
+
+
+def _flagged(args, section, table, **kw):
+    """``section`` with ``kw`` and the fields whose flags were given
+    replaced (a bad value exits with the config's own message)."""
+    kw.update({f: getattr(args, flag) for flag, f in table if getattr(args, flag, None) is not None})
+    try:
+        return dataclasses.replace(section, **kw)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
 
 
 def _gate_val_split(args, cfg, tok, num_clients):
@@ -101,15 +128,11 @@ def build_controller(args) -> ControllerRun:
 
     tok, cfg, _ = _resolve_with_pretrained(args, load_weights=False)
     C = cfg.fed.num_clients
-    ctl_kw = {f: getattr(args, flag) for flag, f in _CONTROL_FLAGS if getattr(args, flag, None) is not None}
-    if getattr(args, "adaptive_cadence", False):
-        ctl_kw["adaptive_cadence"] = True
-    if getattr(args, "drift_cohort", False):
-        ctl_kw["drift_cohort"] = True
-    try:
-        ctl = dataclasses.replace(cfg.control, **ctl_kw)
-    except ValueError as e:
-        raise SystemExit(str(e)) from None
+    # The two switches only turn a config file's setting on.
+    switches = {f: True for f in ("adaptive_cadence", "drift_cohort") if getattr(args, f, False)}
+    ctl = _flagged(args, cfg.control, _CONTROL_FLAGS, **switches)
+    shw = _flagged(args, cfg.shadow, _SHADOW_FLAGS)
+    lbl = _flagged(args, cfg.labels, _LABEL_FLAGS)
 
     # The gate's held-out data: the pooled per-client VAL split, scored
     # on the card.
@@ -177,6 +200,53 @@ def build_controller(args) -> ControllerRun:
         tracer=tracer,
     )
     server.metrics_server = metrics_server
+    shadow_gate = None
+    if args.shadow_gate:
+        from ..shadow import ShadowGate
+
+        shadow_gate = ShadowGate(
+            args.registry_dir,
+            min_pairs=shw.min_pairs,
+            max_flip_rate=shw.max_flip_rate,
+            psi_threshold=shw.psi_threshold,
+            timeout_s=shw.timeout_s,
+            poll_s=shw.poll_s,
+            tracer=tracer,
+        )
+        log.info(
+            f"[CONTROLLER] shadow gate armed: promote after >= "
+            f"{shw.min_pairs} mirrored pair(s) with flip_rate <= "
+            f"{shw.max_flip_rate} and psi <= {shw.psi_threshold} "
+            f"(fail closed after {shw.timeout_s:.0f}s)"
+        )
+    label_gate = None
+    error_monitor = None
+    if args.label_gate:
+        from ..control import ErrorRateMonitor
+        from ..labels import LabelGate
+
+        label_gate = LabelGate(
+            args.registry_dir,
+            journal=lbl.journal,
+            threshold=lbl.threshold,
+            min_joined=lbl.min_joined,
+            coverage_floor=lbl.coverage_floor,
+            max_regression=lbl.max_regression,
+            tracer=tracer,
+        )
+        log.info(
+            f"[CONTROLLER] label gate armed: supervised rung over >= "
+            f"{lbl.min_joined} joined flow(s) at coverage >= "
+            f"{lbl.coverage_floor} (candidate error may exceed "
+            f"serving by <= {lbl.max_regression}; fails closed)"
+        )
+        if args.error_drift:
+            error_monitor = ErrorRateMonitor(margin=lbl.error_margin, min_joined=lbl.error_min_joined)
+            log.info(
+                f"[CONTROLLER] supervised drift armed: serving error "
+                f"rising {lbl.error_margin} past its promoted reference "
+                f"over >= {lbl.error_min_joined} joined flow(s) triggers a round"
+            )
     controller = Controller(
         server,
         registry,
@@ -186,7 +256,10 @@ def build_controller(args) -> ControllerRun:
         drift_monitor=drift,
         model_config=cfg.model,
         tracer=tracer,
+        shadow_gate=shadow_gate,
         slo_actuator=actuator,
+        label_gate=label_gate,
+        error_monitor=error_monitor,
         sentinel_link=sentinel_link,
     )
     return ControllerRun(controller, server, trainer, val, cfg)

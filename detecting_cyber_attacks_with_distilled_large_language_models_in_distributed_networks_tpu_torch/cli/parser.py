@@ -6,9 +6,12 @@ process), ``serve``, ``relay`` and ``client`` (a federated round over
 TCP, secure or through a fold tree of relays), ``scenario`` (the fault
 harness's persona x partition matrix), ``controller`` (the unattended round -> gate -> promote loop),
 ``distill`` (teacher -> student), ``predict`` (batch inference),
-``infer-serve`` (online scoring with hot reload), ``export-hf`` (weights
-to the HF layout), ``export-config`` (the resolved config as JSON),
-``registry`` (the model registry's operator commands) and ``obs``
+``infer-serve`` (online scoring with hot reload), ``route`` and
+``fleet`` (the replica tier: a router over scorers, rolling reload on
+promotion, the shadow mirror), ``shadow`` and ``labels`` (the shadow
+plane's and the delayed ground truth's operator commands), ``export-hf``
+(weights to the HF layout), ``export-config`` (the resolved config as
+JSON), ``registry`` (the model registry's operator commands) and ``obs``
 (timelines, Chrome export, span tailing, fleet health, the sentinel,
 postmortems and the device profile) so far. Each that computes runs on
 the card unless ``--device cpu`` is given. The obs flags
@@ -16,8 +19,8 @@ the card unless ``--device cpu`` is given. The obs flags
 ``--profile-stride``, ``--metrics-port``, ``--flight-dir``,
 ``--trace-sample``, ``--scored-jsonl``) are the JAX package's, on the
 same verbs. Flags of features the port has not reached
-(``--data-parallel``, ``--seq-parallel``, the controller's shadow, label
-and error-drift gates) are absent, so argparse refuses them.
+(``--data-parallel``, ``--seq-parallel``) are absent, so argparse
+refuses them.
 """
 
 from __future__ import annotations
@@ -36,9 +39,12 @@ from .distill import cmd_distill
 from .federated import cmd_federated
 from .local import cmd_local
 from .obs import cmd_obs
+from .labels import cmd_labels
 from .predict import cmd_export_hf, cmd_predict
+from .router import cmd_fleet, cmd_route
 from .scenario import cmd_scenario
 from .serving import cmd_infer_serve
+from .shadow import cmd_shadow
 
 
 def _wire_compression(spec: str) -> str:
@@ -1088,6 +1094,153 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_registry)
 
     p = sub.add_parser(
+        "route",
+        help="serving router: load-balance the scoring protocol across N "
+        "infer-serve replicas (least-in-flight pick, health probes, "
+        "eject/readmit)",
+        epilog="The router is model-free — it never tokenizes or scores; "
+        "per-request cost is two id rewrites and two socket writes. "
+        "Health rides the in-band stats() probe on each replica "
+        "connection, so 'probe healthy' cannot diverge from 'requests "
+        "flow'. With FEDTPU_SECRET + --auth the whole chain "
+        "(client -> router -> replica) is HMAC-authenticated.",
+    )
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=12390)
+    p.add_argument(
+        "--backend",
+        action="append",
+        metavar="HOST:PORT",
+        help="an infer-serve replica to route across (repeatable, >= 1)",
+    )
+    p.add_argument(
+        "--auth",
+        action="store_true",
+        help="HMAC challenge-response on the front port AND on every "
+        "backend dial (shared secret from FEDTPU_SECRET)",
+    )
+    p.add_argument(
+        "--probe-interval",
+        type=float,
+        default=1.0,
+        help="seconds between per-replica stats() health probes (default 1)",
+    )
+    p.add_argument(
+        "--probe-timeout",
+        type=float,
+        default=5.0,
+        help="unanswered-probe age that ejects a replica (default 5)",
+    )
+    p.add_argument(
+        "--max-inflight",
+        type=int,
+        default=1024,
+        help="per-replica in-flight bound; a replica at the bound leaves "
+        "the pick set until replies drain it (default 1024)",
+    )
+    p.add_argument(
+        "--trace-jsonl",
+        help="append obs spans (router-forward) to this events-JSONL",
+    )
+    p.add_argument(
+        "--trace-sample",
+        type=float,
+        default=None,
+        help="router-forward span sampling rate in (0, 1] (counter-strided"
+        ", like infer-serve --trace-sample); default 1.0",
+    )
+    p.add_argument(
+        "--metrics-port",
+        type=int,
+        default=0,
+        help="Prometheus /metrics: per-replica in-flight gauges, eject and "
+        "forward counters (0 = off, the default)",
+    )
+    _add_flight_dir(p)
+    p.set_defaults(fn=cmd_route)
+
+    p = sub.add_parser(
+        "fleet",
+        help="local replica fleet: N infer-serve replicas behind the "
+        "router with registry-following ROLLING hot-reload (zero-drop "
+        "promotions)",
+        epilog="Serves the registry's PROMOTED artifact on every replica. "
+        "On a promotion the fleet manager drains one replica at a time "
+        "(router pick-set removal -> in-flight wait -> hot-swap -> "
+        "readmit), so the serving pointer moves under load without "
+        "dropping a request.",
+    )
+    _add_training(p, device=False)  # model/tokenizer/dataset resolution flags
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=12390)
+    p.add_argument(
+        "--replicas",
+        type=int,
+        default=None,
+        help="replica count (default: config router.replicas = 3)",
+    )
+    p.add_argument(
+        "--registry-dir",
+        required=True,
+        help="model registry whose serving pointer the fleet follows",
+    )
+    p.add_argument(
+        "--auth",
+        action="store_true",
+        help="HMAC auth end-to-end: front port, every replica port, and "
+        "the router's backend dials (FEDTPU_SECRET)",
+    )
+    p.add_argument(
+        "--buckets",
+        default="1,8,32,128",
+        help="per-replica micro-batch bucket shapes (default 1,8,32,128)",
+    )
+    p.add_argument(
+        "--max-wait-ms",
+        type=float,
+        default=5.0,
+        help="per-replica batch gather window (default 5)",
+    )
+    p.add_argument(
+        "--max-queue",
+        type=int,
+        default=1024,
+        help="per-replica admission-control queue bound (default 1024)",
+    )
+    p.add_argument(
+        "--reload-poll",
+        type=float,
+        default=2.0,
+        help="seconds between serving-pointer polls (default 2)",
+    )
+    p.add_argument(
+        "--threshold",
+        type=float,
+        default=0.5,
+        help="P(attack) decision threshold in replies (default 0.5)",
+    )
+    p.add_argument(
+        "--metrics-port",
+        type=int,
+        default=0,
+        help="Prometheus /metrics for the router + replicas (0 = off)",
+    )
+    p.add_argument(
+        "--shadow-sample",
+        type=int,
+        default=None,
+        help="arm the shadow evaluation plane (shadow/): mirror one live "
+        "request in N onto the registry's shadow-state artifact "
+        "(deterministic counter stride, fire-and-forget — a full mirror "
+        "queue drops the copy, never a live reply). The shadow replica "
+        "is spun up by this fleet manager and NEVER joins the router's "
+        "pick set. Default: config shadow.sample (0 = off)",
+    )
+    _add_flight_dir(p)
+    _add_device(p, "every replica's model runs")
+    p.set_defaults(fn=cmd_fleet)
+
+    p = sub.add_parser(
         "controller",
         help="control plane: continuous eval-gated federated rounds "
         "(round -> gate -> promote -> serve -> drift-monitor loop)",
@@ -1095,8 +1248,7 @@ def build_parser() -> argparse.ArgumentParser:
         "(same contract as `serve`). The fold (K4) and the eval gate (K1 at "
         "rate 0) run on the card unless --device cpu. Central DP is not "
         "supported here: a DP server never holds the absolute params an "
-        "artifact needs. The shadow, label and error-drift gates are not "
-        "ported.",
+        "artifact needs.",
     )
     _add_training(p)  # dataset/model flags resolve the held-out gate split; --device
     p.add_argument("--host", default="0.0.0.0")
@@ -1215,12 +1367,95 @@ def build_parser() -> argparse.ArgumentParser:
         "keep everything",
     )
     p.add_argument(
+        "--shadow-gate",
+        action="store_true",
+        help="hold every eval-passing candidate in the registry SHADOW "
+        "state and promote only after the live mirror (fedtpu fleet "
+        "--shadow-sample) accumulated >= --shadow-min-pairs pairs with "
+        "disagreement under threshold; regression (or no evidence "
+        "inside --shadow-timeout) fails closed to rejected with the "
+        "verdict on the registry event",
+    )
+    p.add_argument(
+        "--shadow-min-pairs",
+        type=int,
+        default=None,
+        help="mirrored pairs required before the shadow gate rules "
+        "(default: config shadow.min_pairs = 256)",
+    )
+    p.add_argument(
+        "--shadow-timeout",
+        type=float,
+        default=None,
+        help="seconds the shadow gate waits for its evidence before "
+        "failing closed (default: config shadow.timeout_s = 600)",
+    )
+    p.add_argument(
+        "--shadow-max-flip-rate",
+        type=float,
+        default=None,
+        help="max tolerated prediction-flip fraction across mirrored "
+        "pairs (default: config shadow.max_flip_rate = 0.02)",
+    )
+    p.add_argument(
+        "--shadow-psi-threshold",
+        type=float,
+        default=None,
+        help="max tolerated PSI between the paired serving/shadow score "
+        "histograms (default: config shadow.psi_threshold = 0.25)",
+    )
+    p.add_argument(
         "--adaptive-cadence",
         action="store_true",
         help="scale the inter-round interval between --interval and "
         "--max-interval by each drift verdict's magnitude (barely over "
         "threshold -> relaxed max; >= 2x threshold -> urgent min); the "
         "chosen interval rides the drift-trigger span",
+    )
+    p.add_argument(
+        "--label-gate",
+        action="store_true",
+        help="supervised promotion rung AFTER the shadow gate: join the "
+        "candidate's mirror pairs against the delayed ground-truth "
+        "journal (<registry>/labels/journal.jsonl, fedtpu labels "
+        "ingest) and reject any candidate whose supervised error "
+        "exceeds the incumbent's by more than --label-max-regression; "
+        "too few joined labels or coverage under --label-coverage-floor "
+        "fails closed",
+    )
+    p.add_argument(
+        "--label-journal",
+        help="ground-truth journal override (default: "
+        "<registry>/labels/journal.jsonl)",
+    )
+    p.add_argument(
+        "--label-min-joined",
+        type=int,
+        default=None,
+        help="joined (labeled) flows required before the label gate "
+        "rules (default: config labels.min_joined = 32)",
+    )
+    p.add_argument(
+        "--label-coverage-floor",
+        type=float,
+        default=None,
+        help="minimum joined/total coverage of the scored population "
+        "(default: config labels.coverage_floor = 0.05)",
+    )
+    p.add_argument(
+        "--label-max-regression",
+        type=float,
+        default=None,
+        help="max tolerated candidate-over-serving supervised error "
+        "excess (default: config labels.max_regression = 0)",
+    )
+    p.add_argument(
+        "--error-drift",
+        action="store_true",
+        help="with --label-gate: also trigger rounds when the SERVING "
+        "model's supervised error over joined ground truth rises "
+        "labels.error_margin past its promoted reference (the "
+        "regression score-histogram drift cannot see)",
     )
     p.add_argument(
         "--sentinel-jsonl",
@@ -1332,6 +1567,97 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--json", action="store_true", help="print one JSON record per cell instead of the grid")
     _add_device(p, "every cell's fold (and a --train cell's clients) runs")
     p.set_defaults(fn=cmd_scenario)
+
+    p = sub.add_parser(
+        "shadow",
+        help="shadow evaluation plane: status | report — what is under "
+        "live shadow evaluation and the paired disagreement evidence",
+        epilog="Reads the registry directory only (the shadow pointer, "
+        "the comparator's atomic status snapshot, and the paired-records "
+        "JSONL under <registry>/shadow/) — works from any host that "
+        "mounts it, like every other control-plane surface.",
+    )
+    p.add_argument("action", choices=["status", "report"])
+    p.add_argument("--registry-dir", required=True)
+    p.add_argument(
+        "--artifact",
+        help="report: this artifact's paired records (default: the "
+        "artifact currently under shadow evaluation)",
+    )
+    p.add_argument(
+        "--json",
+        action="store_true",
+        help="machine-readable output instead of the rendered summary",
+    )
+    p.set_defaults(fn=cmd_shadow)
+
+    p = sub.add_parser(
+        "labels",
+        help="delayed ground-truth plane: ingest | status | report — "
+        "append labeler verdicts to the journal and join them against "
+        "what the models answered",
+        epilog="Reads and appends under the registry directory only "
+        "(<registry>/labels/journal.jsonl plus the shadow plane's "
+        "paired records) — works from any host that mounts it, like "
+        "every other control-plane surface.",
+    )
+    p.add_argument("action", choices=["ingest", "status", "report"])
+    p.add_argument("--registry-dir", required=True)
+    p.add_argument(
+        "--journal",
+        help="ground-truth journal override (default: "
+        "<registry>/labels/journal.jsonl)",
+    )
+    p.add_argument(
+        "--file",
+        help='ingest: JSONL of {"rid", "label", "ts"} labeler records '
+        "(missing ts falls back to --ts, then 0.0)",
+    )
+    p.add_argument("--rid", help="ingest: one request id")
+    p.add_argument(
+        "--label",
+        type=int,
+        default=None,
+        help="ingest: the ground-truth class for --rid (0 = benign; "
+        "any other class is an attack)",
+    )
+    p.add_argument(
+        "--ts",
+        type=float,
+        default=None,
+        help="ingest: labeler timestamp for records that carry none "
+        "(last-writer-wins key; default 0.0)",
+    )
+    p.add_argument(
+        "--watermark",
+        type=float,
+        default=None,
+        help='ingest: advance the monotone "labels complete through T" '
+        "watermark after applying the records",
+    )
+    p.add_argument(
+        "--artifact",
+        help="report: join this artifact's mirror pairs (default: the "
+        "artifact currently under shadow evaluation)",
+    )
+    p.add_argument(
+        "--scored",
+        help="report: join a serving tier's scored-JSONL (infer-serve "
+        "--scored-jsonl) instead of mirror pairs",
+    )
+    p.add_argument(
+        "--threshold",
+        type=float,
+        default=0.5,
+        help="decision threshold the join applies to each model's "
+        "probability (default 0.5)",
+    )
+    p.add_argument(
+        "--json",
+        action="store_true",
+        help="machine-readable output instead of the rendered summary",
+    )
+    p.set_defaults(fn=cmd_labels)
 
     p = sub.add_parser("distill", help="teacher -> student knowledge distillation")
     _add_training(p)

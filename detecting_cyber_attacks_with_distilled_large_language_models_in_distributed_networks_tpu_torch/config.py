@@ -643,11 +643,173 @@ class ControlConfig:
             )
 
 
+@dataclass(frozen=True)
+class LabelsConfig:
+    """Delayed ground-truth plane (labels/): the journal of late-arriving
+    verdicts about what each scored flow actually WAS, the deterministic
+    join against what the models ANSWERED, and the supervised promotion
+    rung the join feeds. The reference has no feedback path at all once
+    a model serves — nothing ever tells it it was wrong."""
+
+    #: Ground-truth journal override (default:
+    #: ``<registry>/labels/journal.jsonl`` — labels/store.journal_path).
+    journal: str | None = None
+    #: Decision threshold the join applies to both models' probabilities.
+    threshold: float = 0.5
+    #: Minimum joined (labeled) flows before the supervised gate may
+    #: rule; fewer FAILS CLOSED.
+    min_joined: int = 32
+    #: Minimum joined/total coverage of the scored population; below it
+    #: the gate FAILS CLOSED (a verdict over a sliver is noise).
+    coverage_floor: float = 0.05
+    #: Max tolerated candidate-over-serving supervised error excess.
+    max_regression: float = 0.0
+    #: Supervised drift margin (control/drift.py ErrorRateMonitor): the
+    #: serving model's joined error rising this far past its promoted
+    #: reference fires a corrective round.
+    error_margin: float = 0.05
+    #: Joined observations the error monitor needs before it may fire.
+    error_min_joined: int = 64
+
+    def __post_init__(self) -> None:
+        if not 0.0 < self.threshold < 1.0:
+            raise ValueError(
+                f"threshold={self.threshold} must be in (0, 1)"
+            )
+        if self.min_joined < 1:
+            raise ValueError(f"min_joined={self.min_joined} must be >= 1")
+        if not 0.0 <= self.coverage_floor <= 1.0:
+            raise ValueError(
+                f"coverage_floor={self.coverage_floor} must be in [0, 1]"
+            )
+        if self.max_regression < 0.0:
+            raise ValueError(
+                f"max_regression={self.max_regression} must be >= 0"
+            )
+        if self.error_margin <= 0.0:
+            raise ValueError(
+                f"error_margin={self.error_margin} must be > 0"
+            )
+        if self.error_min_joined < 1:
+            raise ValueError(
+                f"error_min_joined={self.error_min_joined} must be >= 1"
+            )
+
+
+@dataclass(frozen=True)
+class ShadowConfig:
+    """Shadow evaluation plane (shadow/): mirror a sampled fraction of
+    live scoring traffic onto the registry's ``shadow``-state artifact
+    and gate promotion on the measured live disagreement instead of
+    offline eval alone. The reference (and the pre-shadow controller)
+    promotes on held-out metrics only — exactly the gate that misses
+    live-distribution drift."""
+
+    #: Mirror stride: duplicate one live request in ``sample`` onto the
+    #: shadow backend (deterministic counter stride, no RNG — the
+    #: serve-batch trace-sampling discipline). 0 = shadow plane off.
+    sample: int = 0
+    #: Minimum mirrored pairs before the gate may rule; fewer at timeout
+    #: FAILS CLOSED (the candidate is rejected, the pointer never moves).
+    min_pairs: int = 256
+    #: Max tolerated fraction of pairs whose thresholded prediction
+    #: flipped between serving and shadow.
+    max_flip_rate: float = 0.02
+    #: Max tolerated PSI between the paired serving/shadow score
+    #: histograms (the drift monitor's distance, same 0.25 lore).
+    psi_threshold: float = 0.25
+    #: Gate patience: how long the controller waits for the evidence.
+    timeout_s: float = 600.0
+    #: Seconds between the gate's status polls.
+    poll_s: float = 0.5
+    #: Prediction threshold the flip comparison applies on both sides.
+    threshold: float = 0.5
+    #: Histogram bins for the paired score distributions (must match the
+    #: drift tier's resolution so PSI thresholds transfer).
+    bins: int = 10
+    #: Mirror queue bound: a full queue drops the mirror COPY — never
+    #: delays or fails the live request.
+    queue: int = 256
+
+    def __post_init__(self) -> None:
+        if self.sample < 0:
+            raise ValueError(f"sample={self.sample} must be >= 0 (0 = off)")
+        if self.min_pairs < 1:
+            raise ValueError(f"min_pairs={self.min_pairs} must be >= 1")
+        if not 0.0 <= self.max_flip_rate <= 1.0:
+            raise ValueError(
+                f"max_flip_rate={self.max_flip_rate} must be in [0, 1]"
+            )
+        if self.psi_threshold <= 0.0:
+            raise ValueError(
+                f"psi_threshold={self.psi_threshold} must be > 0"
+            )
+        if self.timeout_s <= 0.0:
+            raise ValueError(f"timeout_s={self.timeout_s} must be > 0")
+        if self.poll_s <= 0.0:
+            raise ValueError(f"poll_s={self.poll_s} must be > 0")
+        if not 0.0 < self.threshold < 1.0:
+            raise ValueError(
+                f"threshold={self.threshold} must be in (0, 1)"
+            )
+        if not 2 <= self.bins <= 64:
+            raise ValueError(f"bins={self.bins} must be in [2, 64]")
+        if self.queue < 1:
+            raise ValueError(f"queue={self.queue} must be >= 1")
+
+
+@dataclass(frozen=True)
+class RouterConfig:
+    """Serving replica fleet (router/): the knobs of the thin router and
+    the rolling hot-reload manager behind ``fedtpu route`` / ``fedtpu
+    fleet``. The reference serves nothing at all; the single-process
+    ``infer-serve`` tier serves from one scorer — these knobs govern the
+    tier that scales past it."""
+
+    #: Local replicas ``fedtpu fleet`` spawns behind the router.
+    replicas: int = 3
+    #: Seconds between in-band stats() health probes per replica.
+    probe_interval_s: float = 1.0
+    #: Unanswered-probe age that ejects a replica from the pick set.
+    probe_timeout_s: float = 5.0
+    #: Rolling reload: how long to wait for one replica's in-flight
+    #: requests to finish before swapping anyway.
+    drain_timeout_s: float = 30.0
+    #: Seconds between serving-pointer polls by the fleet manager.
+    reload_poll_s: float = 2.0
+    #: Router-side admission bound: a replica at this many in-flight
+    #: requests leaves the pick set until replies drain it.
+    max_inflight_per_replica: int = 1024
+
+    def __post_init__(self) -> None:
+        if self.replicas < 1:
+            raise ValueError(f"replicas={self.replicas} must be >= 1")
+        if self.probe_interval_s <= 0.0:
+            raise ValueError(
+                f"probe_interval_s={self.probe_interval_s} must be > 0"
+            )
+        if self.probe_timeout_s <= 0.0:
+            raise ValueError(
+                f"probe_timeout_s={self.probe_timeout_s} must be > 0"
+            )
+        if self.drain_timeout_s < 0.0:
+            raise ValueError(
+                f"drain_timeout_s={self.drain_timeout_s} must be >= 0"
+            )
+        if self.reload_poll_s <= 0.0:
+            raise ValueError(
+                f"reload_poll_s={self.reload_poll_s} must be > 0"
+            )
+        if self.max_inflight_per_replica < 1:
+            raise ValueError(
+                f"max_inflight_per_replica={self.max_inflight_per_replica} "
+                "must be >= 1"
+            )
+
+
 #: Sections of the JAX package's ``ExperimentConfig`` the port does not
-#: model (its mesh, router, shadow and labels planes).
-_JAX_ONLY_SECTIONS = frozenset(
-    {"mesh", "router", "shadow", "labels"}
-)
+#: model (its device mesh).
+_JAX_ONLY_SECTIONS = frozenset({"mesh"})
 
 
 @dataclass(frozen=True)
@@ -662,6 +824,9 @@ class ExperimentConfig:
     distill: DistillConfig = dataclasses.field(default_factory=DistillConfig)
     obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
     control: ControlConfig = dataclasses.field(default_factory=ControlConfig)
+    router: RouterConfig = dataclasses.field(default_factory=RouterConfig)
+    shadow: ShadowConfig = dataclasses.field(default_factory=ShadowConfig)
+    labels: LabelsConfig = dataclasses.field(default_factory=LabelsConfig)
     output_dir: str = "outputs"
     # Where ``local``/``client`` save (and ``client`` warm-starts from),
     # and what ``predict``/``infer-serve`` restore.
@@ -686,7 +851,8 @@ class ExperimentConfig:
         sections = {
             "model": ModelConfig, "data": DataConfig, "train": TrainConfig,
             "fed": FedConfig, "distill": DistillConfig, "obs": ObsConfig,
-            "control": ControlConfig,
+            "control": ControlConfig, "router": RouterConfig, "shadow": ShadowConfig,
+            "labels": LabelsConfig,
         }
         scalars = ("output_dir", "checkpoint_dir")
         unknown_top = set(d) - set(sections) - set(scalars) - _JAX_ONLY_SECTIONS

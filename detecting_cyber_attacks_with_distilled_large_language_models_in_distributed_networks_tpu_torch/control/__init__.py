@@ -23,9 +23,8 @@ objective. This package is that loop:
   the promoted artifact's eval reference histogram; a fired verdict is
   what triggers the next training round instead of a fixed clock.
 
-The port's copy of the JAX package's ``control/``, with the same names;
-the controller's shadow, label and error-rate gates are not ported
-(ROADMAP item 14b).
+The port's copy of the JAX package's ``control/``, with the same names,
+the controller's shadow, label and error-rate gates included.
 """
 
 from .controller import Controller, ControllerStats, SloActuator

@@ -29,8 +29,10 @@ drift-scaled cohort, SLO actuation, resume, gc, spans and families, and
 the same ``controller_state.jsonl`` records, so either package resumes a
 campaign the other began. The round is the port's ``AggregationServer``
 (its fold is the K4 kernel on the card) and ``eval_fn`` scores the
-aggregate on the card. The shadow gate, the label gate and the
-error-rate monitor (ROADMAP item 14b) are not ported: passing one raises.
+aggregate on the card. The shadow gate holds a candidate in the
+registry's shadow state until a fleet (router/) has mirrored live
+traffic onto it; the label gate and the error-rate monitor rule on the
+delayed ground truth joined against those pairs (labels/).
 """
 
 from __future__ import annotations
@@ -181,20 +183,6 @@ class Controller:
         error_monitor: ErrorRateMonitor | None = None,
         sentinel_link=None,
     ):
-        unported = [
-            name
-            for name, v in (
-                ("shadow_gate", shadow_gate),
-                ("label_gate", label_gate),
-                ("error_monitor", error_monitor),
-            )
-            if v is not None
-        ]
-        if unported:
-            raise NotImplementedError(
-                f"{', '.join(unported)}: the shadow gate, the label gate and "
-                "the error-rate monitor are not ported (ROADMAP item 14b)"
-            )
         if getattr(server, "dp_clip", 0.0) > 0.0:
             raise ValueError(
                 "the controller cannot gate a central-DP server: it never "
@@ -209,9 +197,22 @@ class Controller:
         self.drift = drift_monitor
         self.model_config = model_config
         self.drift_poll_s = float(drift_poll_s)
-        # slo_actuator: the health plane's round-duration alert
-        # tightening the straggler deadline.
+        # Shadow gate (shadow/gate.py): when set, a candidate that passes
+        # offline eval is HELD in the registry shadow state until live
+        # mirrored traffic produced a disagreement verdict; regression
+        # fails closed to rejected. slo_actuator: the health plane's
+        # round-duration alert tightening the straggler deadline.
+        self.shadow_gate = shadow_gate
         self.slo_actuator = slo_actuator
+        # Label gate (labels/join.py): the SUPERVISED rung after the
+        # shadow gate — candidate-vs-serving error over joined delayed
+        # ground truth, failing closed below the coverage floor. The
+        # error monitor (control/drift.py ErrorRateMonitor) turns the
+        # same joined evidence into a drift trigger: the serving model's
+        # supervised error rising past its promoted reference fires a
+        # corrective round even when score histograms look stable.
+        self.label_gate = label_gate
+        self.error_monitor = error_monitor
         # Sentinel link (control/drift.py SentinelLink): the tail of the
         # standalone sentinel's verdicts-JSONL — supervised drift the
         # sentinel detected BETWEEN gates, in another process, poking
@@ -251,15 +252,13 @@ class Controller:
             "fedtpu_controller_gate_rejections_total",
             help="candidates rejected by the eval gate",
         )
-        # The shadow and label gates' families stay registered (at 0), so
-        # a scrape of either package's controller shows the same families.
         # fedtpu: allow(obs-metric-once): the JAX package's control/controller.py family, same name/kind/labels/help
-        m.counter(
+        self._m_shadow_rejections = m.counter(
             "fedtpu_controller_shadow_rejections_total",
             help="candidates rejected by the live shadow disagreement gate",
         )
         # fedtpu: allow(obs-metric-once): the JAX package's control/controller.py family, same name/kind/labels/help
-        m.counter(
+        self._m_label_rejections = m.counter(
             "fedtpu_controller_label_rejections_total",
             help="candidates rejected by the supervised label gate",
         )
@@ -469,6 +468,33 @@ class Controller:
                         ),
                     )
                 return "drift"
+            if self.error_monitor is not None:
+                # Supervised drift: the serving model's error over joined
+                # delayed ground truth rising past its promoted reference
+                # — the regression score histograms cannot see (the model
+                # can be confidently, stably WRONG).
+                sup = self.error_monitor.check()
+                if sup is not None:
+                    self.stats.drift_triggers += 1
+                    self._m_drift_triggers.inc()
+                    self._record("drift_trigger", **sup)
+                    if self.tracer is not None:
+                        self.tracer.record(
+                            "drift-trigger",
+                            t_start=time.time(),
+                            dur_s=0.0,
+                            round=self._next_round,
+                            drift=sup["drift"],
+                            method=sup["method"],
+                            scores=sup["scores"],
+                        )
+                    log.info(
+                        f"[CONTROLLER] supervised drift: serving error "
+                        f"{sup['error']:.4f} vs reference "
+                        f"{sup['reference_error']:.4f} over "
+                        f"{sup['scores']} joined flow(s)"
+                    )
+                    return "drift"
             if self.sentinel_link is not None:
                 # The standalone sentinel's between-gates verdict, same
                 # handling as the in-process monitor — the verdict shape
@@ -701,6 +727,73 @@ class Controller:
             rec["note"] = str(e)
             self._record("promote_noop", **rec)
             return {"event": "promote_noop", **rec}
+        if self.shadow_gate is not None:
+            # The candidate is now HELD in the shadow state: the fleet
+            # manager mirrors live traffic onto it (shadow/), and the
+            # pointer moves only on measured live agreement. Disagreement
+            # — or no evidence inside the gate's patience — fails closed.
+            ok_live, verdict = self.shadow_gate.wait(aid)
+            rec["shadow_verdict"] = {
+                k: verdict.get(k)
+                for k in ("pairs", "flip_rate", "psi", "reason")
+            }
+            if not ok_live:
+                self.stats.shadow_rejections += 1
+                self._m_shadow_rejections.inc()
+                self.registry.reject(
+                    aid, reason=verdict["reason"], verdict=verdict
+                )
+                self._maybe_gc()
+                rec["incumbent"] = incumbent["id"] if incumbent else None
+                self._record("shadow_rejected", **rec)
+                log.info(
+                    f"[CONTROLLER] round {r}: candidate {aid} REJECTED by "
+                    f"the live shadow gate ({verdict['reason']}); serving "
+                    "pointer unchanged"
+                    + (f" ({rec['incumbent']})" if rec["incumbent"] else "")
+                )
+                return {"event": "shadow_rejected", **rec}
+        sup_candidate_err: float | None = None
+        if self.label_gate is not None:
+            # The supervised rung (labels/join.py): the candidate's
+            # mirror pairs joined against delayed ground truth. A
+            # candidate that flips nothing (clean flip-rate/PSI) but is
+            # WRONG where the incumbent was right fails exactly here —
+            # and "not enough joined labels" fails closed, never open.
+            ok_sup, sup = self.label_gate.evaluate(aid)
+            rec["label_verdict"] = {
+                k: sup.get(k)
+                for k in (
+                    "joined", "coverage", "serving_error",
+                    "candidate_error", "reason",
+                )
+            }
+            if (
+                self.error_monitor is not None
+                and sup.get("serving_error") is not None
+            ):
+                # The same joined evidence doubles as the supervised
+                # drift monitor's observation of the SERVING model.
+                joined_n = int(sup.get("joined") or 0)
+                self.error_monitor.observe(
+                    int(round(float(sup["serving_error"]) * joined_n)),
+                    joined_n,
+                )
+            if not ok_sup:
+                self.stats.label_rejections += 1
+                self._m_label_rejections.inc()
+                self.registry.reject(aid, reason=sup["reason"], verdict=sup)
+                self._maybe_gc()
+                rec["incumbent"] = incumbent["id"] if incumbent else None
+                self._record("label_rejected", **rec)
+                log.info(
+                    f"[CONTROLLER] round {r}: candidate {aid} REJECTED by "
+                    f"the supervised label gate ({sup['reason']}); serving "
+                    "pointer unchanged"
+                    + (f" ({rec['incumbent']})" if rec["incumbent"] else "")
+                )
+                return {"event": "label_rejected", **rec}
+            sup_candidate_err = sup.get("candidate_error")
         try:
             self.registry.promote(aid, to="serving")
         except RegistryError as e:
@@ -723,6 +816,11 @@ class Controller:
         rec["promotion_latency_s"] = round(latency, 4)
         if self.drift is not None and eval_hist is not None:
             self.drift.set_reference(eval_hist)
+        if self.error_monitor is not None and sup_candidate_err is not None:
+            # The newly promoted model's supervised error anchors the
+            # error-rate drift reference (the analogue of re-anchoring
+            # the score-histogram reference above).
+            self.error_monitor.set_reference(float(sup_candidate_err))
         self._maybe_gc()
         self._record("promoted", **rec)
         log.info(

@@ -90,13 +90,6 @@ def artifact_id(params: Mapping[str, Any]) -> str:
     return h.hexdigest()[:_ID_HEX]
 
 
-def _shadow_evidence(root: str, aid: str) -> tuple[str, str]:
-    """The shadow gate's status snapshot and paired-records paths for
-    ``aid`` (the JAX package's ``shadow/gate.py`` layout)."""
-    d = os.path.join(os.path.abspath(root), "shadow")
-    return os.path.join(d, f"{aid}.status.json"), os.path.join(d, f"{aid}.pairs.jsonl")
-
-
 class ModelRegistry:
     """Artifact store + promotion state machine + serving pointer."""
 
@@ -121,6 +114,14 @@ class ModelRegistry:
         rec = {"ts": time.time(), "event": kind, **fields}
         with open(os.path.join(self.root, _EVENTS), "a") as f:
             f.write(json.dumps(rec) + "\n")
+
+    def record_reload(self, aid: str, *, consumer: str) -> None:
+        """Audit one serving-tier adoption of an artifact on the events
+        trail: the fleet's rolling reload (router/fleet.py) records each
+        replica's finished hot swap here, so ``events.jsonl`` answers
+        "which replica served which artifact when". Append-only: never
+        touches manifests or the pointer."""
+        self._event("reload", artifact=str(aid), consumer=str(consumer))
 
     # --------------------------------------------------------------- writing
     def add(
@@ -313,13 +314,14 @@ class ModelRegistry:
                 # A previous evaluation's evidence goes before the pointer
                 # announces the new one (the pairs file is truncated, not
                 # removed: its appender keeps one fd per path).
-                status, pairs = _shadow_evidence(self.root, aid)
+                from ..shadow.gate import pairs_path, status_path
+
                 try:
-                    os.remove(status)
+                    os.remove(status_path(self.root, aid))
                 except OSError:
                     pass
                 try:
-                    os.truncate(pairs, 0)
+                    os.truncate(pairs_path(self.root, aid), 0)
                 except OSError:
                     pass
                 _atomic_write_json(
@@ -359,12 +361,16 @@ class ModelRegistry:
         self._promote_span(t_unix, t0, aid, "serving", m.get("round"))
         return m
 
-    def reject(self, aid: str, *, reason: str = "") -> dict:
+    def reject(self, aid: str, *, reason: str = "", verdict: Mapping[str, Any] | None = None) -> dict:
         """Mark a candidate rejected (it stays on disk as lineage and
-        reaches the pointer only through an explicit re-promote)."""
+        reaches the pointer only through an explicit re-promote).
+        ``verdict``, the shadow or label gate's measured evidence, rides
+        the ``rejected`` event, so the audit trail says why live traffic
+        refused the candidate."""
         m = self._set_state(aid, "rejected")
         self._clear_shadow(aid)
-        self._event("rejected", artifact=aid, reason=reason)
+        extra = {"verdict": dict(verdict)} if verdict is not None else {}
+        self._event("rejected", artifact=aid, reason=reason, **extra)
         log.info(f"[REGISTRY] rejected {aid}" + (f": {reason}" if reason else ""))
         return m
 

@@ -54,15 +54,20 @@ class ScoreRejected(Exception):
         self.req_id = int(req_id)
 
 
-def _connect(host: str, port: int, timeout: float, auth_key: bytes | None) -> socket.socket:
-    """A scoring connection with Nagle off (small frames written header +
-    payload would stall on delayed ACKs), authenticated when keyed."""
-    sock = socket.create_connection((host, port), timeout=timeout)
-    sock.settimeout(timeout)
+def _set_nodelay(sock: socket.socket) -> None:
+    """Nagle off on a scoring socket: small frames written header +
+    payload would stall on delayed ACKs, twice over behind a router."""
     try:
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
     except OSError:
         pass
+
+
+def _connect(host: str, port: int, timeout: float, auth_key: bytes | None) -> socket.socket:
+    """A scoring connection with Nagle off, authenticated when keyed."""
+    sock = socket.create_connection((host, port), timeout=timeout)
+    sock.settimeout(timeout)
+    _set_nodelay(sock)
     if auth_key is not None:
         try:
             answer_auth_challenge(sock, auth_key)

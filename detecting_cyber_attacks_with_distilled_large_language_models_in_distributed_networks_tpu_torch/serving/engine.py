@@ -92,8 +92,12 @@ class ScoreEngine:
 
     def swap(self, params: Mapping[str, torch.Tensor], *, round_id: int) -> None:
         """Adopt new params of the same architecture (strict load: a
-        changed architecture raises and needs a new engine)."""
+        changed architecture raises and needs a new engine). The new
+        weights are on the device before the swap publishes them: no batch
+        can read a half-copied model."""
         new = build_model(self.model_cfg, params, self.device)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
         with self._lock:
             self._model = new
             self._round_id = int(round_id)

@@ -127,7 +127,12 @@ class ScoringServer:
     budget (None = wait forever). ``watcher``: a ``CheckpointWatcher`` or
     ``RegistryWatcher`` polled by the scorer (None: the weights never
     change). ``auth_key``: every connection must answer the HMAC nonce
-    challenge before its first request is read (None: an open port)."""
+    challenge before its first request is read (None: an open port).
+    ``replica_id``: the server's id in a fleet (router/), stamped into
+    ``stats()`` so a probe tells which replica answered (None: a
+    standalone deployment). ``warmup``: run every bucket once in
+    ``start()``; ``idle_tick_s``: how long the scorer waits for a batch
+    before it polls the watcher again."""
 
     def __init__(
         self,
@@ -147,6 +152,9 @@ class ScoringServer:
         tracer=None,
         trace_sample: float = 1.0,
         metrics_server=None,
+        replica_id: int | None = None,
+        warmup: bool = True,
+        idle_tick_s: float = IDLE_TICK_S,
     ):
         if not 0.0 < float(trace_sample) <= 1.0:
             raise ValueError(f"trace_sample={trace_sample} must be in (0, 1]")
@@ -164,6 +172,9 @@ class ScoringServer:
         self.metrics_server = metrics_server
         self.engine = engine
         self.watcher = watcher
+        self.replica_id = None if replica_id is None else int(replica_id)
+        self._warmup = warmup
+        self.idle_tick_s = float(idle_tick_s)
         self.tok = tokenizer
         self.spec = spec
         self.threshold = float(threshold)
@@ -237,7 +248,8 @@ class ScoringServer:
 
     # ---------------------------------------------------------------- control
     def start(self) -> "ScoringServer":
-        self.engine.warmup()
+        if self._warmup:
+            self.engine.warmup()
         if self.watcher is not None and not self.watcher.primed:
             self.watcher.prime()
         self._sock.listen(64)
@@ -262,10 +274,13 @@ class ScoringServer:
         if self._closed.is_set():
             return
         self._closed.set()
-        try:
-            self._sock.close()
-        except OSError:
-            pass
+        # shutdown() wakes the accept loop: close() alone leaves a thread
+        # blocked in accept() until its join times out.
+        for end in (lambda: self._sock.shutdown(socket.SHUT_RDWR), self._sock.close):
+            try:
+                end()
+            except OSError:
+                pass
         with self._conn_lock:
             conns = list(self._conns)
         for c in conns:
@@ -310,7 +325,7 @@ class ScoringServer:
             for p in (50, 95, 99)
         }
         return {
-            "replica": None,  # a fleet's replica id; the port has no fleet tier
+            "replica": self.replica_id,
             "scored": scored,
             "batches": batches,
             "mean_batch": scored / batches if batches else 0.0,
@@ -520,7 +535,7 @@ class ScoringServer:
             self._drain_reload_requests()
             if self.watcher is not None:
                 self.watcher.poll(self.engine)
-            batch = self.batcher.next_batch(timeout=IDLE_TICK_S)
+            batch = self.batcher.next_batch(timeout=self.idle_tick_s)
             if not batch:
                 continue
             now = time.monotonic()

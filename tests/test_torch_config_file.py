@@ -1,6 +1,6 @@
 """``export-config`` and ``--config`` resolution held against the JAX
 package's, for the sections the port models (model, data, train, fed,
-distill, obs, control and the two paths), under every flag the resolution takes:
+distill, obs, control, router, shadow, labels and the two paths), under every flag the resolution takes:
 ``--config`` (a file of either package), ``--gelu``, ``--warmup-steps``,
 ``--attention-dropout`` (an explicit 0 included) and the three-way
 ``--remat``/``--no-remat``; and ``from_checkpoint_dict``'s legacy gelu
@@ -25,7 +25,10 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     main as port_main,
 )
 
-PORT_SECTIONS = ("model", "data", "train", "fed", "distill", "obs", "control", "output_dir", "checkpoint_dir")
+PORT_SECTIONS = (
+    "model", "data", "train", "fed", "distill", "obs", "control", "router", "shadow", "labels", "output_dir",
+    "checkpoint_dir",
+)
 
 
 def _export(main, argv, capsys):

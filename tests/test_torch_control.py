@@ -23,8 +23,12 @@
 * ``registry.add(eval_hist=, parent=)`` writes the JAX manifest byte for
   byte; ``serve_round(round_index=)`` stamps the replies as the JAX
   server does.
-* The ``controller`` verb parses every JAX flag to the JAX value, refuses
-  the flags of the unported paths, and runs a campaign on the CPU.
+* The controller's shadow and label rungs and its error-rate trigger
+  (stub gates, real monitors): the same records, registry events with
+  the verdicts, and tallies in both packages.
+* The ``controller`` verb parses every JAX flag to the JAX value (the
+  shadow, label and error-drift gates' included) and runs a campaign on
+  the CPU.
 """
 
 import dataclasses
@@ -745,7 +749,88 @@ def _campaign_sentinel_link(ns, d):
     return _events(d / "state.jsonl"), _registry_state(registry), _summary(ctl)
 
 
+class _StubGate:
+    """A shadow gate (``wait``) or label gate (``evaluate``) replaying
+    scripted verdicts."""
+
+    def __init__(self, verdicts):
+        self.verdicts = list(verdicts)
+        self.asked = []
+
+    def wait(self, aid):
+        self.asked.append(aid)
+        v = self.verdicts.pop(0)
+        return v["ok"], v
+
+    evaluate = wait
+
+
+class _CountingSrv:
+    dp_clip = 0.0
+
+    def __init__(self):
+        self.n = 0
+
+    def serve_round(self, *, deadline=None, round_index=None):
+        self.n += 1
+        return {"w": np.full(8, float(self.n), np.float32)}
+
+
+def _rejected_events(registry):
+    """The registry's ``rejected`` events (the verdicts ride them)."""
+    with open(os.path.join(registry.root, "events.jsonl")) as f:
+        return [{k: v for k, v in json.loads(ln).items() if k != "ts"} for ln in f if '"rejected"' in ln]
+
+
+def _campaign_shadow_rung(ns, d):
+    """An agreeing live verdict promotes through shadow -> serving; a
+    disagreeing one rejects with the verdict and holds the pointer."""
+    registry = ns.ModelRegistry(str(d / "reg"))
+    gate = _StubGate([
+        {"ok": True, "reason": "live agreement", "pairs": 99, "flip_rate": 0.0, "psi": 0.01},
+        {"ok": False, "reason": "live disagreement", "pairs": 99, "flip_rate": 1.0, "psi": 9.9},
+    ])
+    ctl = ns.Controller(_CountingSrv(), registry, _mean_eval, state_path=str(d / "state.jsonl"), shadow_gate=gate)
+    outs = [ctl.run_cycle()["event"] for _ in range(2)]
+    assert outs == ["promoted", "shadow_rejected"] and ctl.stats.shadow_rejections == 1
+    assert registry.serving_manifest()["round"] == 0 and registry.shadow_info() is None
+    resumed = ns.Controller(_CountingSrv(), registry, _mean_eval, state_path=str(d / "state.jsonl"))
+    assert resumed.stats.shadow_rejections == 1
+    return _events(d / "state.jsonl"), _registry_state(registry), _summary(ctl), _rejected_events(registry)
+
+
+def _campaign_label_rung_and_error_trigger(ns, d):
+    """The supervised rung promotes a candidate that beats the incumbent
+    on joined truth (anchoring the error reference at its error), rejects
+    one that regresses, and the serving error the rejected round observed
+    fires the error-rate trigger."""
+    registry = ns.ModelRegistry(str(d / "reg"))
+    gate = _StubGate([
+        {"ok": True, "reason": "supervised agreement", "joined": 40, "coverage": 0.5,
+         "serving_error": 0.1, "candidate_error": 0.05},
+        {"ok": False, "reason": "supervised regression", "joined": 40, "coverage": 0.5,
+         "serving_error": 0.3, "candidate_error": 0.5},
+    ])
+    em = ns.ErrorRateMonitor(margin=0.05, min_joined=16)
+    tracer = ns.Tracer(str(d / "ctl.jsonl"), proc="controller")
+    ctl = ns.Controller(_CountingSrv(), registry, _mean_eval, state_path=str(d / "state.jsonl"),
+                        label_gate=gate, error_monitor=em, drift_monitor=ns.DriftMonitor(min_scores=64),
+                        drift_poll_s=0.01, tracer=tracer)
+    outs = [ctl.run_cycle()["event"] for _ in range(2)]
+    assert outs == ["promoted", "label_rejected"] and ctl.stats.label_rejections == 1
+    assert em.has_reference
+    assert ctl._wait_for_trigger(threading.Event()) == "drift"
+    assert ctl.stats.drift_triggers == 1
+    spans = [
+        {k: s.get(k) for k in ("span", "round", "drift", "method", "scores", "passed")}
+        for s in ns.load_spans([str(d / "ctl.jsonl")])
+    ]
+    return _events(d / "state.jsonl"), _registry_state(registry), _summary(ctl), _rejected_events(registry), spans
+
+
 CAMPAIGNS = {
+    "shadow_rung": _campaign_shadow_rung,
+    "label_rung_and_error_trigger": _campaign_label_rung_and_error_trigger,
     "unattended_rounds": _campaign_unattended,
     "corrupted_candidate_blocked": _campaign_corrupted,
     "drift_triggers_next_round": _campaign_drift,
@@ -802,18 +887,6 @@ def test_campaign_resumes_across_packages(first, tmp_path):
     serving = JAX.ModelRegistry(reg_dir).serving_manifest()
     assert serving["round"] == 1 and serving["parent"] == events[0]["artifact"]
     assert PORT.ModelRegistry(reg_dir).serving_manifest() == serving
-
-
-def test_unported_gates_raise(tmp_path):
-    registry = PORT.ModelRegistry(str(tmp_path / "reg"))
-
-    class Srv:
-        dp_clip = 0.0
-
-    for kw in (dict(shadow_gate=object()), dict(label_gate=object()),
-               dict(error_monitor=PORT.ErrorRateMonitor(reference_error=0.1))):
-        with pytest.raises(NotImplementedError, match="14b"):
-            PORT.Controller(Srv(), registry, _mean_eval, **kw)
 
 
 def test_central_dp_server_refused_like_jax(tmp_path):
@@ -976,6 +1049,12 @@ CONTROLLER_FLAGS = [
     ("--slo-alerts-jsonl", "a.jsonl", "slo_alerts_jsonl"), ("--slo-deadline-factor", "0.3", "slo_deadline_factor"),
     ("--flight-dir", "fl", "flight_dir"), ("--trace-jsonl", "t.jsonl", "trace_jsonl"),
     ("--synthetic", "300", "synthetic"), ("--preset", "distilbert", "preset"), ("--seed", "3", "seed"),
+    ("--shadow-gate", None, "shadow_gate"), ("--shadow-min-pairs", "8", "shadow_min_pairs"),
+    ("--shadow-timeout", "5", "shadow_timeout"), ("--shadow-max-flip-rate", "0.1", "shadow_max_flip_rate"),
+    ("--shadow-psi-threshold", "0.2", "shadow_psi_threshold"), ("--label-gate", None, "label_gate"),
+    ("--label-journal", "j.jsonl", "label_journal"), ("--label-min-joined", "8", "label_min_joined"),
+    ("--label-coverage-floor", "0.1", "label_coverage_floor"),
+    ("--label-max-regression", "0.1", "label_max_regression"), ("--error-drift", None, "error_drift"),
 ]
 
 
@@ -986,26 +1065,6 @@ def test_controller_flag_parses_to_the_jax_value(flag, value, dest):
         port = getattr(build_parser().parse_args(argv), dest)
         want = getattr(jax_parser().parse_args(argv), dest)
         assert port == want and type(port) is type(want), (argv, port, want)
-
-
-#: The JAX controller's flags of paths not ported: the shadow, label and
-#: error-drift gates (ROADMAP item 14b). (``--secure-agg`` is ported: a
-#: case of ``test_controller_flag_parses_to_the_jax_value``.)
-UNPORTED_FLAGS = [
-    ["--shadow-gate"], ["--shadow-min-pairs", "8"], ["--shadow-timeout", "5"],
-    ["--shadow-max-flip-rate", "0.1"], ["--shadow-psi-threshold", "0.2"], ["--label-gate"],
-    ["--label-journal", "j.jsonl"], ["--label-min-joined", "8"], ["--label-coverage-floor", "0.1"],
-    ["--label-max-regression", "0.1"], ["--error-drift"],
-]
-
-
-@pytest.mark.parametrize("flag", UNPORTED_FLAGS, ids=[f[0] for f in UNPORTED_FLAGS])
-def test_controller_refuses_the_unported_flags(flag, capsys):
-    argv = ["controller", "--registry-dir", "r", *flag]
-    jax_parser().parse_args(argv)  # the JAX verb has them
-    with pytest.raises(SystemExit):
-        build_parser().parse_args(argv)
-    assert "unrecognized arguments" in capsys.readouterr().err
 
 
 def test_controller_verb_runs_a_campaign_on_the_cpu(tmp_path):

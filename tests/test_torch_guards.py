@@ -91,6 +91,8 @@ print(" ".join(names))
         "parallel.dp", "data.streaming", "control", "control.drift", "control.controller", "obs.slo",
         "obs.fleet", "obs.sentinel", "comm.secure", "comm.shamir", "comm.relay", "faults", "faults.proxy",
         "faults.personas", "faults.deadrelay", "faults.scenario", "cli.scenario",
+        "router", "router.core", "router.fleet", "shadow", "shadow.compare", "shadow.mirror", "shadow.gate",
+        "labels", "labels.store", "labels.join", "cli.router", "cli.shadow", "cli.labels",
     ):
         assert f"{PORT_PKG}.{mod}" in imported.split(), mod
 
@@ -171,7 +173,8 @@ def test_checker_suffixes_resolve_inside_the_jax_package():
 #: The port modules that register the JAX package's metric families.
 METRIC_TWIN_MODULES = (
     "comm/client.py", "comm/relay.py", "comm/server.py", "control/controller.py", "faults/scenario.py",
-    "obs/fleet.py", "obs/profile.py", "obs/sentinel.py", "serving/server.py",
+    "labels/store.py", "obs/fleet.py", "obs/profile.py", "obs/sentinel.py", "router/core.py",
+    "serving/server.py", "shadow/compare.py", "shadow/mirror.py",
 )
 
 
@@ -265,9 +268,9 @@ def test_round_entry_points_raise_without_cuda(monkeypatch):
 
 def test_the_guards_left_are_the_unported_paths():
     """Every ``raise NotImplementedError`` left in the port guards a path
-    that is not ported: the controller's shadow, label and error-rate
-    gates, ring attention (the model), beside the abstract strategy's
-    ``apply``. The server folds secure, relay and re-homed uploads, so it
+    that is not ported: ring attention (the model), beside the abstract
+    strategy's ``apply``; the controller takes its shadow, label and
+    error-rate gates. The server folds secure, relay and re-homed uploads, so it
     keeps no table of unported upload modes, and the CLI reads the
     identity keys instead of refusing them."""
     from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli import (
@@ -286,7 +289,7 @@ def test_the_guards_left_are_the_unported_paths():
                 exc = node.exc.func if isinstance(node.exc, ast.Call) else node.exc
                 if getattr(exc, "id", None) == "NotImplementedError":
                     found.append(os.path.relpath(path, REPO_ROOT).split("/", 1)[-1])
-    assert sorted(found) == ["control/controller.py", "models/distilbert.py", "strategies/core.py"]
+    assert sorted(found) == ["models/distilbert.py", "strategies/core.py"]
     assert not hasattr(server, "_UNPORTED_UPLOAD_MODES")
     assert not hasattr(cli_comm, "_refuse_identity_keys")
 
