@@ -549,8 +549,26 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.ops.attention import (
     make_attention_bias,
 )
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.device import (
+    resolve_device,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.models.convert import (
+    params_to_jax,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.parallel import (
+    mesh as mesh_mod,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.router.fleet import (
+    FleetReplica,
+    ServingFleet,
+)
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.parallel.fedavg import (
     ServerOptimizer,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.parallel.mesh import (
+    ShardedLeaf,
+    device_tree_bytes,
+    make_host_mesh,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.registry import (
     ModelRegistry,
@@ -576,6 +594,10 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     STATE_FILE,
     Checkpointer,
     maybe_warm_start,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.client_mesh import (
+    FsdpMeshTrainer,
+    MeshTrainer,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.distill import (
     DistillTrainer,
@@ -4718,6 +4740,382 @@ def gates_phase(seed: int, card: str) -> dict[str, int]:
     return total
 
 
+# The mesh phase: two slots of a host mesh on the one card (slots may
+# share a device; every placement onto a slot copies).
+MESH_STEPS = 9
+MESH_WORKER = r"""
+import json, sys
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli import main
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.ops import flash_attention as f
+rc = main(sys.argv[1:])
+print("LAUNCHES " + json.dumps({"flash_fwd": f.FWD_LAUNCHES, "flash_fwd_dropout": f.FWD_DROPOUT_LAUNCHES,
+      "flash_bwd_dkdv": f.DKDV_LAUNCHES, "flash_bwd_dq": f.DQ_LAUNCHES}), flush=True)
+sys.exit(rc)
+"""
+# The JAX package's refusals of a mesh the card cannot hold (its CLI and
+# MeshConfig messages, which the port's copy keeps word for word).
+JAX_FSDP_ONE = "mesh.fsdp needs data >= 2 (--data-parallel N): sharding the static state over one device is a no-op"
+JAX_SERVE_FSDP_ONE = "--fsdp shards the model over the serving mesh: pass --data-parallel N with N >= 2"
+
+
+def two_slots() -> list:
+    return [torch.device("cuda", 0)] * 2
+
+
+def mesh_batches(seed: int, tok, cfg: ModelConfig) -> list[dict]:
+    """MESH_STEPS seeded bs16 batches of flow texts at L=128."""
+    texts = [flow_to_text(r) for r in flow_records(seed + 91, B_TRAIN * MESH_STEPS)]
+    enc = tok.batch_encode(texts, max_len=cfg.max_len)
+    labels = np.random.default_rng(seed + 92).integers(0, 2, len(texts)).astype(np.int32)
+    return [
+        {"input_ids": enc["input_ids"][i:i + B_TRAIN], "attention_mask": enc["attention_mask"][i:i + B_TRAIN],
+         "labels": labels[i:i + B_TRAIN]}
+        for i in range(0, len(texts), B_TRAIN)
+    ]
+
+
+def mesh_steps(trainer, params: dict, batches: list[dict]) -> tuple:
+    """The trainer's state after one train step per batch, its losses and
+    the seconds a step took (synchronized)."""
+    state = trainer.init_state(params=params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for b in batches:
+        state, loss = trainer.train_step(state, b)
+        losses.append(loss.to("cuda:0"))
+    torch.cuda.synchronize()
+    return state, torch.stack(losses).float().cpu().numpy(), (time.perf_counter() - t0) / len(batches)
+
+
+def leaf_deviation(a: dict, b: dict, sat: float) -> tuple[float, int, int, int, list]:
+    """Two host-param trees: (max |a - b|, elements outside atol 2e-6 +
+    rtol 1e-5·|b|, of those the ones beyond ``sat``, all elements, the
+    three leaves with the most elements outside)."""
+    fa, fb = wire.flatten_params(a), wire.flatten_params(b)
+    dev, out, beyond, total, where = 0.0, 0, 0, 0, []
+    for k in fa:
+        d = np.abs(np.asarray(fa[k], np.float64) - np.asarray(fb[k], np.float64))
+        bad = d > 2e-6 + 1e-5 * np.abs(np.asarray(fb[k], np.float64))
+        dev, total = max(dev, float(d.max())), total + d.size
+        out += int(bad.sum())
+        beyond += int((d > sat).sum())
+        if bad.any():
+            where.append((int(bad.sum()), k, float(d.max())))
+    return dev, out, beyond, total, [(k, n, f"{m:.2e}") for n, k, m in sorted(where, reverse=True)[:3]]
+
+
+def mesh_train(seed: int, card: str, cfg: ModelConfig, tok) -> None:
+    """(a) MeshTrainer and FsdpMeshTrainer on two slots of the card against
+    the one-device Trainer on the same 9 batches and weights."""
+    params = init_params(cfg, torch.Generator().manual_seed(seed + 93))
+    batches = mesh_batches(seed, tok, cfg)
+    mesh = make_host_mesh(2, devices=two_slots())
+    train_cfg = TrainConfig()
+    off = dict(dropout=0.0, attention_dropout=0.0, head_dropout=0.0)
+    # The JAX tests' bound (atol 2e-6 + rtol 1e-5) is for fp32, their
+    # comparison's dtype. At full width a few elements' gradients are
+    # rounding noise (the attention key biases' are 0 in exact arithmetic;
+    # of 67M others, a handful cross 0 in a step): Adam divides such a
+    # gradient by its own magnitude, so the two sides step by up to lr with
+    # the noise's own sign (tests/test_torch_federated.py's docstring).
+    # Held: the loss within rtol 1e-5; every element within the bound but
+    # at most 1e-5 of them, and those within that saturation, 2·lr·steps.
+    # In bf16 every slot's gradient takes its own bf16 rounding, which Adam
+    # amplifies the same way on many more elements: reported, not bounded.
+    sat = 2 * train_cfg.learning_rate * MESH_STEPS
+    for label, mcfg in (("fp32", cfg.replace(compute_dtype="float32", **off)), ("bf16", cfg.replace(**off))):
+        ref, ref_loss, ref_s = mesh_steps(Trainer(mcfg, train_cfg, device="cuda"), params, batches)
+        ref_host = params_to_jax(ref.params)
+        for cls in (MeshTrainer, FsdpMeshTrainer):
+            st, loss, sec = mesh_steps(cls(mcfg, train_cfg, mesh=mesh), params, batches)
+            dev, out, beyond, total, where = leaf_deviation(params_to_jax(st.params), ref_host, sat)
+            lrel = float(np.max(np.abs(loss - ref_loss) / np.abs(ref_loss)))
+            print(f"mesh (a): {card}: {cls.__name__} {label} dropout off, 2 slots on cuda:0, {MESH_STEPS} steps "
+                  f"({sec * 1e3:.1f} ms/step, one device {ref_s * 1e3:.1f}): max|param - one device| {dev:.3e}; "
+                  f"{out} of {total} elements outside atol 2e-6 + rtol 1e-5 ({out / total:.2e}; {beyond} beyond "
+                  f"{sat:.1e}), most in {where}; max loss rel diff {lrel:.3e}", flush=True)
+            check(np.isfinite(loss).all(), f"{cls.__name__} {label} losses {loss}")
+            if label == "fp32":
+                check(lrel <= 1e-5 and out <= 1e-5 * total and beyond == 0, f"{cls.__name__} fp32 trajectory off the "
+                      f"one-device one: loss rel {lrel}, {out} elements outside the bound, {beyond} beyond {sat}")
+    # The deployed configuration, dropout on: every slot's forward with K1
+    # dropout, K2 and K3 in its backward; the static bytes a slot holds.
+    bytes_ = {}
+    for cls in (MeshTrainer, FsdpMeshTrainer):
+        before = counts_read()  # a delta: the phase's own count keeps running
+        st, loss, sec = mesh_steps(cls(cfg, train_cfg, mesh=mesh), params, batches)
+        got = {k: v - before[k] for k, v in counts_read().items()}
+        bytes_[cls.__name__] = device_tree_bytes((st.params, st.opt_state))
+        want = cfg.n_layers * 2 * MESH_STEPS
+        print(f"mesh (a): {card}: {cls.__name__} bf16 dropout on: {sec * 1e3:.1f} ms/step, losses "
+              f"{np.round(loss, 4).tolist()}; launches {got}", flush=True)
+        check(np.isfinite(loss).all(), f"{cls.__name__} losses {loss}")
+        check(got["flash_fwd_dropout"] == got["flash_bwd_dkdv"] == got["flash_bwd_dq"] == want,
+              f"{cls.__name__}: K1-dropout/K2/K3 {got} for {MESH_STEPS} steps on 2 slots (want {want} each)")
+        if cls is FsdpMeshTrainer:
+            check(all(isinstance(v, ShardedLeaf) and len(v.shards) in (1, 2) for v in st.params.values()),
+                  "FSDP params not sharded at rest")
+    ratio = bytes_["FsdpMeshTrainer"] / bytes_["MeshTrainer"]
+    print(f"mesh (a): {card}: static bytes on a slot (params + Adam): replicated {bytes_['MeshTrainer'] / 1e6:.2f} MB, "
+          f"FSDP {bytes_['FsdpMeshTrainer'] / 1e6:.2f} MB (ratio {ratio:.4f})", flush=True)
+    check(ratio <= 0.6, f"FSDP slot bytes ratio {ratio}")
+
+
+def mesh_serve(seed: int, card: str, cfg: ModelConfig, tok) -> None:
+    """(b) The sharded ScoreEngine against the replicated one, then a
+    sharded FleetReplica's rolling reload under load."""
+    params = init_params(cfg, torch.Generator().manual_seed(seed + 94))
+    mesh = make_host_mesh(2, devices=two_slots())
+    rep = ScoreEngine(cfg, params, pad_id=tok.pad_id, buckets=BUCKETS)
+    shard = ScoreEngine(cfg, params, pad_id=tok.pad_id, buckets=BUCKETS, mesh=mesh)
+    texts = [flow_to_text(r) for r in flow_records(seed + 95, 128)]
+    enc = tok.batch_encode(texts, max_len=cfg.max_len)
+    same = []
+    for n in (1, 8, 32, 128, 5):
+        a, b = rep.score(enc["input_ids"][:n], enc["attention_mask"][:n]), shard.score(enc["input_ids"][:n], enc["attention_mask"][:n])
+        same.append((n, b[2], bool(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]) and a[2] == b[2])))
+    ratio = device_tree_bytes(shard.snapshot()[0]) / device_tree_bytes(rep.snapshot()[0])
+    print(f"mesh (b): {card}: sharded engine (2 slots) bit-equal to the replicated one at (n, bucket) "
+          f"{[(n, bk) for n, bk, ok in same if ok]}; slot bytes ratio {ratio:.4f}", flush=True)
+    check(all(ok for *_, ok in same), f"sharded probs differ from the replicated engine's: {same}")
+    check(ratio <= 0.6, f"sharded engine slot bytes ratio {ratio}")
+    shard.warmup()
+    params2 = {k: v + 1e-3 for k, v in params.items()}
+    shard.swap(params2, round_id=2)
+    for n in (1, 3, 8, 32, 128):
+        check(shard.score(enc["input_ids"][:n], enc["attention_mask"][:n])[3] == 2, "swap did not publish round 2")
+    check(shard.ledger.recompiles() == [] and shard.ledger.compile_counts("serving.gather") == {("gather",): 1},
+          f"sharded swap: recompiles {shard.ledger.recompiles()}, gather {shard.ledger.compile_counts('serving.gather')}")
+    del rep, shard
+    replica = FleetReplica(0, cfg, params, tok, round_id=1, buckets=(1, 8, 32), mesh=mesh).start()
+    fleet = ServingFleet([replica], probe_interval_s=0.2).start()
+    try:
+        out, errors = {}, []
+
+        def loader() -> None:
+            try:
+                out.update(run_load("127.0.0.1", fleet.port, texts, concurrency=8, requests=512, timeout=300))
+            except BaseException as e:  # re-raised below, after the join
+                errors.append(e)
+
+        t = threading.Thread(target=loader)
+        t.start()
+        time.sleep(0.3)
+        sweep = fleet.rolling_reload(params2, round_id=2)
+        t.join(timeout=300)
+        check(not t.is_alive(), "the load thread hung")
+        if errors:
+            raise errors[0]
+        with ScoringClient("127.0.0.1", fleet.port, timeout=60) as c:
+            after = c.score(text=texts[0])
+        print(f"mesh (b): {card}: sharded FleetReplica rolling reload under {out['scored']} closed-loop requests: "
+              f"rejected {out['rejected']}, swap {[round(s['swap_s'] * 1e3, 1) for s in sweep['replicas']]} ms; "
+              f"round after {after['round']}; recompiles {replica.engine.ledger.recompiles()}", flush=True)
+        check(out["scored"] == 512 and out["rejected"] == 0, f"load {out['scored']} scored, {out['rejected']} rejected")
+        check(after["round"] == 2 and replica.engine.ledger.recompiles() == [], "the sharded replica did not roll to round 2")
+    finally:
+        fleet.close()
+
+
+def refused(argv: list[str]) -> str:
+    """The SystemExit message the port's CLI gives ``argv`` (fails if it runs)."""
+    try:
+        args = build_parser().parse_args(argv)
+        args.fn(args)
+    except SystemExit as e:
+        return str(e)
+    fail(f"{argv[0]} {' '.join(argv[1:])} was not refused")
+
+
+def mesh_cli(seed: int, card: str, cfg: ModelConfig, tok, work: str) -> dict[str, int]:
+    """(c) The mesh flags through the port's CLI: the refusals of a mesh
+    this card cannot hold, then ``client --data-parallel 2 --fsdp`` (two
+    rounds: the second reply streams into the sink) and ``infer-serve
+    --data-parallel 2 --fsdp`` with the host's slots given as two on the
+    card."""
+    base = ["--preset", "distilbert", "--attention-impl", "flash", "--device", "cuda"]
+    client = ["client", "--client-id", "0", "--host", "127.0.0.1", "--port", "1", *base]
+    msgs = {
+        "client --data-parallel 1 --fsdp": (refused([*client, "--data-parallel", "1", "--fsdp"]), JAX_FSDP_ONE),
+        "client --data-parallel 2": (refused([*client, "--synthetic", "64", "--data-parallel", "2"]),
+                                     "host mesh 2 needs 2 local devices, have 1"),
+        "infer-serve --data-parallel 1 --fsdp": (refused(["infer-serve", "--registry-dir", work, "--data-parallel", "1",
+                                                          "--fsdp", *base]), JAX_SERVE_FSDP_ONE),
+        "infer-serve --data-parallel 2 --fsdp": (refused(["infer-serve", "--registry-dir", work, "--data-parallel", "2",
+                                                          "--fsdp", *base]), "host mesh 2 needs 2 local devices, have 1"),
+        "federated --data-parallel 2": (refused(["federated", "--data-parallel", "2", *base]),
+                                        "--data-parallel 2 exceeds the 1 available devices"),
+    }
+    for what, (got, want) in msgs.items():
+        print(f"mesh (c): {what}: refused: {got!r}", flush=True)
+        check(got == want, f"{what}: {got!r}, want the JAX package's {want!r}")
+    total = zero_launches()
+    real = mesh_mod.local_devices
+    mesh_mod.local_devices = lambda device=None: two_slots() if resolve_device(device).type == "cuda" else real(device)
+    try:
+        zero_with_fold()
+        server = build_round_server(build_parser().parse_args(
+            ["serve", "--host", "127.0.0.1", "--port", "0", "--num-clients", "1", "--timeout", "600", "--device", "cuda"]
+        ))
+        res, errors = {}, []
+
+        def run() -> None:
+            try:
+                res.update(run_client(build_parser().parse_args([
+                    "client", "--client-id", "0", "--num-clients", "2", "--host", "127.0.0.1", "--port", str(server.port),
+                    *base, "--synthetic", "2400", "--epochs", "1", "--rounds", "2", "--seed", str(seed),
+                    "--timeout", "600", "--data-parallel", "2", "--fsdp", "--output-dir", os.path.join(work, "mesh-client"),
+                ])))
+            except BaseException as e:  # re-raised below, after the join
+                errors.append(e)
+
+        with server:
+            st = threading.Thread(target=server.serve, args=(2,))
+            ct = threading.Thread(target=run)
+            for t in (st, ct):
+                t.start()
+            for t in (ct, st):
+                t.join(timeout=900)
+        check(not st.is_alive() and not ct.is_alive(), "mesh client round hung")
+        if errors:
+            raise errors[0]
+        add_launches(total, read_with_fold())
+        trainer, rounds = res["trainer"], res["rounds"]
+        shapes = [r["exchange"]["reply_shape"] for r in rounds]
+        sunk = [type(v).__name__ for v in wire.flatten_params(rounds[1]["aggregate"], leaf_fn=lambda x: x).values()]
+        up = wire.flatten_params(rounds[1]["uploaded"])
+        agg = wire.flatten_params(trainer.host_params(res["state"]))  # the adopted aggregate, off its shards
+        print(f"mesh (c): {card}: client --data-parallel 2 --fsdp: {type(trainer).__name__} over "
+              f"{[str(d) for d in trainer.slots]}, {res['state'].step} steps, replies {shapes}, round-2 reply leaves "
+              f"{sorted(set(sunk))}; aggregate crc {wire.flat_crc32(agg):#010x} vs its only upload "
+              f"{wire.flat_crc32(up):#010x}; local acc {res['local']['Accuracy']:.2f}, aggregated "
+              f"{res['aggregated']['Accuracy']:.2f}; launches {total}", flush=True)
+        check(type(trainer).__name__ == "FsdpMeshTrainer" and len(trainer.slots) == 2, "the client's trainer is not FSDP on 2 slots")
+        check(shapes[-1] == "stream" and set(sunk) == {"ShardedLeaf"}, "the streamed reply did not land on the shards")
+        check(wire.flat_crc32(agg) == wire.flat_crc32(up), "the one-client aggregate differs from its upload")
+        check(total["fold"] == 2 * 102, f"K4 launched {total['fold']} times for two rounds of 102 leaves")
+        # infer-serve --data-parallel 2 --fsdp from a promoted artifact.
+        reg = os.path.join(work, "mesh-registry")
+        params = init_params(cfg, torch.Generator().manual_seed(seed + 96))
+        publish(reg, params, 1, cfg)
+        texts = [flow_to_text(r) for r in flow_records(seed + 97, 16)]
+        zero_with_fold()
+        srv = build_server(build_parser().parse_args(
+            ["infer-serve", "--registry-dir", reg, "--host", "127.0.0.1", "--port", "0", "--data-parallel", "2",
+             "--fsdp", "--buckets", "1,8,32", *base]
+        ))
+        with srv:  # warmup runs every bucket here
+            replies = score_texts(srv.port, texts)
+        add_launches(total, read_with_fold())
+        lone = ScoreEngine(cfg, params, pad_id=tok.pad_id, buckets=(1, 8, 32))
+        enc = tok.batch_encode(texts, max_len=cfg.max_len)
+        ref = lone.score(enc["input_ids"], enc["attention_mask"])[0]
+        diff = float(np.abs(np.array([r["prob"] for r in replies]) - ref).max())
+        print(f"mesh (c): {card}: infer-serve --data-parallel 2 --fsdp: engine sharded over {srv.engine.n_shards} slots, "
+              f"{len(replies)} replies, max|prob - lone engine| {diff:.3e} (bf16 atol 1e-2)", flush=True)
+        check(srv.engine.mesh is not None and srv.engine.n_shards == 2 and diff <= 1e-2, f"sharded infer-serve: diff {diff}")
+    finally:
+        mesh_mod.local_devices = real
+    return total
+
+
+def mesh_processes(seed: int, card: str, work: str) -> dict[str, int]:
+    """(d) ``federated --coordinator`` as two processes sharing the card
+    (gloo) against the one-process run of the same config."""
+    common = ["federated", "--preset", "distilbert", "--attention-impl", "flash", "--device", "cuda",
+              "--synthetic", "3200", "--num-clients", "2", "--partition", "disjoint", "--epochs", "1",
+              "--rounds", "1", "--seed", str(seed)]
+    one_out, one_reg = os.path.join(work, "fed1"), os.path.join(work, "fed1-reg")
+    counts_zero()
+    t0 = time.perf_counter()
+    run_federated(build_parser().parse_args([*common, "--output-dir", one_out, "--registry-dir", one_reg]))
+    one_s = time.perf_counter() - t0
+    total = {**counts_read(), "fold": 0}
+    two_out, two_reg = os.path.join(work, "fed2"), os.path.join(work, "fed2-reg")
+    port = free_port()
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    t0 = time.perf_counter()
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-c", MESH_WORKER, *common, "--output-dir", two_out, "--registry-dir", two_reg,
+             "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2", "--process-id", str(i)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        )
+        for i in range(2)
+    ]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    two_s = time.perf_counter() - t0
+    for i, (p, o) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"federated process {i} exited {p.returncode}:\n{o[-3000:]}")
+    backend = [ln.split("INFO ", 1)[-1] for o in outs for ln in o.splitlines() if "[MESH]" in ln]
+    for ln in backend:
+        print(f"mesh (d): {ln}", flush=True)
+    check(len(backend) == 2 and all("backend gloo" in ln and "NCCL goes unexercised" in ln for ln in backend),
+          f"backend lines {backend}")
+    for o in outs:
+        add_launches(total, json.loads([ln for ln in o.splitlines() if ln.startswith("LAUNCHES ")][-1][9:]))
+    reg1, reg2 = ModelRegistry(one_reg), ModelRegistry(two_reg)
+    p1 = reg1.load_params(reg1.list()[-1]["id"])
+    p2 = reg2.load_params(reg2.list()[-1]["id"])
+    dev = max(float(np.abs(np.asarray(p1[k], np.float64) - np.asarray(p2[k], np.float64)).max()) for k in p1)
+    rows = {}
+    for name in ("client0_aggregated_metrics.csv", "client1_aggregated_metrics.csv", "client1_local_metrics.csv"):
+        with open(os.path.join(one_out, name)) as f1, open(os.path.join(two_out, name)) as f2:
+            rows[name] = (f1.read().splitlines()[1], f2.read().splitlines()[1])
+    print(f"mesh (d): {card}: two processes {two_s:.1f} s (one process in-process {one_s:.1f} s); aggregate "
+          f"max|two processes - one| {dev:.3e} over {len(p1)} leaves; metrics rows {rows}; launches {total}", flush=True)
+    check(p1.keys() == p2.keys() and dev <= 2e-6, f"the two-process aggregate is {dev} off the one-process one")
+    for name, (a, b) in rows.items():
+        va, vb = np.array(a.split(","), float), np.array(b.split(","), float)
+        check(np.array_equal(va[[0, 2, 3, 4]], vb[[0, 2, 3, 4]]) and abs(va[1] - vb[1]) <= 1e-5 * abs(va[1]),
+              f"{name}: one process {a}, two {b}")
+    return total
+
+
+def mesh_phase(seed: int, card: str) -> dict[str, int]:
+    """Phase 15: the mesh tier on the card: (a) the meshed and FSDP
+    trainers on two slots, (b) sharded serving, (c) the mesh flags through
+    the CLI, (d) the two-process ``federated``. Returns each kernel's
+    launches during it."""
+    t_phase = time.perf_counter()
+    tok = default_tokenizer()
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.common import (
+        resolve_config,
+    )
+
+    cfg = resolve_config(build_parser().parse_args(["local", "--preset", "distilbert", "--attention-impl", "flash"]),
+                         vocab_size=len(tok.vocab)).model
+    check((cfg.dim, cfg.n_layers, cfg.attention_impl, cfg.compute_dtype) == (768, 6, "flash", "bfloat16"),
+          f"not full width: {cfg}")
+    total = zero_launches()
+    times = {}
+    with tempfile.TemporaryDirectory() as work:
+        zero_with_fold()
+        t = time.perf_counter()
+        mesh_train(seed, card, cfg, tok)
+        mesh_serve(seed, card, cfg, tok)
+        add_launches(total, read_with_fold())
+        times["(a)+(b)"] = time.perf_counter() - t
+        t = time.perf_counter()
+        add_launches(total, mesh_cli(seed, card, cfg, tok, work))
+        times["(c)"] = time.perf_counter() - t
+        t = time.perf_counter()
+        add_launches(total, mesh_processes(seed, card, work))
+        times["(d)"] = time.perf_counter() - t
+    print(f"mesh: {card}: " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items())
+          + f"; launches {total}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(all(total[k] > 0 for k in total), f"a kernel of the mesh path did not launch: {total}")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4830,6 +5228,12 @@ def main() -> int:
     for row in (k1, k1_drop, k2, k3):
         row["launches"] += gates_launches[row["name"]]
     k4["launches"] += gates_launches["fold"]
+
+    phase("mesh")
+    mesh_launches = mesh_phase(seed, card)
+    for row in (k1, k1_drop, k2, k3):
+        row["launches"] += mesh_launches[row["name"]]
+    k4["launches"] += mesh_launches["fold"]
 
     print(json.dumps({"kernels": [k1, k1_drop, k2, k3, k4]}), flush=True)
     print(json.dumps({

@@ -253,6 +253,12 @@ def run_client(args) -> dict:
     written with the exchange's wire spans under the server's trace id;
     ``--metrics-jsonl`` gets the round's local and aggregated records.
 
+    ``--data-parallel N [--fsdp]`` trains the local phase over N of this
+    host's devices (train/client_mesh.py): the wire exchange is the
+    single-device client's, and a streamed reply's leaves land on the
+    mesh as they arrive (``reply_leaf_sink``), so a round's recorded
+    ``aggregate`` then holds those placed leaves (the port's layout).
+
     With a checkpoint directory the client warm-starts from its latest
     step and saves twice a round: after local training (the reference's
     client1.py:388) and after adopting the aggregate (:403, meta
@@ -296,7 +302,7 @@ def _run_client_rounds(args, device, tok, cfg, pretrained, server_host, server_p
     from ..comm.secure import SecureAggError
     from ..obs.profile import note_memory
     from ..train.checkpoint import Checkpointer, maybe_warm_start
-    from ..train.engine import Trainer
+    from ..train.client_mesh import make_client_trainer
 
     fed = FederatedClient(
         server_host, server_port, client_id=args.client_id, timeout=args.timeout,
@@ -311,10 +317,24 @@ def _run_client_rounds(args, device, tok, cfg, pretrained, server_host, server_p
     # so the global tracer stays disarmed.
     fed.tracer, _metrics = _obs_setup(args, proc=f"client-{args.client_id}", cfg=cfg, install_global=False)
     client = _load_clients(args, cfg, tok, cfg.fed.num_clients)[args.client_id]
-    trainer = Trainer(
-        cfg.model, cfg.train, pad_id=tok.pad_id,
-        drop_remainder=cfg.data.drop_remainder, device=device,
-    )
+    try:
+        trainer = make_client_trainer(cfg, pad_id=tok.pad_id, device=device)
+    except ValueError as e:
+        # Operator error (the axis against the local devices or the batch),
+        # not a traceback: --data-parallel 4 on a 2-card host etc.
+        raise SystemExit(str(e)) from None
+    if cfg.mesh.data > 1:
+        log.info(
+            f"[CLIENT {args.client_id}] local mesh: data={cfg.mesh.data} over "
+            f"{cfg.mesh.data} local device(s)"
+            + (" — FSDP shard-at-rest (params+opt ~1/N per device, gather-at-use)" if cfg.mesh.fsdp else "")
+        )
+    sink = getattr(trainer, "reply_leaf_sink", None)
+    if sink is not None:
+        # Meshed client: streamed-reply leaves land on the local mesh as
+        # their chunks arrive, so adopt_aggregate never waits for a full
+        # host-side tree.
+        fed.reply_leaf_sink = sink
     state = trainer.init_state(params=pretrained)
     tag = f"[CLIENT {args.client_id}] "
     ckpt = warm_step = None

@@ -17,7 +17,8 @@ import logging
 import os
 from typing import Any
 
-from ..config import DataConfig, ExperimentConfig, FedConfig, ModelConfig
+from ..config import DataConfig, ExperimentConfig, FedConfig, MeshConfig, ModelConfig
+from ..utils.logging import phase
 
 log = logging.getLogger(__name__)
 
@@ -186,12 +187,33 @@ def resolve_config(args: argparse.Namespace, *, vocab_size: int) -> ExperimentCo
     if train_kw:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **train_kw))
     if hasattr(args, "num_clients"):
-        cfg = dataclasses.replace(cfg, fed=_resolve_fed(args, cfg.fed))
+        fed = _resolve_fed(args, cfg.fed)
+        cfg = dataclasses.replace(cfg, fed=fed, mesh=_resolve_mesh(args, cfg, fed.num_clients))
     if getattr(args, "output_dir", None):
         cfg = dataclasses.replace(cfg, output_dir=args.output_dir)
     if getattr(args, "checkpoint_dir", None):
         cfg = dataclasses.replace(cfg, checkpoint_dir=args.checkpoint_dir)
     return cfg
+
+
+def _resolve_mesh(args, cfg: ExperimentConfig, n: int) -> MeshConfig:
+    """Mesh axes from flags: ``is None`` checks (an explicit 0 must reach
+    MeshConfig's own validation, not silently fall back to the config
+    default), and validation errors surface as operator messages."""
+    dp = getattr(args, "data_parallel", None)
+    sp = getattr(args, "seq_parallel", None)
+    fsdp = getattr(args, "fsdp", None)
+    try:
+        return MeshConfig(
+            clients=n,
+            data=cfg.mesh.data if dp is None else dp,
+            seq=cfg.mesh.seq if sp is None else sp,
+            # store_true default is None; the config file wins unless
+            # the flag was actually given.
+            fsdp=cfg.mesh.fsdp or bool(fsdp),
+        )
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
 
 
 def _resolve_fed(args: argparse.Namespace, fed: FedConfig) -> FedConfig:
@@ -294,20 +316,20 @@ def _resolve_with_pretrained(args: argparse.Namespace, *, load_weights: bool = T
     if getattr(args, "pth", None):
         from ..models.hf_convert import load_reference_pth
 
-        log.info(f"[MODEL] loading reference .pth {args.pth}")
-        try:
-            params = load_reference_pth(args.pth, model_cfg)
-        except Exception as e:
-            # KeyError: another architecture than --hf-dir's; FileNotFoundError:
-            # a bad path; ValueError: a headless dict. Operator errors all.
-            raise SystemExit(
-                f"--pth {args.pth}: {type(e).__name__}: {e} — expected "
-                "the reference's DDoSClassifier state dict matching "
-                "--hf-dir's architecture (client1.py:53-58,388)"
-            ) from None
+        with phase(f"loading reference .pth {args.pth}", tag="MODEL"):
+            try:
+                params = load_reference_pth(args.pth, model_cfg)
+            except Exception as e:
+                # KeyError: another architecture than --hf-dir's; FileNotFoundError:
+                # a bad path; ValueError: a headless dict. Operator errors all.
+                raise SystemExit(
+                    f"--pth {args.pth}: {type(e).__name__}: {e} — expected "
+                    "the reference's DDoSClassifier state dict matching "
+                    "--hf-dir's architecture (client1.py:53-58,388)"
+                ) from None
         return tok, cfg, params
-    log.info(f"[MODEL] loading HF checkpoint {hf_dir}")
-    params, _ = load_hf_dir(hf_dir, cfg=model_cfg, head_rng=np.random.default_rng(cfg.train.seed))
+    with phase(f"loading HF checkpoint {hf_dir}", tag="MODEL"):
+        params, _ = load_hf_dir(hf_dir, cfg=model_cfg, head_rng=np.random.default_rng(cfg.train.seed))
     return tok, cfg, params
 
 
@@ -342,22 +364,24 @@ def _load_client_splits(args, cfg: ExperimentConfig, num_clients: int):
             ]
         except ValueError as e:
             raise SystemExit(f"--source: {e}") from None
-        log.info(f"[DATA] loading a {len(entries)}-source mixed corpus")
-        corpus = load_mixed_corpus(entries)
-        return make_all_client_splits_from_corpus(
-            corpus, num_clients, cfg.data, manifest_path=manifest_path
-        )
+        with phase(f"loading {len(entries)}-source mixed corpus", tag="DATA"):
+            corpus = load_mixed_corpus(entries)
+        with phase("partition/split", tag="DATA"):
+            return make_all_client_splits_from_corpus(
+                corpus, num_clients, cfg.data, manifest_path=manifest_path
+            )
     if getattr(args, "csv", None):
-        log.info(f"[DATA] loading {args.csv}")
-        frame = load_flow_csv(args.csv)
+        with phase(f"loading {args.csv}", tag="DATA"):
+            frame = load_flow_csv(args.csv)
     else:
         n = getattr(args, "synthetic", None) or 2400
-        log.info(f"[DATA] generating {n} synthetic {cfg.data.dataset} flows")
-        try:
-            frame = make_synthetic(cfg.data.dataset, n, seed=cfg.data.seed_base)
-        except ValueError as e:
-            raise SystemExit(f"--synthetic: {e}") from None
-    return make_all_client_splits(frame, num_clients, cfg.data, manifest_path=manifest_path)
+        with phase(f"generating {n} synthetic {cfg.data.dataset} flows", tag="DATA"):
+            try:
+                frame = make_synthetic(cfg.data.dataset, n, seed=cfg.data.seed_base)
+            except ValueError as e:
+                raise SystemExit(f"--synthetic: {e}") from None
+    with phase("partition/split", tag="DATA"):
+        return make_all_client_splits(frame, num_clients, cfg.data, manifest_path=manifest_path)
 
 
 def _load_clients(args, cfg: ExperimentConfig, tok, num_clients: int):
@@ -371,10 +395,11 @@ def _load_clients(args, cfg: ExperimentConfig, tok, num_clients: int):
             raise SystemExit("--stream needs --csv (chunked two-pass reader)")
         from ..data.streaming import stream_client_tokens
 
-        log.info(f"[DATA] streaming {args.csv}")
-        return stream_client_tokens(args.csv, cfg.data, num_clients, tok, max_len=cfg.model.max_len)
+        with phase(f"streaming {args.csv}", tag="DATA"):
+            return stream_client_tokens(args.csv, cfg.data, num_clients, tok, max_len=cfg.model.max_len)
     splits = _load_client_splits(args, cfg, num_clients)
-    return [tokenize_client(s, tok, max_len=cfg.model.max_len) for s in splits]
+    with phase("tokenize", tag="DATA"):
+        return [tokenize_client(s, tok, max_len=cfg.model.max_len) for s in splits]
 
 
 def _write_reports(

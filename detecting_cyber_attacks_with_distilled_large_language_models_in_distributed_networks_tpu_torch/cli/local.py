@@ -7,6 +7,7 @@ import logging
 import time
 
 from ..device import resolve_device
+from ..utils.logging import phase
 from .common import _append_metrics, _load_clients, _obs_setup, _resolve_with_pretrained, _write_reports
 
 log = logging.getLogger(__name__)
@@ -44,14 +45,16 @@ def run_local(args) -> dict:
     state = trainer.init_state(params=pretrained)
     tag = f"[CLIENT {args.client_id}] "
     t0 = time.perf_counter()
-    with trace(args.profile_dir):
+    with phase(f"client {args.client_id} local training", tag="TRAIN"), trace(args.profile_dir):
         state, losses = trainer.fit(
             state, client.train, batch_size=cfg.data.batch_size, tag=tag
         )  # fit syncs at each epoch's end (the mean loss)
     train_seconds = time.perf_counter() - t0
     steps = state.step
-    val = trainer.evaluate(state.params, client.val, batch_size=cfg.data.eval_batch_size)
-    test = trainer.evaluate(state.params, client.test, batch_size=cfg.data.eval_batch_size)
+    with phase("validation evaluation", tag="EVAL"):
+        val = trainer.evaluate(state.params, client.val, batch_size=cfg.data.eval_batch_size)
+    with phase("test evaluation", tag="EVAL"):
+        test = trainer.evaluate(state.params, client.test, batch_size=cfg.data.eval_batch_size)
     log.info(
         f"{tag}val acc {val['Accuracy']:.4f} | "
         f"test acc {test['Accuracy']:.4f} f1 {test['F1-Score']:.4f}"

@@ -18,9 +18,11 @@ the card unless ``--device cpu`` is given. The obs flags
 (``--trace-jsonl``, ``--metrics-jsonl``, ``--profile-dir``,
 ``--profile-stride``, ``--metrics-port``, ``--flight-dir``,
 ``--trace-sample``, ``--scored-jsonl``) are the JAX package's, on the
-same verbs. Flags of features the port has not reached
-(``--data-parallel``, ``--seq-parallel``) are absent, so argparse
-refuses them.
+same verbs, and so are the mesh flags (``federated --data-parallel
+--coordinator --num-processes --process-id``, ``client --data-parallel
+--fsdp``, ``infer-serve --data-parallel --fsdp``). The flag of the one
+feature the port has not reached (``--seq-parallel``) is absent, so
+argparse refuses it.
 """
 
 from __future__ import annotations
@@ -547,6 +549,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_training(p)
     p.add_argument("--num-clients", type=int, default=None, help="clients in the fleet (default 2)")
     p.add_argument("--rounds", type=int)
+    p.add_argument("--data-parallel", type=int, help="per-client data-parallel shards")
     g = p.add_mutually_exclusive_group()
     g.add_argument(
         "--weighted", action="store_true",
@@ -620,6 +623,13 @@ def build_parser() -> argparse.ArgumentParser:
         help="also publish every round's aggregate to this model registry "
         "as a candidate artifact (fleet-mean validation metrics attached)",
     )
+    p.add_argument(
+        "--coordinator",
+        help="multi-host: coordinator HOST:PORT (every process passes the "
+        "same address; also via JAX_COORDINATOR_ADDRESS)",
+    )
+    p.add_argument("--num-processes", type=int, help="multi-host: process count")
+    p.add_argument("--process-id", type=int, help="multi-host: this process's id")
     p.set_defaults(fn=cmd_federated)
 
     p = sub.add_parser(
@@ -846,6 +856,25 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--client-id", type=int, required=True)
     p.add_argument("--num-clients", type=int, default=None, help="clients the data is split for (default 2)")
+    p.add_argument(
+        "--data-parallel",
+        type=int,
+        help="shard the local training batch over this many of THIS "
+        "host's devices (params replicated, gradients summed over the "
+        "slots); the trajectory matches the single-device client to fp32 "
+        "reduction-order ulps and the wire exchange is unchanged",
+    )
+    p.add_argument(
+        "--fsdp",
+        action="store_true",
+        default=None,
+        help="FSDP shard-at-rest with --data-parallel N: params AND "
+        "optimizer state shard per-leaf over the N local devices "
+        "(all-gather at use, gradients summed onto each shard) so "
+        "per-device static bytes scale ~1/N. Trajectory matches the "
+        "replicated mesh to fp32 reduction-order ulps; the wire "
+        "exchange, secure-agg, and DP compose unchanged",
+    )
     p.add_argument("--rounds", type=int, default=1)
     p.add_argument("--timeout", type=float, default=300.0)
     p.add_argument(
@@ -1064,6 +1093,24 @@ def build_parser() -> argparse.ArgumentParser:
         "here — the join key against a delayed ground-truth journal. Off "
         "by default: the metrics stream keeps exporting binned "
         "histograms, never raw scores",
+    )
+    p.add_argument(
+        "--data-parallel",
+        type=int,
+        default=None,
+        help="with --fsdp: shard the serving params over this many local "
+        "devices (N >= 2). Serves models bigger than one device: per-device "
+        "static bytes scale ~1/N and each dispatch gathers the weights at "
+        "use",
+    )
+    p.add_argument(
+        "--fsdp",
+        action="store_true",
+        default=None,
+        help="shard-at-rest serving (needs --data-parallel N): checkpoint "
+        "restore scatters leaves straight onto shards, hot reloads swap "
+        "onto the same layout, probs stay bit-identical to the replicated "
+        "engine",
     )
     _add_flight_dir(p)
     _add_device(p, "the model runs")

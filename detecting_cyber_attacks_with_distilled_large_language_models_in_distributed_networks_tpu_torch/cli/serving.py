@@ -56,6 +56,31 @@ def _parse_buckets(spec: str) -> tuple[int, ...]:
 def build_server(args) -> ScoringServer:
     tok, cfg, pretrained = _resolve_with_pretrained(args)
     buckets = _parse_buckets(args.buckets)
+    # Sharded scorer (--data-parallel N --fsdp): params live split per
+    # leaf over this host's devices and each dispatch gathers them at
+    # use. The mesh is built before the restore, which then lands on the
+    # host and is scattered straight onto the shards (never one
+    # full-size copy per device).
+    mesh = None
+    n_dp = int(getattr(args, "data_parallel", None) or 0)
+    if getattr(args, "fsdp", None):
+        if n_dp < 2:
+            raise SystemExit(
+                "--fsdp shards the model over the serving mesh: pass "
+                "--data-parallel N with N >= 2"
+            )
+        from ..parallel.mesh import make_host_mesh
+
+        try:
+            mesh = make_host_mesh(n_dp, device=args.device)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+    elif n_dp > 1:
+        raise SystemExit(
+            "infer-serve uses --data-parallel only for --fsdp sharding "
+            "(replicated data-parallel serving is the fleet tier: "
+            "`fedtpu fleet --replicas N`)"
+        )
     if args.max_queue < buckets[-1]:
         raise SystemExit(
             f"--max-queue {args.max_queue} is smaller than the largest "
@@ -95,7 +120,7 @@ def build_server(args) -> ScoringServer:
         watcher.prime(info["artifact"])
         source = f"artifact {info['artifact']}"
     elif cfg.checkpoint_dir:
-        restore = checkpoint_restorer(cfg.checkpoint_dir, cfg.model, device=args.device)
+        restore = checkpoint_restorer(cfg.checkpoint_dir, cfg.model, device="cpu" if mesh is not None else args.device)
         try:
             model_cfg, params, round_id, step = restore(None)
         except CheckpointError as e:
@@ -123,12 +148,14 @@ def build_server(args) -> ScoringServer:
         buckets=buckets,
         round_id=round_id,
         device=args.device,
+        mesh=mesh,
     )
     dataset = cfg.data.dataset
     tracer, metrics_server = _obs_setup(args, proc="serve", cfg=cfg, metrics_host=args.host)
     log.info(
         f"[SERVE] serving {source} (round {engine.round_id}, attention "
-        f"{model_cfg.attention_impl}, {model_cfg.compute_dtype}) on {engine.device}; "
+        f"{model_cfg.attention_impl}, {model_cfg.compute_dtype}) on "
+        f"{engine.device if mesh is None else mesh}; "
         f"{dataset} features; auth {'on' if auth_key else 'off (open port)'}"
     )
     return ScoringServer(

@@ -326,6 +326,13 @@ class FederatedClient:
         self._dense_rounds_since_giveup = 0
         self._probe_this_round = False
         self._fallback_logged: set[str] = set()
+        # ``reply_leaf_sink``: optional ``(key, ndarray) -> leaf`` applied to
+        # each plain streamed-reply leaf the moment it decodes: the mesh
+        # tier's hook (train/client_mesh.py) places leaves onto the mesh's
+        # slots while later chunks are still on the wire. Never applied to
+        # DP or sparse replies (their deltas need host arithmetic first) or
+        # to dense replies.
+        self.reply_leaf_sink = None
         #: The last completed exchange: what went up (``upload_shape``
         #: dense|stream, ``wire_dtype``, ``upload_bytes`` on the wire,
         #: ``upload_s``; for a stream ``chunks`` and ``overlap_s``, the
@@ -1228,13 +1235,20 @@ class FederatedClient:
             raise wire.WireError(
                 "streamed reply failed the freshness check (stale nonce or wrong role) — possible replay"
             )
-        flat: dict[str, np.ndarray] = {}
+        flat: dict[str, Any] = {}
         wire_prof = self._armed_wire_profiler()
+        sink = self.reply_leaf_sink
+        if self.dp or self._topk_frac is not None or meta.get("dp_reply") is not None:
+            # DP deltas and sparse bases need host arithmetic before any
+            # placement; the sink takes absolute aggregate leaves only.
+            sink = None
 
         def on_leaf(t: dict, raw: bytes) -> None:
             sampled = wire_prof.tick() if wire_prof is not None else False
             td0 = time.monotonic() if sampled else 0.0
-            flat[t["key"]] = wire.decode_tensor_entry(t, raw)
+            arr = wire.decode_tensor_entry(t, raw)
+            # One unpack step = one leaf's decode and (meshed client) placement.
+            flat[t["key"]] = sink(t["key"], arr) if sink else arr
             if sampled:
                 wire_prof.note("wire", time.monotonic() - td0)
 

@@ -175,15 +175,23 @@ class RelayAggregator:
         """The ``reply_via`` hook: ship the subtree partial (with its
         sample mass and contributor record) to the parent, return the root
         aggregate for the subtree's clients; the ``relay-forward`` span
-        covers the upward exchange."""
+        covers the upward exchange.
+
+        The contributor record names the clients the partial covers: a
+        contributor that is itself a relay stands for the clients of its
+        own record. Relay ids are local to their parent (two mid relays
+        each have a relay 0), so forwarding them would make the root see
+        one client in two subtrees and fail the round as double-counted."""
         total = sum(info["n_samples"].values())
+        below = info.get("subtree_ids", {})
+        covered = [int(c) for i in info["ids"] for c in below.get(i, [i])]
         t_unix = time.time()
         t0 = time.monotonic()
         out = self.parent.exchange(
             agg,
             n_samples=max(1, int(round(total))),
             meta={
-                wire.META_SUBTREE_IDS: [int(i) for i in info["ids"]],
+                wire.META_SUBTREE_IDS: covered,
                 wire.META_STRATEGY: {"name": self.strategy_name},
             },
         )

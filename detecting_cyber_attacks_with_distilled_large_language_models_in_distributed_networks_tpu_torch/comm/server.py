@@ -1659,6 +1659,7 @@ class AggregationServer:
                     for k, v in self.reply_via(
                         mean,
                         {"ids": list(ids), "n_samples": {i: n_samples[i] for i in ids},
+                         "subtree_ids": {i: rnd.subtree_ids[i] for i in ids if i in rnd.subtree_ids},
                          "round": rnd.round_no, "trace": rnd.trace},
                     ).items()
                 }

@@ -2,16 +2,14 @@
 
 Copies of the JAX package's ``ModelConfig``, ``DataConfig`` and
 ``TrainConfig`` (fields, defaults, validation and presets unchanged) and
-its ``FedConfig``, ``DistillConfig``, ``ObsConfig`` and ``ControlConfig``, so a
-manifest or config
-written by either package means the same thing in both. The one field
-whose code path the port has not reached yet (relays' deadlines) is kept
-for compatibility and raises ``NotImplementedError`` when set away from
-its default, instead of being ignored. ``ExperimentConfig``
-carries only the sections the ported commands read; a checkpoint records
-it as ``to_dict()`` and ``predict`` reads it back with ``from_dict``,
-which also reads a config the JAX package wrote (the sections the port
-does not model are dropped).
+its ``FedConfig``, ``MeshConfig``, ``DistillConfig``, ``ObsConfig`` and
+``ControlConfig``, so a manifest or config written by either package
+means the same thing in both. Every field reaches a code path of the
+port but one: ``MeshConfig.seq > 1`` (the sequence-parallel axis, item
+15) raises ``NotImplementedError`` instead of being ignored. A checkpoint
+records ``ExperimentConfig`` as ``to_dict()`` and ``predict`` reads it
+back with ``from_dict``, which also reads a config the JAX package
+wrote, section for section and field for field.
 """
 
 from __future__ import annotations
@@ -232,8 +230,7 @@ class FedConfig:
     rounds and client count are first-class, the mean may be weighted by
     sample count, dropped clients are masked out of it, DP-FedAvg clips
     and noises it, and personalization fine-tunes each client after the
-    last round. Relays' deadlines are not ported: they raise
-    ``NotImplementedError`` away from their default.
+    last round.
     """
 
     num_clients: int = 2
@@ -807,20 +804,72 @@ class RouterConfig:
             )
 
 
-#: Sections of the JAX package's ``ExperimentConfig`` the port does not
-#: model (its device mesh).
-_JAX_ONLY_SECTIONS = frozenset({"mesh"})
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout (the JAX package's ``MeshConfig``: fields,
+    defaults and validation).
+
+    axes: ``clients`` — federated replicas (the FedAvg mean rides this
+    axis); ``data`` — per-client batch parallelism (gradients are summed
+    over it). In the port a mesh is a grid of explicit device slots
+    (:mod:`..parallel.mesh`); across processes, ``torch.distributed``
+    (:mod:`..parallel.multihost`).
+    """
+
+    clients: int = 2
+    data: int = 1
+    # Sequence-parallel axis (ring attention): not ported yet (item 15);
+    # > 1 raises NotImplementedError.
+    seq: int = 1
+    # FSDP shard-at-rest on the TCP client's local mesh (`client
+    # --data-parallel N --fsdp`, train/client_mesh.py FsdpMeshTrainer):
+    # params AND optimizer state split per-leaf over the `data` slots,
+    # gathered at use; per-slot static bytes scale ~1/N. Trajectory
+    # matches the replicated mesh to fp32 reduction-order ulps.
+    fsdp: bool = False
+    axis_names: tuple[str, str] = ("clients", "data")
+
+    def __post_init__(self) -> None:
+        if self.clients < 1 or self.data < 1:
+            raise ValueError(
+                f"mesh axes must be >= 1 (clients={self.clients}, "
+                f"data={self.data})"
+            )
+        if self.seq < 1:
+            raise ValueError(f"mesh.seq={self.seq} must be >= 1")
+        if self.fsdp and self.data < 2:
+            raise ValueError(
+                "mesh.fsdp needs data >= 2 (--data-parallel N): sharding "
+                "the static state over one device is a no-op"
+            )
+        if self.fsdp and self.seq > 1:
+            raise ValueError(
+                "mesh.fsdp does not compose with seq > 1: the C=1 fedseq "
+                "trainer owns the 3-axis layout (sharded-scorer/fedseq "
+                "FSDP is the ROADMAP follow-up)"
+            )
+        if self.seq > 1:
+            raise NotImplementedError(
+                f"mesh.seq={self.seq}: the sequence-parallel axis (ring "
+                "attention) is not ported yet (ROADMAP item 15)"
+            )
 
 
 @dataclass(frozen=True)
 class ExperimentConfig:
-    """The sections of the JAX package's ``ExperimentConfig`` that the
-    ported commands read."""
+    """The JAX package's ``ExperimentConfig``, section for section.
+
+    The JAX package also holds ``fed.num_clients`` to a multiple of
+    ``mesh.clients``; the port does not, since its federated trainer fits
+    the mesh's rows to the client count itself
+    (:func:`..parallel.mesh.fit_clients_axis`), so every config the JAX
+    package accepts reads here too."""
 
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     fed: FedConfig = dataclasses.field(default_factory=FedConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     distill: DistillConfig = dataclasses.field(default_factory=DistillConfig)
     obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
     control: ControlConfig = dataclasses.field(default_factory=ControlConfig)
@@ -845,17 +894,15 @@ class ExperimentConfig:
     @classmethod
     def from_dict(cls, d: Mapping[str, Any]) -> "ExperimentConfig":
         """Inverse of :meth:`to_dict`, and the reader of a config the JAX
-        package wrote: its sections the port does not model
-        (``_JAX_ONLY_SECTIONS``) are dropped; unknown sections or keys
-        raise."""
+        package wrote; unknown sections or keys raise."""
         sections = {
             "model": ModelConfig, "data": DataConfig, "train": TrainConfig,
-            "fed": FedConfig, "distill": DistillConfig, "obs": ObsConfig,
+            "fed": FedConfig, "mesh": MeshConfig, "distill": DistillConfig, "obs": ObsConfig,
             "control": ControlConfig, "router": RouterConfig, "shadow": ShadowConfig,
             "labels": LabelsConfig,
         }
         scalars = ("output_dir", "checkpoint_dir")
-        unknown_top = set(d) - set(sections) - set(scalars) - _JAX_ONLY_SECTIONS
+        unknown_top = set(d) - set(sections) - set(scalars)
         if unknown_top:
             raise ValueError(f"unknown config sections: {sorted(unknown_top)}")
 
@@ -864,6 +911,11 @@ class ExperimentConfig:
             unknown = set(sub) - {f.name for f in dataclasses.fields(tp)}
             if unknown:
                 raise ValueError(f"unknown {key} config keys: {sorted(unknown)}")
+            # JSON round-trips tuples as lists; tuple-typed fields come
+            # back as tuples, so frozen configs stay hashable and equal.
+            for k, v in sub.items():
+                if isinstance(v, list):
+                    sub[k] = tuple(v)
             return tp(**sub)
 
         kw: dict[str, Any] = {key: _mk(tp, key) for key, tp in sections.items()}

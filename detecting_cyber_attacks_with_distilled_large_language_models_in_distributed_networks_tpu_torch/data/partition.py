@@ -220,9 +220,11 @@ def log_manifest(manifest: dict) -> None:
 
 
 def save_manifest(manifest: dict, path: str) -> str:
-    """Write the manifest JSON (atomic replace; reruns overwrite)."""
+    """Write the manifest JSON (atomic replace; reruns overwrite). The
+    temporary file is the writer's own: the processes of a multi-process
+    ``federated`` run each write the same manifest to the same path."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = path + ".tmp"
+    tmp = f"{path}.tmp-{os.getpid()}"
     with open(tmp, "w") as f:
         json.dump(manifest, f, indent=2)
     os.replace(tmp, path)

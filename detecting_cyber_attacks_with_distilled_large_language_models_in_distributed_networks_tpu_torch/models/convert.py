@@ -44,18 +44,26 @@ def params_from_jax(tree_or_flat: Mapping[str, Any], *, stacked: bool = False) -
     lead = 1 if stacked else 0
     sd: dict[str, torch.Tensor] = {}
     for path, leaf in flat.items():
-        module, _, name = path.rpartition("/")
+        key, transpose = port_key(path)
         arr = np.asarray(leaf, np.float32)
-        if name == "kernel":
+        if transpose:
             if arr.ndim != 2 + lead:
                 raise ValueError(f"{path}: kernel must be {2 + lead}-D, got {arr.shape}")
-            arr, name = np.swapaxes(arr, -1, -2), "weight"
-        elif name in ("embedding", "scale"):
-            name = "weight"
-        elif name != "bias":
-            raise ValueError(f"unknown parameter leaf {path!r}")
-        sd[f"{module.replace('/', '.')}.{name}"] = torch.tensor(arr)  # a copy
+            arr = np.swapaxes(arr, -1, -2)
+        sd[key] = torch.tensor(arr)  # a copy
     return sd
+
+
+def port_key(path: str) -> tuple[str, bool]:
+    """A JAX leaf path (``a/b/kernel``) -> ``(port state-dict key, whether
+    the leaf transposes)``."""
+    module, _, name = path.rpartition("/")
+    transpose = name == "kernel"
+    if transpose or name in ("embedding", "scale"):
+        name = "weight"
+    elif name != "bias":
+        raise ValueError(f"unknown parameter leaf {path!r}")
+    return f"{module.replace('/', '.')}.{name}", transpose
 
 
 class HostLeaf:
@@ -79,7 +87,10 @@ class HostLeaf:
 
     def numpy(self) -> np.ndarray:
         if self._arr is None:
-            t = self._t.to(torch.float32)
+            t = self._t
+            if not isinstance(t, torch.Tensor):
+                t = t.gather("cpu")  # a leaf split over mesh slots (parallel/mesh.py)
+            t = t.to(torch.float32)
             if self._transpose:
                 t = t.transpose(-1, -2)
             self._arr = t.contiguous().to("cpu", copy=True).numpy()

@@ -48,7 +48,11 @@ class FleetReplica:
     own loopback port. ``params`` is a port state dict; ``adopt()`` is
     the hot-swap target the rolling reload drives (same-architecture
     params only: the fleet manager guards architecture before the sweep
-    starts). ``device``: where the engine scores (default the card)."""
+    starts). ``device``: where the engine scores (default the card).
+    ``mesh``: a host mesh (parallel/mesh.py) makes this a sharded
+    replica: params at rest split per leaf over the mesh's slots,
+    gathered at use for each dispatch; ``adopt()`` re-places onto the
+    same shape-determined layout."""
 
     def __init__(
         self,
@@ -70,6 +74,7 @@ class FleetReplica:
         tracer=None,
         trace_sample: float = 1.0,
         device=None,
+        mesh=None,
     ):
         self.replica_id = int(replica_id)
         self.engine = ScoreEngine(
@@ -79,6 +84,7 @@ class FleetReplica:
             buckets=buckets,
             round_id=round_id,
             device=device,
+            mesh=mesh,
         )
         self.server = ScoringServer(
             self.engine,

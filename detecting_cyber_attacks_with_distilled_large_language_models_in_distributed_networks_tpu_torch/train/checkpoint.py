@@ -52,6 +52,7 @@ import torch
 
 from ..config import ExperimentConfig, ModelConfig
 from ..models.distilbert import model_skeleton
+from ..parallel.mesh import ShardedLeaf
 from .engine import AdamState, TrainState
 from .fedsteps import FedAdamState, FedState
 
@@ -119,9 +120,9 @@ def _payload(state: TrainState | FedState) -> dict:
     """What ``state.pt`` holds for ``state``."""
     opt = state.opt_state
     payload = {
-        "params": {n: t.detach() for n, t in state.params.items()},
-        "mu": dict(opt.mu),
-        "nu": dict(opt.nu),
+        "params": _whole(state.params),
+        "mu": _whole(opt.mu),
+        "nu": _whole(opt.nu),
         "step": int(state.step),
     }
     if isinstance(state, FedState):
@@ -137,9 +138,16 @@ def _payload(state: TrainState | FedState) -> dict:
         payload["count"] = int(opt.count)
         payload["generator"] = {"device_type": state.generator.device.type, "state": state.generator.get_state()}
         if state.acc is not None:
-            payload["acc"] = dict(state.acc)
+            payload["acc"] = _whole(state.acc)
             payload["mini_step"] = int(state.mini_step)
     return payload
+
+
+def _whole(leaves: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Leaves as whole tensors: a leaf split over mesh slots
+    (parallel/mesh.py ``ShardedLeaf``) is gathered to the host, so a
+    sharded state saves the same file as a single-device one."""
+    return {n: t.gather("cpu") if isinstance(t, ShardedLeaf) else t.detach() for n, t in leaves.items()}
 
 
 def _to_device(tree: Any, device: torch.device) -> Any:
@@ -246,7 +254,8 @@ class Checkpointer:
             if not _shapes_match(got, like):
                 raise ValueError(f"checkpoint {group} names or shapes differ from the template's")
             return {
-                n: got[n].to(device=device, dtype=t.dtype, copy=True).requires_grad_(t.requires_grad)
+                n: t.like(got[n]).requires_grad_(t.requires_grad) if isinstance(t, ShardedLeaf)
+                else got[n].to(device=device, dtype=t.dtype, copy=True).requires_grad_(t.requires_grad)
                 for n, t in like.items()
             }
 

@@ -150,13 +150,17 @@ def adam_update(
     grads: list[torch.Tensor],
     count: int,
     warmup_step: int,
+    g_norm: torch.Tensor | None = None,
 ) -> None:
     """One optax clip -> Adam(W) -> lr -> warmup step, in place on
     ``params``, ``mus`` and ``nus`` (call under ``no_grad``). ``count``
     is Adam's incremented count (its bias corrections); ``warmup_step``
-    the step the warmup factor reads."""
+    the step the warmup factor reads. ``g_norm``: the global gradient
+    norm when ``grads`` are only part of the gradient (one slot's FSDP
+    shards); by default the norm of ``grads``."""
     if cfg.max_grad_norm is not None:
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        if g_norm is None:
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         keep = g_norm < cfg.max_grad_norm
         grads = [torch.where(keep, g, (g / g_norm) * cfg.max_grad_norm) for g in grads]
     torch._foreach_mul_(mus, cfg.b1)
@@ -454,7 +458,7 @@ class Trainer:
         arrays (a round's aggregate, as ``FederatedClient.exchange``
         returns it), which is converted through ``params_from_jax``."""
         if any(isinstance(v, Mapping) for v in params.values()):
-            params = build_trainable_params(self.model_cfg, params_from_jax(params), self.device)
+            params = build_trainable_params(self.model_cfg, self.wire_params(params), self.device)
         padded, valid = pad_split_to_batch(split, batch_size, pad_id=self.pad_id)
         totals: BinaryCounts | ClassCounts | None = None
         probs_dev: list[torch.Tensor] = []
@@ -497,6 +501,10 @@ class Trainer:
         first read (the streamed upload gathers leaf by leaf)."""
         return params_to_jax(state.params, lazy=lazy)
 
+    def wire_params(self, tree: Mapping[str, Any]) -> dict:
+        """A received aggregate (the JAX-layout tree) as a port state dict."""
+        return params_from_jax(tree)
+
     def adopt_aggregate(self, state: TrainState, aggregated: Mapping[str, Any]) -> TrainState:
         """Continue the next round FROM a received aggregate (JAX layout)
         with a fresh Adam (every reference re-launch builds a new
@@ -504,7 +512,7 @@ class Trainer:
         LR warmup does not restart: the JAX package's
         ``adopt_aggregate_with_fresh_opt``. Under FedProx the adopted
         aggregate is the next round's anchor."""
-        new = self.init_state(params=params_from_jax(aggregated))
+        new = self.init_state(params=self.wire_params(aggregated))
         new.step = state.step
         if self.train_cfg.prox_mu > 0.0:
             self._prox_anchor = {n: new.params[n].detach().clone() for n in new.opt_state.mu}

@@ -1,10 +1,9 @@
-"""Single-process N-client federated training (the port of the JAX
-package's ``train/federated.py``, without its mesh, multi-host and FSDP
-parts).
+"""N-client federated training (the port of the JAX package's
+``train/federated.py``).
 
 Replaces the reference's process topology (client1.py + client2.py +
 server.py: N scripts, a threaded TCP server, pickled state dicts) with
-one process on one card:
+one process on one card, or one process per block of clients:
 
 * one stacked ``[C, ...]`` leaf per parameter holding every client's
   replica (:class:`.fedsteps.FedState`);
@@ -16,6 +15,19 @@ one process on one card:
 * per-client local-vs-aggregated evaluation in the reference's order
   (train -> local eval -> aggregate -> aggregated eval,
   client1.py:379-404), over one stacked sweep.
+
+The mesh: a ``clients x data`` :class:`..parallel.mesh.Mesh` whose rows
+are fitted to the client count (several replicas stack per row). A
+single process runs its stacked clients on its device. Under
+``torch.distributed`` (``federated --coordinator``, :mod:`..parallel.multihost`)
+each process owns a contiguous block of clients (``client_offset``,
+``C_local``): its stack holds only their rows, their batches and dropout
+streams are the ones a single process would give them, and the round's
+mean crosses processes once: every process gathers the fleet's rows (one
+all-gather, process-major = client order) and computes the same
+aggregate on them, so every process holds the same bits, the bits one
+process would compute. Batch counts, eval row counts, the DP noise seed
+and the metrics are agreed the same way.
 
 Observability as in the JAX trainer: each ``fit_local`` writes one
 ``client-local`` span (with the sampled step attrs under
@@ -33,7 +45,9 @@ fine-tunes a copy of each client's aggregate on its own shard.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import logging
 import time
 from dataclasses import dataclass, field
@@ -47,8 +61,11 @@ from ..data.pipeline import StackedClients, TokenizedSplit
 from ..device import resolve_device
 from ..models.distilbert import build_trainable_params, init_params, model_skeleton
 from ..obs.profile import default_ledger, maybe_step_profiler, note_memory, profiled_step_iter
+from ..parallel import multihost
 from ..parallel.dp import noise_seed, round_generator
 from ..parallel.fedavg import make_server_optimizer, stack_params
+from ..parallel.mesh import Mesh, fit_clients_axis, make_mesh
+from ..utils.logging import phase
 from .batches import federated_batches, federated_batches_ragged
 from .engine import Trainer
 from .fedeval import PreparedEval, evaluate_stacked, stack_eval_splits
@@ -77,21 +94,50 @@ def _clone_generator(g: torch.Generator) -> torch.Generator:
 
 
 class FederatedTrainer:
-    """N-client FedAvg in one process, on the card unless ``device="cpu"``
-    is given (no CUDA raises)."""
+    """N-client FedAvg on a ``clients x data`` mesh, on the card unless
+    ``device="cpu"`` is given (no CUDA raises). ``mesh``: a global mesh
+    (:func:`..parallel.multihost.make_global_mesh`) under a process group;
+    by default one over this process's slots, its rows fitted to the
+    client count."""
 
-    def __init__(self, cfg: ExperimentConfig, *, pad_id: int = 0, device: str | torch.device | None = None):
+    def __init__(
+        self,
+        cfg: ExperimentConfig,
+        *,
+        pad_id: int = 0,
+        device: str | torch.device | None = None,
+        mesh: Mesh | None = None,
+    ):
         self.cfg = cfg
         self.C = cfg.fed.num_clients
         self.pad_id = pad_id
         self.device = resolve_device(device)
+        self.P = multihost.process_count()
+        self.mesh = mesh if mesh is not None else self._default_mesh()
+        if self.P > 1:
+            rows = self.mesh.devices.shape[0]
+            sl = multihost.local_client_slice(self.mesh)
+            self.client_offset = sl.start * (self.C // rows)
+            self.C_local = (sl.stop - sl.start) * (self.C // rows)
+        else:
+            self.client_offset, self.C_local = 0, self.C
+        if cfg.mesh.data > 1:
+            log.info(
+                f"[FED] the lockstep step runs this process's {self.C_local} client(s) on {self.device}: the "
+                f"mesh's data axis ({cfg.mesh.data}) lays out slots but does not split their batch rows "
+                "(the TCP client's --data-parallel does)"
+            )
         # Holds no storage (meta device): every call passes one client's
         # rows of the stacked leaves through functional_call.
         self.model = model_skeleton(cfg.model)
         self.server_tx = make_server_optimizer(cfg.fed)
         # DP noise seed (fed.dp_seed, else fresh OS entropy): drawn once
         # a run, mixed with the round index for each round's generator.
+        # Under a process group everyone adopts process 0's draw, so the
+        # noise is the same everywhere.
         self._dp_seed = noise_seed(cfg.fed.dp_seed) if cfg.fed.dp_clip > 0.0 else None
+        if self._dp_seed is not None and self.P > 1:
+            self._dp_seed = int(multihost.allgather_hosts(self._dp_seed)[0])
         # Observability (obs/trace.py): set by the CLI (or any caller) to
         # emit per-round client-local/agg spans; None falls back to the
         # global tracer.
@@ -115,6 +161,26 @@ class FederatedTrainer:
     # single-client engine runs its state.
     _logits = Trainer._logits
 
+    def _default_mesh(self) -> Mesh:
+        """``mesh.clients x mesh.data`` over this process's slots, the rows
+        fitted to the hardware (several client replicas per row) when the
+        configured axis does not fit or does not divide the client count."""
+        cfg = self.cfg
+        if self.P > 1:
+            return multihost.make_global_mesh(
+                cfg.mesh.clients, cfg.mesh.data, axis_names=cfg.mesh.axis_names, device=self.device
+            )
+        rows = cfg.mesh.clients
+        n_dev = len(multihost.process_devices(self.device))
+        if rows * cfg.mesh.data > n_dev or self.C % rows:
+            rows = fit_clients_axis(self.C, cfg.mesh.data, n_dev)
+            log.info(
+                f"[FED] {self.C} clients on {n_dev} device(s): mesh "
+                f"{cfg.mesh.clients}x{cfg.mesh.data} -> {rows}x{cfg.mesh.data} "
+                f"({self.C // rows} client replicas per row)"
+            )
+        return make_mesh(rows, cfg.mesh.data, axis_names=cfg.mesh.axis_names, device=self.device)
+
     # -------------------------------------------------------------- lifecycle
     def init_state(self, seed: int | None = None, params: dict | None = None) -> FedState:
         """Every client starts from the same params (the reference's shared
@@ -129,7 +195,7 @@ class FederatedTrainer:
         )
         stacked = {
             n: t.requires_grad_(single[n].requires_grad)
-            for n, t in stack_params(single, self.C).items()
+            for n, t in stack_params(single, self.C_local).items()
         }
         server_opt = None
         if self.server_tx is not None:
@@ -138,7 +204,7 @@ class FederatedTrainer:
             params=stacked,
             opt_state=self._opt_init(stacked),
             step=0,
-            generators=[self._generator(seed, c) for c in range(self.C)],
+            generators=[self._generator(seed, self.client_offset + c) for c in range(self.C_local)],
             server_opt=server_opt,
         )
 
@@ -146,7 +212,7 @@ class FederatedTrainer:
         return torch.Generator(device=self.device).manual_seed((seed + 1) * 1_000_003 + client)
 
     def _opt_init(self, params: dict) -> FedAdamState:
-        return init_opt_state(params, self.C, self.cfg.train.grad_accum_steps)
+        return init_opt_state(params, self.C_local, self.cfg.train.grad_accum_steps)
 
     def reset_optimizer(self, state: FedState) -> FedState:
         state.opt_state = self._opt_init(state.params)
@@ -183,7 +249,7 @@ class FederatedTrainer:
         ptrainer = self
         if self.cfg.train.trainable != want:
             cfg = dataclasses.replace(self.cfg, train=dataclasses.replace(self.cfg.train, trainable=want))
-            ptrainer = type(self)(cfg, pad_id=self.pad_id, device=self.device)
+            ptrainer = type(self)(cfg, pad_id=self.pad_id, device=self.device, mesh=self.mesh)
         params = {
             n: p.detach().clone().requires_grad_(want == "all" or n.startswith("classifier."))
             for n, p in state.params.items()
@@ -261,10 +327,16 @@ class FederatedTrainer:
         ragged = isinstance(stacked_train, StackedClients)
         if ragged:
             n_batches = max((-(-int(n) // bs) for n in stacked_train.n_rows), default=0)
+            if self.P > 1:
+                # Every process runs the fleet's longest epoch (each round
+                # ends in a collective); short blocks idle through it.
+                n_batches = int(multihost.allgather_hosts(n_batches).max())
             if n_batches == 0:
                 raise ValueError("every client's train split is empty: nothing to fit")
         else:
             n_batches = stacked_train.labels.shape[1] // bs
+            if self.P > 1:
+                n_batches = int(multihost.allgather_hosts(n_batches).min())
             if n_batches == 0:
                 raise ValueError(
                     f"common per-client train rows ({stacked_train.labels.shape[1]}) "
@@ -282,10 +354,15 @@ class FederatedTrainer:
         for epoch in range(epoch_offset, epoch_offset + E):
             if ragged:
                 batches = federated_batches_ragged(
-                    stacked_train, bs, seed=self.cfg.train.seed, epoch=epoch, n_batches=n_batches
+                    stacked_train, bs, seed=self.cfg.train.seed, epoch=epoch,
+                    client_offset=self.client_offset, n_batches=n_batches,
                 )
             else:
-                batches = federated_batches(stacked_train, bs, seed=self.cfg.train.seed, epoch=epoch)
+                batches = federated_batches(
+                    stacked_train, bs, seed=self.cfg.train.seed, epoch=epoch, client_offset=self.client_offset
+                )
+                if self.P > 1:
+                    batches = itertools.islice(batches, n_batches)
             losses, had = [], []
             for batch, sampled in profiled_step_iter(prof, batches):
                 if sampled:
@@ -309,15 +386,19 @@ class FederatedTrainer:
                 epoch_avg = torch.stack(losses).sum(dim=0) / torch.clamp(count, min=1.0)
             else:
                 epoch_avg = torch.stack(losses).mean(dim=0)
-            out.append(epoch_avg.cpu().numpy())
+            out.append(multihost.global_rows(epoch_avg.cpu().numpy(), self.C))
             for c in range(self.C):
                 log.info(f"Client {c} Epoch [{epoch - epoch_offset + 1}/{E}], Average Loss: {out[-1][c]:.4f}")
         return state, np.stack(out) if out else np.zeros((0, self.C))
 
-    def prepare_eval(self, splits: Sequence[TokenizedSplit]) -> PreparedEval:
-        """Pad and stack eval splits once; reuse across rounds."""
+    def prepare_eval(self, splits: Sequence[TokenizedSplit], *, target_rows: int | None = None) -> PreparedEval:
+        """Pad and stack eval splits once; reuse across rounds. Under a
+        process group each process passes its own clients' splits, and the
+        processes agree on the row count (the fleet's longest split)."""
         bs = self.cfg.data.eval_batch_size
-        stacked, valid = stack_eval_splits(splits, bs, pad_id=self.pad_id)
+        if target_rows is None and self.P > 1:
+            target_rows = int(multihost.allgather_hosts(max(len(s) for s in splits)).max())
+        stacked, valid = stack_eval_splits(splits, bs, pad_id=self.pad_id, target_rows=target_rows)
         return PreparedEval(stacked, valid, bs)
 
     def evaluate_clients(
@@ -334,7 +415,11 @@ class FederatedTrainer:
             raise ValueError("pass either splits or prepared")
         if prepared is None:
             prepared = self.prepare_eval(splits)
-        return evaluate_stacked(self, stacked_params, prepared, collect_probs=collect_probs)
+        local = evaluate_stacked(self, stacked_params, prepared, collect_probs=collect_probs)
+        if self.P == 1:
+            return local
+        # Every process reports the whole fleet, process-major = client order.
+        return [m for block in multihost.all_gather_objects(local) for m in block]
 
     # ------------------------------------------------------- round boundary
     def participation_mask(self, round_index: int) -> np.ndarray | None:
@@ -424,16 +509,39 @@ class FederatedTrainer:
         round_index: int = 0,
         enforce_min_fraction: bool = True,
     ) -> FedState:
-        """The FedAvg round boundary (:func:`.fedsteps.aggregate_round`)."""
-        return aggregate_round(
-            self,
-            state,
-            weights=weights,
-            client_mask=client_mask,
-            anchor=anchor,
-            round_index=round_index,
+        """The FedAvg round boundary (:func:`.fedsteps.aggregate_round`).
+        Under a process group every process gathers the fleet's rows (and
+        the anchor's), aggregates them as one process would and keeps its
+        own rows."""
+        kw = dict(
+            weights=weights, client_mask=client_mask, round_index=round_index,
             enforce_min_fraction=enforce_min_fraction,
         )
+        if self.P == 1:
+            return aggregate_round(self, state, anchor=anchor, **kw)
+        fleet = FedState(
+            params=self._fleet_rows(state.params), opt_state=state.opt_state, step=state.step,
+            generators=state.generators, server_opt=state.server_opt,
+        )
+        aggregate_round(self, fleet, anchor=None if anchor is None else self._fleet_rows(anchor), **kw)
+        mine = slice(self.client_offset, self.client_offset + self.C_local)
+        with torch.no_grad():
+            for n, p in state.params.items():
+                p.copy_(fleet.params[n][mine])
+        state.server_opt = fleet.server_opt
+        return state
+
+    def _fleet_rows(self, leaves: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """Every client's rows of ``[C_local, ...]`` leaves, ``[C, ...]``
+        on this process's device: one all-gather of the flattened block."""
+        flat = torch.cat([p.detach().reshape(self.C_local, -1) for p in leaves.values()], dim=1)
+        full = multihost.global_rows(flat, self.C)
+        out, off = {}, 0
+        for n, p in leaves.items():
+            size = int(p[0].numel())
+            out[n] = full[:, off : off + size].reshape(self.C, *p.shape[1:]).contiguous()
+            off += size
+        return out
 
     def fleet_weights(self, stacked_train: TokenizedSplit | StackedClients) -> tuple[np.ndarray | None, np.ndarray | None]:
         """``(weights, base_mask)`` for a run over ``stacked_train``:
@@ -444,16 +552,18 @@ class FederatedTrainer:
         weight)."""
         weights = base_mask = None
         ragged = isinstance(stacked_train, StackedClients)
+        # The fleet's counts (every process's block under a process group).
+        n_rows = multihost.global_rows(np.asarray(stacked_train.n_rows, np.int64), self.C) if ragged else None
         if self.cfg.fed.resolve_weighted():
             if ragged:
-                weights = np.asarray(stacked_train.n_rows, np.float64)
+                weights = np.asarray(n_rows, np.float64)
             elif self.cfg.fed.weighted:
                 raise ValueError(
                     "fed.weighted=True needs per-client sample counts, which "
                     "a dense stack lost: stack with stack_clients_ragged"
                 )
         if weights is None and ragged:
-            empty = np.asarray(stacked_train.n_rows) == 0
+            empty = np.asarray(n_rows) == 0
             if empty.any():
                 base_mask = (~empty).astype(np.float64)
                 log.warning(
@@ -486,6 +596,10 @@ class FederatedTrainer:
             )
 
     # ------------------------------------------------------------------- run
+    @staticmethod
+    def _bracket(name: str, inside_round: bool):
+        return contextlib.nullcontext() if inside_round else phase(name, tag="FED")
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -500,6 +614,7 @@ class FederatedTrainer:
         start_round: int = 0,
         on_round: Callable[[FedState, RoundRecord], None] | None = None,
         fault_mask_fn: Callable[[int], np.ndarray | None] | None = None,
+        round_bracket: bool = False,
     ) -> tuple[FedState, list[RoundRecord]]:
         """The federated flow, rounds ``start_round .. fed.rounds - 1``: local
         epochs -> local eval -> FedAvg -> aggregated eval (the reference's
@@ -515,7 +630,12 @@ class FederatedTrainer:
         dropped client is left out of the masked mean as a crashed one
         would be, both masks must keep a client under partial
         participation, and ``min_client_fraction`` still gates the round
-        (below it the round raises)."""
+        (below it the round raises).
+
+        Phase brackets (utils/logging.py): ``round r/R local training``
+        and ``round r/R FedAvg``, the JAX trainer's; with
+        ``round_bracket`` one ``round r/R`` bracket from the fit to the
+        aggregated evaluation instead, the JAX ``federated`` verb's."""
         R = self.cfg.fed.rounds
         E = self.cfg.train.epochs_per_round
         weights, base_mask = self.fleet_weights(stacked_train)
@@ -529,30 +649,34 @@ class FederatedTrainer:
         history: list[RoundRecord] = []
         for r in range(start_round, R):
             sec: dict[str, float] = {}
-            t = time.perf_counter()
-            anchor = self.round_anchor(state)
-            state, losses = self.fit_local(state, stacked_train, epoch_offset=r * E)
-            sec["fit"] = time.perf_counter() - t  # the epoch losses sync the device
-            t = time.perf_counter()
-            local_val, local = evaluate()
-            sec["local_eval"] = time.perf_counter() - t
-            t = time.perf_counter()
-            faults = None
-            if fault_mask_fn is not None:
-                faults = fault_mask_fn(r)
-                if faults is not None:
-                    faults = np.asarray(faults, np.float64)
-                    dropped = [c for c in range(self.C) if faults[c] == 0]
-                    if dropped:
-                        log.info(f"[FED] round {r + 1}: injected faults drop clients {dropped}")
-            state = self.round_aggregate(
-                state, round_index=r, weights=weights, base_mask=base_mask, faults=faults, anchor=anchor
-            )
-            self._sync()
-            sec["aggregate"] = time.perf_counter() - t
-            t = time.perf_counter()
-            aggregated_val, aggregated = evaluate()
-            sec["aggregated_eval"] = time.perf_counter() - t
+            # The JAX verb's one bracket over the round, or the trainer's two.
+            with phase(f"round {r + 1}/{R}", tag="FED") if round_bracket else contextlib.nullcontext():
+                t = time.perf_counter()
+                anchor = self.round_anchor(state)
+                with self._bracket(f"round {r + 1}/{R} local training", round_bracket):
+                    state, losses = self.fit_local(state, stacked_train, epoch_offset=r * E)
+                sec["fit"] = time.perf_counter() - t  # the epoch losses sync the device
+                t = time.perf_counter()
+                local_val, local = evaluate()
+                sec["local_eval"] = time.perf_counter() - t
+                t = time.perf_counter()
+                faults = None
+                if fault_mask_fn is not None:
+                    faults = fault_mask_fn(r)
+                    if faults is not None:
+                        faults = np.asarray(faults, np.float64)
+                        dropped = [c for c in range(self.C) if faults[c] == 0]
+                        if dropped:
+                            log.info(f"[FED] round {r + 1}: injected faults drop clients {dropped}")
+                with self._bracket(f"round {r + 1}/{R} FedAvg", round_bracket):
+                    state = self.round_aggregate(
+                        state, round_index=r, weights=weights, base_mask=base_mask, faults=faults, anchor=anchor
+                    )
+                    self._sync()
+                sec["aggregate"] = time.perf_counter() - t
+                t = time.perf_counter()
+                aggregated_val, aggregated = evaluate()
+                sec["aggregated_eval"] = time.perf_counter() - t
             record = RoundRecord(r, losses, local, aggregated, local_val, aggregated_val, sec)
             if on_round is not None:
                 t = time.perf_counter()

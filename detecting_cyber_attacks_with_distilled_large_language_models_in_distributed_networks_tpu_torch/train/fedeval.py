@@ -73,7 +73,7 @@ def evaluate_stacked(
         signature=lambda trainer, params, batch, valid: tuple(int(d) for d in batch["input_ids"].shape),
     )
     stacked, valid, bs = prepared.stacked, prepared.valid, prepared.batch_size
-    C = trainer.C
+    C = int(stacked.labels.shape[0])  # the clients this process holds
     M = stacked.labels.shape[1]
     totals: list[BinaryCounts | ClassCounts | None] = [None] * C
     probs: list[list[torch.Tensor]] = [[] for _ in range(C)]

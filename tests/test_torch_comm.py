@@ -263,10 +263,11 @@ def test_cli_refuses_what_the_jax_cli_refuses(monkeypatch):
     with pytest.raises(ValueError, match="wire_dtype"):
         run_client(args)
     for argv in (["serve", "--secure-agg"], ["client", "--client-id", "0", "--parent", "h:1"],
-                 ["client", "--client-id", "0", "--secure-agg"], ["relay", "--relay-id", "0"], ["scenario"]):
+                 ["client", "--client-id", "0", "--secure-agg"], ["relay", "--relay-id", "0"], ["scenario"],
+                 ["client", "--client-id", "0", "--data-parallel", "2", "--fsdp"]):
         build_parser().parse_args(argv)  # ported: valid in both packages
         jax_parser().parse_args(argv)
-    for argv in (["client", "--client-id", "0", "--data-parallel", "2"],):
+    for argv in (["client", "--client-id", "0", "--seq-parallel", "2"],):
         with pytest.raises(SystemExit):
             build_parser().parse_args(argv)
         jax_parser().parse_args(argv)  # valid in the JAX package

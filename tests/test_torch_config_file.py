@@ -1,6 +1,7 @@
 """``export-config`` and ``--config`` resolution held against the JAX
-package's, for the sections the port models (model, data, train, fed,
-distill, obs, control, router, shadow, labels and the two paths), under every flag the resolution takes:
+package's, section for section (model, data, train, fed, mesh, distill,
+obs, control, router, shadow, labels and the two paths), under every flag
+the resolution takes:
 ``--config`` (a file of either package), ``--gelu``, ``--warmup-steps``,
 ``--attention-dropout`` (an explicit 0 included) and the three-way
 ``--remat``/``--no-remat``; and ``from_checkpoint_dict``'s legacy gelu
@@ -26,8 +27,8 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
 )
 
 PORT_SECTIONS = (
-    "model", "data", "train", "fed", "distill", "obs", "control", "router", "shadow", "labels", "output_dir",
-    "checkpoint_dir",
+    "model", "data", "train", "fed", "mesh", "distill", "obs", "control", "router", "shadow", "labels",
+    "output_dir", "checkpoint_dir",
 )
 
 
@@ -92,7 +93,7 @@ def test_config_file_resolution_matches_jax(case, tmp_path, capsys):
         d = _export(jax_main, ["--preset", "tiny"], capsys)
         for section, kv in changes.items():
             d[section].update(kv)
-        path = _file(tmp_path, "jax.json", d)  # with the sections the port drops
+        path = _file(tmp_path, "jax.json", d)  # every section, the mesh's included
     else:
         path = _port_file(tmp_path, capsys, **changes)
     argv = ["--config", path]
@@ -108,9 +109,11 @@ def test_config_file_resolution_matches_jax(case, tmp_path, capsys):
     assert port_d["obs"]["profile_stride"] == 3 and port_d["obs"]["trace_sample"] == 0.25
     assert port_d["model"]["remat"] is (case != "file_remat_then_no_remat")
     # What the port wrote, the JAX package reads as the same config.
+    # (through JSON, as a file holds it: the mesh's axis_names is a tuple)
     back = pcfg.ExperimentConfig.from_dict(port_d)
-    assert back.to_dict() == port_d
-    assert {k: v for k, v in jcfg.ExperimentConfig.from_dict(port_d).to_dict().items() if k in PORT_SECTIONS} == port_d
+    assert json.loads(json.dumps(back.to_dict())) == port_d
+    jback = json.loads(json.dumps(jcfg.ExperimentConfig.from_dict(port_d).to_dict()))
+    assert {k: v for k, v in jback.items() if k in PORT_SECTIONS} == port_d
 
 
 @pytest.mark.parametrize("saved_gelu", [None, "exact", "tanh"])

@@ -510,17 +510,19 @@ def test_federated_cli_matches_the_jax_cli(tmp_path, monkeypatch):
     ],
 )
 def test_unported_federated_flags_are_refused(flag, capsys):
-    """Flags of unported features are unknown to argparse; the DP,
-    personalization, --stream and obs (--trace-jsonl, --metrics-jsonl,
-    --profile-dir) flags are ported and parse to the JAX package's
-    values."""
+    """Flags of unported features (--seq-parallel) are unknown to
+    argparse; the DP, personalization, --stream, obs (--trace-jsonl,
+    --metrics-jsonl, --profile-dir) and mesh (--data-parallel,
+    --coordinator, --num-processes, --process-id) flags are ported and
+    parse to the JAX package's values."""
     from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu.cli import (
         build_parser as jax_parser,
     )
 
     if flag[0] in (
         "--personalize-epochs", "--personalize-scope", "--dp-clip", "--dp-noise-multiplier", "--stream",
-        "--trace-jsonl", "--metrics-jsonl", "--profile-dir",
+        "--trace-jsonl", "--metrics-jsonl", "--profile-dir", "--data-parallel", "--coordinator",
+        "--num-processes", "--process-id",
     ):
         argv = ["federated", *flag]
         if flag[0] == "--dp-noise-multiplier":

@@ -93,6 +93,7 @@ print(" ".join(names))
         "faults.personas", "faults.deadrelay", "faults.scenario", "cli.scenario",
         "router", "router.core", "router.fleet", "shadow", "shadow.compare", "shadow.mirror", "shadow.gate",
         "labels", "labels.store", "labels.join", "cli.router", "cli.shadow", "cli.labels",
+        "parallel.mesh", "parallel.multihost", "train.client_mesh", "utils.logging", "cli.__main__",
     ):
         assert f"{PORT_PKG}.{mod}" in imported.split(), mod
 
@@ -174,7 +175,7 @@ def test_checker_suffixes_resolve_inside_the_jax_package():
 METRIC_TWIN_MODULES = (
     "comm/client.py", "comm/relay.py", "comm/server.py", "control/controller.py", "faults/scenario.py",
     "labels/store.py", "obs/fleet.py", "obs/profile.py", "obs/sentinel.py", "router/core.py",
-    "serving/server.py", "shadow/compare.py", "shadow/mirror.py",
+    "serving/server.py", "shadow/compare.py", "shadow/mirror.py", "train/client_mesh.py",
 )
 
 
@@ -268,11 +269,14 @@ def test_round_entry_points_raise_without_cuda(monkeypatch):
 
 def test_the_guards_left_are_the_unported_paths():
     """Every ``raise NotImplementedError`` left in the port guards a path
-    that is not ported: ring attention (the model), beside the abstract
-    strategy's ``apply``; the controller takes its shadow, label and
-    error-rate gates. The server folds secure, relay and re-homed uploads, so it
-    keeps no table of unported upload modes, and the CLI reads the
-    identity keys instead of refusing them."""
+    that is not ported: ring attention (the model) and the config's
+    sequence-parallel axis (``mesh.seq > 1``, item 15), beside the
+    abstract strategy's ``apply``; the controller takes its shadow, label
+    and error-rate gates. The server folds secure, relay and re-homed
+    uploads, so it keeps no table of unported upload modes, and the CLI
+    reads the identity keys instead of refusing them. The config drops no
+    JAX section any more (the mesh is ported), and ``--seq-parallel``
+    stays unknown to the port's parser."""
     from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli import (
         comm as cli_comm,
     )
@@ -289,9 +293,23 @@ def test_the_guards_left_are_the_unported_paths():
                 exc = node.exc.func if isinstance(node.exc, ast.Call) else node.exc
                 if getattr(exc, "id", None) == "NotImplementedError":
                     found.append(os.path.relpath(path, REPO_ROOT).split("/", 1)[-1])
-    assert sorted(found) == ["models/distilbert.py", "strategies/core.py"]
+    assert sorted(found) == ["config.py", "models/distilbert.py", "strategies/core.py"]
     assert not hasattr(server, "_UNPORTED_UPLOAD_MODES")
     assert not hasattr(cli_comm, "_refuse_identity_keys")
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch import (
+        config as pcfg,
+    )
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli import (
+        build_parser,
+    )
+
+    assert not hasattr(pcfg, "_JAX_ONLY_SECTIONS")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        pcfg.MeshConfig(seq=2)
+    for argv in (["federated"], ["client", "--client-id", "0"]):
+        with pytest.raises(SystemExit):
+            build_parser().parse_args([*argv, "--seq-parallel", "2"])
+        assert "--seq-parallel" not in build_parser().format_help()
 
 
 def test_chip_smoke_defines_each_top_level_name_once():

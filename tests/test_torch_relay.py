@@ -14,9 +14,13 @@ the JAX package's.
   and the two runs' server rounds are equal. The cases the JAX package
   marks slow run here unmarked, their 128-client fleets cut to 32 in
   both packages' copies (the two-killed-relays case keeps its 16 relays
-  at two clients each). The live depth-3 round is left out: the JAX
-  package's own copy of it times out on the CPU (a relay under a relay
-  never replies), so there is no reference run to hold the port to.
+  at two clients each). The live depth-3 round is not held against the
+  JAX package: its own copy of it fails on the CPU (each mid relay
+  forwards its leaf relays' ids, which are local to it, so the root sees
+  clients 0 and 1 in both subtrees and fails the round as double-counted;
+  the clients then wait out their timeout). The port's relays forward
+  the client ids their subtree covers, and the JAX case, re-bound to the
+  port, passes: crc-exact against the depth-3 ``aggregate_tree`` replay.
 * Mixed trees: port relays under a JAX root and JAX relays under a port
   root, crc-equal to ``aggregate_tree``.
 """
@@ -72,6 +76,42 @@ RELAY_CASES = (
 @pytest.mark.parametrize("name,kwargs", cases(JAX_FLEET, RELAY_CASES))
 def test_relay_case_held_against_jax(name, kwargs, tmp_path, monkeypatch):
     run_both(JAX_FLEET, PORT_FLEET, name, kwargs, tmp_path, monkeypatch)
+
+
+def test_port_relay_depth3_live_bit_exact_vs_nested_replay():
+    """``tests/test_fleet.py``'s live depth-3 round (8 clients under 4 leaf
+    relays under 2 mid relays under a weighted root), re-bound to the
+    port: every client and the root hold the nested replay's bits; and a
+    mid relay's contributor record names the clients it covers."""
+    PORT_FLEET.test_relay_depth3_live_bit_exact_vs_nested_replay(np.random.default_rng(0))
+
+
+def test_relay_forwards_the_clients_its_subtree_covers():
+    """A relay's upward contributor record expands each contributor that
+    is itself a relay into that relay's own record (relay ids are local
+    to their parent); plain clients stand for themselves."""
+    seen = {}
+
+    class Parent:
+        last_exchange: dict = {}
+        last_trace = (None, None)
+
+        def exchange(self, agg, *, n_samples, meta):
+            seen.update(meta)
+            return agg
+
+        def abort(self):
+            pass
+
+    relay = pcomm.RelayAggregator("127.0.0.1", 0, parent_host="127.0.0.1", parent_port=1, relay_id=0,
+                                  num_clients=3, timeout=5, device="cpu")
+    try:
+        relay.parent = Parent()
+        relay._forward({"w": np.zeros(2, np.float32)},
+                       {"ids": [0, 1, 5], "n_samples": {0: 1, 1: 2, 5: 1}, "subtree_ids": {0: [2, 3], 1: [4]}})
+    finally:
+        relay.close()
+    assert seen[pcomm.wire.META_SUBTREE_IDS] == [2, 3, 4, 5]
 
 
 # ------------------------------------------------------------ mixed trees
