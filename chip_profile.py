@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a served batch's or a train step's time goes on the card.
 
-    python3 chip_profile.py [--mode serve|train|fold|k1|bwd] [--bucket 128] [--seed 0]
+    python3 chip_profile.py [--mode serve|train|fold|k1|bwd|seq] [--bucket 128] [--seed 0]
 
 ``serve`` builds the port's scoring engine for full-width DistilBERT-base
 (6 layers, dim 768, 12 heads, L=128, flash attention, bf16, seeded random
@@ -45,6 +45,13 @@ variant's elements outside the bf16 bound on chip_smoke's hardest cases
 have none). Then the device time of SDPA's backward on the same views
 with dropout 0.1, the yardstick.
 
+``seq`` runs the sequence-parallel trainer (``FedSeqTrainer``, 2
+clients, L=512, bs8, bf16, dropout on, random token windows with a full
+mask) over 1, 2 and 4 seq slots of the card (every slot names cuda:0):
+each lockstep step timed by the host clock, then profiled; the
+coordinate-keyed dropout masks (int64 bitwise and shift kernels) are
+their own category.
+
 The other modes print per-category device time (the flash kernels K1/K2/K3, K4, GEMMs,
 LayerNorm, the optimizer, dropout masks, other elementwise, copies), the
 host wall time per call or step, and the device's idle share of that
@@ -68,6 +75,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.config import (
+    DataConfig,
+    ExperimentConfig,
+    FedConfig,
+    MeshConfig,
     ModelConfig,
     TrainConfig,
 )
@@ -105,6 +116,7 @@ CATEGORIES = (
     ("K4 fold", ("fold_",)),
     ("optimizer", ("foreach", "multi_tensor", "MultiTensor")),
     ("dropout rng", ("philox", "distribution", "uniform", "random")),
+    ("hash mask", ("bitwise", "shift")),
     ("GEMM", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
     ("LayerNorm", ("layer_norm", "LayerNorm")),
     ("softmax", ("softmax", "SoftMax")),
@@ -236,6 +248,52 @@ def profile_train(card: str, args) -> None:
         shape = "B=128" if "B=128" in label else f"B={bs}"
         print(f"{card}: {label} alone, {shape} bf16: {alone[label]:.4f} ms device per launch")
     print(json.dumps({"card": card, "mode": "kernels", "device_ms_per_launch": alone}))
+
+
+#: Lockstep steps of the seq mode timed by the host clock at each seq.
+TIMED_SEQ_STEPS = 5
+
+
+def profile_seq(card: str, args) -> None:
+    """The sequence-parallel trainer's lockstep step at seq 1, 2 and 4."""
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.parallel.fedseq import (
+        make_seq_mesh,
+    )
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.seqfed import (
+        FedSeqTrainer,
+    )
+
+    tok = default_tokenizer()
+    L, bs, clients = 512, 8, 2
+    cfg = ModelConfig.distilbert_base(vocab_size=len(tok.vocab), max_len=L, attention_impl="ring")
+    params = init_params(cfg, torch.Generator().manual_seed(args.seed))
+    rng = np.random.default_rng(args.seed)
+    batch = {
+        "input_ids": rng.integers(5, cfg.vocab_size, (clients, bs, L)).astype(np.int32),
+        "attention_mask": np.ones((clients, bs, L), np.int32),
+        "labels": rng.integers(0, 2, (clients, bs)).astype(np.int32),
+    }
+    cuda0 = torch.device("cuda", 0)
+    for seq in (1, 2, 4):
+        exp = ExperimentConfig(model=cfg, data=DataConfig(max_len=L, batch_size=bs), train=TrainConfig(seed=args.seed),
+                               fed=FedConfig(num_clients=clients), mesh=MeshConfig(clients=clients, seq=seq))
+        trainer = FedSeqTrainer(exp, device="cuda", mesh=make_seq_mesh(clients, 1, seq, devices=[cuda0] * (clients * seq)))
+        state = trainer.init_state(params=params)
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_SEQ_STEPS):
+            trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED_SEQ_STEPS
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(args.iters):
+                trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+        report(card, f"fedseq lockstep step, {clients} clients x seq {seq}, bs{bs} L{L} bf16 dropout on",
+               wall_ms, prof, args.iters, {"mode": "seq", "seq": seq, "clients": clients, "batch_size": bs, "L": L})
+        del trainer, state
+        torch.cuda.empty_cache()
 
 
 def _bwd_inputs(g, q, k, v, bias, words, rate):
@@ -608,7 +666,7 @@ def _readout_mismatches(words, live_tile: int) -> int:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--mode", choices=["serve", "train", "fold", "k1", "bwd"], default="serve")
+    ap.add_argument("--mode", choices=["serve", "train", "fold", "k1", "bwd", "seq"], default="serve")
     ap.add_argument("--bucket", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=5)
@@ -631,6 +689,9 @@ def main() -> int:
         return 0
     if args.mode == "bwd":
         profile_bwd(card, args)
+        return 0
+    if args.mode == "seq":
+        profile_seq(card, args)
         return 0
     tok = default_tokenizer()
     cfg = ModelConfig.distilbert_base(

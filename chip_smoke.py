@@ -383,7 +383,24 @@ Phases; any failure exits non-zero before the last line is printed:
             record, the shadow pointer is cleared; K4 102, K1-dropout, K2
             and K3 once per layer of every client step. Prints the live
             p99 without and with the mirror, each replica's sweep time;
-15. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
+15. mesh   — the mesh tier on two slots of the card: the meshed and FSDP
+            trainers against one device, the sharded scorer, the mesh
+            flags through the CLI, ``federated`` as two gloo processes;
+16. seq    — sequence parallelism at DistilBERT-base width on seq slots of
+            the card (every slot names cuda:0): (a) ``FedSeqTrainer``
+            (2 clients, L=512, bs8, 3 lockstep steps, dropout on) over
+            1, 2 and 4 seq slots, the fp32 losses at seq 2 and 4 within
+            2e-4 of seq 1 and off the dropout-off run's, the ring
+            forward within 2e-4 of the dot path (fp32, dropout off),
+            bf16 deviations and every step time printed; (b)
+            ``federated --seq-parallel 2`` for two rounds, round 2
+            resumed from round 1's checkpoint bit-equal, a DP-FedAvg
+            round at noise 0 within 2e-6 of the plain mean; (c) ``serve``
+            and two ``client --seq-parallel 2`` processes, one round, K4
+            once a leaf and the aggregate's crc the plain fold's; (d)
+            two gloo processes of ``federated --seq-parallel 2``
+            bit-equal to one. No flash kernel launches on the ring path;
+17. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
    serving shape and dropout at the training shape, then K2, K3 and K4;
    K1's rate-0 launches count phase 5, phase 6's evaluation, the
    lifecycle's predict and reload serving, the federated phase's
@@ -397,8 +414,8 @@ Phases; any failure exits non-zero before the last line is printed:
    the obs phase, the control, robust and gates phases' clients;
    K4 the migrate and dp-rounds phases, phases 8 and 9, the obs
    phase's round, the control phase's two rounds, the robust
-   phase's relays, roots and scenario servers and the gates phase's
-   round),
+   phase's relays, roots and scenario servers, the gates phase's
+   round, the mesh phase's client rounds and the seq phase's round),
    then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -498,6 +515,10 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     build_server,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.config import (
+    DataConfig,
+    ExperimentConfig,
+    FedConfig,
+    MeshConfig,
     ModelConfig,
     TrainConfig,
 )
@@ -557,6 +578,10 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.parallel import (
     mesh as mesh_mod,
+    multihost as multihost_mod,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.parallel.fedseq import (
+    make_seq_mesh,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.router.fleet import (
     FleetReplica,
@@ -595,7 +620,11 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     Checkpointer,
     maybe_warm_start,
 )
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.batches import (
+    federated_batches,
+)
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.client_mesh import (
+    FedSeqClientTrainer,
     FsdpMeshTrainer,
     MeshTrainer,
 )
@@ -612,6 +641,9 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.federated import (
     FederatedTrainer,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.seqfed import (
+    FedSeqTrainer,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.utils import (
     native,
@@ -5115,6 +5147,314 @@ def mesh_phase(seed: int, card: str) -> dict[str, int]:
     check(all(total[k] > 0 for k in total), f"a kernel of the mesh path did not launch: {total}")
     return total
 
+# The seq phase: the sequence-parallel trainer and the --seq-parallel verbs
+# on seq slots of the one card (every slot names cuda:0, so the ring's K/V
+# placements are no-ops and no speed-up can show).
+SEQ_LEN = 512
+SEQ_BATCH = 8
+SEQ_STEPS = 3
+SEQ_SLOTS = 8
+SEQ_FLOWS = 8  # flow sentences joined into one 512-token window
+SEQ_ARGS = ["--preset", "distilbert", "--device", "cuda", "--max-len", str(SEQ_LEN), "--seq-parallel", "2",
+            "--synthetic", "1600", "--num-clients", "2", "--epochs", "1"]
+SEQ_WORKER = r"""
+import json, sys
+import numpy as np
+import torch
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.parallel import mesh, multihost
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.device import resolve_device
+real = mesh.local_devices
+def slots(device=None):
+    return [torch.device("cuda", 0)] * 8 if resolve_device(device).type == "cuda" else real(device)
+mesh.local_devices = multihost.local_devices = slots
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli import build_parser, main
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.comm import run_client
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.comm import wire
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.ops import flash_attention as f
+mode, dump, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+rc = 0
+if mode == "client":
+    res = run_client(build_parser().parse_args(argv))
+    up, agg = wire.flatten_params(res["uploaded"]), wire.flatten_params(res["aggregate"])
+    np.savez(dump, **{"up/" + k: np.asarray(v) for k, v in up.items()}, **{"agg/" + k: np.asarray(v) for k, v in agg.items()})
+    print("TRAINER " + type(res["trainer"]).__name__ + " " + str(res["state"].step), flush=True)
+else:
+    rc = main(argv)
+print("LAUNCHES " + json.dumps({"flash_fwd": f.FWD_LAUNCHES, "flash_fwd_dropout": f.FWD_DROPOUT_LAUNCHES,
+      "flash_bwd_dkdv": f.DKDV_LAUNCHES, "flash_bwd_dq": f.DQ_LAUNCHES}), flush=True)
+sys.exit(rc)
+"""
+
+
+@contextlib.contextmanager
+def card_seq_slots():
+    """The mesh's and multihost's ``local_devices`` name SEQ_SLOTS slots
+    on cuda:0 while the block runs (the CPU's slots unchanged)."""
+    real_mesh, real_host = mesh_mod.local_devices, multihost_mod.local_devices
+
+    def slots(device=None):
+        return [torch.device("cuda", 0)] * SEQ_SLOTS if resolve_device(device).type == "cuda" else real_mesh(device)
+
+    mesh_mod.local_devices = multihost_mod.local_devices = slots
+    try:
+        yield
+    finally:
+        mesh_mod.local_devices, multihost_mod.local_devices = real_mesh, real_host
+
+
+def seq_windows(seed: int, tok, clients: int, rows: int) -> TokenizedSplit:
+    """``[clients, rows, 512]`` windows: each row joins SEQ_FLOWS flow
+    sentences (about 512 tokens, the tail padded), seeded labels."""
+    n = clients * rows
+    texts = [flow_to_text(r) for r in flow_records(seed, n * SEQ_FLOWS)]
+    enc = tok.batch_encode([" ".join(texts[i * SEQ_FLOWS:(i + 1) * SEQ_FLOWS]) for i in range(n)], max_len=SEQ_LEN)
+    labels = np.random.default_rng(seed + 1).integers(0, 2, n).astype(np.int32)
+    return TokenizedSplit(enc["input_ids"].reshape(clients, rows, SEQ_LEN),
+                          enc["attention_mask"].reshape(clients, rows, SEQ_LEN), labels.reshape(clients, rows))
+
+
+def seq_steps(mcfg: ModelConfig, seq: int, params: dict, stacked: TokenizedSplit, seed: int) -> tuple[np.ndarray, float, float]:
+    """SEQ_STEPS lockstep steps of a 2-client FedSeqTrainer over 2 x seq
+    slots of the card: the ``[steps, 2]`` losses, the first step's ms and
+    the mean ms of the rest (synchronized)."""
+    cfg = ExperimentConfig(model=mcfg, data=DataConfig(max_len=SEQ_LEN, batch_size=SEQ_BATCH), train=TrainConfig(seed=seed),
+                           fed=FedConfig(num_clients=2), mesh=MeshConfig(clients=2, seq=seq))
+    trainer = FedSeqTrainer(cfg, device="cuda", mesh=make_seq_mesh(2, 1, seq, devices=[torch.device("cuda", 0)] * (2 * seq)))
+    state = trainer.init_state(params=params)
+    losses, ms = [], []
+    for batch in federated_batches(stacked, SEQ_BATCH, seed=seed, epoch=0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = trainer.train_step(state, batch)
+        losses.append(loss.cpu().numpy())  # synchronizes
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return np.stack(losses), ms[0], float(np.mean(ms[1:]))
+
+
+def seq_train(seed: int, card: str, tok) -> None:
+    """(a) FedSeqTrainer at max_len 512 over 1, 2 and 4 seq slots, dropout
+    on (attention dropout included): the fp32 losses of SEQ_STEPS steps at
+    seq 2 and 4 within 2e-4 of seq 1 and off the dropout-off run's; the
+    ring forward within 2e-4 of the dot path at the same weights (fp32,
+    dropout off); bf16 deviations printed; step times at each seq."""
+    from torch.func import functional_call
+
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.models.distilbert import (
+        SeqContext,
+    )
+
+    base = ModelConfig.distilbert_base(vocab_size=len(tok.vocab), max_len=SEQ_LEN, attention_impl="ring")
+    check((base.dim, base.n_layers, base.n_heads, base.max_len) == (768, 6, 12, SEQ_LEN), f"not full width: {base}")
+    check(min(base.dropout, base.attention_dropout, base.head_dropout) > 0.0, f"dropout off: {base}")
+    params = init_params(base, torch.Generator().manual_seed(seed + 101))
+    stacked = seq_windows(seed + 102, tok, 2, SEQ_BATCH * SEQ_STEPS)
+    real = float(stacked.attention_mask.mean())
+    off = dict(dropout=0.0, attention_dropout=0.0, head_dropout=0.0)
+    fp32 = base.replace(compute_dtype="float32")
+    before = counts_read()
+    runs = {}
+    for label, mcfg in (("fp32", fp32), ("bf16", base)):
+        for seq in (1, 2, 4):
+            runs[label, seq] = seq_steps(mcfg, seq, params, stacked, seed)
+            losses, first, ms = runs[label, seq]
+            dev = float(np.abs(losses - runs[label, 1][0]).max())
+            print(f"seq (a): {card}: FedSeqTrainer {label} dropout on, 2 clients x seq {seq} at L={SEQ_LEN} bs{SEQ_BATCH} "
+                  f"({real:.3f} of the positions real): {ms:.1f} ms a lockstep step (first {first:.1f}); losses "
+                  f"{np.round(losses, 5).tolist()}; max |loss - seq 1| {dev:.3e}", flush=True)
+            check(np.isfinite(losses).all(), f"{label} seq {seq} losses {losses}")
+            if label == "fp32":
+                check(dev <= 2e-4, f"fp32 seq {seq} losses {dev} off seq 1's (bound 2e-4)")
+    det, _, _ = seq_steps(fp32.replace(**off), 2, params, stacked, seed)
+    gap = float(np.abs(det - runs["fp32", 2][0]).max())
+    print(f"seq (a): {card}: fp32 dropout off at seq 2: max |loss - dropout on| {gap:.3e}", flush=True)
+    check(gap > 1e-5, "the dropout-on trajectory is the dropout-off one")
+    dot = model_skeleton(fp32.replace(attention_impl="dot", **off))
+    ring = model_skeleton(fp32.replace(**off))
+    leaves = {n: t.to("cuda") for n, t in params.items()}
+    ids = torch.from_numpy(stacked.input_ids[0, :SEQ_BATCH]).long().cuda()
+    mask = torch.from_numpy(stacked.attention_mask[0, :SEQ_BATCH]).long().cuda()
+    cuda0 = torch.device("cuda", 0)
+    with torch.no_grad():
+        ref = functional_call(dot, leaves, (ids, mask))
+        for seq in (2, 4):
+            got = functional_call(ring, leaves, (ids, mask), {"seq": SeqContext(((cuda0,) * seq,))})
+            diff = float((got - ref).abs().max())
+            print(f"seq (a): {card}: ring forward over {seq} slots vs the dot path, fp32 dropout off: max |logit diff| "
+                  f"{diff:.3e} (bound 2e-4)", flush=True)
+            check(diff <= 2e-4, f"ring forward at seq {seq} {diff} off the dot path")
+    got = {k: v - before[k] for k, v in counts_read().items()}
+    check(not any(got.values()), f"flash kernels launched on ring steps: {got}")
+
+
+def seq_cli(seed: int, card: str, work: str) -> None:
+    """(b) ``federated --seq-parallel 2`` (two clients, two rounds, L=512):
+    the metrics CSVs; round 2 resumed from round 1's checkpoint ends bit
+    for bit where the uninterrupted run ended; a DP-FedAvg round at noise 0
+    against the plain mean of the same round."""
+    import shutil
+
+    common = ["federated", *SEQ_ARGS, "--seed", str(seed), "--unweighted"]
+    ck, ck1 = os.path.join(work, "seq-ck"), os.path.join(work, "seq-ck1")
+    t0 = time.perf_counter()
+    res = run_federated(build_parser().parse_args([*common, "--rounds", "2", "--checkpoint-dir", ck,
+                                                    "--output-dir", os.path.join(work, "seq-out")]))
+    wall = time.perf_counter() - t0
+    trainer = res["trainer"]
+    mcfg = trainer.cfg.model  # the trainer's: it forces the ring path
+    check(isinstance(trainer, FedSeqTrainer) and trainer.mesh.devices.shape == (2, 1, 2), f"trainer {type(trainer).__name__}")
+    check((mcfg.dim, mcfg.n_layers, mcfg.max_len, mcfg.attention_impl) == (768, 6, SEQ_LEN, "ring"), f"config {mcfg}")
+    for path in res["metrics_csvs"]:
+        with open(path) as f:
+            header, values = f.read().strip().splitlines()
+        check(header == "Accuracy,Loss,Precision,Recall,F1-Score" and all(np.isfinite(float(v)) for v in values.split(",")),
+              f"{path}: {header!r} {values!r}")
+    check(len(res["metrics_csvs"]) == 4 and len(res["history"]) == 2, f"{res['metrics_csvs']}")
+    fits = [round(h.seconds["fit"], 3) for h in res["history"]]
+    shutil.copytree(ck, ck1, ignore=lambda d, names: ["2"] if os.path.samefile(d, ck) else [])
+    again = run_federated(build_parser().parse_args([*common, "--rounds", "2", "--checkpoint-dir", ck1,
+                                                      "--output-dir", os.path.join(work, "seq-resumed")]))
+    same = all(torch.equal(res["state"].params[n], again["state"].params[n]) for n in res["state"].params)
+    check(again["start_round"] == 1, f"resumed from round {again['start_round']}")
+    dp = run_federated(build_parser().parse_args([*common, "--rounds", "1", "--dp-clip", "1e6", "--dp-noise-multiplier", "0",
+                                                   "--output-dir", os.path.join(work, "seq-dp")]))
+    with Checkpointer(ck) as c:
+        r1 = c.restore_params(step=1, client=0)
+    dp_dev = max(float((dp["state"].params[n][0].detach().cpu() - r1[n]).abs().max()) for n in r1)
+    print(f"seq (b): {card}: federated --seq-parallel 2, 2 clients x 2 rounds at L={SEQ_LEN}: {wall:.1f} s (fit {fits} s), "
+          f"CSVs {[os.path.basename(p) for p in res['metrics_csvs']]}; round 2 resumed from round 1 bit-equal {same}; "
+          f"DP-FedAvg (clip 1e6) at noise 0 vs the plain mean: max |diff| {dp_dev:.3e}", flush=True)
+    check(same, "the resumed round 2 differs from the uninterrupted one")
+    check(isinstance(dp["trainer"], FedSeqTrainer) and dp["trainer"]._dp_seed is not None, "the DP round did not run DP-FedAvg")
+    check(dp_dev <= 2e-6, f"DP aggregate at noise 0 {dp_dev} off the plain mean")
+
+
+def seq_worker(mode: str, dump: str, argv: list[str]) -> subprocess.Popen:
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    return subprocess.Popen([sys.executable, "-c", SEQ_WORKER, mode, dump, *argv],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+
+
+def finish(procs: list[subprocess.Popen], what: str) -> list[str]:
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for i, (p, o) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"{what} process {i} exited {p.returncode}:\n{o[-3000:]}")
+    return outs
+
+
+def worker_launches(out: str) -> dict[str, int]:
+    return json.loads([ln for ln in out.splitlines() if ln.startswith("LAUNCHES ")][-1][9:])
+
+
+def seq_round(seed: int, card: str, work: str) -> dict[str, int]:
+    """(c) ``serve`` on the card and two ``client --seq-parallel 2``
+    processes, one round: the clients' fedseq trainers launch no flash
+    kernel, K4 folds the 102 leaves, and the aggregate's crc is the plain
+    fold's of the two uploads."""
+    server = build_round_server(build_parser().parse_args(
+        ["serve", "--host", "127.0.0.1", "--port", "0", "--num-clients", "2", "--timeout", "600", "--device", "cuda"]
+    ))
+    dumps = [os.path.join(work, f"seq-client{i}.npz") for i in range(2)]
+    fold_mod.FOLD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    with server:
+        st = threading.Thread(target=server.serve, args=(1,))
+        st.start()
+        procs = [seq_worker("client", dumps[i], [
+            "client", "--client-id", str(i), "--host", "127.0.0.1", "--port", str(server.port), *SEQ_ARGS,
+            "--rounds", "1", "--seed", str(seed), "--timeout", "600", "--output-dir", os.path.join(work, "seq-round"),
+        ]) for i in range(2)]
+        outs = finish(procs, "seq client")
+        st.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not st.is_alive(), "the seq round's server hung")
+    launches = zero_launches()
+    launches["fold"] = fold_mod.FOLD_LAUNCHES
+    for o in outs:
+        add_launches(launches, worker_launches(o))
+    trainers = [ln[8:] for o in outs for ln in o.splitlines() if ln.startswith("TRAINER ")]
+    data = [np.load(d) for d in dumps]
+    ups = [{k[3:]: z[k] for k in z.files if k.startswith("up/")} for z in data]
+    aggs = [{k[4:]: z[k] for k in z.files if k.startswith("agg/")} for z in data]
+    ref = {k: fold_mod.fold_reference([torch.from_numpy(u[k]) for u in ups], [np.float32(0.5)] * 2).numpy() for k in ups[0]}
+    crc, want = wire.flat_crc32(aggs[0]), wire.flat_crc32(ref)
+    print(f"seq (c): {card}: serve + two client --seq-parallel 2 processes ({trainers}), one round at L={SEQ_LEN}: "
+          f"{wall:.1f} s; {len(ups[0])} leaves; aggregate crc {crc:#010x}, the plain fold of the uploads {want:#010x}; "
+          f"launches {launches}", flush=True)
+    check(all(t.startswith("FedSeqClientTrainer") for t in trainers) and len(trainers) == 2, f"client trainers {trainers}")
+    check(wire.flat_crc32(aggs[1]) == crc and crc == want, "the seq round's aggregate is not the plain fold of its uploads")
+    check(launches["fold"] == len(ups[0]) == 102, f"K4 launched {launches['fold']} times for {len(ups[0])} leaves")
+    check(not any(launches[k] for k in launches if k != "fold"), f"flash kernels launched on ring steps: {launches}")
+    return launches
+
+
+def seq_processes(seed: int, card: str, work: str) -> None:
+    """(d) ``federated --seq-parallel 2`` as two gloo processes sharing the
+    card against the one-process run: the aggregate bit-equal."""
+    common = ["federated", *SEQ_ARGS, "--rounds", "1", "--seed", str(seed), "--partition", "disjoint"]
+    one_reg, two_reg = os.path.join(work, "seq-reg1"), os.path.join(work, "seq-reg2")
+    t0 = time.perf_counter()
+    run_federated(build_parser().parse_args([*common, "--output-dir", os.path.join(work, "seq-fed1"), "--registry-dir", one_reg]))
+    one_s = time.perf_counter() - t0
+    port = free_port()
+    t0 = time.perf_counter()
+    outs = finish([seq_worker("main", "-", [
+        *common, "--output-dir", os.path.join(work, "seq-fed2"), "--registry-dir", two_reg,
+        "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2", "--process-id", str(i),
+    ]) for i in range(2)], "seq federated")
+    two_s = time.perf_counter() - t0
+    lines = [ln.split("INFO ", 1)[-1] for o in outs for ln in o.splitlines() if "[MESH]" in ln or "[FEDSEQ]" in ln]
+    launches = [worker_launches(o) for o in outs]
+    reg1, reg2 = ModelRegistry(one_reg), ModelRegistry(two_reg)
+    p1, p2 = reg1.load_params(reg1.list()[-1]["id"]), reg2.load_params(reg2.list()[-1]["id"])
+    dev = max(float(np.abs(np.asarray(p1[k], np.float64) - np.asarray(p2[k], np.float64)).max()) for k in p1)
+    print(f"seq (d): {card}: two processes {two_s:.1f} s (one process in-process {one_s:.1f} s); {lines}; aggregate "
+          f"max|two processes - one| {dev:.3e} over {len(p1)} leaves; launches {launches}", flush=True)
+    check(sum("backend gloo" in ln for ln in lines) == 2 and sum("rings in-process" in ln for ln in lines) == 2, f"log lines {lines}")
+    check(p1.keys() == p2.keys() and dev == 0.0, f"the two-process seq aggregate is {dev} off the one-process one")
+    check(not any(v for la in launches for v in la.values()), f"flash kernels launched on ring steps: {launches}")
+
+
+def seq_phase(seed: int, card: str) -> dict[str, int]:
+    """Phase 16: sequence parallelism on the card: (a) FedSeqTrainer over
+    1, 2 and 4 seq slots, (b) ``federated --seq-parallel 2``, (c) a TCP
+    round of two ``client --seq-parallel 2`` processes, (d) the
+    two-process ``federated --seq-parallel 2``. Returns each kernel's
+    launches during it: K4 the round's folds, K1-K3 none (the ring is
+    plain PyTorch)."""
+    t_phase = time.perf_counter()
+    tok = default_tokenizer()
+    total = zero_launches()
+    times = {}
+    with tempfile.TemporaryDirectory() as work, card_seq_slots():
+        zero_with_fold()
+        t = time.perf_counter()
+        seq_train(seed, card, tok)
+        times["(a)"] = time.perf_counter() - t
+        t = time.perf_counter()
+        seq_cli(seed, card, work)
+        times["(b)"] = time.perf_counter() - t
+        add_launches(total, read_with_fold())
+        t = time.perf_counter()
+        add_launches(total, seq_round(seed, card, work))
+        times["(c)"] = time.perf_counter() - t
+        t = time.perf_counter()
+        zero_with_fold()
+        seq_processes(seed, card, work)
+        add_launches(total, read_with_fold())
+        times["(d)"] = time.perf_counter() - t
+    print(f"seq: {card}: " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items())
+          + f"; launches {total}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(total["fold"] > 0 and not any(total[k] for k in total if k != "fold"),
+          f"the seq path's launches {total}: want K4 only")
+    return total
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5234,6 +5574,9 @@ def main() -> int:
     for row in (k1, k1_drop, k2, k3):
         row["launches"] += mesh_launches[row["name"]]
     k4["launches"] += mesh_launches["fold"]
+
+    phase("seq")
+    k4["launches"] += seq_phase(seed, card)["fold"]
 
     print(json.dumps({"kernels": [k1, k1_drop, k2, k3, k4]}), flush=True)
     print(json.dumps({

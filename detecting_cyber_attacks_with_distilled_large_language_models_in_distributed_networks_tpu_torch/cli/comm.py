@@ -258,6 +258,8 @@ def run_client(args) -> dict:
     single-device client's, and a streamed reply's leaves land on the
     mesh as they arrive (``reply_leaf_sink``), so a round's recorded
     ``aggregate`` then holds those placed leaves (the port's layout).
+    ``--seq-parallel M`` rings each sequence over M slots (the C=1
+    fedseq trainer); the exchange is again unchanged.
 
     With a checkpoint directory the client warm-starts from its latest
     step and saves twice a round: after local training (the reference's
@@ -323,10 +325,11 @@ def _run_client_rounds(args, device, tok, cfg, pretrained, server_host, server_p
         # Operator error (the axis against the local devices or the batch),
         # not a traceback: --data-parallel 4 on a 2-card host etc.
         raise SystemExit(str(e)) from None
-    if cfg.mesh.data > 1:
+    if cfg.mesh.data > 1 or cfg.mesh.seq > 1:
         log.info(
-            f"[CLIENT {args.client_id}] local mesh: data={cfg.mesh.data} over "
-            f"{cfg.mesh.data} local device(s)"
+            f"[CLIENT {args.client_id}] local mesh: data={cfg.mesh.data}"
+            + (f" x seq={cfg.mesh.seq}" if cfg.mesh.seq > 1 else "")
+            + f" over {cfg.mesh.data * cfg.mesh.seq} local device(s)"
             + (" — FSDP shard-at-rest (params+opt ~1/N per device, gather-at-use)" if cfg.mesh.fsdp else "")
         )
     sink = getattr(trainer, "reply_leaf_sink", None)

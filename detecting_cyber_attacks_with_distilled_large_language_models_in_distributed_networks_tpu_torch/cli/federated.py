@@ -3,8 +3,9 @@ the clients axis, several rounds, with checkpoint, resume and registry
 publication (the port of the JAX package's ``cli/federated.py``). One
 process holds every client; with ``--coordinator HOST:PORT
 --num-processes N --process-id I`` N processes each hold a block of them
-and the round's mean crosses processes (parallel/multihost.py). Runs on
-the card unless ``--device cpu``."""
+and the round's mean crosses processes (parallel/multihost.py). With
+``--seq-parallel N`` each client trains with ring attention over N seq
+slots (train/seqfed.py). Runs on the card unless ``--device cpu``."""
 
 from __future__ import annotations
 
@@ -83,7 +84,14 @@ def run_federated(args) -> dict:
                 f"multi-host runs need one mesh row per client "
                 f"(num_clients={C}, mesh.clients={cfg.mesh.clients})"
             )
-        mesh = multihost.make_global_mesh(cfg.mesh.clients, cfg.mesh.data, axis_names=cfg.mesh.axis_names, device=device)
+        if cfg.mesh.seq > 1:
+            # Clients across processes, each client's seq ring (and data
+            # sum) inside one process.
+            mesh = multihost.make_global_seq_mesh(cfg.mesh.clients, cfg.mesh.data, cfg.mesh.seq, device=device)
+        else:
+            mesh = multihost.make_global_mesh(
+                cfg.mesh.clients, cfg.mesh.data, axis_names=cfg.mesh.axis_names, device=device
+            )
         local_sl = multihost.local_client_slice(mesh)
         log.info(f"[FED] process {pid}/{nproc} owns clients [{local_sl.start}, {local_sl.stop})")
     local_ids = list(range(C)) if local_sl is None else list(range(local_sl.start, local_sl.stop))
@@ -109,7 +117,17 @@ def run_federated(args) -> dict:
     # Ragged stack to the fleet-max row count: no client's rows are
     # truncated (the reference's N processes each train on all of theirs).
     stacked_train = stack_clients_ragged([c.train for c in clients], pad_id=tok.pad_id, target_rows=max(train_sizes))
-    trainer = FederatedTrainer(cfg, pad_id=tok.pad_id, device=device, mesh=mesh)
+    if cfg.mesh.seq > 1:
+        # --seq-parallel N: the clients x data x seq composition (ring
+        # attention per client) behind the same trainer surface.
+        from ..train.seqfed import FedSeqTrainer
+
+        try:
+            trainer = FedSeqTrainer(cfg, pad_id=tok.pad_id, device=device, mesh=mesh)
+        except ValueError as e:  # max_len or the slots against the axes
+            raise SystemExit(str(e)) from None
+    else:
+        trainer = FederatedTrainer(cfg, pad_id=tok.pad_id, device=device, mesh=mesh)
     # The round boundary is a collective: one proc's spans cover the fleet.
     trainer.tracer, metrics_server = _obs_setup(args, proc="fed", cfg=cfg)
     log.info(f"[FED] {C} clients on {device}, train rows {train_sizes}")

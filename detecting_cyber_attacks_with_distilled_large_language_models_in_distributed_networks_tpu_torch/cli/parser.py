@@ -19,10 +19,9 @@ the card unless ``--device cpu`` is given. The obs flags
 ``--profile-stride``, ``--metrics-port``, ``--flight-dir``,
 ``--trace-sample``, ``--scored-jsonl``) are the JAX package's, on the
 same verbs, and so are the mesh flags (``federated --data-parallel
---coordinator --num-processes --process-id``, ``client --data-parallel
---fsdp``, ``infer-serve --data-parallel --fsdp``). The flag of the one
-feature the port has not reached (``--seq-parallel``) is absent, so
-argparse refuses it.
+--seq-parallel --coordinator --num-processes --process-id``, ``client
+--data-parallel --seq-parallel --fsdp``, ``infer-serve --data-parallel
+--fsdp``).
 """
 
 from __future__ import annotations
@@ -550,6 +549,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-clients", type=int, default=None, help="clients in the fleet (default 2)")
     p.add_argument("--rounds", type=int)
     p.add_argument("--data-parallel", type=int, help="per-client data-parallel shards")
+    p.add_argument(
+        "--seq-parallel",
+        type=int,
+        help="sequence-parallel shards per client (ring attention over a "
+        "third 'seq' mesh axis; model.max_len must divide by it)",
+    )
     g = p.add_mutually_exclusive_group()
     g.add_argument(
         "--weighted", action="store_true",
@@ -863,6 +868,13 @@ def build_parser() -> argparse.ArgumentParser:
         "host's devices (params replicated, gradients summed over the "
         "slots); the trajectory matches the single-device client to fp32 "
         "reduction-order ulps and the wire exchange is unchanged",
+    )
+    p.add_argument(
+        "--seq-parallel",
+        type=int,
+        help="sequence-parallel shards for the local phase (ring "
+        "attention over a local 'seq' mesh axis via a C=1 fedseq trainer; "
+        "model.max_len must divide by it)",
     )
     p.add_argument(
         "--fsdp",

@@ -5,8 +5,7 @@ Copies of the JAX package's ``ModelConfig``, ``DataConfig`` and
 its ``FedConfig``, ``MeshConfig``, ``DistillConfig``, ``ObsConfig`` and
 ``ControlConfig``, so a manifest or config written by either package
 means the same thing in both. Every field reaches a code path of the
-port but one: ``MeshConfig.seq > 1`` (the sequence-parallel axis, item
-15) raises ``NotImplementedError`` instead of being ignored. A checkpoint
+port, the sequence-parallel axis (``MeshConfig.seq``) included. A checkpoint
 records ``ExperimentConfig`` as ``to_dict()`` and ``predict`` reads it
 back with ``from_dict``, which also reads a config the JAX package
 wrote, section for section and field for field.
@@ -54,7 +53,8 @@ class ModelConfig:
     # to it alongside fp32 compute).
     gelu: str = "tanh"
     # "dot" (plain PyTorch attention), "flash" (the hand-written kernel,
-    # ops/flash_attention.py), "ring" (sequence-parallel; not ported yet).
+    # ops/flash_attention.py), "ring" (sequence-parallel over a seq
+    # context, parallel/ring_attention.py; the dot path outside one).
     attention_impl: str = "dot"
     # Compute Q/K/V with ONE [D, 3D] matmul over weights concatenated at
     # apply time (the parameter layout keeps separate q/k/v, so
@@ -818,8 +818,11 @@ class MeshConfig:
 
     clients: int = 2
     data: int = 1
-    # Sequence-parallel axis (ring attention): not ported yet (item 15);
-    # > 1 raises NotImplementedError.
+    # Sequence-parallel axis (ring attention): >1 adds a third ``seq``
+    # mesh axis and routes `federated` through FedSeqTrainer
+    # (--seq-parallel N, train/seqfed.py). On the TCP tier, `client
+    # --data-parallel/--seq-parallel` reuses the data/seq axes as that
+    # process's LOCAL mesh (train/client_mesh.py).
     seq: int = 1
     # FSDP shard-at-rest on the TCP client's local mesh (`client
     # --data-parallel N --fsdp`, train/client_mesh.py FsdpMeshTrainer):
@@ -847,11 +850,6 @@ class MeshConfig:
                 "mesh.fsdp does not compose with seq > 1: the C=1 fedseq "
                 "trainer owns the 3-axis layout (sharded-scorer/fedseq "
                 "FSDP is the ROADMAP follow-up)"
-            )
-        if self.seq > 1:
-            raise NotImplementedError(
-                f"mesh.seq={self.seq}: the sequence-parallel axis (ring "
-                "attention) is not ported yet (ROADMAP item 15)"
             )
 
 

@@ -118,7 +118,7 @@ def make_mesh(
 ) -> Mesh:
     """A ``clients x data`` mesh over the first ``clients*data`` slots of
     ``devices`` (default: :func:`local_devices` of ``device``); ``seq``
-    adds the third axis's layout (its trainer is item 15)."""
+    adds the third axis (ring attention, :mod:`.fedseq`)."""
     dims = (clients, data) if seq is None else (clients, data, seq)
     if axis_names is None:
         axis_names = ("clients", "data", "seq")[: len(dims)]

@@ -219,10 +219,10 @@ def make_global_seq_mesh(
     axis_names: tuple[str, str, str] = ("clients", "data", "seq"),
     device: str | torch.device | None = None,
 ) -> Mesh:
-    """The ``clients x data x seq`` layout over every process's slots,
-    clients process-major (each process owns whole client replicas, so a
-    client's seq ring would stay in-process). The layout only: the
-    sequence-parallel trainer is item 15."""
+    """The ``clients x data x seq`` mesh over every process's slots,
+    clients process-major: each process owns whole client replicas, so
+    every client's seq ring and data-slot sum stay in-process and only
+    the round's mean crosses processes (:class:`..train.seqfed.FedSeqTrainer`)."""
     if process_count() == 1:
         return make_mesh(clients, data, seq=seq, axis_names=axis_names, device=device)
     devices, procs = _global_grid((clients, data, seq), device)

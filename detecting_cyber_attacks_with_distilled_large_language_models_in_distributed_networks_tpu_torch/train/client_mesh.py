@@ -33,11 +33,19 @@ The wire tier is untouched: ``host_params`` gives the JAX-layout tree
 (leaf by leaf, gathered off the shards when read under FSDP), and
 ``reply_leaf_sink`` places each decoded reply leaf onto the mesh as its
 bytes land (comm/client.py), so secure aggregation and central DP compose
-unchanged. Sequence parallelism (``FedSeqClientTrainer``) is item 15.
+unchanged.
+
+``client --seq-parallel M`` (with ``--data-parallel N``) trains with
+:class:`FedSeqClientTrainer`: the C=1 sequence-parallel federated trainer
+(:class:`.seqfed.FedSeqTrainer`) over an ``N x M`` block of this
+process's slots behind the same surface. Its trajectory is the fedseq
+one (hash-keyed dropout, the federated batch order), the same at any
+``M``, not the single-device engine's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 from typing import Any, Mapping
 
@@ -46,7 +54,7 @@ import torch
 
 from ..config import ExperimentConfig, ModelConfig, TrainConfig
 from ..device import resolve_device
-from ..models.convert import flatten_tree, params_from_jax, port_key
+from ..models.convert import flatten_tree, params_from_jax, params_to_jax, port_key
 from ..models.distilbert import init_params, model_skeleton
 from ..parallel.mesh import (
     Mesh,
@@ -368,13 +376,108 @@ class FsdpMeshTrainer(MeshTrainer):
         return ShardedLeaf.scatter(_wire_leaf(key, arr), self.slots)
 
 
+class FedSeqClientTrainer:
+    """The C=1 :class:`.seqfed.FedSeqTrainer` behind the TCP client's
+    single-client surface (``fit``, ``evaluate``, ``evaluate_state``,
+    ``host_params``, ``adopt_aggregate``, ``prefetch_epoch``).
+
+    A fleet of one reuses the sequence-parallel federated trainer whole:
+    the state is its stacked ``[1, ...]`` FedState. The round loop feeds
+    the same split objects every round, so the dense ``[1, N, ...]`` train
+    stack and the padded eval stack are cached on the split's identity
+    (one entry each)."""
+
+    def __init__(self, cfg: ExperimentConfig, *, pad_id: int = 0, device: str | torch.device | None = None):
+        from ..parallel.fedseq import make_seq_mesh
+        from .seqfed import FedSeqTrainer
+
+        self.cfg = dataclasses.replace(
+            cfg,
+            fed=dataclasses.replace(cfg.fed, num_clients=1),
+            mesh=dataclasses.replace(cfg.mesh, clients=1),
+        )
+        self.mesh = make_seq_mesh(1, cfg.mesh.data, cfg.mesh.seq, device=device)
+        self.inner = FedSeqTrainer(self.cfg, pad_id=pad_id, device=device, mesh=self.mesh)
+        self.device = self.inner.device
+        self.pad_id = pad_id
+        self._train_cache: tuple[Any, Any] | None = None
+        self._eval_cache: tuple[Any, int, Any] | None = None
+
+    def init_state(self, seed: int | None = None, params=None):
+        """The inner trainer's ``[1, ...]`` state from ``params`` (a port
+        state dict, or a received JAX-layout aggregate) or a seeded init."""
+        if params is not None:
+            params = port_params(params)
+        return self.inner.init_state(seed=seed, params=params)
+
+    def _stacked(self, split):
+        from ..data.pipeline import stack_clients
+
+        if self._train_cache is None or self._train_cache[0] is not split:
+            self._train_cache = (split, stack_clients([split]))
+        return self._train_cache[1]
+
+    def fit(self, state, split, *, batch_size: int = 16, epochs: int | None = None, epoch_offset: int = 0,
+            tag: str = ""):
+        """E local epochs over the dense ``[1, N, ...]`` stack; returns the
+        state and the engine-shaped per-epoch loss list."""
+        state, losses = self.inner.fit_local(
+            state, self._stacked(split), batch_size=batch_size, epochs=epochs, epoch_offset=epoch_offset
+        )
+        return state, [float(e[0]) for e in losses]
+
+    def evaluate(self, params: Mapping[str, Any], split, *, batch_size: int | None = None) -> dict:
+        """The reference metrics of unstacked ``params`` (a received
+        aggregate, either layout), through the stacked eval sweep."""
+        from ..parallel.fedavg import stack_params
+
+        single = {n: torch.as_tensor(t).to(self.device) for n, t in port_params(params).items()}
+        return self._evaluate_stacked(stack_params(single, 1), split, batch_size=batch_size)
+
+    def evaluate_state(self, state, split, *, batch_size: int | None = None) -> dict:
+        """Metrics of the live (stacked) state."""
+        return self._evaluate_stacked(state.params, split, batch_size=batch_size)
+
+    def _evaluate_stacked(self, stacked, split, *, batch_size: int | None) -> dict:
+        # The default is resolved before the cache key, so the round
+        # loop's local and aggregated evaluations share one entry.
+        if batch_size is None:
+            batch_size = self.cfg.data.eval_batch_size
+        cache = self._eval_cache
+        if cache is None or cache[0] is not split or cache[1] != batch_size:
+            cache = self._eval_cache = (split, batch_size, self.inner.prepare_eval([split], batch_size=batch_size))
+        return self.inner.evaluate_clients(stacked, prepared=cache[2], collect_probs=True)[0]
+
+    def prefetch_epoch(self, split, epoch: int, batch_size: int):
+        """Arm the inner trainer's epoch prefetch for the cached stack of
+        ``split`` (what ``fit`` trains on)."""
+        return self.inner.prefetch_epoch(self._stacked(split), epoch, batch_size)
+
+    def step_profile_attrs(self) -> dict:
+        prof = self.inner.step_profiler
+        return prof.span_attrs() if prof is not None else {}
+
+    def host_params(self, state, *, lazy: bool = False) -> dict:
+        """The one replica's params as the JAX-layout tree of host arrays
+        (the upload form)."""
+        return params_to_jax({n: t[0] for n, t in state.params.items()}, lazy=lazy)
+
+    def adopt_aggregate(self, state, aggregated: Mapping[str, Any]):
+        """Fresh Adam from the received aggregate, the step counter
+        continuing (the engine's adoption semantics)."""
+        new = self.init_state(params=aggregated)
+        new.step = state.step
+        return new
+
+
 def make_client_trainer(
     cfg: ExperimentConfig, *, pad_id: int = 0, device: str | torch.device | None = None
-) -> Trainer:
+) -> Trainer | FedSeqClientTrainer:
     """The TCP client's local-phase trainer for the resolved mesh config:
     the plain engine (``data`` 1), the meshed engine (``data`` N) or its
-    FSDP form (``--fsdp``), over ``device``'s slots (the cards, or CPU
-    slots for ``cpu``)."""
+    FSDP form (``--fsdp``), or the C=1 sequence-parallel trainer (``seq``
+    M > 1), over ``device``'s slots (the cards, or CPU slots for
+    ``cpu``)."""
     data = cfg.mesh.data
     if data > 1 and cfg.data.batch_size % data:
         raise ValueError(
@@ -384,6 +487,9 @@ def make_client_trainer(
     kw = dict(pad_id=pad_id, drop_remainder=cfg.data.drop_remainder)
     if cfg.mesh.fsdp:
         return FsdpMeshTrainer(cfg.model, cfg.train, mesh=make_host_mesh(data, device=device), **kw)
+    if cfg.mesh.seq > 1:
+        # (FedSeqTrainer validates max_len % seq; make_mesh the slots.)
+        return FedSeqClientTrainer(cfg, pad_id=pad_id, device=device)
     if data > 1:
         return MeshTrainer(cfg.model, cfg.train, mesh=make_host_mesh(data, device=device), **kw)
     return Trainer(cfg.model, cfg.train, device=device, **kw)

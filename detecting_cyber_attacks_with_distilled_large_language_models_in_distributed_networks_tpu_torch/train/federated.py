@@ -66,8 +66,8 @@ from ..parallel.dp import noise_seed, round_generator
 from ..parallel.fedavg import make_server_optimizer, stack_params
 from ..parallel.mesh import Mesh, fit_clients_axis, make_mesh
 from ..utils.logging import phase
-from .batches import federated_batches, federated_batches_ragged
-from .engine import Trainer
+from .batches import EpochPrefetcher, PrefetchSlot, federated_batches, federated_batches_ragged
+from .engine import Trainer, eval_counts, masked_loss_fn
 from .fedeval import PreparedEval, evaluate_stacked, stack_eval_splits
 from .fedsteps import FedAdamState, FedState, aggregate_round, check_survivors, init_opt_state, train_step
 
@@ -100,6 +100,10 @@ class FederatedTrainer:
     by default one over this process's slots, its rows fitted to the
     client count."""
 
+    #: Whether the lockstep step splits a client's batch rows over its
+    #: mesh row's ``data`` slots (the sequence-parallel trainer does).
+    splits_rows = False
+
     def __init__(
         self,
         cfg: ExperimentConfig,
@@ -121,7 +125,7 @@ class FederatedTrainer:
             self.C_local = (sl.stop - sl.start) * (self.C // rows)
         else:
             self.client_offset, self.C_local = 0, self.C
-        if cfg.mesh.data > 1:
+        if cfg.mesh.data > 1 and not self.splits_rows:
             log.info(
                 f"[FED] the lockstep step runs this process's {self.C_local} client(s) on {self.device}: the "
                 f"mesh's data axis ({cfg.mesh.data}) lays out slots but does not split their batch rows "
@@ -156,10 +160,27 @@ class FederatedTrainer:
             site: ledger.timed(site, train_step, signature=fed_signature)
             for site in ("fed.train_step", "fed.ragged_step")
         }
+        # One-slot epoch prefetch (dense stacks): a round loop arms it
+        # before it blocks on an exchange.
+        self._prefetch = PrefetchSlot()
 
     # One client's rows through the meta-device skeleton, as the
     # single-client engine runs its state.
     _logits = Trainer._logits
+
+    def _client_logits(self, lane: dict, c: int, ids, mask, *, generator=None) -> torch.Tensor:
+        """Logits of this process's client ``c`` on its rows ``lane`` (the
+        sequence-parallel trainer runs them over the client's slots)."""
+        return self._logits(lane, ids, mask, generator=generator)
+
+    def _client_loss(self, logits, labels, valid, *, dense: bool) -> torch.Tensor:
+        """A client's task loss on its lockstep batch: the mean over its
+        valid rows (every row of a ``dense`` batch)."""
+        return masked_loss_fn(logits, labels, valid)
+
+    def _client_counts(self, logits, labels, valid):
+        """A client's eval statistics and scores on one eval batch."""
+        return eval_counts(logits, labels, valid)
 
     def _default_mesh(self) -> Mesh:
         """``mesh.clients x mesh.data`` over this process's slots, the rows
@@ -287,9 +308,11 @@ class FederatedTrainer:
         *,
         epochs: int | None = None,
         epoch_offset: int = 0,
+        batch_size: int | None = None,
     ) -> tuple[FedState, np.ndarray]:
-        """E local epochs for every client in lockstep; returns the state
-        and ``[E, C]`` per-client epoch losses.
+        """E local epochs for every client in lockstep at ``batch_size``
+        rows (default ``data.batch_size``); returns the state and ``[E,
+        C]`` per-client epoch losses.
 
         A :class:`StackedClients` input takes the ragged path: every
         client's whole split trains each epoch over the fleet's longest
@@ -303,7 +326,9 @@ class FederatedTrainer:
         prof = self._armed_profiler()
         t_unix = time.time()
         t0 = time.monotonic()
-        out = self._fit_local_impl(state, stacked_train, epochs=epochs, epoch_offset=epoch_offset, prof=prof)
+        out = self._fit_local_impl(
+            state, stacked_train, epochs=epochs, epoch_offset=epoch_offset, prof=prof, batch_size=batch_size
+        )
         self._trace_phase(
             "client-local",
             t_unix,
@@ -321,8 +346,9 @@ class FederatedTrainer:
         epochs: int | None,
         epoch_offset: int,
         prof,
+        batch_size: int | None = None,
     ) -> tuple[FedState, np.ndarray]:
-        bs = self.cfg.data.batch_size
+        bs = self.cfg.data.batch_size if batch_size is None else int(batch_size)
         E = self.cfg.train.epochs_per_round if epochs is None else epochs
         ragged = isinstance(stacked_train, StackedClients)
         if ragged:
@@ -358,9 +384,9 @@ class FederatedTrainer:
                     client_offset=self.client_offset, n_batches=n_batches,
                 )
             else:
-                batches = federated_batches(
-                    stacked_train, bs, seed=self.cfg.train.seed, epoch=epoch, client_offset=self.client_offset
-                )
+                batches = self._prefetch.consume((id(stacked_train), int(epoch), bs))
+                if batches is None:
+                    batches = self._epoch_iterator(stacked_train, bs, epoch)
                 if self.P > 1:
                     batches = itertools.islice(batches, n_batches)
             losses, had = [], []
@@ -391,11 +417,32 @@ class FederatedTrainer:
                 log.info(f"Client {c} Epoch [{epoch - epoch_offset + 1}/{E}], Average Loss: {out[-1][c]:.4f}")
         return state, np.stack(out) if out else np.zeros((0, self.C))
 
-    def prepare_eval(self, splits: Sequence[TokenizedSplit], *, target_rows: int | None = None) -> PreparedEval:
-        """Pad and stack eval splits once; reuse across rounds. Under a
+    def _epoch_iterator(self, stacked_train: TokenizedSplit, bs: int, epoch: int):
+        return federated_batches(
+            stacked_train, bs, seed=self.cfg.train.seed, epoch=epoch, client_offset=self.client_offset
+        )
+
+    def prefetch_epoch(
+        self, stacked_train: TokenizedSplit | StackedClients, epoch: int, batch_size: int | None = None
+    ) -> EpochPrefetcher | None:
+        """Arm the one-slot prefetch for ``epoch``'s lockstep batches of a
+        dense stack (a ragged one is ignored: None); the next matching
+        dense epoch of :meth:`fit_local` consumes it."""
+        if isinstance(stacked_train, StackedClients):
+            return None
+        bs = self.cfg.data.batch_size if batch_size is None else int(batch_size)
+        return self._prefetch.arm(
+            (id(stacked_train), int(epoch), bs), lambda: self._epoch_iterator(stacked_train, bs, epoch)
+        )
+
+    def prepare_eval(
+        self, splits: Sequence[TokenizedSplit], *, target_rows: int | None = None, batch_size: int | None = None
+    ) -> PreparedEval:
+        """Pad and stack eval splits once, in batches of ``batch_size``
+        (default ``data.eval_batch_size``); reuse across rounds. Under a
         process group each process passes its own clients' splits, and the
         processes agree on the row count (the fleet's longest split)."""
-        bs = self.cfg.data.eval_batch_size
+        bs = self.cfg.data.eval_batch_size if batch_size is None else int(batch_size)
         if target_rows is None and self.P > 1:
             target_rows = int(multihost.allgather_hosts(max(len(s) for s in splits)).max())
         stacked, valid = stack_eval_splits(splits, bs, pad_id=self.pad_id, target_rows=target_rows)

@@ -33,7 +33,7 @@ import torch
 from ..ops.metrics import BinaryCounts, ClassCounts
 from ..parallel.dp import dp_fedavg
 from ..parallel.fedavg import broadcast_rows, fedavg, weighted_mean
-from .engine import adam_update, eval_counts, masked_loss_fn, prox_sq
+from .engine import adam_update, prox_sq
 
 log = logging.getLogger(__name__)
 
@@ -99,11 +99,15 @@ def train_step(
     keys warmup on the client's own step count; a dense batch (neither)
     has every row valid and keys warmup on the lockstep counter.
     ``anchor`` (FedProx, ``fed.prox_mu > 0``): the round-start stacked
-    params, pulled toward by ``mu/2 · ||w - anchor||²``."""
+    params, pulled toward by ``mu/2 · ||w - anchor||²``. Client ``c``'s
+    logits and task loss come from the trainer's ``_client_logits`` and
+    ``_client_loss`` (the sequence-parallel trainer's run over the
+    client's slots, :mod:`..parallel.fedseq`)."""
     C, B = batch["labels"].shape[:2]
     dev = trainer.device
     valid = batch.get("valid")
-    if valid is None:
+    dense = valid is None
+    if dense:
         valid = np.ones((C, B), np.int32)
         warm = np.full(C, state.step, np.int64)
     else:
@@ -122,10 +126,10 @@ def train_step(
         total = None
         for c in active:
             lane = {n: r[c] for n, r in rows.items()}
-            logits = trainer._logits(
-                lane, tb["input_ids"][c], tb["attention_mask"][c], generator=state.generators[c]
+            logits = trainer._client_logits(
+                lane, c, tb["input_ids"][c], tb["attention_mask"][c], generator=state.generators[c]
             )
-            task = masked_loss_fn(logits, tb["labels"][c], v[c])
+            task = trainer._client_loss(logits, tb["labels"][c], v[c], dense=dense)
             obj = task
             if mu > 0.0:
                 obj = task + 0.5 * mu * prox_sq(list(lane.values()), [anchor_rows[n][c] for n in lane])
@@ -181,8 +185,8 @@ def eval_step(
             out.append(None)
             continue
         lane = {n: r[c] for n, r in rows.items()}
-        logits = trainer._logits(lane, tb["input_ids"][c], tb["attention_mask"][c])
-        out.append(eval_counts(logits, tb["labels"][c], v[c]))
+        logits = trainer._client_logits(lane, c, tb["input_ids"][c], tb["attention_mask"][c])
+        out.append(trainer._client_counts(logits, tb["labels"][c], v[c]))
     return out
 
 

@@ -19,7 +19,12 @@ port's slots draw their own streams):
 * a live TCP round where the client runs ``--data-parallel 2 --fsdp
   --device cpu`` against the single-device round (two rounds, the second
   reply streamed into the sink), and a mixed secure-agg + central-DP
-  round (``test_client_mesh.py:186-237``).
+  round (``test_client_mesh.py:186-237``);
+* ``--seq-parallel``: ``FedSeqClientTrainer`` (the C=1 fedseq trainer at
+  data 2 x seq 2) against the JAX one, dropout off (losses atol 2e-4,
+  params 1e-5, ``test_fedseq.py``'s bounds), its gather/adopt round trip
+  byte-exact, and a live round of ``client --data-parallel 2
+  --seq-parallel 2`` (``test_client_mesh.py:308-360``).
 """
 
 import csv
@@ -53,14 +58,14 @@ NO_DROP = dict(dropout=0.0, attention_dropout=0.0, head_dropout=0.0)
 CPU = torch.device("cpu")
 
 
-def _cfg(mod, tok, *, data=1, fsdp=False, clients=1):
+def _cfg(mod, tok, *, data=1, fsdp=False, clients=1, seq=1):
     model = mod.ModelConfig.tiny(vocab_size=len(tok.vocab), max_len=L, max_position_embeddings=2 * L, **NO_DROP)
     return mod.ExperimentConfig(
         model=model,
         data=mod.DataConfig(max_len=L, batch_size=8, data_fraction=0.3),
         train=mod.TrainConfig(prng_impl="threefry2x32", epochs_per_round=1, learning_rate=1e-3, log_every=0),
         fed=mod.FedConfig(num_clients=clients),
-        mesh=mod.MeshConfig(clients=clients, data=data, fsdp=fsdp),
+        mesh=mod.MeshConfig(clients=clients, data=data, fsdp=fsdp, seq=seq),
     )
 
 
@@ -113,6 +118,11 @@ def test_make_client_trainer_dispatch(tok):
     with pytest.raises(ValueError, match="devices"):
         pcm.make_client_trainer(dataclasses.replace(_cfg(pcfg, tok, data=2), mesh=pcfg.MeshConfig(clients=1, data=16),
                                                     data=pcfg.DataConfig(max_len=L, batch_size=16)), device="cpu")
+    # seq > 1: the C=1 fedseq trainer over a data x seq block of slots.
+    t = pcm.make_client_trainer(_cfg(pcfg, tok, data=2, seq=2), device="cpu")
+    assert type(t) is pcm.FedSeqClientTrainer and t.mesh.devices.shape == (1, 2, 2) and t.inner.C == 1
+    with pytest.raises(ValueError, match="must divide into mesh.seq=3"):
+        pcm.make_client_trainer(_cfg(pcfg, tok, seq=3), device="cpu")
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -379,3 +389,79 @@ def test_meshed_client_composes_with_secure_agg_and_dp(tok, tmp_path, monkeypatc
     assert not errs, errs
     for c in (0, 1):
         assert os.path.exists(os.path.join(out, f"client{c}_aggregated_metrics.csv"))
+
+
+# ------------------------------------------------ sequence parallelism
+def test_seq_client_trainer_matches_jax_and_round_trips(tok, client_data, eight_devices):
+    """``make_client_trainer`` at data 2 x seq 2 in both packages (the C=1
+    fedseq trainers), dropout off, the same weights: one local epoch's
+    losses within 2e-4 and params within 1e-5 (tests/test_fedseq.py's
+    bounds); evaluate takes the live state and an unstacked host
+    aggregate alike; host gather -> adopt -> host gather is byte-exact
+    and keeps the step (tests/test_client_mesh.py::
+    test_seq_client_trainer_roundtrip)."""
+    jcm = importlib.import_module(JAX_PKG + ".train.client_mesh")
+    jpipe = importlib.import_module(JAX_PKG + ".data.pipeline")
+    import jax
+
+    jt = jcm.make_client_trainer(_cfg(jcfg, tok, data=2, seq=2), pad_id=tok.pad_id)
+    jstate = jt.init_state()
+    host0 = jt.host_params(jstate)
+    split = client_data.train
+    jstate, jl = jt.fit(jstate, jpipe.TokenizedSplit(split.input_ids, split.attention_mask, split.labels), batch_size=8)
+    pt = pcm.make_client_trainer(_cfg(pcfg, tok, data=2, seq=2), pad_id=tok.pad_id, device="cpu")
+    state = pt.init_state(params=host0)
+    state, losses = pt.fit(state, split, batch_size=8)
+    assert len(losses) == 1 and np.isfinite(losses[0])
+    np.testing.assert_allclose(losses, jl, atol=2e-4)
+    host = pt.host_params(state)
+    want = pwire.flatten_params(jax.tree.map(np.asarray, jt.host_params(jstate)))
+    got = pwire.flatten_params(host)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], atol=1e-5, err_msg=k)
+    m_state = pt.evaluate_state(state, client_data.test)
+    m_host = pt.evaluate(host, client_data.test)
+    assert m_state["Accuracy"] == m_host["Accuracy"]
+    adopted = pt.adopt_aggregate(state, host)
+    back = pwire.flatten_params(pt.host_params(adopted))
+    assert all(np.array_equal(got[k], back[k]) for k in got)
+    assert adopted.step == state.step
+    assert pwire.flat_crc32(back) == pwire.flat_crc32(got)
+
+
+def test_client_seq_parallel_tcp_round(tok, tmp_path):
+    """Live server + ``client --data-parallel 2 --seq-parallel 2 --device
+    cpu`` for one round (tests/test_client_mesh.py::
+    test_client_seq_parallel_tcp_round): the fedseq client trainer, the
+    full artifact set, sane metrics, and a one-client aggregate equal to
+    its upload."""
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli import (
+        build_parser,
+    )
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.comm import (
+        run_client,
+    )
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.comm import (
+        AggregationServer,
+    )
+
+    cfg_path = _write_cfg(tmp_path, _cfg(jcfg, tok, data=2, seq=2), "cfg_seq.json")
+    out = str(tmp_path / "seq")
+    errs: list = []
+    with AggregationServer(port=0, num_clients=1, timeout=60, device="cpu") as server:
+        st = _serve(server, 1, errs)
+        res = run_client(build_parser().parse_args([
+            "client", "--client-id", "0", "--host", "127.0.0.1", "--port", str(server.port), "--config", cfg_path,
+            "--synthetic", "400", "--output-dir", out, "--timeout", "60", "--device", "cpu",
+            "--data-parallel", "2", "--seq-parallel", "2",
+        ]))
+        st.join(timeout=60)
+    assert not errs and not st.is_alive(), errs
+    assert isinstance(res["trainer"], pcm.FedSeqClientTrainer)
+    for phase in ("local", "aggregated"):
+        m = _read_metrics_csv(os.path.join(out, f"client0_{phase}_metrics.csv"))
+        assert 0.0 <= float(m["Accuracy"]) <= 100.0
+    up = pwire.flatten_params(res["uploaded"])
+    agg = pwire.flatten_params(res["trainer"].host_params(res["state"]))
+    assert pwire.flat_crc32(agg) == pwire.flat_crc32(up)

@@ -268,9 +268,8 @@ def test_cli_refuses_what_the_jax_cli_refuses(monkeypatch):
         build_parser().parse_args(argv)  # ported: valid in both packages
         jax_parser().parse_args(argv)
     for argv in (["client", "--client-id", "0", "--seq-parallel", "2"],):
-        with pytest.raises(SystemExit):
-            build_parser().parse_args(argv)
-        jax_parser().parse_args(argv)  # valid in the JAX package
+        # Ported too: the same value in both packages.
+        assert build_parser().parse_args(argv).seq_parallel == jax_parser().parse_args(argv).seq_parallel == 2
     # Central DP is ported: its flags parse, and the serve verb refuses
     # what the JAX one refuses (tests/test_torch_dp_tcp.py holds the rest).
     assert build_parser().parse_args(["serve", "--dp-clip", "1"]).dp_clip == 1.0

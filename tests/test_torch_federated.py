@@ -507,21 +507,22 @@ def test_federated_cli_matches_the_jax_cli(tmp_path, monkeypatch):
         ["--personalize-scope", "head"], ["--dp-clip", "1.0"], ["--dp-noise-multiplier", "1.0"],
         ["--coordinator", "localhost:1"], ["--num-processes", "2"], ["--process-id", "0"],
         ["--stream"], ["--trace-jsonl", "t.jsonl"], ["--metrics-jsonl", "m.jsonl"], ["--profile-dir", "p"],
+        ["--no-such-flag"],
     ],
 )
 def test_unported_federated_flags_are_refused(flag, capsys):
-    """Flags of unported features (--seq-parallel) are unknown to
-    argparse; the DP, personalization, --stream, obs (--trace-jsonl,
-    --metrics-jsonl, --profile-dir) and mesh (--data-parallel,
-    --coordinator, --num-processes, --process-id) flags are ported and
-    parse to the JAX package's values."""
+    """Every flag of the JAX verb is ported: the DP, personalization,
+    --stream, obs (--trace-jsonl, --metrics-jsonl, --profile-dir) and mesh
+    (--data-parallel, --seq-parallel, --coordinator, --num-processes,
+    --process-id) flags parse to the JAX package's values, and argparse
+    refuses a flag neither verb has."""
     from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu.cli import (
         build_parser as jax_parser,
     )
 
     if flag[0] in (
         "--personalize-epochs", "--personalize-scope", "--dp-clip", "--dp-noise-multiplier", "--stream",
-        "--trace-jsonl", "--metrics-jsonl", "--profile-dir", "--data-parallel", "--coordinator",
+        "--trace-jsonl", "--metrics-jsonl", "--profile-dir", "--data-parallel", "--seq-parallel", "--coordinator",
         "--num-processes", "--process-id",
     ):
         argv = ["federated", *flag]
@@ -534,6 +535,8 @@ def test_unported_federated_flags_are_refused(flag, capsys):
     with pytest.raises(SystemExit):
         build_parser().parse_args(["federated", *flag])
     assert "unrecognized arguments" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        jax_parser().parse_args(["federated", *flag])
 
 
 def test_federated_flags_resolve_and_personalize_raises():

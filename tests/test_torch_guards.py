@@ -18,6 +18,7 @@
 """
 
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -268,15 +269,15 @@ def test_round_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_the_guards_left_are_the_unported_paths():
-    """Every ``raise NotImplementedError`` left in the port guards a path
-    that is not ported: ring attention (the model) and the config's
-    sequence-parallel axis (``mesh.seq > 1``, item 15), beside the
-    abstract strategy's ``apply``; the controller takes its shadow, label
-    and error-rate gates. The server folds secure, relay and re-homed
-    uploads, so it keeps no table of unported upload modes, and the CLI
-    reads the identity keys instead of refusing them. The config drops no
-    JAX section any more (the mesh is ported), and ``--seq-parallel``
-    stays unknown to the port's parser."""
+    """The one ``raise NotImplementedError`` left in the port is the
+    abstract strategy's ``apply``: ring attention (the model) and the
+    config's sequence-parallel axis (``mesh.seq > 1``) are ported, and the
+    controller takes its shadow, label and error-rate gates. The server
+    folds secure, relay and re-homed uploads, so it keeps no table of
+    unported upload modes, and the CLI reads the identity keys instead of
+    refusing them. The config drops no JAX section, ``MeshConfig(seq=2)``
+    validates as the JAX package's, and ``--seq-parallel`` parses on
+    ``federated`` and ``client`` to the JAX package's values."""
     from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli import (
         comm as cli_comm,
     )
@@ -293,7 +294,7 @@ def test_the_guards_left_are_the_unported_paths():
                 exc = node.exc.func if isinstance(node.exc, ast.Call) else node.exc
                 if getattr(exc, "id", None) == "NotImplementedError":
                     found.append(os.path.relpath(path, REPO_ROOT).split("/", 1)[-1])
-    assert sorted(found) == ["config.py", "models/distilbert.py", "strategies/core.py"]
+    assert sorted(found) == ["strategies/core.py"]
     assert not hasattr(server, "_UNPORTED_UPLOAD_MODES")
     assert not hasattr(cli_comm, "_refuse_identity_keys")
     from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch import (
@@ -303,13 +304,18 @@ def test_the_guards_left_are_the_unported_paths():
         build_parser,
     )
 
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu import (
+        config as jcfg,
+    )
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu.cli import (
+        build_parser as jax_parser,
+    )
+
     assert not hasattr(pcfg, "_JAX_ONLY_SECTIONS")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        pcfg.MeshConfig(seq=2)
+    assert dataclasses.asdict(pcfg.MeshConfig(seq=2)) == dataclasses.asdict(jcfg.MeshConfig(seq=2))
     for argv in (["federated"], ["client", "--client-id", "0"]):
-        with pytest.raises(SystemExit):
-            build_parser().parse_args([*argv, "--seq-parallel", "2"])
-        assert "--seq-parallel" not in build_parser().format_help()
+        argv = [*argv, "--seq-parallel", "2"]
+        assert build_parser().parse_args(argv).seq_parallel == jax_parser().parse_args(argv).seq_parallel == 2
 
 
 def test_chip_smoke_defines_each_top_level_name_once():

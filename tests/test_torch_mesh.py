@@ -10,9 +10,10 @@
   same shapes and axis names, the same device-count errors), and slots
   that share a device never alias (every placement copies).
 * The config's ``mesh`` section reads back from a JAX-written config
-  field for field; ``mesh.seq > 1`` raises ``NotImplementedError``.
-* The mesh flags parse to the JAX parser's values; ``--seq-parallel``
-  stays unknown to the port's parser.
+  field for field, the ``seq`` axis included, and refuses what the JAX
+  one refuses with its messages.
+* The mesh flags parse to the JAX parser's values, ``--seq-parallel``
+  on ``federated`` and ``client`` included.
 * ``python -m <port>.cli`` runs the CLI.
 """
 
@@ -184,19 +185,22 @@ def test_mesh_config_reads_a_jax_config_field_for_field():
 
 def test_mesh_config_validates_as_jax():
     """tests/test_mesh_fsdp.py::test_mesh_config_validates_fsdp on both
-    packages, plus the port's one refusal: the seq axis (item 15)."""
+    packages, word for word, and the sequence-parallel axis validates and
+    reads back to the JAX package's values."""
+    msgs = []
     for mod in (jcfg, pcfg):
-        with pytest.raises(ValueError, match="data >= 2"):
-            mod.MeshConfig(clients=1, data=1, fsdp=True)
-        with pytest.raises(ValueError, match="seq"):
-            mod.MeshConfig(clients=1, data=2, seq=2, fsdp=True)
-        with pytest.raises(ValueError, match=">= 1"):
-            mod.MeshConfig(clients=0)
-    jcfg.MeshConfig(seq=2)  # the JAX package's sequence-parallel axis
-    with pytest.raises(NotImplementedError, match="item 15"):
-        pcfg.MeshConfig(seq=2)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        pcfg.ExperimentConfig.from_dict({"mesh": {"seq": 2}})
+        got = []
+        for kw in (dict(clients=1, data=1, fsdp=True), dict(clients=1, data=2, seq=2, fsdp=True),
+                   dict(clients=0), dict(seq=0)):
+            with pytest.raises(ValueError) as e:
+                mod.MeshConfig(**kw)
+            got.append(str(e.value))
+        msgs.append(got)
+        assert "data >= 2" in got[0] and "seq" in got[1] and ">= 1" in got[2]
+    assert msgs[0] == msgs[1]
+    assert dataclasses.asdict(pcfg.MeshConfig(seq=2)) == dataclasses.asdict(jcfg.MeshConfig(seq=2))
+    got = pcfg.ExperimentConfig.from_dict({"mesh": {"seq": 2, "data": 2}}).mesh
+    assert dataclasses.asdict(got) == dataclasses.asdict(jcfg.ExperimentConfig.from_dict({"mesh": {"seq": 2, "data": 2}}).mesh)
 
 
 @pytest.mark.parametrize(
@@ -220,12 +224,16 @@ def test_mesh_flags_parse_as_jax(argv):
     )
 
     args, jargs = build_parser().parse_args(argv), jax_parser().parse_args(argv)
-    for name in ("data_parallel", "fsdp", "coordinator", "num_processes", "process_id"):
+    for name in ("data_parallel", "seq_parallel", "fsdp", "coordinator", "num_processes", "process_id"):
         if hasattr(jargs, name):
             assert getattr(args, name) == getattr(jargs, name), name
-    with pytest.raises(SystemExit):
-        build_parser().parse_args([*argv[:1], *(["--client-id", "0"] if argv[0] == "client" else []),
-                                   "--seq-parallel", "2"])
+    seq = [*argv, "--seq-parallel", "2"]
+    if argv[0] == "infer-serve":  # no sequence-parallel scorer in either package
+        for parser in (build_parser(), jax_parser()):
+            with pytest.raises(SystemExit):
+                parser.parse_args(seq)
+    else:
+        assert build_parser().parse_args(seq).seq_parallel == jax_parser().parse_args(seq).seq_parallel == 2
 
 
 def test_client_config_resolves_the_mesh_as_jax(tmp_path):

@@ -92,7 +92,21 @@ def test_init_params_fits_the_model_and_is_seeded():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        build_model(
-            ModelConfig.tiny(attention_impl="ring"), {}, torch.device("cpu")
-        )
+    """``attention_impl="ring"`` is ported: outside a seq context the
+    model builds and runs the dot path, as the JAX model runs it outside
+    ``shard_map`` (tests/test_attention.py::
+    test_ring_config_initializes_and_runs_outside_shard_map), and a
+    missing leaf still refuses the strict load."""
+    cfg = ModelConfig.tiny(attention_impl="ring", attention_dropout=0.0)
+    jcfg = JaxModelConfig.tiny(attention_impl="ring", attention_dropout=0.0)
+    tree = jax_init_params(JaxClassifier(jcfg), jcfg, jax.random.key(0))
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (2, cfg.max_len)).astype(np.int32)
+    mask = np.ones((2, cfg.max_len), np.int32)
+    want = JaxClassifier(jcfg.replace(attention_impl="dot")).apply({"params": tree}, jnp.asarray(ids), jnp.asarray(mask), True)
+    model = build_model(cfg, params_from_jax(jax.tree.map(np.asarray, tree)), torch.device("cpu"))
+    with torch.no_grad():
+        got = model(torch.from_numpy(ids).long(), torch.from_numpy(mask).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    with pytest.raises(RuntimeError, match="Missing key"):
+        build_model(cfg, {}, torch.device("cpu"))

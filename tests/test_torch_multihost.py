@@ -4,9 +4,10 @@ against the JAX package's ``tests/test_multihost.py``.
 The single-process degenerate paths run inline, as the JAX cases do. The
 real thing, two OS processes each owning one client and joined by
 ``torch.distributed`` over gloo on the CPU, runs through the port's CLI:
-the fast lane holds one such run against the one-process ``federated``
-run of the same config (the aggregate within the JAX tests' params bound,
-the metrics CSVs equal, both processes logging the same round lines);
+the fast lane holds one such run, and one with ``--seq-parallel 2``,
+against the one-process ``federated`` run of the same config (the
+aggregate within the JAX tests' params bound, the metrics CSVs equal,
+both processes logging the same round lines);
 the JAX package's other two-process cases (``--stream``, checkpoint
 resume, DP-FedAvg, FedOpt) keep its ``slow`` mark. Every spawned group
 gets a fresh coordinator port, a rendezvous timeout and a per-process
@@ -176,6 +177,38 @@ def test_two_process_federated_matches_one_process(tmp_path):
     for k in p1:
         np.testing.assert_allclose(p2[k], p1[k], atol=2e-6, rtol=1e-5, err_msg=k)
     assert len(r2.list()) == 1  # process 0 alone publishes
+
+
+def test_two_process_seq_parallel_cli(tmp_path):
+    """``federated --seq-parallel 2 --data-parallel 2`` as two gloo
+    processes (tests/test_multihost.py::test_two_process_seq_parallel_cli):
+    the global clients x data x seq mesh with each client's ring in its
+    own process, dropout on, against the one-process run of the same
+    config: the aggregate within atol 2e-6 / rtol 1e-5, the metrics CSVs
+    equal (Loss rtol 1e-5), both processes logging the same round lines."""
+    extra = ("--seq-parallel", "2")
+    out1, out2 = tmp_path / "one", tmp_path / "two"
+    reg1, reg2 = tmp_path / "reg1", tmp_path / "reg2"
+    (one,) = _launch(tmp_path, out1, (*extra, "--registry-dir", str(reg1)), pids=(-1,))
+    outputs = _launch(tmp_path, out2, (*extra, "--registry-dir", str(reg2)))
+    assert "[FEDSEQ] mesh 2x2x2" in one and "[FEDSEQ] mesh 2x2x2" in outputs[0], outputs[0][-2000:]
+    assert "2 processes, rings in-process" in outputs[0] and "owns clients [1, 2)" in outputs[1]
+    rounds = [_lines(o, "Round 1 client") for o in (one, *outputs)]
+    assert rounds[0] and rounds[0] == rounds[1] == rounds[2]
+    for c in range(2):
+        for phase in ("local", "aggregated"):
+            a, b = _csv_row(out1 / f"client{c}_{phase}_metrics.csv"), _csv_row(out2 / f"client{c}_{phase}_metrics.csv")
+            np.testing.assert_array_equal(a[[0, 2, 3, 4]], b[[0, 2, 3, 4]])
+            np.testing.assert_allclose(a[1], b[1], rtol=1e-5)
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.registry import (
+        ModelRegistry,
+    )
+
+    r1, r2 = ModelRegistry(str(reg1)), ModelRegistry(str(reg2))
+    p1, p2 = r1.load_params(r1.list()[-1]["id"]), r2.load_params(r2.list()[-1]["id"])
+    assert p1.keys() == p2.keys()
+    for k in p1:
+        np.testing.assert_allclose(p2[k], p1[k], atol=2e-6, rtol=1e-5, err_msg=k)
 
 
 @pytest.mark.slow
