@@ -400,7 +400,29 @@ Phases; any failure exits non-zero before the last line is printed:
             once a leaf and the aggregate's crc the plain fold's; (d)
             two gloo processes of ``federated --seq-parallel 2``
             bit-equal to one. No flash kernel launches on the ring path;
-17. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
+17. check  — the port's ``check`` verb on the card's host: (a)
+            ``python -m <port>.cli check --json`` over the tree the smoke
+            runs from exits 0 with no new finding, the one reviewed
+            baseline entry, the nine rules and as many modules as the
+            smoke counts by the checker's walk; ``--list-rules`` prints
+            the nine; (b) on copies of both packages, bench.py and the
+            baseline, a wall clock feeding the key order of the port's
+            ``strategies/core.py`` exits 1 with exactly one
+            ``determinism`` finding there, the reply-direction stream
+            chunk domain collapsed onto the upload one in the JAX
+            package's ``comm/wire.py`` exits 1 with exactly one
+            ``wire-domain-unique`` finding, and ``--prune-baseline``
+            removes exactly the one stale entry added to a third copy;
+            (c) the port's lock-order detector (``analysis.lockorder``)
+            armed over phase 8's round (its checks, K4 once a leaf) and a
+            256-flow closed loop through ``fleet --replicas 2
+            --shadow-sample 2`` with a shadow artifact mirrored (128
+            pairs): no cycle, tracked locks in ``comm/server.py``,
+            ``comm/client.py``, ``router/core.py`` and
+            ``shadow/mirror.py``; prints the edges, the same-site
+            nesting, and the round's wall with the detector on beside
+            phase 8's;
+18. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
    serving shape and dropout at the training shape, then K2, K3 and K4;
    K1's rate-0 launches count phase 5, phase 6's evaluation, the
    lifecycle's predict and reload serving, the federated phase's
@@ -415,7 +437,9 @@ Phases; any failure exits non-zero before the last line is printed:
    K4 the migrate and dp-rounds phases, phases 8 and 9, the obs
    phase's round, the control phase's two rounds, the robust
    phase's relays, roots and scenario servers, the gates phase's
-   round, the mesh phase's client rounds and the seq phase's round),
+   round, the mesh phase's client rounds and the seq phase's round;
+   every kernel also the check phase's armed window: the round's
+   clients and server, and the router's replicas and shadow replica),
    then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -434,6 +458,7 @@ import dataclasses
 import io
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -449,6 +474,9 @@ import torch.nn.functional as F
 
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch import (
     obs as obs_mod,
+)
+from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.analysis import (
+    lockorder,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli import (
     build_parser,
@@ -2136,9 +2164,18 @@ def fold_kernel_phase(seed: int, card: str) -> dict:
     return entry
 
 
-def round_phase(seed: int, card: str) -> int:
+def round_phase(seed: int, card: str) -> tuple[int, float]:
     """Phase 8: one full-width FedAvg round on loopback, folded by K4 on
-    the card. Returns K4's launches during it."""
+    the card. Returns K4's launches during it and the round's wall."""
+    res = two_client_round(seed, card, "round")
+    return res["fold"], res["wall"]
+
+
+def two_client_round(seed: int, card: str, label: str) -> dict:
+    """Phase 8's round: ``serve --num-clients 2`` and two ``client``s of
+    the train cell at full width, one round, with its checks. Every launch
+    counter is set to 0 before it; returns each kernel's launches during
+    it and the round's wall (the lines it prints start with ``label``)."""
     with tempfile.TemporaryDirectory() as out_dir:
         server = build_round_server(build_parser().parse_args(
             ["serve", "--host", "127.0.0.1", "--port", "0", "--num-clients", "2",
@@ -2191,7 +2228,7 @@ def round_phase(seed: int, card: str) -> int:
     aggs = [wire.flatten_params(results[i]["aggregate"]) for i in range(2)]
     n_leaves = len(uploads[0])
     n_params = sum(a.size for a in uploads[0].values())
-    print(f"round: {n_leaves} leaves, {n_params} fp32 parameters ({n_params * 4 / 1e6:.2f} MB) per upload; K4 launches {launches}; flash launches (K1 rate 0, K1 dropout, K2, K3) {flash}", flush=True)
+    print(f"{label}: {n_leaves} leaves, {n_params} fp32 parameters ({n_params * 4 / 1e6:.2f} MB) per upload; K4 launches {launches}; flash launches (K1 rate 0, K1 dropout, K2, K3) {flash}", flush=True)
     check(n_leaves == 102 and launches == n_leaves, f"K4 launched {launches} times for {n_leaves} leaves (want one per leaf, 102)")
     check(aggs[0].keys() == aggs[1].keys() and all(np.array_equal(aggs[0][k], aggs[1][k]) for k in aggs[0]),
           "the two clients received different aggregates")
@@ -2201,7 +2238,7 @@ def round_phase(seed: int, card: str) -> int:
         for key in uploads[0]
     }
     crc, want = wire.flat_crc32(aggs[0]), wire.flat_crc32(ref)
-    print(f"round: aggregate crc {crc:#010x}, fold_reference over the uploads {want:#010x}", flush=True)
+    print(f"{label}: aggregate crc {crc:#010x}, fold_reference over the uploads {want:#010x}", flush=True)
     check(crc == want, "the round's aggregate differs from the plain fold of the uploads")
     steps = [results[i]["state"].step for i in range(2)]
     mcfg = results[0]["config"].model
@@ -2215,7 +2252,7 @@ def round_phase(seed: int, card: str) -> int:
     for i in range(2):
         s, x = results[i]["seconds"], results[i]["exchange"]
         print(
-            f"round: client {i}: set-up {s['setup']:.3f} s, train {s['train']:.3f} s ({steps[i]} steps), eval {s['eval_local']:.3f} s, "
+            f"{label}: client {i}: set-up {s['setup']:.3f} s, train {s['train']:.3f} s ({steps[i]} steps), eval {s['eval_local']:.3f} s, "
             f"host_params {s['host_params']:.3f} s, upload {x['upload_s']:.3f} s ({x['upload_bytes'] / 1e6:.1f} MB), "
             f"wait for the reply {x['reply_wait_s']:.3f} s ({x['reply_bytes'] / 1e6:.1f} MB), "
             f"re-evaluation {s['eval_aggregated']:.3f} s, adopt {s['adopt']:.3f} s",
@@ -2223,12 +2260,13 @@ def round_phase(seed: int, card: str) -> int:
         )
     ph = server.phase_seconds
     print(
-        f"round: server {card}: wait {ph['wait']:.3f} s, agg {ph['agg']:.3f} s (fold {stats['fold_s']:.3f} s = "
+        f"{label}: server {card}: wait {ph['wait']:.3f} s, agg {ph['agg']:.3f} s (fold {stats['fold_s']:.3f} s = "
         f"H2D {stats['fold_h2d_ms']:.2f} ms, launch + kernel {stats['fold_kernel_ms']:.3f} ms, D2H {stats['fold_d2h_ms']:.2f} ms "
         f"by CUDA events, over {launches} leaves), reply {ph['reply']:.3f} s; round wall {wall:.3f} s",
         flush=True,
     )
-    return launches
+    return {"flash_fwd": flash[0], "flash_fwd_dropout": flash[1], "flash_bwd_dkdv": flash[2], "flash_bwd_dq": flash[3],
+            "fold": launches, "wall": wall}
 
 
 def rounds_invocation(seed: int, card: str, name: str, serve_flags: list[str], client_flags: list[list[str]],
@@ -5455,6 +5493,230 @@ def seq_phase(seed: int, card: str) -> dict[str, int]:
           f"the seq path's launches {total}: want K4 only")
     return total
 
+# The check phase: the port's ``check`` verb on the card's host, seeded
+# mutations of a copy of the tree, and the lock-order detector armed over
+# the round and the router.
+ROOT = os.path.dirname(os.path.abspath(__file__))
+JAX_PKG_DIR = JAX_FLASH.split("/")[0]  # the JAX package's directory, scanned as source (never imported)
+CHECK_RULES = ["bench-headline", "determinism", "obs-metric-once", "obs-span-vocab", "unguarded", "wire-domain-unique",
+               "wire-magic-coverage", "wire-meta-key-unique", "wire-stream-direction"]
+#: (package, file, anchor -> replacement edits, the one finding it must raise)
+CHECK_MUTATIONS = [
+    (PORT, "strategies/core.py",
+     [("from typing import Any\n", "import time\nfrom typing import Any\n"),
+      ("keys = sorted(mean)\n", "keys = sorted(mean, key=lambda k: (time.time(), k))\n")],
+     "determinism"),
+    (JAX_PKG_DIR, "comm/wire.py", [('b"fedtpu-stream-rchk-v1"', 'b"fedtpu-stream-chk-v1"')], "wire-domain-unique"),
+]
+STALE_ENTRY = {"rule": "determinism", "path": f"{PORT}/strategies/gone.py", "message": "no longer fires",
+               "reason": "a stale entry the prune must remove"}
+#: Where the armed window must have tracked locks.
+ARMED_SITES = ("comm/server.py", "comm/client.py", "router/core.py", "shadow/mirror.py")
+
+
+def count_modules(root: str) -> int:
+    """The modules ``check`` scans, counted by its walk's rules: the
+    top-level ``*.py`` files, and every ``*.py`` under a top-level
+    directory holding an ``__init__.py``, outside ``tests``, ``.claude``,
+    ``__pycache__`` and ``.git``."""
+    skip = {"tests", "__pycache__", ".git", ".claude"}
+    n = 0
+    for entry in os.listdir(root):
+        full = os.path.join(root, entry)
+        if entry.endswith(".py") and os.path.isfile(full):
+            n += 1
+        elif os.path.isdir(full) and entry not in skip and os.path.isfile(os.path.join(full, "__init__.py")):
+            for dirpath, dirnames, filenames in os.walk(full):
+                dirnames[:] = [d for d in dirnames if d not in skip]
+                n += sum(f.endswith(".py") for f in filenames)
+    return n
+
+
+def check_cli(*argv: str) -> list[str]:
+    return [sys.executable, "-m", f"{PORT}.cli", "check", *argv]
+
+
+def tree_copy(dst: str) -> str:
+    """Both packages, bench.py and the reviewed baseline, copied under ``dst``."""
+    os.makedirs(dst)
+    for pkg in (JAX_PKG_DIR, PORT):
+        shutil.copytree(os.path.join(ROOT, pkg), os.path.join(dst, pkg),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+    for name in ("bench.py", "ANALYSIS_BASELINE.json"):
+        shutil.copy(os.path.join(ROOT, name), os.path.join(dst, name))
+    return dst
+
+
+def check_scan(card: str) -> None:
+    """(a) ``check --json`` over the tree the smoke runs from, and
+    ``--list-rules``."""
+    t0 = time.perf_counter()
+    res = subprocess.run(check_cli("--json"), capture_output=True, text=True, timeout=600, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"check --json exited {res.returncode}: {res.stdout[-2000:]} {res.stderr[-2000:]}")
+    doc = json.loads(res.stdout)
+    want = count_modules(ROOT)
+    print(f"check (a): {card}: check --json on the card's host: {doc['check_runtime_s']:.3f} s of scan "
+          f"({wall:.3f} s with the interpreter's start); {doc['modules_scanned']} modules (counted {want}), "
+          f"{len(doc['findings_new'])} new, {doc['findings_baselined']} baselined, {doc['findings_allowed']} "
+          f"pragma-allowed, {len(doc['stale_baseline'])} stale", flush=True)
+    check(doc["findings_new"] == [] and doc["exit_code"] == 0, f"new findings {doc['findings_new']}")
+    check(doc["findings_baselined"] == 1 and doc["stale_baseline"] == [], f"baselined {doc['findings_baselined']}, "
+          f"stale {doc['stale_baseline']}")
+    check(sorted(doc["rules"]) == CHECK_RULES, f"rules {doc['rules']}")
+    check(doc["modules_scanned"] == want, f"scanned {doc['modules_scanned']} modules, counted {want}")
+    listed = subprocess.run(check_cli("--list-rules"), capture_output=True, text=True, timeout=300, cwd=ROOT)
+    lines = listed.stdout.splitlines()
+    check(listed.returncode == 0 and [ln.split()[0] for ln in lines] == CHECK_RULES,
+          f"--list-rules exited {listed.returncode}: {lines}")
+
+
+def check_mutations(card: str, work: str) -> None:
+    """(b) Each seeded mutation of a copy exits 1 with its one finding;
+    ``--prune-baseline`` removes exactly the stale entry of a third copy.
+    The three scans run side by side."""
+    procs = []
+    for i, (pkg, rel, edits, rule) in enumerate(CHECK_MUTATIONS):
+        root = tree_copy(os.path.join(work, f"mutation{i}"))
+        path = os.path.join(root, pkg, rel)
+        with open(path) as f:
+            src = f.read()
+        for old, new in edits:
+            check(src.count(old) == 1, f"mutation anchor {old!r} in {pkg}/{rel}")
+            src = src.replace(old, new)
+        with open(path, "w") as f:
+            f.write(src)
+        procs.append(((pkg, rel, rule), subprocess.Popen(check_cli("--json", "--root", root), stdout=subprocess.PIPE,
+                                                         stderr=subprocess.PIPE, text=True, cwd=ROOT)))
+    root = tree_copy(os.path.join(work, "prune"))
+    baseline = os.path.join(root, "ANALYSIS_BASELINE.json")
+    with open(baseline) as f:
+        reviewed = json.load(f)
+    with open(baseline, "w") as f:
+        json.dump({**reviewed, "findings": [*reviewed["findings"], STALE_ENTRY]}, f, indent=2)
+    prune = subprocess.Popen(check_cli("--json", "--root", root, "--prune-baseline"), stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True, cwd=ROOT)
+    t0 = time.perf_counter()
+    outs = [(what, p.communicate(timeout=600), p.returncode) for what, p in procs]
+    pout, perr = prune.communicate(timeout=600)
+    wall = time.perf_counter() - t0
+    check(pout.strip() != "", f"the prune printed nothing (exit {prune.returncode}): {perr[-2000:]}")
+    for (pkg, rel, rule), (out, err), rc in outs:
+        check(out.strip() != "", f"the {pkg}/{rel} mutation's check printed nothing (exit {rc}): {err[-2000:]}")
+        doc = json.loads(out)
+        got = [(f["rule"], f["path"]) for f in doc["findings_new"]]
+        print(f"check (b): {pkg}/{rel} mutated: exit {rc}, {[f['message'][:80] for f in doc['findings_new']]}",
+              flush=True)
+        check(rc == 1 and doc["exit_code"] == 1 and got == [(rule, f"{pkg}/{rel}")],
+              f"the {pkg}/{rel} mutation: exit {rc}, new findings {got} (want [{rule}]); {err[-1000:]}")
+    with open(baseline) as f:
+        pruned = json.load(f)
+    print(f"check (b): --prune-baseline: exit {prune.returncode}, {perr.strip()}; entries "
+          f"{len(reviewed['findings']) + 1} -> {len(pruned['findings'])}; the three scans side by side {wall:.3f} s",
+          flush=True)
+    check(prune.returncode == 0 and json.loads(pout)["stale_baseline"] == [], f"prune exited {prune.returncode}: {perr}")
+    check(pruned == reviewed and "pruned 1 stale baseline entry" in perr, f"the pruned baseline {pruned}")
+
+
+def check_fleet(seed: int, card: str) -> dict[str, int]:
+    """(c), second half: two replicas behind the router following a
+    registry, a shadow artifact mirrored at stride 2, a 256-flow closed
+    loop through the router. Every launch counter is set to 0 before it;
+    returns each kernel's launches during it."""
+    tok = default_tokenizer()
+    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.cli.common import (
+        resolve_config,
+    )
+
+    cfg = resolve_config(build_parser().parse_args(["controller", "--registry-dir", "-", *CONTROL_CLIENT_ARGS[:4]]),
+                         vocab_size=len(tok.vocab)).model
+    check((cfg.dim, cfg.n_layers, cfg.attention_impl, cfg.compute_dtype) == (768, 6, "flash", "bfloat16"),
+          f"not full width: {cfg}")
+    params = head_variant(init_params(cfg, torch.Generator().manual_seed(seed + 91)), bias=(-1.0, 1.0))
+    texts = [flow_to_text(r) for r in flow_records(seed + 93, GATE_FLOWS)]
+    with tempfile.TemporaryDirectory() as work:
+        reg = os.path.join(work, "registry")
+        publish(reg, params, 1, cfg)
+        zero_with_fold()
+        fleet = build_fleet(build_parser().parse_args([
+            "fleet", "--registry-dir", reg, "--replicas", "2", "--buckets", "1,8,32", "--host", "127.0.0.1",
+            "--port", "0", "--reload-poll", "0.2", "--max-wait-ms", "5", "--shadow-sample", "2", "--device", "cuda",
+        ])).fleet
+        with fleet:
+            registry = ModelRegistry(reg)
+            aid = registry.add(head_variant(params, bias=(0.0, 1e-6)), round_index=2, model_config=cfg)
+            registry.promote(aid, to="shadow")
+            wait_for(lambda: fleet.stats()["shadow_artifact"] == aid, 120, f"the shadow plane armed for {aid}")
+            res = run_load("127.0.0.1", fleet.port, texts, concurrency=8, requests=GATE_FLOWS, timeout=120)
+            load_line(card, "check (c): closed loop through the router, the mirror armed (1/2), the detector armed", res)
+            check(res["scored"] == GATE_FLOWS and res["rejected"] == 0, f"load: {res['scored']} scored, "
+                  f"{res['rejected']} rejected")
+            recs = wait_pairs(shadow_pairs_path(reg, aid), GATE_FLOWS // 2)
+            worst = max(abs(r["serving_prob"] - r["shadow_prob"]) for r in recs)
+            print(f"check (c): {len(recs)} mirrored pairs, max|serving - shadow| {worst:.3e}; mirror "
+                  f"{fleet.stats()['shadow_mirror']}", flush=True)
+            check(worst <= 1e-2, f"the shadow replica's probs differ by {worst}")
+        torch.cuda.synchronize()
+    launches = read_with_fold()
+    check(launches["flash_fwd"] > 0 and launches["flash_fwd"] % cfg.n_layers == 0 and launches["fold"] == 0
+          and not any(launches[k] for k in ("flash_fwd_dropout", "flash_bwd_dkdv", "flash_bwd_dq")),
+          f"the router loop's launches {launches}")
+    return launches
+
+
+def check_armed(seed: int, card: str, unarmed_wall: float) -> dict[str, int]:
+    """(c) The port's lock-order detector armed over phase 8's round and
+    the router loop; fails on any cycle. Returns each kernel's launches
+    in the armed window."""
+    session = (threading.Lock, threading.RLock)
+    total = zero_launches()
+    lockorder.arm()
+    try:
+        t0 = time.perf_counter()
+        rnd = two_client_round(seed, card, "check (c) round")
+        t1 = time.perf_counter()
+        add_launches(total, {k: rnd[k] for k in total})
+        add_launches(total, check_fleet(seed, card))
+        t2 = time.perf_counter()
+    finally:
+        report = lockorder.disarm()
+    check((threading.Lock, threading.RLock) == session, "disarm left threading's lock factories patched")
+    same = sum(report.same_site_edges.values())
+    print(f"check (c): {card}: {report.render()}", flush=True)
+    print(f"check (c): {len(report.sites)} tracked sites, {report.acquisitions} acquisitions, {len(report.edges)} "
+          f"order edges ({sum(report.edges.values())} recorded), same-site nesting {same} at "
+          f"{len(report.same_site_edges)} site(s), cycles {len(report.cycles)}", flush=True)
+    print(f"check (c): {card}: detector-on wall of the two-client round {rnd['wall']:.3f} s (phase 8, detector off: "
+          f"{unarmed_wall:.3f} s; a wall with the detector on, not a round-wall figure); the round with its set-up "
+          f"{t1 - t0:.1f} s, the router loop with its set-up {t2 - t1:.1f} s", flush=True)
+    check(report.cycles == [], f"lock-order cycles (ABBA deadlock risk) on the card:\n{report.render()}")
+    check(report.acquisitions > 0, "the armed window acquired no tracked lock")
+    files = {site.rsplit(":", 1)[0] for site in report.sites}
+    missing = [rel for rel in ARMED_SITES if f"{PORT}/{rel}" not in files]
+    check(not missing, f"no tracked lock site in {missing}; sites {sorted(files)}")
+    return total
+
+
+def check_phase(seed: int, card: str, unarmed_wall: float) -> dict[str, int]:
+    """Phase 17: the ``check`` verb on the card's host, seeded mutations,
+    the armed round and router loop. Returns each kernel's launches during
+    it (the armed window's; ``check`` itself launches none)."""
+    t_phase = time.perf_counter()
+    t = time.perf_counter()
+    check_scan(card)
+    times = {"(a)": time.perf_counter() - t}
+    with tempfile.TemporaryDirectory() as work:
+        t = time.perf_counter()
+        check_mutations(card, work)
+        times["(b)"] = time.perf_counter() - t
+    t = time.perf_counter()
+    total = check_armed(seed, card, unarmed_wall)
+    times["(c)"] = time.perf_counter() - t
+    print(f"check: {card}: " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items())
+          + f"; launches {total}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5532,7 +5794,8 @@ def main() -> int:
     k4 = fold_kernel_phase(seed, card)
 
     phase("round")
-    k4["launches"] = early_fold + round_phase(seed, card)
+    round_launches, round_wall = round_phase(seed, card)
+    k4["launches"] = early_fold + round_launches
 
     phase("rounds")
     rounds_launches = rounds_phase(seed, card)
@@ -5577,6 +5840,12 @@ def main() -> int:
 
     phase("seq")
     k4["launches"] += seq_phase(seed, card)["fold"]
+
+    phase("check")
+    check_launches = check_phase(seed, card, round_wall)
+    for row in (k1, k1_drop, k2, k3):
+        row["launches"] += check_launches[row["name"]]
+    k4["launches"] += check_launches["fold"]
 
     print(json.dumps({"kernels": [k1, k1_drop, k2, k3, k4]}), flush=True)
     print(json.dumps({

@@ -11,10 +11,12 @@ harness's persona x partition matrix), ``controller`` (the unattended round -> g
 promotion, the shadow mirror), ``shadow`` and ``labels`` (the shadow
 plane's and the delayed ground truth's operator commands), ``export-hf``
 (weights to the HF layout), ``export-config`` (the resolved config as
-JSON), ``registry`` (the model registry's operator commands) and ``obs``
+JSON), ``registry`` (the model registry's operator commands), ``obs``
 (timelines, Chrome export, span tailing, fleet health, the sentinel,
-postmortems and the device profile) so far. Each that computes runs on
-the card unless ``--device cpu`` is given. The obs flags
+postmortems and the device profile) and ``check`` (the static-analysis
+passes over the repository, a host verb): all 19 of the JAX package's
+verbs. Each that computes runs on the card unless ``--device cpu`` is
+given. The obs flags
 (``--trace-jsonl``, ``--metrics-jsonl``, ``--profile-dir``,
 ``--profile-stride``, ``--metrics-port``, ``--flight-dir``,
 ``--trace-sample``, ``--scored-jsonl``) are the JAX package's, on the
@@ -33,6 +35,7 @@ import sys
 
 from ..data.datasets import DATASETS
 from ..models.presets import preset_names
+from .check import cmd_check
 from .comm import cmd_client, cmd_relay, cmd_serve
 from .common import resolve_config
 from .control import cmd_controller, cmd_registry
@@ -524,6 +527,55 @@ def _add_obs_verb(sub) -> None:
     )
     _add_device(p, "the profiled steps run")
     p.set_defaults(fn=cmd_obs)
+
+
+def _add_check_verb(sub) -> None:
+    """``check``: the JAX package's static-analysis verb, with its flags,
+    help and epilog. A host verb: it scans source files and takes no
+    ``--device``."""
+    p = sub.add_parser(
+        "check",
+        help="invariant-aware static analysis: wire-domain, determinism, "
+        "concurrency, and obs-vocabulary passes over the tree",
+        epilog="Findings are suppressed only by a reviewed per-line "
+        "`# fedtpu: allow(<rule>): reason` pragma or an entry (with "
+        "reason) in the repo-root ANALYSIS_BASELINE.json. Exit 0 = "
+        "clean, 1 = non-baselined findings, 2 = usage/internal error.",
+    )
+    p.add_argument(
+        "--json",
+        action="store_true",
+        help="machine-readable result object instead of the finding list",
+    )
+    p.add_argument(
+        "--baseline",
+        help="baseline JSON path (default: ANALYSIS_BASELINE.json at the "
+        "scanned root, when present)",
+    )
+    p.add_argument(
+        "--root",
+        help="tree to scan (default: this checkout's repo root) — the "
+        "seeded-mutation self-tests point this at a temp copy",
+    )
+    p.add_argument(
+        "--rules",
+        help="comma-separated subset of rule names (default: all; see "
+        "--list-rules)",
+    )
+    p.add_argument(
+        "--list-rules",
+        action="store_true",
+        help="print the registered rules and exit",
+    )
+    p.add_argument(
+        "--prune-baseline",
+        action="store_true",
+        help="rewrite the baseline file minus STALE entries (findings "
+        "that no longer fire) — the remediation path for the "
+        "reported-not-failed stale list; live entries and the review "
+        "comment survive untouched",
+    )
+    p.set_defaults(fn=cmd_check)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1758,6 +1810,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_export_hf)
 
     _add_obs_verb(sub)
+    _add_check_verb(sub)
 
     p = sub.add_parser("export-config", help="print the resolved config as JSON")
     _add_training(p, device=False)

@@ -14,24 +14,31 @@
   copy of that directory (``strategies/``), which passes it; the port's
   only checker pragmas are the reasoned ones on its copies of the wire
   magics (every copied magic carries one) and on its registrations of the
-  JAX package's metric families, in the modules that register twins.
+  JAX package's metric families, in the modules that register twins. A
+  pragma is a comment that the checker reads as one and that names a
+  registered rule (or ``all``): the pragma syntax quoted in a docstring,
+  a help string or a comment naming no rule suppresses nothing.
 """
 
 import ast
 import dataclasses
+import io
 import os
 import subprocess
 import sys
+import tokenize
 
 import numpy as np
 import pytest
 import torch
 
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu.analysis import (
+    all_rules,
     determinism_rules,
     wire_rules,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu.analysis.core import (
+    PRAGMA_RE,
     Project,
 )
 
@@ -95,6 +102,8 @@ print(" ".join(names))
         "router", "router.core", "router.fleet", "shadow", "shadow.compare", "shadow.mirror", "shadow.gate",
         "labels", "labels.store", "labels.join", "cli.router", "cli.shadow", "cli.labels",
         "parallel.mesh", "parallel.multihost", "train.client_mesh", "utils.logging", "cli.__main__",
+        "analysis", "analysis.core", "analysis.wire_rules", "analysis.determinism_rules", "analysis.thread_rules",
+        "analysis.obs_rules", "analysis.lockorder", "cli.check",
     ):
         assert f"{PORT_PKG}.{mod}" in imported.split(), mod
 
@@ -149,27 +158,35 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 
 
 def test_checker_suffixes_resolve_inside_the_jax_package():
-    project = Project(REPO_ROOT)
-    assert any(m.rel.startswith(PORT_PKG + "/") for m in project.modules)
-    for suffix in (*determinism_rules.SCOPE, *wire_rules.WIRE_LAYER_RELS):
-        if suffix.endswith("/"):
-            selected = project.select([suffix])
-            assert any(m.rel.startswith(f"{JAX_PKG}/{suffix}") for m in selected), suffix
-            for m in selected:
-                # A directory rule covers the port's copy of the directory
-                # too (strategies/), and nothing else of the port.
-                assert m.rel.startswith((JAX_PKG + "/", f"{PORT_PKG}/{suffix}")), (suffix, m.rel)
-        else:
-            m = project.module(suffix)
-            assert m is not None and m.rel.startswith(JAX_PKG + "/"), suffix
-    # The span vocabulary is read from the JAX package's obs/trace.py,
-    # though the port has its own copy of the file.
-    from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu.analysis import (
-        obs_rules,
-    )
+    """Both packages' checkers: the JAX package's and the port's copy walk
+    the same tree and resolve every suffix rule inside the JAX package."""
+    import importlib
 
-    assert os.path.isfile(os.path.join(REPO_ROOT, PORT_PKG, obs_rules.TRACE_REL))
-    assert project.module(obs_rules.TRACE_REL).rel == f"{JAX_PKG}/{obs_rules.TRACE_REL}"
+    for pkg in (JAX_PKG, PORT_PKG):
+        core = importlib.import_module(pkg + ".analysis.core")
+        det = importlib.import_module(pkg + ".analysis.determinism_rules")
+        wr = importlib.import_module(pkg + ".analysis.wire_rules")
+        obs_rules = importlib.import_module(pkg + ".analysis.obs_rules")
+        project = core.Project(REPO_ROOT)
+        assert any(m.rel.startswith(PORT_PKG + "/") for m in project.modules)
+        for suffix in (*det.SCOPE, *wr.WIRE_LAYER_RELS):
+            if suffix.endswith("/"):
+                selected = project.select([suffix])
+                assert any(m.rel.startswith(f"{JAX_PKG}/{suffix}") for m in selected), suffix
+                for m in selected:
+                    # A directory rule covers the port's copy of the directory
+                    # too (strategies/), and nothing else of the port.
+                    assert m.rel.startswith((JAX_PKG + "/", f"{PORT_PKG}/{suffix}")), (suffix, m.rel)
+            else:
+                m = project.module(suffix)
+                assert m is not None and m.rel.startswith(JAX_PKG + "/"), suffix
+        # The span vocabulary is read from the JAX package's obs/trace.py,
+        # though the port has its own copy of the file.
+        assert os.path.isfile(os.path.join(REPO_ROOT, PORT_PKG, obs_rules.TRACE_REL))
+        assert project.module(obs_rules.TRACE_REL).rel == f"{JAX_PKG}/{obs_rules.TRACE_REL}"
+        assert (det.SCOPE, wr.WIRE_REL, wr.WIRE_LAYER_RELS, wr.META_KEY_RELS) == (
+            determinism_rules.SCOPE, wire_rules.WIRE_REL, wire_rules.WIRE_LAYER_RELS, wire_rules.META_KEY_RELS
+        )
 
 
 #: The port modules that register the JAX package's metric families.
@@ -180,19 +197,53 @@ METRIC_TWIN_MODULES = (
 )
 
 
+def pragma_lines(path: str) -> list[str]:
+    """The lines of ``path`` that carry a real checker pragma: a comment
+    token that the checker's ``PRAGMA_RE`` matches and that names a
+    registered rule or ``all``. The pragma syntax quoted in a docstring or
+    a help string is a string token, and a comment that names no rule
+    (the syntax documented as ``allow(rule)``) suppresses nothing."""
+    names = set(all_rules()) | {"all"}
+    with open(path) as f:
+        text = f.read()
+    lines = text.splitlines()
+    out = []
+    for tok in tokenize.generate_tokens(io.StringIO(text).readline):
+        if tok.type != tokenize.COMMENT:
+            continue
+        m = PRAGMA_RE.search(tok.string)
+        if m and {r.strip() for r in m.group(1).split(",")} & names:
+            out.append(lines[tok.start[0] - 1])
+    return out
+
+
+def test_pragma_lines_reads_comments_only(tmp_path):
+    path = tmp_path / "m.py"
+    path.write_text(
+        '"""Quoted: ``# fedtpu: allow(determinism): why``."""\n'
+        "#: Per-line suppression: ``# fedtpu: allow(rule)``\n"
+        'HELP = "`# fedtpu: allow(<rule>): reason`"\n'
+        'X = b"ABCD"  # fedtpu: allow(wire-magic-coverage): real\n'
+        "# fedtpu: allow(all): real too\n"
+    )
+    assert pragma_lines(str(path)) == [
+        'X = b"ABCD"  # fedtpu: allow(wire-magic-coverage): real',
+        "# fedtpu: allow(all): real too",
+    ]
+
+
 def test_only_pragmas_are_the_wire_magic_copies():
     seen, twins = [], []
     for path in _port_files():
         rel = os.path.relpath(path, REPO_ROOT)
-        with open(path) as f:
-            for line in f:
-                if "fedtpu: allow(obs-metric-once): the JAX package's " in line:
-                    twins.append(rel)
-                    assert line.lstrip().startswith("# fedtpu: allow(obs-metric-once): "), line
-                elif "fedtpu: allow(" in line:
-                    seen.append(rel)
-                    assert "fedtpu: allow(wire-magic-coverage): " in line, line
-                    assert line.split("= b\"")[1][:4].isupper(), line
+        for line in pragma_lines(path):
+            if "fedtpu: allow(obs-metric-once): the JAX package's " in line:
+                twins.append(rel)
+                assert line.lstrip().startswith("# fedtpu: allow(obs-metric-once): "), line
+            else:
+                seen.append(rel)
+                assert "fedtpu: allow(wire-magic-coverage): " in line, line
+                assert line.split("= b\"")[1][:4].isupper(), line
     assert sorted(set(seen)) == [
         f"{PORT_PKG}/comm/framing.py",
         f"{PORT_PKG}/comm/wire.py",
