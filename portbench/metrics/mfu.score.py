@@ -1,0 +1,7 @@
+"""mfu.score (%): the 128-row forward's analytic FLOPs per second over the card's dense bf16 peak."""
+
+from pbcore import readers
+
+
+def read(tl):
+    return readers.mfu(tl, "score")
