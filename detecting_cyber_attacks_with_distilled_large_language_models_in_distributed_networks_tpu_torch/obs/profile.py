@@ -1,7 +1,27 @@
-"""Device performance plane: dispatch ledger, step attribution, watermarks
-(the port of the JAX package's ``obs/profile.py`` to PyTorch and CUDA).
+"""Device performance plane: dispatch ledger, phase records, step
+attribution, watermarks (the port of the JAX package's ``obs/profile.py``
+to PyTorch and CUDA).
 
-Four pieces, each the counterpart of the JAX one:
+* **Phase records** — the port's own piece, with no JAX counterpart: one
+  bounded in-memory log a site (:class:`PhaseLog`, read through
+  :func:`phase_records`) that holds one :class:`PhaseRecord` a call of a
+  hot path: the site, a sequence number, the id of the owning object, the
+  call's start stamp and the end stamp of each phase in order. Phases are
+  contiguous, so their durations sum to the call. Two sites record:
+  ``engine.train_step`` (``Trainer``'s step: ``place`` the batch on the
+  device, ``forward`` with the loss, ``backward``, ``optimizer``) and
+  ``serving.score`` (``ScoreEngine.score``: ``prep`` the padded bucket and
+  its copies to the device, ``dispatch`` the forward and softmax, ``wait``
+  for the probabilities on the host). A phase is host time: the Python
+  time that queues the phase's kernels, or (``wait``) blocks on the card.
+  Stamps are integer nanoseconds of :func:`phase_clock`, the Unix-time
+  clock ``torch.profiler`` stamps its events with, so a record lines up
+  with a profile's ranges and kernels without conversion. Always on: a
+  call pays a few clock reads and one append, and emits no
+  ``record_function`` range (nothing enters a device trace), no span and
+  no metric.
+
+Four pieces are each the counterpart of the JAX one:
 
 * :class:`CompileLedger` — per-site accounting of the shapes a hot path
   runs. PyTorch runs eagerly, so there is no trace or compile per shape:
@@ -15,9 +35,12 @@ Four pieces, each the counterpart of the JAX one:
   families keep their JAX names, so one dashboard reads both packages.
 * :class:`StepProfiler` — deterministically strided fenced step timers:
   every Nth step is split into host batch-prep / dispatch (the Python
-  time that enqueues the step's kernels) / device-execute (the wait in
-  ``torch.cuda.synchronize`` on the value's device; a CPU value needs no
-  fence), observed into ``fedtpu_train_step_seconds`` /
+  time that enqueues the step's kernels, taken from the call's phase
+  record where its site keeps one) / device (the wait in
+  ``torch.cuda.synchronize`` on the value's device after the dispatch
+  returned: the part of the card's work the host did not overlap, not
+  the card's busy time; a CPU value needs no fence; the name is the JAX
+  package's), observed into ``fedtpu_train_step_seconds`` /
   ``fedtpu_score_step_seconds`` / ``fedtpu_wire_step_seconds`` histograms
   and stamped as attrs on the train-phase spans. Stride 0 (the default)
   is the zero-overhead path: one attribute check per step, no fence, no
@@ -42,9 +65,11 @@ behind ``obs profile``).
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
-from typing import Any, Callable, Iterator
+from collections import deque
+from typing import Any, Callable, Iterator, NamedTuple
 
 from .metrics import MetricsRegistry, default_registry
 
@@ -83,6 +108,107 @@ _STEP_FAMILIES = {
 _SITE_PHASES = {
     "wire": ("wire",),
 }
+
+#: The part of a call's phase record each StepProfiler phase samples, by
+#: StepProfiler site (None: the whole call).
+_RECORD_SAMPLES = {
+    "train": (("dispatch", None),),
+    "score": (("host", "prep"), ("dispatch", "dispatch")),
+}
+
+
+# ------------------------------------------------------------- phase records
+#: Records a site's log keeps, the oldest dropped first: minutes of
+#: back-to-back steps or calls.
+PHASE_LOG_LEN = 16_384
+
+#: The clock of every phase stamp: Unix time in integer nanoseconds, the
+#: clock of ``torch.profiler``'s events (``start_ns()``), so a record and a
+#: profile's ranges compare without conversion.
+phase_clock = time.time_ns
+
+
+class PhaseRecord(NamedTuple):
+    """One call of a recording site. ``ends_ns[i]`` is where
+    ``phases[i]`` ends; each phase starts where the one before it ends,
+    the first at ``start_ns``."""
+
+    site: str
+    seq: int  # the site's call count before this call
+    owner: int  # id() of the object whose call it was
+    start_ns: int
+    ends_ns: tuple[int, ...]
+    phases: tuple[str, ...]
+
+    @property
+    def end_ns(self) -> int:
+        return self.ends_ns[-1]
+
+    @property
+    def call_ns(self) -> int:
+        return self.ends_ns[-1] - self.start_ns
+
+    def phase_ns(self) -> dict[str, int]:
+        """Each phase's duration in order; they sum to :attr:`call_ns`."""
+        bounds = (self.start_ns, *self.ends_ns)
+        return {p: b - a for p, a, b in zip(self.phases, bounds, bounds[1:])}
+
+
+_new_tuple = tuple.__new__
+
+
+class PhaseLog:
+    """One site's bounded record log. :meth:`record` takes no lock: a
+    ``deque`` append under a ``maxlen`` and ``next`` on an
+    ``itertools.count`` are each atomic under the GIL, so threads that
+    call one site share its log."""
+
+    def __init__(self, site: str, phases: tuple[str, ...], maxlen: int = PHASE_LOG_LEN):
+        self.site = str(site)
+        self.phases = tuple(phases)
+        self._records: deque[PhaseRecord] = deque(maxlen=int(maxlen))
+        self._append = self._records.append
+        self._seq = itertools.count()
+
+    @property
+    def maxlen(self) -> int:
+        return self._records.maxlen
+
+    def record(self, owner: Any, start_ns: int, ends_ns: tuple[int, ...]) -> PhaseRecord:
+        """Append the record of one call of ``owner`` (the stamps are
+        :func:`phase_clock` reads, one a phase end) and return it."""
+        # tuple.__new__ skips the named tuple's Python-level __new__.
+        rec = _new_tuple(PhaseRecord, (self.site, next(self._seq), id(owner), start_ns, ends_ns, self.phases))
+        self._append(rec)
+        return rec
+
+    def records(self) -> list[PhaseRecord]:
+        # list() of a deque runs in C without giving up the GIL: a
+        # consistent copy while other threads append.
+        return list(self._records)
+
+
+_PHASE_LOGS_LOCK = threading.Lock()
+_PHASE_LOGS: dict[str, PhaseLog] = {}
+
+
+def phase_log(site: str, phases: tuple[str, ...]) -> PhaseLog:
+    """The process-wide log of ``site``, made on first use; a site's
+    phases never change."""
+    with _PHASE_LOGS_LOCK:
+        log = _PHASE_LOGS.get(site)
+        if log is None:
+            log = _PHASE_LOGS[site] = PhaseLog(site, phases)
+        elif log.phases != tuple(phases):
+            raise ValueError(f"site {site!r} records phases {log.phases}, not {tuple(phases)}")
+        return log
+
+
+def phase_records(site: str) -> list[PhaseRecord]:
+    """A copy of ``site``'s records, oldest first ([] for a site that
+    has recorded nothing)."""
+    log = _PHASE_LOGS.get(site)
+    return log.records() if log is not None else []
 
 
 # ------------------------------------------------------------ compile ledger
@@ -409,11 +535,17 @@ class StepProfiler:
 
     * ``note_host(dt)`` — input-pipeline work (batch gather/pad),
     * ``note_dispatch(dt)`` — the step call's Python return time (the
-      kernels are queued, not finished),
+      kernels are queued, not finished); :meth:`note_record` takes host
+      and dispatch from the call's phase record instead, at the sites
+      that keep one,
     * ``fence(value)`` — ``torch.cuda.synchronize`` on ``value``'s card,
-      the wait recorded as device-execute time (``drain(value)`` first
-      empties the queue so the sampled step measures itself, not its
-      backlog).
+      the wait recorded under the JAX package's ``device`` phase
+      (``drain(value)`` first empties the queue so the sampled step
+      measures itself, not its backlog). It is the wait for the card
+      after the host returned, not the card's busy time: whatever device
+      work ran while the host dispatched is not in it, so it reads near
+      zero on a host-paced step. Device busy time comes from a device
+      trace.
 
     Unsampled steps — and every step at stride 0, the default — pay one
     attribute read. Stride 0 additionally registers nothing on the
@@ -497,8 +629,18 @@ class StepProfiler:
     def note_dispatch(self, dt: float) -> None:
         self._note("dispatch", dt)
 
+    def note_record(self, rec: PhaseRecord) -> None:
+        """Sample one call from its phase record, with no clock read of
+        its own: at the ``train`` site dispatch is the whole call; at
+        ``score`` host is the record's ``prep`` and dispatch its
+        ``dispatch``."""
+        parts = rec.phase_ns()
+        for phase, part in _RECORD_SAMPLES[self.site]:
+            self._note(phase, (rec.call_ns if part is None else parts[part]) * 1e-9)
+
     def fence(self, value) -> None:
-        """Block until ``value`` is ready; the wait is device time."""
+        """Block until ``value`` is ready; the wait is the ``device``
+        phase: the card's work left when the host returned."""
         t0 = time.monotonic()
         _synchronize(value)
         self._note("device", time.monotonic() - t0)
@@ -816,9 +958,8 @@ def run_profile_session(
                 t_h = prof.clock()
                 placed = trainer.place_batch(batch)
                 prof.note_host(prof.clock() - t_h)
-                t_d = prof.clock()
                 state, loss = trainer.train_step(state, placed)
-                prof.note_dispatch(prof.clock() - t_d)
+                prof.note_record(trainer.last_step_record)
                 prof.fence(loss)
             else:
                 state, loss = trainer.train_step(state, batch)

@@ -20,6 +20,13 @@ ladder makes one impossible while the padding holds, across reloads
 too: a swap changes weights, never shapes). With ``--profile-stride``
 every Nth dispatch is split into host pad-prep / dispatch / device.
 
+Every call also appends a phase record to the process-wide
+``serving.score`` log: ``prep`` (the pad to the bucket, the ``int64`` ids
+and ``int32`` mask, and both copies to the device), ``dispatch`` (the
+forward and softmax queued) and ``wait`` (the two copies back to the
+host, where the scorer waits for the card). The three sum to the call;
+a sampled call's host and dispatch times are read from it.
+
 Sharded serving (``mesh=``, ``infer-serve --data-parallel N --fsdp``):
 the engine holds its params split per leaf AT REST over the mesh's
 ``data`` slots (:class:`..parallel.mesh.ShardedLeaf`; per-slot static
@@ -46,12 +53,16 @@ from ..device import resolve_device
 from torch.func import functional_call
 
 from ..models.distilbert import DDoSClassifier, build_model, model_skeleton
-from ..obs.profile import CompileLedger, maybe_step_profiler, profile_stride
+from ..obs.profile import CompileLedger, maybe_step_profiler, phase_clock, phase_log, profile_stride
 from ..parallel.mesh import Mesh, ShardedLeaf, axis_slots, gather_tree, shard_tree
 
 log = logging.getLogger(__name__)
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
+
+#: One record a ``ScoreEngine.score`` call, shared by every engine in the
+#: process.
+SCORE_PHASES = phase_log("serving.score", ("prep", "dispatch", "wait"))
 
 
 class ShardedParams(dict):
@@ -186,6 +197,7 @@ class ScoreEngine:
     ) -> tuple[np.ndarray, np.ndarray, int, int]:
         """Score ``[n, seq]`` rows -> (float32 probs [n], per-class
         softmax [n, K], bucket, round)."""
+        t0 = phase_clock()
         n = int(input_ids.shape[0])
         bucket = self.bucket_for(n)
         if input_ids.shape[1] != self.seq_len:
@@ -193,44 +205,46 @@ class ScoreEngine:
                 f"rows have seq {input_ids.shape[1]}, engine expects "
                 f"{self.seq_len}"
             )
-        # Strided step attribution: a sampled dispatch splits host
-        # pad-prep / dispatch / device-execute; unsampled dispatches (and
-        # profiling off) run the bare path. Re-checked lazily (one
+        # Strided step attribution: a sampled dispatch takes host pad-prep
+        # and dispatch from this call's phase record and fences the card
+        # (the device phase, inside the record's wait); unsampled
+        # dispatches (and profiling off) run no fence. Re-checked lazily (one
         # lock-free int read when off): the CLI may install the stride
         # after the engine is built.
         prof = self.step_profiler
         if prof is None and profile_stride() > 0:
             prof = self.step_profiler = maybe_step_profiler("score")
         sampled = prof.tick() if prof is not None else False
-        t0 = prof.clock() if sampled else 0.0
         if n < bucket:
             pad_ids = np.full((bucket - n, self.seq_len), self.pad_id, np.int32)
             pad_mask = np.zeros((bucket - n, self.seq_len), np.int32)
             input_ids = np.concatenate([input_ids, pad_ids])
             attention_mask = np.concatenate([attention_mask, pad_mask])
         model, round_id = self.snapshot()
-        ids = torch.from_numpy(np.ascontiguousarray(input_ids, np.int64))
-        mask = torch.from_numpy(np.ascontiguousarray(attention_mask, np.int32))
+        ids = torch.from_numpy(np.ascontiguousarray(input_ids, np.int64)).to(self.device)
+        mask = torch.from_numpy(np.ascontiguousarray(attention_mask, np.int32)).to(self.device)
+        t_prep = phase_clock()
+        probs, class_probs = self._probs(model, ids, mask)
+        t_dispatch = phase_clock()
         if sampled:
-            prof.note_host(prof.clock() - t0)
-            t1 = prof.clock()
-            probs, class_probs = self._probs(model, ids, mask)
-            prof.note_dispatch(prof.clock() - t1)
             prof.fence(probs)
-        else:
-            probs, class_probs = self._probs(model, ids, mask)
-        return probs.cpu().numpy()[:n], class_probs.cpu().numpy()[:n], bucket, round_id
+        out = probs.cpu().numpy()[:n], class_probs.cpu().numpy()[:n], bucket, round_id
+        rec = SCORE_PHASES.record(self, t0, (t_prep, t_dispatch, phase_clock()))
+        if sampled:
+            prof.note_record(rec)
+        return out
 
     def _forward(
         self, model: DDoSClassifier | ShardedParams, ids: torch.Tensor, mask: torch.Tensor
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(score [b], per-class softmax [b, K]) on the device, queued."""
+        """(score [b], per-class softmax [b, K]) on the device, queued,
+        from ids and mask already there."""
         with torch.inference_mode():
             if isinstance(model, ShardedParams):
                 full = self._gather(model)  # gathered at use, dropped with the dispatch
-                logits = functional_call(self._skeleton, full, (ids.to(self.device), mask.to(self.device)))
+                logits = functional_call(self._skeleton, full, (ids, mask))
             else:
-                logits = model(ids.to(self.device), mask.to(self.device))
+                logits = model(ids, mask)
             class_probs = torch.softmax(logits, dim=-1)
             if logits.shape[-1] == 2:
                 probs = class_probs[:, 1]

@@ -43,6 +43,15 @@ and eval step of each batch shape (``engine.train_step``,
 ``engine.eval_step``), and with ``--profile-stride`` the fit loop fences
 every Nth step into host / dispatch / device timers and snapshots device
 memory after its first step.
+
+Every train step also appends a phase record to the process-wide
+``engine.train_step`` log: ``place`` (the batch onto the device),
+``forward`` (logits, the loss and any proximal term), ``backward``
+(``torch.autograd.grad``) and ``optimizer`` (the update under
+``no_grad``). Each phase is the host time that queues its kernels; the
+four sum to the call. The trainer keeps the last one as
+``last_step_record``, which a sampled fit step's dispatch time is read
+from.
 """
 
 from __future__ import annotations
@@ -66,6 +75,8 @@ from ..obs.profile import (
     default_ledger,
     maybe_step_profiler,
     note_memory,
+    phase_clock,
+    phase_log,
     profiled_step_iter,
     shape_signature,
 )
@@ -80,6 +91,10 @@ from ..ops.metrics import (
 from .batches import EpochPrefetcher, PrefetchSlot
 
 log = logging.getLogger(__name__)
+
+#: One record a train step (``Trainer`` and its subclasses that keep its
+#: step), shared by every trainer in the process.
+STEP_PHASES = phase_log("engine.train_step", ("place", "forward", "backward", "optimizer"))
 
 
 class AdamState(NamedTuple):
@@ -236,6 +251,9 @@ class Trainer:
         # Step-time attribution: None unless profiling is armed
         # process-wide (--profile-stride); re-checked at fit time.
         self.step_profiler = maybe_step_profiler("train")
+        # The phase record of this trainer's last step (None before one,
+        # and for a subclass whose own step keeps none).
+        self.last_step_record = None
 
     # ------------------------------------------------------------ state
     def init_state(self, seed: int | None = None, params=None) -> TrainState:
@@ -295,17 +313,22 @@ class Trainer:
         return self._timed_step(state, batch, anchor)
 
     def _train_step(self, state: TrainState, batch: dict, anchor=None) -> tuple[TrainState, torch.Tensor]:
+        t0 = phase_clock()
         ids, mask, labels = self._batch(batch)
+        t_place = phase_clock()
         names = list(state.opt_state.mu)
         logits = self._logits(state.params, ids, mask, generator=state.generator)
         loss = self._loss(logits, ids, mask, labels)
         if anchor is not None:
             mu = float(self.train_cfg.prox_mu)
             loss = loss + 0.5 * mu * prox_sq([state.params[n] for n in names], [anchor[n] for n in names])
+        t_forward = phase_clock()
         grads = torch.autograd.grad(loss, [state.params[n] for n in names])
+        t_backward = phase_clock()
         with torch.no_grad():
             self._update(state, names, list(grads))
         state.step += 1
+        self.last_step_record = STEP_PHASES.record(self, t0, (t_place, t_forward, t_backward, phase_clock()))
         return state, loss.detach()
 
     def _update(self, state: TrainState, names: list[str], grads: list) -> None:
@@ -415,12 +438,16 @@ class Trainer:
             for batch, sampled in profiled_step_iter(prof, self.epoch_batches(split, epoch, batch_size)):
                 if sampled:
                     # Fenced sampled step: drain the queue so the
-                    # measurement is this step's own device work, then
-                    # split dispatch from device-execute.
+                    # measurement is this step's own, then split dispatch
+                    # (the step's phase record, or the clock around a
+                    # step that keeps none) from the wait for the card.
                     prof.drain(last_loss)
-                    td = prof.clock()
+                    before, td = self.last_step_record, prof.clock()
                     state, loss = self.train_step(state, batch, anchor)
-                    prof.note_dispatch(prof.clock() - td)
+                    if self.last_step_record is not before:
+                        prof.note_record(self.last_step_record)
+                    else:
+                        prof.note_dispatch(prof.clock() - td)
                     prof.fence(loss)
                 else:
                     state, loss = self.train_step(state, batch, anchor)

@@ -1,0 +1,7 @@
+"""optimizer_host_ms.train (ms): median host time of a training step's optimizer update, over the window's untraced part."""
+
+from pbcore import phases
+
+
+def read(tl):
+    return phases.median_ms(tl, "train", ("optimizer",))
