@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card (H100).
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--mode all|adam]
+
+``--mode adam`` runs phases 1, 2 (the Adam library alone) and 18 only.
 
 Phases; any failure exits non-zero before the last line is printed:
 
@@ -422,7 +424,19 @@ Phases; any failure exits non-zero before the last line is printed:
             ``shadow/mirror.py``; prints the edges, the same-site
             nesting, and the round's wall with the detector on beside
             phase 8's;
-18. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
+18. kernel-adam — the multi-tensor Adam kernel (``csrc/adam.cu``) at
+            DistilBERT-base's and BERT-large's leaf sets (102 and 390 fp32
+            leaves from the model's own state dict): two steps bit-equal
+            (p, mu and nu) to the plain ``_foreach_*`` chain, one launch a
+            step; then its time (CUDA events, ``kernel_ms``), its device
+            time a launch (profiler, ``device_ms``), the wrapper's host
+            time a call (``host_ms``), the chain's (``plain_ms``),
+            ``torch._fused_adam_``'s (a yardstick the port never calls;
+            also how many of its p, mu and nu elements differ from the
+            chain's) and the 28-byte bound. It runs right after phase 2:
+            after the other phases its profiler session has recorded no
+            device events;
+19. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
    serving shape and dropout at the training shape, then K2, K3 and K4;
    K1's rate-0 launches count phase 5, phase 6's evaluation, the
    lifecycle's predict and reload serving, the federated phase's
@@ -439,8 +453,11 @@ Phases; any failure exits non-zero before the last line is printed:
    phase's relays, roots and scenario servers, the gates phase's
    round, the mesh phase's client rounds and the seq phase's round;
    every kernel also the check phase's armed window: the round's
-   clients and server, and the router's replicas and shadow replica),
-   then the result line
+   clients and server, and the router's replicas and shadow replica;
+   then the Adam kernel at both leaf sets, its launches those of every
+   other phase, each phase's counted from 0 as it starts, in-process
+   only, with the training phases checked to have launched it), then
+   the result line
    ``{"ok": true, "device": {...}}``.
 
 Needs CUDA: without a card (or without the repository beside it) it
@@ -592,6 +609,7 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.ops import (
     _build,
+    adam as adam_mod,
     flash_attention as flash_mod,
     fold as fold_mod,
 )
@@ -662,6 +680,7 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.engine import (
     Trainer,
+    bias_correction,
     loss_fn,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.train.fedeval import (
@@ -718,9 +737,20 @@ def check(cond: bool, msg: str) -> None:
 
 _T0 = time.monotonic()
 
+#: The Adam kernel's launches in each finished phase: ``phase`` sets the
+#: counter to 0 as a phase starts and files it under that phase as the
+#: next starts. In-process launches only: a worker process counts its own.
+ADAM_BY_PHASE: dict[str, int] = {}
+_PHASE = [""]
+
 
 def phase(name: str) -> None:
-    """Announce a phase, with the seconds since the script started."""
+    """Announce a phase, with the seconds since the script started, and
+    file the last phase's Adam launches."""
+    if _PHASE[0]:
+        ADAM_BY_PHASE[_PHASE[0]] = adam_mod.ADAM_LAUNCHES
+    adam_mod.ADAM_LAUNCHES = 0
+    _PHASE[0] = name
     print(f"== {name} (at {time.monotonic() - _T0:.1f} s)", flush=True)
 
 
@@ -1239,6 +1269,7 @@ def train_phase(seed: int, card: str, ckpt_dir: str) -> tuple[dict[str, int], di
         )
         flash_mod.FWD_LAUNCHES = flash_mod.FWD_DROPOUT_LAUNCHES = 0
         flash_mod.DKDV_LAUNCHES = flash_mod.DQ_LAUNCHES = flash_mod.BWD_DO_COPIES = 0
+        adam_mod.ADAM_LAUNCHES = 0
         res = run_local(args)
         torch.cuda.synchronize()
         launches = {
@@ -1246,6 +1277,7 @@ def train_phase(seed: int, card: str, ckpt_dir: str) -> tuple[dict[str, int], di
             "flash_fwd_dropout": flash_mod.FWD_DROPOUT_LAUNCHES,
             "flash_bwd_dkdv": flash_mod.DKDV_LAUNCHES,
             "flash_bwd_dq": flash_mod.DQ_LAUNCHES,
+            "adam": adam_mod.ADAM_LAUNCHES,
         }
         do_copies = flash_mod.BWD_DO_COPIES
         with open(res["metrics_csv"]) as f:
@@ -1262,6 +1294,7 @@ def train_phase(seed: int, card: str, ckpt_dir: str) -> tuple[dict[str, int], di
     check(launches["flash_fwd_dropout"] == launches["flash_bwd_dkdv"] == launches["flash_bwd_dq"] == mcfg.n_layers * steps,
           f"K1-dropout/K2/K3 launches {launches} for {steps} steps")
     check(launches["flash_fwd"] == mcfg.n_layers * eval_batches, f"K1 (rate 0) launches {launches['flash_fwd']} for {eval_batches} eval batches")
+    check(launches["adam"] == steps, f"Adam launches {launches['adam']} for {steps} steps of 102 leaves (one a step)")
     check(do_copies == 0, f"the backward copied dO {do_copies} times on the model's path")
     check(all(np.isfinite(res["losses"])), f"non-finite loss {res['losses']}")
     check(header == "Accuracy,Loss,Precision,Recall,F1-Score", f"metrics CSV header {header!r}")
@@ -1557,11 +1590,13 @@ def train_options_phase(seed: int, card: str, work: str) -> dict[str, int]:
     with open(cfg_path, "w") as f:
         json.dump(d, f)
     counts_zero()
+    adam0 = adam_mod.ADAM_LAUNCHES
     res = run_local(build_parser().parse_args(
         ["local", "--config", cfg_path, "--remat", "--synthetic", "2400", "--epochs", "1", "--seed", str(seed),
          "--output-dir", os.path.join(work, "opts")]
     ))
     local = counts_read()
+    local_adam = adam_mod.ADAM_LAUNCHES - adam0
     cfg, state, trainer = res["config"], res["state"], res["trainer"]
     mcfg = cfg.model
     L = mcfg.n_layers
@@ -1571,7 +1606,8 @@ def train_options_phase(seed: int, card: str, work: str) -> dict[str, int]:
           f"step {state.step}, Adam count {state.opt_state.count}, mini_step {state.mini_step}: want 9, 3, 0")
     eval_batches = sum(-(-res[s]["n"] // cfg.data.eval_batch_size) for s in ("val", "test"))
     print(f"train-options: local --remat --config (grad_accum_steps 3): {state.step} micro steps, Adam count "
-          f"{state.opt_state.count}, epoch losses {res['losses']}, launches {local}", flush=True)
+          f"{state.opt_state.count}, epoch losses {res['losses']}, launches {local}, Adam {local_adam}", flush=True)
+    check(local_adam == state.opt_state.count, f"Adam launches {local_adam} for {state.opt_state.count} updates")
     check(local["flash_fwd_dropout"] == 2 * L * 9 and local["flash_bwd_dkdv"] == local["flash_bwd_dq"] == L * 9,
           f"K1-dropout/K2/K3 launches {local}: want {2 * L * 9}/{L * 9}/{L * 9} (remat recomputes K1)")
     check(local["flash_fwd"] == L * eval_batches, f"K1 (rate 0) launches {local['flash_fwd']} for {eval_batches} eval batches")
@@ -1617,6 +1653,8 @@ def train_options_phase(seed: int, card: str, work: str) -> dict[str, int]:
     launches = counts_read()
     extra = {"flash_fwd_dropout": 2 * (L + 2 * L), "flash_bwd_dkdv": 2 * 2 * L, "flash_bwd_dq": 2 * 2 * L, "flash_fwd": 0}
     check(all(launches[k] == local[k] + extra[k] for k in extra), f"launches {launches} after {local} + {extra}")
+    adam = adam_mod.ADAM_LAUNCHES - adam0
+    check(adam == local_adam + 4, f"Adam launches {adam}: want {local_adam} + 4 (two steps each way)")
     return launches
 
 
@@ -2162,6 +2200,116 @@ def fold_kernel_phase(seed: int, card: str) -> dict:
     check(np.array_equal(out, numpy_fold(leaves, weights)), "fold_ordered is not bit-exact on the embedding leaf")
     print(f"K4 fold_ordered K=2 n={EMBED_N} (host numpy in and out) {card}: wall {wall * 1e3:.2f} ms: H2D {times['h2d_ms']:.2f} ms, launch + kernel {times['kernel_ms']:.4f} ms, D2H {times['d2h_ms']:.2f} ms (CUDA events)", flush=True)
     return entry
+
+
+def adam_bound(n: int) -> tuple[float, str]:
+    """Least time (ms) for one Adam update over ``n`` fp32 elements: p, g,
+    mu and nu read once, p, mu and nu written once; 14 to 19 fp32 operations
+    an element are far below the card's rate, so bytes bound it."""
+    return 28 * n / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def adam_state(cfg: ModelConfig, g: torch.Generator) -> tuple[list[torch.Tensor], ...]:
+    """params, mus, nus and grads over the model's leaves, on the card."""
+    shapes = [tuple(t.shape) for t in model_skeleton(cfg).state_dict().values()]
+    params = [torch.randn(s, generator=g, device="cuda") * 0.02 for s in shapes]
+    mus = [torch.randn(s, generator=g, device="cuda") * 1e-3 for s in shapes]
+    nus = [torch.rand(s, generator=g, device="cuda") * 1e-6 for s in shapes]
+    grads = [torch.randn(s, generator=g, device="cuda") * 1e-2 for s in shapes]
+    return params, mus, nus, grads
+
+
+def adam_step(count: int, **kw) -> "adam_mod.AdamStep":
+    tc = TrainConfig()
+    return adam_mod.AdamStep(tc.b1, tc.b2, tc.eps, tc.learning_rate, bias_correction(tc.b1, count),
+                             bias_correction(tc.b2, count), **kw)
+
+
+def adam_kernel_phase(seed: int, card: str) -> list[dict]:
+    """Phase 18: the Adam kernel bit-equal to its plain chain at both
+    models' leaf sets, then its times there. Returns its kernels-line
+    entries."""
+    entries = []
+    for name, cfg in (("distilbert-base", ModelConfig.distilbert_base()), ("bert-large", ModelConfig.bert_large())):
+        g = torch.Generator(device="cuda").manual_seed(seed + 18)
+        params, mus, nus, grads = adam_state(cfg, g)
+        n = sum(p.numel() for p in params)
+        plain = tuple([t.clone() for t in lst] for lst in (params, mus, nus))
+        for count, kw in ((1, {}), (2, dict(max_norm=1.0, weight_decay=0.01, warmup=0.5))):
+            step = adam_step(count, **kw)
+            before = adam_mod.ADAM_LAUNCHES
+            adam_mod.adam(step, params, mus, nus, grads)
+            launches = adam_mod.ADAM_LAUNCHES - before
+            g_norm = torch.sqrt(sum(torch.sum(x * x) for x in grads)) if "max_norm" in kw else None
+            adam_mod.adam_reference(step, *plain, grads, g_norm)
+            torch.cuda.synchronize()
+            same = all(torch.equal(torch.cat([t.reshape(-1) for t in a]).view(torch.int32),
+                                   torch.cat([t.reshape(-1) for t in b]).view(torch.int32))
+                       for a, b in zip((params, mus, nus), plain))
+            print(f"Adam check {name} ({len(params)} leaves, {n} elements) step {count} {kw or 'plain'}: "
+                  f"bit-equal {same}, launches {launches}", flush=True)
+            check(same and launches == 1, f"the Adam kernel is not bit-equal to its chain at {name}, step {count}")
+        del plain
+        step = adam_step(3)
+        # The library's fused Adam against the chain, from one state at step 3.
+        ref = tuple([t.clone() for t in lst] for lst in (params, mus, nus))
+        lib = tuple([t.clone() for t in lst] for lst in (params, mus, nus))
+        adam_mod.adam_reference(step, *ref, grads)
+        torch._fused_adam_(lib[0], grads, lib[1], lib[2], [], [torch.full((), 3.0, device="cuda") for _ in params],
+                           lr=step.learning_rate, beta1=step.b1, beta2=step.b2, weight_decay=0.0, eps=step.eps,
+                           amsgrad=False, maximize=False)
+        torch.cuda.synchronize()
+        lib_differ = [int((torch.cat([t.reshape(-1) for t in x]).view(torch.int32)
+                           != torch.cat([t.reshape(-1) for t in y]).view(torch.int32)).sum()) for x, y in zip(lib, ref)]
+        print(f"Adam library {name}: torch._fused_adam_ against the chain at step 3: p, mu, nu differ in "
+              f"{lib_differ} of {n} elements", flush=True)
+        del ref, lib
+        t_k = time_ms(lambda: adam_mod.adam_multi_tensor(step, params, mus, nus, grads))
+        t_p = time_ms(lambda: adam_mod.adam_reference(step, params, mus, nus, grads))
+        steps = [torch.ones((), device="cuda") for _ in params]
+        t_l = time_ms(lambda: torch._fused_adam_(
+            params, grads, mus, nus, [], steps, lr=step.learning_rate, beta1=step.b1, beta2=step.b2,
+            weight_decay=0.0, eps=step.eps, amsgrad=False, maximize=False))
+        host = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            adam_mod.adam_multi_tensor(step, params, mus, nus, grads)
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                adam_mod.adam_multi_tensor(step, params, mus, nus, grads)
+            torch.cuda.synchronize()
+        kernel_events = [e for e in prof.key_averages() if "adam_multi_tensor" in e.key]
+        check(len(kernel_events) == 1 and kernel_events[0].count == 10,
+              f"the profiler saw {[(e.key, e.count) for e in kernel_events]} for 10 Adam launches")
+        t_d = getattr(kernel_events[0], "device_time_total", None) or kernel_events[0].cuda_time_total
+        t_d = t_d / 1e3 / 10
+        bound, bound_by = adam_bound(n)
+        print(f"Adam time {name} {len(params)} leaves n={n} fp32 {card}: kernel_ms={t_k:.4f} device_ms={t_d:.4f} "
+              f"host_ms(median)={sorted(host)[10]:.4f} plain_ms={t_p:.4f} library_ms(torch._fused_adam_)={t_l:.4f} "
+              f"bound_ms={bound:.4f} ({bound_by}); {100 * bound / t_d:.1f}% of the bound by device time, "
+              f"{28 * n / (t_k * 1e-3) / 1e9:.1f} GB/s", flush=True)
+        entries.append({
+            "name": "adam",
+            "shape": f"{name}: {len(params)} leaves, {n} fp32 elements",
+            "route": "cuda",
+            "source": f"{PORT}/csrc/adam.cu",
+            "replaces": None,
+            "launches": None,
+            "max_abs_err": 0.0,
+            "ms": t_k,
+            "device_ms": t_d,
+            "host_ms": sorted(host)[10],
+            "plain_ms": t_p,
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "library_ms": t_l,
+            "library_elements_differ": lib_differ,
+        })
+        del params, mus, nus, grads, steps
+        torch.cuda.empty_cache()
+    return entries
 
 
 def round_phase(seed: int, card: str) -> tuple[int, float]:
@@ -5721,7 +5869,9 @@ def check_phase(seed: int, card: str, unarmed_wall: float) -> dict[str, int]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    seed = ap.parse_args().seed
+    ap.add_argument("--mode", choices=("all", "adam"), default="all")
+    args = ap.parse_args()
+    seed = args.seed
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: the port's smoke run needs a card")
 
@@ -5738,8 +5888,20 @@ def main() -> int:
 
     phase("build")
     t0 = time.monotonic()
-    built = _build.build()
+    built = _build.build(["adam"] if args.mode == "adam" else None)
     print(f"built {sorted(built) or 'nothing (cached)'} in {time.monotonic() - t0:.1f} s", flush=True)
+
+    # First: after the other phases of a whole run, its profiler session
+    # has recorded no device events (never in ``--mode adam``).
+    phase("kernel-adam")
+    adam_entries = adam_kernel_phase(seed, card)
+    if args.mode == "adam":
+        print(json.dumps({"kernels": adam_entries}), flush=True)
+        print(json.dumps({
+            "ok": True,
+            "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()},
+        }), flush=True)
+        return 0
 
     phase("kernel")
     k1 = kernel_phase(seed)
@@ -5847,7 +6009,18 @@ def main() -> int:
         row["launches"] += check_launches[row["name"]]
     k4["launches"] += check_launches["fold"]
 
-    print(json.dumps({"kernels": [k1, k1_drop, k2, k3, k4]}), flush=True)
+    phase("kernels")
+    paths = {k: v for k, v in ADAM_BY_PHASE.items() if k != "kernel-adam"}
+    adam_launches = sum(paths.values())
+    print(f"launches: Adam {adam_launches} = " + ", ".join(f"{k} {v}" for k, v in paths.items() if v)
+          + " (in-process; the phases' worker processes count their own)", flush=True)
+    check(ADAM_BY_PHASE["train"] >= train_launches["adam"] > 0
+          and all(ADAM_BY_PHASE[k] > 0 for k in ("lifecycle", "federated", "train-options", "mesh")),
+          f"a training path of the card did not take the Adam kernel: {ADAM_BY_PHASE}")
+    for row in adam_entries:
+        row["launches"] = adam_launches
+
+    print(json.dumps({"kernels": [k1, k1_drop, k2, k3, k4, *adam_entries]}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()},

@@ -475,7 +475,9 @@ def build_trainable_params(
     ``state_dict`` (strict: missing, unexpected or misshapen keys raise):
     ``trainable="all"`` makes every leaf require grad, ``"head"`` only
     the classifier's. The copies never alias the input, so training can
-    update them in place."""
+    update them in place, and are contiguous whatever the input's strides
+    (a JAX-layout tree's kernels arrive as transposed views; the card's
+    Adam kernel takes contiguous leaves)."""
     shapes = {k: tuple(t.shape) for k, t in model_skeleton(cfg).state_dict().items()}
     if set(state_dict) != set(shapes):
         raise KeyError(
@@ -486,7 +488,7 @@ def build_trainable_params(
     out = {}
     for name, shape in shapes.items():
         leaf = torch.as_tensor(state_dict[name]).detach().to(
-            device=device, dtype=torch.float32, copy=True
+            device=device, dtype=torch.float32, memory_format=torch.contiguous_format, copy=True
         )
         if tuple(leaf.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(leaf.shape)}, want {shape}")

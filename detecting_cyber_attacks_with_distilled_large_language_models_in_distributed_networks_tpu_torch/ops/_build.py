@@ -25,7 +25,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 
 #: Library name -> source file under csrc/.
-SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu", "fold": "fold.cu"}
+SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu", "fold": "fold.cu", "adam": "adam.cu"}
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 

@@ -13,6 +13,10 @@ the same batch:
 * AdamW adds ``weight_decay · param``; the learning rate scales by ``-lr``;
 * the linear warmup multiplies the update by a factor of the GLOBAL step.
 
+The update itself is :mod:`..ops.adam`: on the card one multi-tensor
+kernel over every leaf, on the CPU the chain as ``_foreach_*`` passes;
+the two agree bit for bit.
+
 With ``TrainConfig.grad_accum_steps = k > 1`` the chain runs inside
 ``optax.MultiSteps``: every micro step folds its gradients into a running
 mean, ``acc + (g - acc) / (mini_step + 1)``, and only the k-th applies
@@ -80,6 +84,7 @@ from ..obs.profile import (
     profiled_step_iter,
     shape_signature,
 )
+from ..ops.adam import AdamStep, adam
 from ..ops.metrics import (
     BinaryCounts,
     ClassCounts,
@@ -172,27 +177,17 @@ def adam_update(
     is Adam's incremented count (its bias corrections); ``warmup_step``
     the step the warmup factor reads. ``g_norm``: the global gradient
     norm when ``grads`` are only part of the gradient (one slot's FSDP
-    shards); by default the norm of ``grads``."""
-    if cfg.max_grad_norm is not None:
-        if g_norm is None:
-            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        keep = g_norm < cfg.max_grad_norm
-        grads = [torch.where(keep, g, (g / g_norm) * cfg.max_grad_norm) for g in grads]
-    torch._foreach_mul_(mus, cfg.b1)
-    torch._foreach_add_(mus, torch._foreach_mul(grads, 1 - cfg.b1))
-    torch._foreach_mul_(nus, cfg.b2)
-    torch._foreach_add_(nus, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - cfg.b2))
-    mu_hat = torch._foreach_div(mus, bias_correction(cfg.b1, count))
-    nu_hat = torch._foreach_div(nus, bias_correction(cfg.b2, count))
-    den = torch._foreach_sqrt(nu_hat)
-    torch._foreach_add_(den, cfg.eps)
-    updates = torch._foreach_div(mu_hat, den)
-    if cfg.weight_decay > 0.0:
-        torch._foreach_add_(updates, torch._foreach_mul(params, cfg.weight_decay))
-    torch._foreach_mul_(updates, -cfg.learning_rate)
-    if cfg.warmup_steps > 0:
-        torch._foreach_mul_(updates, warmup_factor(warmup_step, cfg.warmup_steps))
-    torch._foreach_add_(params, updates)
+    shards); by default the norm of ``grads``. Leaves on the card take
+    the multi-tensor kernel, leaves on the CPU the ``_foreach_*`` chain
+    (:mod:`..ops.adam`)."""
+    step = AdamStep(
+        cfg.b1, cfg.b2, cfg.eps, cfg.learning_rate,
+        bias_correction(cfg.b1, count), bias_correction(cfg.b2, count),
+        weight_decay=cfg.weight_decay,
+        warmup=warmup_factor(warmup_step, cfg.warmup_steps) if cfg.warmup_steps > 0 else None,
+        max_norm=cfg.max_grad_norm,
+    )
+    adam(step, params, mus, nus, grads, g_norm)
 
 
 def eval_counts(
