@@ -103,7 +103,7 @@ def main(argv=None) -> int:
             rows.append(r)
             print(json.dumps(r), flush=True)
         free(dev)
-    numbers = [k for k in rows[0] if k.endswith("_gap")]
+    numbers = [k for k in rows[0] if k.endswith("_gap") or k == "prob_decorrelation"]
     summary = {"workload": cell.name, "card": torch.cuda.get_device_name(dev)}
     for kind in ("program", "control", "half_batch", "unchanged", "wrong_rows"):
         got = [r for r in rows if r["kind"] == kind]

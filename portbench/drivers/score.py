@@ -8,9 +8,10 @@ through the pool; each call's wall time runs from the call until its
 probabilities are back on the host.
 
 Correctness: every answer of the window against the plain reference's
-per-class probabilities of its pool row (a row's answer does not depend
-on the rows beside it): the widest gap over all of them, and how far the
-program's P(class 1) decorrelates from the reference's across them.
+(the cell's family, ``reference/<name>.py``) per-class probabilities of
+its pool row (a row's answer does not depend on the rows beside it): the
+widest gap over all of them, and how far the program's P(class 1)
+decorrelates from the reference's across them.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ def build(run: Run):
     run.mark("imports")
     ids, mask, _ = flows.flow_pool(t, cfg, run.sub("flows"))
     run.mark("pool")
-    w0 = make_weights(cfg, run.sub("weights"), run.device)
+    w0 = make_weights(run.cell.family, cfg, run.sub("weights"), run.device)
     engine = serving.ScoreEngine(config.ModelConfig(**cfg), w0, pad_id=0, device=run.device)
     run.mark("weights and engine")
     return engine, ids, mask
@@ -87,10 +88,10 @@ def window(run: Run, engine, cycle: Cycle, seconds: float, answers: list, latenc
 
 def reference_probs(run: Run, ids: np.ndarray, mask: np.ndarray, prec=ref_model.Precision()) -> np.ndarray:
     cfg = run.cell.model_fields()
-    w0 = make_weights(cfg, run.sub("weights"), run.device)
+    w0 = make_weights(run.cell.family, cfg, run.sub("weights"), run.device)
     dev = run.device
-    out = ref_model.class_probs(w0, cfg, torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev),
-                                run.cell.traffic["bucket"], prec)
+    out = run.cell.family.class_probs(w0, cfg, torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev),
+                                      run.cell.traffic["bucket"], prec)
     return out.cpu().numpy()
 
 
@@ -152,7 +153,8 @@ def run(run: Run) -> Outcome:
     if timeline is not None:
         cfg = run.cell.model_fields()
         timeline.extra.update(
-            mode="score", cfg=cfg, batch=bucket, seq_len=cfg["max_len"], traced_steps=traced_calls,
+            mode="score", reference=run.cell.family_name, bench=run.cell.bench, cfg=cfg,
+            batch=bucket, seq_len=cfg["max_len"], traced_steps=traced_calls,
             plain_steps=plain_calls, plain_s=t_plain - t_open,
             device_name=device_name(run.device),
         )

@@ -8,9 +8,9 @@ per step. The window closes on a ``torch.cuda.synchronize()``.
 
 Correctness: the losses of the ``checked_steps`` first steps, each leaf's
 first gradient (from Adam's first moment after one step) and each leaf's
-change after them, against the plain reference's from the same weights,
-rows and dropout seed. The rows the feed handed over must be distinct rows
-of the pool.
+change after them, against the plain reference's (the cell's family,
+``reference/<name>.py``) from the same weights, rows and dropout seed.
+The rows the feed handed over must be distinct rows of the pool.
 """
 
 from __future__ import annotations
@@ -72,7 +72,7 @@ def build(run: Run):
     ids, mask, labels = flows.flow_pool(t, cfg, run.sub("flows"))
     split = pipeline.TokenizedSplit(ids, mask, labels)
     run.mark("pool")
-    w0 = make_weights(cfg, run.sub("weights"), run.device)
+    w0 = make_weights(run.cell.family, cfg, run.sub("weights"), run.device)
     opt = opt_params(run)
     trainer = engine.Trainer(
         config.ModelConfig(**cfg),
@@ -110,11 +110,11 @@ def reference(run: Run, rows: list[dict], prec=ref_model.Precision(), half_batch
     """The reference's readings over the checked rows, from the same
     weights and dropout seed."""
     cfg = run.cell.model_fields()
-    w0 = make_weights(cfg, run.sub("weights"), run.device)
+    w0 = make_weights(run.cell.family, cfg, run.sub("weights"), run.device)
     dev = run.device
     batches = [tuple(torch.from_numpy(np.ascontiguousarray(b[k])).to(dev) for k in ("input_ids", "attention_mask", "labels"))
                for b in rows]
-    return ref_model.train_steps(w0, cfg, batches, run.sub("dropout"), opt_params(run), prec, half_batch)
+    return run.cell.family.train_steps(w0, cfg, batches, run.sub("dropout"), opt_params(run), prec, half_batch)
 
 
 def run(run: Run) -> Outcome:
@@ -178,7 +178,8 @@ def run(run: Run) -> Outcome:
     if timeline is not None:
         cfg = run.cell.model_fields()
         timeline.extra.update(
-            mode="train", cfg=cfg, batch=t["batch"], seq_len=cfg["max_len"], traced_steps=traced_steps,
+            mode="train", reference=run.cell.family_name, bench=run.cell.bench, cfg=cfg,
+            batch=t["batch"], seq_len=cfg["max_len"], traced_steps=traced_steps,
             plain_steps=plain_steps, plain_s=t_plain - t_open, device_name=device_name(run.device),
         )
     return Outcome(

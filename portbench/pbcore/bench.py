@@ -5,20 +5,24 @@ metrics; the files under ``portbench/`` hold them, one file each:
 
 * ``configs/<config>.json`` (the path is the configuration's ``file``):
   the model as run, in the port's ``ModelConfig`` field names, beside its
-  published source;
+  published source; its ``"reference"`` key names its family;
+* ``reference/<family>.py``: a model family's plain reference, its
+  leaves and its work counts (``FAMILY_INTERFACE``); ``distilbert`` for
+  a configuration without the key;
 * ``traffic/<traffic>.json``: the mix's parameters, and the ``mode``
   that names the driver under ``drivers/`` which runs it;
 * ``workloads/<cell>.json``: the cell's limits on the numbers compared
   with the reference;
 * ``metrics/<name>.py``: one reader per per-layer metric.
 
-A later change adds a cell, a configuration or a metric by adding files
-and entries; no file here needs an edit for it.
+A later change adds a cell, a configuration, a model family or a metric
+by adding files and entries; no file here needs an edit for it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import importlib.util
 import json
@@ -37,7 +41,25 @@ JAX_PACKAGE = "detecting_cyber_attacks_with_distilled_large_language_models_in_d
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "optax", "orbax", JAX_PACKAGE)
 
 #: Keys of a configuration file that document it and are not model fields.
-CONFIG_DOC_KEYS = ("source", "published", "assumed", "type_vocab_size")
+CONFIG_DOC_KEYS = ("source", "published", "assumed", "type_vocab_size", "reference")
+
+#: The family of a configuration that names none.
+DEFAULT_FAMILY = "distilbert"
+
+#: What a family module under ``reference/`` provides:
+#:
+#: * ``leaf_shapes(cfg)``: ``{state-dict key: shape}`` of every leaf;
+#: * ``leaf_kind(key)``: ``"normal"``, ``"zero"`` or ``"one"``;
+#: * ``train_steps(w0, cfg, batches, drop_seed, opt, prec, half_batch)``:
+#:   the reference's ``TrainReadings`` (``reference/model.py``);
+#: * ``class_probs(w, cfg, ids, mask, block, prec)``: per-class
+#:   probabilities of every row;
+#: * ``forward_flops(cfg, batch, seq_len)``: matmul FLOPs of a forward;
+#: * ``n_trainable(cfg)``: the elements the optimizer updates;
+#: * ``attention_launch(cfg, batch, seq_len)``: K1-K3's launch shape
+#:   ``(b, h, h_kv, l, d, causal)``, or None where none runs.
+FAMILY_INTERFACE = ("leaf_shapes", "leaf_kind", "train_steps", "class_probs", "forward_flops", "n_trainable",
+                    "attention_launch")
 
 
 def read_json(path: str) -> dict:
@@ -66,6 +88,20 @@ def load_module(path: str, name: str) -> ModuleType:
         raise ImportError(f"cannot load {path}")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
+    return module
+
+
+@functools.lru_cache(maxsize=None)
+def load_family(name: str, bench: str = BENCH_DIR) -> ModuleType:
+    """The family module ``<bench>/reference/<name>.py``, checked for the
+    interface."""
+    path = os.path.join(bench, "reference", f"{name}.py")
+    if not os.path.isfile(path):
+        raise ImportError(f"no family module {path}")
+    module = load_module(path, "portbench_family_" + name.replace(".", "_").replace("-", "_"))
+    missing = [f for f in FAMILY_INTERFACE if not callable(getattr(module, f, None))]
+    if missing:
+        raise ImportError(f"family {name!r} lacks {', '.join(missing)}")
     return module
 
 
@@ -99,6 +135,15 @@ class Cell:
     def model_fields(self) -> dict:
         """The configuration's fields as run (no documentation keys)."""
         return {k: v for k, v in self.config.items() if k not in CONFIG_DOC_KEYS}
+
+    @property
+    def family_name(self) -> str:
+        return self.config.get("reference", DEFAULT_FAMILY)
+
+    @property
+    def family(self) -> ModuleType:
+        """The configuration's family module (``reference/<name>.py``)."""
+        return load_family(self.family_name, self.bench)
 
 
 def _metrics(entries: list[dict], cell: str) -> list[Metric]:

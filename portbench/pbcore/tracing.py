@@ -9,6 +9,11 @@ inside the range ``portbench.window``, and wraps each thing it does in a
 :class:`Timeline` holds what the profiler saw in that range:
 
 * device operations (kernels, copies, sets) with their start and end;
+* the device-side copies of ``record_function`` ranges, the harness's and
+  any the program opens (``device_ranges``): the profiler marks them as
+  user annotations, and they are kept apart by that mark, whatever their
+  name, since each spans its range's kernels and the gaps between them
+  and is no operation of the device;
 * the harness's ranges and the host operations under them, which label
   each idle gap of the device by what the host was doing then.
 
@@ -49,6 +54,18 @@ def category(name: str) -> str:
 
 
 Span = tuple[str, float, float]  # name, start µs, end µs
+DeviceEvent = tuple[str, float, float, bool]  # name, start µs, end µs, a range's device-side copy
+
+
+def _union(spans) -> list[tuple[float, float]]:
+    """The intervals of ``(name, start, end)`` spans, merged."""
+    out: list[list[float]] = []
+    for _, s, e in sorted(spans, key=lambda x: x[1]):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return [(s, e) for s, e in out]
 
 
 @dataclass
@@ -61,24 +78,30 @@ class Timeline:
     host: list[Span]
     cpu: list[Span]
     extra: dict = field(default_factory=dict)
+    device_ranges: list[Span] = field(default_factory=list)
 
     @property
     def window_s(self) -> float:
         return (self.t1 - self.t0) * 1e-6
 
-    def _merged(self) -> list[tuple[float, float]]:
-        out: list[list[float]] = []
-        for _, s, e in sorted(self.device, key=lambda x: x[1]):
-            if out and s <= out[-1][1]:
-                out[-1][1] = max(out[-1][1], e)
-            else:
-                out.append([s, e])
-        return [(s, e) for s, e in out]
-
     @property
     def busy_s(self) -> float:
         """Seconds of the window in which some device operation ran."""
-        return sum(e - s for s, e in self._merged()) * 1e-6
+        return sum(e - s for s, e in _union(self.device)) * 1e-6
+
+    def busy_in(self, prefix: str) -> float:
+        """Seconds in which some device operation ran inside the device-side
+        copy of a range whose name starts with ``prefix``."""
+        inside = _union(r for r in self.device_ranges if r[0].startswith(prefix))
+        busy, i, total = _union(self.device), 0, 0.0
+        for s, e in inside:
+            while i < len(busy) and busy[i][1] <= s:
+                i += 1
+            j = i
+            while j < len(busy) and busy[j][0] < e:
+                total += min(e, busy[j][1]) - max(s, busy[j][0])
+                j += 1
+        return total * 1e-6
 
     def kernel(self, fragment: str) -> tuple[float, int]:
         """(device seconds, launches) of the operations whose name holds
@@ -104,7 +127,7 @@ class Timeline:
     def gaps(self) -> list[tuple[float, float]]:
         """Idle intervals of the device inside the window."""
         out, t = [], self.t0
-        for s, e in self._merged():
+        for s, e in _union(self.device):
             if s > t:
                 out.append((t, s))
             t = max(t, e)
@@ -136,12 +159,14 @@ def _short(name: str, width: int = 96) -> str:
     return name if len(name) <= width else name[: width - 3] + "..."
 
 
-def _spans(prof) -> tuple[list[Span], list[Span]]:
-    """(device operations, host operations) of a finished profile."""
+def _spans(prof) -> tuple[list[DeviceEvent], list[Span]]:
+    """(device events, each marked whether the profiler made it as a
+    user range's device-side copy; host operations) of a finished
+    profile."""
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
-    dev: list[Span] = []
+    dev: list[DeviceEvent] = []
     host: list[Span] = []
     results = getattr(prof.profiler, "kineto_results", None)
     if results is not None:
@@ -150,29 +175,36 @@ def _spans(prof) -> tuple[list[Span], list[Span]]:
                 s, d = e.start_ns() * 1e-3, e.duration_ns() * 1e-3
             else:
                 s, d = float(e.start_us()), float(e.duration_us())
-            (dev if e.device_type() == cuda else host).append((e.name(), s, s + d))
+            if e.device_type() == cuda:
+                dev.append((e.name(), s, s + d, bool(e.is_user_annotation())))
+            else:
+                host.append((e.name(), s, s + d))
     else:
         for e in prof.events():
-            span = (e.name, float(e.time_range.start), float(e.time_range.end))
-            (dev if e.device_type == cuda else host).append(span)
+            s, t = float(e.time_range.start), float(e.time_range.end)
+            if e.device_type == cuda:
+                dev.append((e.name, s, t, bool(e.is_user_annotation)))
+            else:
+                host.append((e.name, s, t))
     return dev, host
 
 
-def timeline_from_spans(dev: list[Span], host: list[Span], extra: dict | None = None) -> Timeline:
-    """Cut the profile down to the window range: device operations clipped
-    to it (the ranges' own device-side copies left out), harness ranges
-    and host operations that overlap it."""
+def timeline_from_spans(dev: list[DeviceEvent], host: list[Span], extra: dict | None = None) -> Timeline:
+    """Cut the profile down to the window range: device operations and the
+    ranges' device-side copies, apart, clipped to it; harness ranges and
+    host operations that overlap it."""
     windows = [(s, e) for n, s, e in host if n == WINDOW]
     if not windows:
         raise RuntimeError("the profile holds no portbench.window range")
     t0, t1 = windows[0]
-    device = [
-        (n, max(s, t0), min(e, t1)) for n, s, e in dev
-        if not n.startswith(RANGE_PREFIX) and e > t0 and s < t1 and e > s
-    ]
+    device: list[Span] = []
+    device_ranges: list[Span] = []
+    for n, s, e, is_range in dev:
+        if e > t0 and s < t1 and e > s:
+            (device_ranges if is_range else device).append((n, max(s, t0), min(e, t1)))
     ranges = [x for x in host if x[0].startswith(RANGE_PREFIX) and x[0] != WINDOW and x[2] > t0 and x[1] < t1]
     cpu = [x for x in host if not x[0].startswith(RANGE_PREFIX) and x[2] > t0 and x[1] < t1]
-    return Timeline(t0, t1, device, ranges, cpu, dict(extra or {}))
+    return Timeline(t0, t1, device, ranges, cpu, dict(extra or {}), device_ranges)
 
 
 class Tracer:

@@ -1,20 +1,21 @@
-"""The plain reference: the classifier, its loss, gradients and Adam.
+"""What every family's plain reference shares: precision, dropout, and
+the loops that turn a family's forward into answers and training readings.
 
-Plain PyTorch in fp32 with TF32 off, written from the architecture's
-description (DistilBERT's post-LayerNorm encoder with learned positions,
-the reference's CLS -> dropout -> Linear head) and imports nothing of the
-program or of JAX. It takes the benchmark's weights and batches and works
-out everything the program derives from them again.
+Plain PyTorch in fp32 with TF32 off, importing nothing of the program or
+of JAX. A family (``reference/<name>.py``, named by a configuration's
+``"reference"`` key; ``distilbert`` where it has none) writes its forward
+from its architecture's description and hands it to ``softmax_rows`` and
+``adam_steps``; it takes the benchmark's weights and batches and works out
+everything the program derives from them again.
 
 Dropout follows the configuration: keep with probability ``1 - rate``
 and scale the kept values by ``1 / (1 - rate)``. The masks come from the
 seed the benchmark hands to both sides, drawn from a ``torch.Generator``
-on the device in the order the forward visits its sites (the embeddings,
-then each block's attention weights, attention output and FFN output,
-then the pooled CLS vector): the hidden sites' masks are
-``torch.rand(shape) < 1 - rate``, and the attention weights' mask is the
-murmur3-finalised hash of two uint32 seed words and the (batch, head,
-query, key) coordinate, whose arithmetic is copied here.
+on the device (``DropStream``) in the order the family's forward visits
+its sites: the hidden sites' masks are ``torch.rand(shape) < 1 - rate``,
+and an attention weights' mask is the murmur3-finalised hash of two
+uint32 seed words and the (batch, head, query, key) coordinate, whose
+arithmetic (the port's K1) is copied here.
 
 ``Precision("fp8")`` is the control, computed a precision below the
 configuration's bf16: each layer's outputs and every matrix product's
@@ -25,7 +26,6 @@ coming back) under one scale per tensor, the rest in fp32.
 from __future__ import annotations
 
 import contextlib
-import math
 from dataclasses import dataclass
 
 import torch
@@ -164,69 +164,6 @@ class DropStream:
         return torch.randint(0, 2**32, (2,), generator=self.gen, device=self.device, dtype=torch.int64)
 
 
-# ------------------------------------------------------------- forward
-def _layer_norm(x, w, b, eps):
-    mean = x.mean(-1, keepdim=True)
-    var = ((x - mean) ** 2).mean(-1, keepdim=True)
-    return (x - mean) / torch.sqrt(var + eps) * w + b
-
-
-def _gelu(x, form: str):
-    if form == "tanh":
-        return 0.5 * x * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x**3)))
-    return 0.5 * x * (1.0 + torch.erf(x / math.sqrt(2.0)))
-
-
-def forward(w: dict, cfg: dict, ids: torch.Tensor, mask: torch.Tensor,
-            drop: DropStream | None = None, prec: Precision = Precision()) -> torch.Tensor:
-    """Logits ``[B, n_classes]`` of ``ids``/``mask`` ``[B, L]``; training
-    mode (every dropout site) when ``drop`` is given."""
-    B, L = ids.shape
-    D, H = cfg["dim"], cfg["n_heads"]
-    d = D // H
-    eps = cfg["layer_norm_eps"]
-
-    def hid(x, rate):
-        return drop.hidden(x, rate) if drop is not None else x
-
-    e = "encoder.embeddings."
-    x = w[e + "word_embeddings.weight"][ids.long()] + w[e + "position_embeddings.weight"][:L][None]
-    x = hid(prec.act(_layer_norm(x, w[e + "ln.weight"], w[e + "ln.bias"], eps)), cfg["dropout"])
-    bias = ((1.0 - mask.float()) * -1e9)[:, None, None, :]
-    for i in range(cfg["n_layers"]):
-        p = f"encoder.layer_{i}."
-
-        def lin(t, name):
-            return prec.linear(t, w[p + name + ".weight"], w[p + name + ".bias"])
-
-        def heads(t):
-            return t.reshape(B, L, H, d).transpose(1, 2)
-
-        q, k, v = (heads(lin(x, f"attn.{n}")) for n in "qkv")
-        s = prec.operand(q) @ prec.operand(k).transpose(-1, -2) * (1.0 / math.sqrt(d)) + bias
-        a = torch.softmax(s, dim=-1)
-        if drop is not None and cfg["attention_dropout"] > 0.0:
-            rate = cfg["attention_dropout"]
-            keep = attention_keep(drop.words(), a.shape, rate)
-            a = a * keep * (1.0 / (1.0 - rate))
-        ctx = prec.act(prec.operand(prec.act(a)) @ prec.operand(v)).transpose(1, 2).reshape(B, L, D)
-        attn = hid(lin(ctx, "attn.o"), cfg["dropout"])
-        x = prec.act(_layer_norm(prec.act(x + attn), w[p + "sa_ln.weight"], w[p + "sa_ln.bias"], eps))
-        h = lin(prec.act(_gelu(lin(x, "lin1"), cfg["gelu"])), "lin2")
-        x = prec.act(_layer_norm(prec.act(x + hid(h, cfg["dropout"])), w[p + "out_ln.weight"], w[p + "out_ln.bias"], eps))
-    pooled = hid(x[:, 0, :], cfg["head_dropout"])
-    return pooled @ w["classifier.weight"].T + w["classifier.bias"]
-
-
-def class_probs(w: dict, cfg: dict, ids, mask, block: int, prec: Precision = Precision()) -> torch.Tensor:
-    """Per-class softmax of every row, ``block`` rows at a time."""
-    out = []
-    with torch.no_grad(), strict_fp32():
-        for i in range(0, len(ids), block):
-            out.append(torch.softmax(forward(w, cfg, ids[i:i + block], mask[i:i + block], prec=prec), -1))
-    return torch.cat(out)
-
-
 # ------------------------------------------------------------ training
 @dataclass
 class TrainReadings:
@@ -244,13 +181,24 @@ def _norms(tensors: dict) -> dict[str, float]:
     return dict(zip(names, vals))
 
 
-def train_steps(w0: dict, cfg: dict, batches, drop_seed: int, opt: dict,
-                prec: Precision = Precision(), half_batch: bool = False) -> TrainReadings:
+def softmax_rows(logits, ids, mask, block: int, prec: Precision = Precision()) -> torch.Tensor:
+    """Per-class softmax of every row of ``logits(ids, mask, prec)``, a
+    family's inference forward, ``block`` rows at a time."""
+    out = []
+    with torch.no_grad(), strict_fp32():
+        for i in range(0, len(ids), block):
+            out.append(torch.softmax(logits(ids[i:i + block], mask[i:i + block], prec), -1))
+    return torch.cat(out)
+
+
+def adam_steps(logits, w0: dict, batches, drop_seed: int, opt: dict,
+               prec: Precision = Precision(), half_batch: bool = False) -> TrainReadings:
     """Adam steps from ``w0`` over ``batches`` (``(ids, mask, labels)``
     on the device), each loss the mean softmax cross-entropy over the
-    batch. ``opt``: ``learning_rate``, ``b1``, ``b2``, ``eps``.
-    ``half_batch`` plants a fault: the loss over the first half of each
-    batch only."""
+    batch of ``logits(params, ids, mask, drop, prec)``, a family's
+    training forward. ``opt``: ``learning_rate``, ``b1``, ``b2``,
+    ``eps``. ``half_batch`` plants a fault: the loss over the first half
+    of each batch only."""
     params = {k: v.detach().clone().requires_grad_(True) for k, v in w0.items()}
     mu = {k: torch.zeros_like(v) for k, v in params.items()}
     nu = {k: torch.zeros_like(v) for k, v in params.items()}
@@ -259,12 +207,12 @@ def train_steps(w0: dict, cfg: dict, batches, drop_seed: int, opt: dict,
     losses, first = [], None
     with strict_fp32():
         for t, (ids, mask, labels) in enumerate(batches, start=1):
-            logits = forward(params, cfg, ids, mask, drop, prec)
+            out = logits(params, ids, mask, drop, prec)
             if half_batch:
                 n = len(labels) // 2
-                loss = F.cross_entropy(logits[:n], labels[:n].long())
+                loss = F.cross_entropy(out[:n], labels[:n].long())
             else:
-                loss = F.cross_entropy(logits, labels.long())
+                loss = F.cross_entropy(out, labels.long())
             names = list(params)
             grads = torch.autograd.grad(loss, [params[n] for n in names])
             losses.append(loss.item())
@@ -277,7 +225,7 @@ def train_steps(w0: dict, cfg: dict, batches, drop_seed: int, opt: dict,
                     mu[n].mul_(b1).add_(g * (1.0 - b1))
                     nu[n].mul_(b2).add_(g * g * (1.0 - b2))
                     params[n].sub_(lr * (mu[n] / c1) / (torch.sqrt(nu[n] / c2) + eps))
-            del grads, logits, loss
+            del grads, out, loss
     with torch.no_grad():
         change = _norms({n: params[n] - w0[n] for n in params})
     return TrainReadings(losses, first, change)

@@ -1,5 +1,6 @@
-"""A later change adds a configuration, a cell and a per-layer metric by
-adding files and entries alone: no file of the harness is edited."""
+"""A later change adds a configuration, a cell, a per-layer metric or a
+model family by adding files and entries alone: no file of the harness
+is edited."""
 
 from __future__ import annotations
 
@@ -7,11 +8,20 @@ import hashlib
 import json
 import os
 import time
+from importlib import import_module
+from types import SimpleNamespace
 
+import numpy as np
+import pytest
 import torch
 
 import run as harness
-from conftest import make_tiny_root
+from conftest import PORT, make_tiny_root
+from pbcore import flows, roofline
+from pbcore.bench import driver, load_cell, reader
+from pbcore.harness import Run
+from pbcore.tracing import Tracer, timeline_from_spans
+from pbcore.weights import make_weights
 
 
 def _digests(bench: str) -> dict[str, str]:
@@ -60,6 +70,164 @@ def test_a_throwaway_cell_needs_only_new_files(tmp_path):
     cell, outcome = harness.run_cell("wide.score-b8", 5, 0.3, False, torch.device("cpu"), time.perf_counter(), root)
     line = harness.result_line(cell, outcome, False, {})
     assert set(line["metrics"]) == {"score_flows_per_s", "score_batch_p95_ms", "setup_s"}
+
+    after = _digests(bench)
+    assert {k: v for k, v in after.items() if k in before} == before
+
+
+#: A throwaway second family: a causal decoder with two query heads to a
+#: key/value head, leaves of its own names, RMSNorm, SiLU and a head on
+#: the last real token.
+DECODER = """
+import math
+
+import torch
+import torch.nn.functional as F
+
+from reference.model import Precision, adam_steps, softmax_rows
+
+GROUP = 2  # query heads per key/value head
+
+
+def _kv_heads(cfg):
+    return cfg["n_heads"] // GROUP
+
+
+def leaf_shapes(cfg):
+    D, H, Fw = cfg["dim"], cfg["n_heads"], cfg["hidden_dim"]
+    kv = _kv_heads(cfg) * (D // H)
+    shapes = {"tok.table": (cfg["vocab_size"], D)}
+    for i in range(cfg["n_layers"]):
+        p = f"blocks.{i}."
+        shapes.update({p + "norm.scale": (D,), p + "wq": (D, D), p + "wk": (kv, D), p + "wv": (kv, D),
+                       p + "wo": (D, D), p + "up": (Fw, D), p + "down": (D, Fw)})
+    shapes.update({"final.scale": (D,), "head.w": (cfg["n_classes"], D), "head.b": (cfg["n_classes"],)})
+    return shapes
+
+
+def leaf_kind(name):
+    return "one" if name.endswith(".scale") else "zero" if name == "head.b" else "normal"
+
+
+def _rms(x, g):
+    return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + 1e-6) * g
+
+
+def forward(w, cfg, ids, mask, drop=None, prec=Precision()):
+    B, L = ids.shape
+    D, H, G = cfg["dim"], cfg["n_heads"], _kv_heads(cfg)
+    d = D // H
+    keep = torch.tril(torch.ones(L, L, dtype=torch.bool, device=ids.device))[None, None] & mask.bool()[:, None, None, :]
+    x = w["tok.table"][ids.long()]
+    for i in range(cfg["n_layers"]):
+        p = f"blocks.{i}."
+        h = _rms(x, w[p + "norm.scale"])
+        q = (h @ w[p + "wq"].T).reshape(B, L, H, d).transpose(1, 2)
+        k, v = ((h @ w[p + n].T).reshape(B, L, G, d).transpose(1, 2).repeat_interleave(GROUP, 1) for n in ("wk", "wv"))
+        s = (q @ k.transpose(-1, -2) / math.sqrt(d)).masked_fill(~keep, -1e9)
+        x = x + (torch.softmax(s, -1) @ v).transpose(1, 2).reshape(B, L, D) @ w[p + "wo"].T
+        x = x + F.silu(_rms(x, w[p + "norm.scale"]) @ w[p + "up"].T) @ w[p + "down"].T
+    last = _rms(x[torch.arange(B), mask.long().sum(1) - 1], w["final.scale"])
+    return last @ w["head.w"].T + w["head.b"]
+
+
+def class_probs(w, cfg, ids, mask, block, prec=Precision()):
+    return softmax_rows(lambda i, m, pr: forward(w, cfg, i, m, prec=pr), ids, mask, block, prec)
+
+
+def train_steps(w0, cfg, batches, drop_seed, opt, prec=Precision(), half_batch=False):
+    return adam_steps(lambda p, i, m, dr, pr: forward(p, cfg, i, m, dr, pr), w0, batches, drop_seed, opt, prec,
+                      half_batch)
+
+
+def forward_flops(cfg, batch, seq_len):
+    L, D, Fw, H = seq_len, cfg["dim"], cfg["hidden_dim"], cfg["n_heads"]
+    kv = _kv_heads(cfg) * (D // H)
+    per_layer = 4 * L * D * D + 4 * L * D * kv + 2 * 2 * H * (L * (L + 1) // 2) * (D // H) + 4 * L * D * Fw
+    return float(batch) * (cfg["n_layers"] * per_layer + 2 * D * cfg["n_classes"])
+
+
+def n_trainable(cfg):
+    return sum(math.prod(s) for s in leaf_shapes(cfg).values())
+
+
+def attention_launch(cfg, batch, seq_len):
+    return batch, cfg["n_heads"], _kv_heads(cfg), seq_len, cfg["dim"] // cfg["n_heads"], True
+"""
+
+
+def test_a_second_family_needs_only_new_files(tmp_path, monkeypatch):
+    root = str(tmp_path)
+    twins = make_tiny_root(root, compute_dtype="float32")
+    bench = os.path.join(root, "portbench")
+    before = _digests(bench)
+
+    # The family, a configuration naming it, two cells and list entries.
+    with open(os.path.join(bench, "reference", "decoder_gqa.py"), "w") as f:
+        f.write(DECODER)
+    cfg = json.load(open(os.path.join(bench, "configs", "tiny.json")))
+    cfg.update(reference="decoder_gqa", n_heads=4, n_layers=2)
+    json.dump(cfg, open(os.path.join(bench, "configs", "tiny-decoder.json"), "w"))
+    spec = json.load(open(os.path.join(root, "BENCHMARK.json")))
+    spec["configs"].append({"name": "tiny-decoder", "source": "test", "file": "portbench/configs/tiny-decoder.json",
+                            "reduced": [], "why": "test"})
+    score_twin, train_twin = twins["distilbert.score-b128"], twins["distilbert.client-b128"]
+    for cell, twin in (("dec.score-b16", score_twin), ("dec.client-b16", train_twin)):
+        w = next(x for x in spec["workloads"] if x["name"] == twin)
+        spec["workloads"].append(dict(w, name=cell, config="tiny-decoder"))
+        json.dump(json.load(open(os.path.join(bench, "workloads", f"{twin}.json"))),
+                  open(os.path.join(bench, "workloads", f"{cell}.json"), "w"))
+        for m in spec["end_to_end"] + spec["per_layer"]:
+            if twin in m.get("workloads", []):
+                m["workloads"].append(cell)
+    json.dump(spec, open(os.path.join(root, "BENCHMARK.json"), "w"))
+
+    cell = load_cell("dec.score-b16", root)
+    fam = cell.family
+    assert cell.family_name == "decoder_gqa" and "reference" not in cell.model_fields()
+    w = make_weights(fam, cell.model_fields(), 3, "cpu")
+    assert list(w) == list(fam.leaf_shapes(cell.model_fields())) and "blocks.0.wk" in w
+    assert w["blocks.0.wk"].shape == (16, 32) and torch.equal(w["final.scale"], torch.ones(32))
+
+    # The port runs one block today: its own reference, in fp32, stands in
+    # for the program, so a sound run of the new family's cell is correct.
+    serving = import_module(PORT + ".serving")
+
+    class StandIn:
+        def __init__(self, mc, w0, pad_id=0, device=None):
+            self.w, self.ledger = w0, SimpleNamespace(compile_counts=lambda site: {})
+
+        def score(self, ids, mask):
+            p = fam.class_probs(self.w, cell.model_fields(), torch.from_numpy(ids), torch.from_numpy(mask), len(ids))
+            return p[:, 1].numpy(), p.numpy(), len(ids), 0
+
+    monkeypatch.setattr(serving, "ScoreEngine", StandIn)
+    c, outcome = harness.run_cell("dec.score-b16", 7, 0.6, True, torch.device("cpu"), time.perf_counter(), root)
+    assert outcome.correct and outcome.attempted >= 1, [(k.name, k.value, k.limit) for k in outcome.checks]
+    assert outcome.timeline.extra["reference"] == "decoder_gqa"
+    line = harness.result_line(c, outcome, False, {})
+    assert set(line["metrics"]) == {"score_flows_per_s", "score_batch_p95_ms", "setup_s"}
+
+    # The readers count the family's work: a causal launch over 2 KV heads.
+    tl = timeline_from_spans(
+        [("void flash_fwd_tc_kernel<false>(...)", 10.0, 60.0, False)], [("portbench.window", 0.0, 100.0)],
+        dict(outcome.timeline.extra, plain_steps=10, plain_s=0.5, traced_steps=1,
+             device_name="NVIDIA H100 80GB HBM3"))
+    b, l = 16, cfg["max_len"]
+    assert reader("k1_roofline.score", bench).read(tl) == pytest.approx(
+        100 * roofline.attention_bound(b, 4, l, 8, kv_heads=2, causal=True) / 50e-6)
+    assert reader("mfu.score", bench).read(tl) == pytest.approx(
+        100 * fam.forward_flops(cell.model_fields(), b, l) * 10 / (0.5 * 989e12))
+
+    # Training: the driver's reference steps through the family.
+    tc = load_cell("dec.client-b16", root)
+    run = Run(cell=tc, seed=11, seconds=0.1, tracer=Tracer(False), device=torch.device("cpu"), t_start=0.0)
+    ids, mask, labels = flows.flow_pool(tc.traffic, tc.model_fields(), run.sub("flows"))
+    rows = [{"input_ids": ids[i:i + 16], "attention_mask": mask[i:i + 16], "labels": labels[i:i + 16]}
+            for i in range(0, 48, 16)]
+    ref = driver(tc).reference(run, rows)
+    assert set(ref.change_norms) == set(w) and len(ref.losses) == 3 and np.isfinite(ref.losses).all()
+    assert ref.change_norms["blocks.1.wk"] > 0
 
     after = _digests(bench)
     assert {k: v for k, v in after.items() if k in before} == before

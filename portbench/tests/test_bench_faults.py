@@ -11,13 +11,14 @@ program:
   move from the first call's (a state that is not updated); one answer
   altered where it is produced.
 
-The cell's limits are the full-size cell's. One chip has no exchange
-between chips to leave out. A sound run passes, so each failure is the
-fault's.
+The limits are the full-size cells': a scoring run is held to those of
+every cell of its traffic mix. One chip has no exchange between chips to
+leave out. A sound run passes, so each failure is the fault's.
 """
 
 from __future__ import annotations
 
+import json
 import time
 from importlib import import_module
 
@@ -26,7 +27,8 @@ import pytest
 import torch
 
 import run as harness
-from conftest import PORT
+from conftest import PORT, ROOT
+from pbcore.bench import load_cell
 
 engine = import_module(PORT + ".train.engine")
 serving = import_module(PORT + ".serving")
@@ -113,8 +115,18 @@ def _one_altered(probs, class_probs, bucket, rid, calls):
     return probs, class_probs, bucket, rid
 
 
+#: The limits of every scoring cell (all of the traffic ``score-b128``).
+SCORE_LIMITS = [load_cell(w["name"], ROOT).limits for w in json.load(open(f"{ROOT}/BENCHMARK.json"))["workloads"]
+                if w["traffic"] == "score-b128"]
+
+
+def _correct_under(outcome, limits: dict) -> bool:
+    return outcome.failed == 0 and bool(outcome.checks) and all(c.value <= limits[c.name] for c in outcome.checks)
+
+
 def test_a_sound_scoring_run_is_correct(tiny_root):
-    assert _run(tiny_root, "distilbert.score-b128").correct
+    outcome = _run(tiny_root, "distilbert.score-b128")
+    assert outcome.correct and all(_correct_under(outcome, limits) for limits in SCORE_LIMITS)
 
 
 @pytest.mark.parametrize("change", [_half_left_out, _never_updated, _one_altered])
@@ -122,4 +134,5 @@ def test_a_broken_scorer_is_not_correct(tiny_root, monkeypatch, change):
     _score_wrapper(monkeypatch, change)
     outcome = _run(tiny_root, "distilbert.score-b128")
     assert not outcome.correct, ([(c.name, c.value, c.limit) for c in outcome.checks], outcome.failed)
+    assert not any(_correct_under(outcome, limits) for limits in SCORE_LIMITS)
     assert np.isfinite(outcome.metrics["score_flows_per_s"])

@@ -87,6 +87,35 @@ def test_every_config_is_used_and_its_fields_are_the_port_s():
         assert set(c["reduced"]) <= set(data) and c["source"] == data["source"]
 
 
+@pytest.mark.parametrize("config", [c["name"] for c in SPEC["configs"]])
+def test_every_configuration_s_family_loads_with_the_interface(config):
+    from math import prod
+
+    from pbcore.weights import KINDS
+
+    data = json.load(open(os.path.join(ROOT, next(c["file"] for c in SPEC["configs"] if c["name"] == config))))
+    fam = bench.load_family(data.get("reference", bench.DEFAULT_FAMILY))
+    assert all(callable(getattr(fam, f)) for f in bench.FAMILY_INTERFACE)
+    cfg = {k: v for k, v in data.items() if k not in bench.CONFIG_DOC_KEYS}
+    shapes = fam.leaf_shapes(cfg)
+    assert shapes and {fam.leaf_kind(k) for k in shapes} <= set(KINDS)
+    assert 0 < fam.n_trainable(cfg) <= sum(prod(s) for s in shapes.values())
+    assert fam.forward_flops(cfg, 2, cfg["max_len"]) == 2 * fam.forward_flops(cfg, 1, cfg["max_len"]) > 0
+    launch = fam.attention_launch(cfg, 128, cfg["max_len"])
+    if launch is not None:
+        b, h, h_kv, l, d, causal = launch
+        assert (b, l) == (128, cfg["max_len"]) and h % h_kv == 0 and d > 0 and isinstance(causal, bool)
+
+
+def test_a_family_module_without_the_interface_is_refused(tmp_path):
+    (tmp_path / "reference").mkdir()
+    (tmp_path / "reference" / "half.py").write_text("def leaf_shapes(cfg):\n    return {}\n")
+    with pytest.raises(ImportError, match="lacks leaf_kind"):
+        bench.load_family("half", str(tmp_path))
+    with pytest.raises(ImportError, match="no family module"):
+        bench.load_family("absent", str(tmp_path))
+
+
 def test_files_under_paths_are_named_from_name_characters():
     for dirpath, _, files in os.walk(BENCH):
         if "__pycache__" in dirpath:

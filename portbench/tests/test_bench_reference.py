@@ -13,6 +13,7 @@ from conftest import PORT, make_tiny_root
 from pbcore import flows
 from pbcore.weights import make_weights
 from reference import compare
+from reference import distilbert as family
 from reference import model as ref
 
 config = import_module(PORT + ".config")
@@ -35,7 +36,7 @@ OPT = {"learning_rate": 1e-3, "b1": 0.9, "b2": 0.999, "eps": 1e-8}
 
 def test_forward_loss_and_adam_step_match_the_port():
     cfg = _tiny(attention_impl="dot", dropout=0.0, attention_dropout=0.0, head_dropout=0.0)
-    w = make_weights(cfg, 11, "cpu")
+    w = make_weights(family, cfg, 11, "cpu")
     trainer = engine.Trainer(config.ModelConfig(**cfg), config.TrainConfig(learning_rate=OPT["learning_rate"]),
                              device="cpu")
     state = trainer.init_state(params=w)
@@ -43,10 +44,10 @@ def test_forward_loss_and_adam_step_match_the_port():
     ids, mask, labels = (torch.from_numpy(b[k]) for k in ("input_ids", "attention_mask", "labels"))
     with torch.no_grad():
         got = trainer._logits(state.params, ids, mask)
-    want = ref.forward(w, cfg, ids, mask)
+    want = family.forward(w, cfg, ids, mask)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
     state, loss = trainer.train_step(state, b)
-    r = ref.train_steps(w, cfg, [(ids, mask, labels)], 0, OPT)
+    r = family.train_steps(w, cfg, [(ids, mask, labels)], 0, OPT)
     assert abs(float(loss) - r.losses[0]) < 1e-6
     for n in compare.moving_leaves(r.grad_norms):  # a key bias moves by round-off alone
         step = torch.linalg.vector_norm((state.params[n].detach() - w[n]).double()).item()
@@ -56,11 +57,11 @@ def test_forward_loss_and_adam_step_match_the_port():
 def test_class_probs_match_the_port_s_scorer():
     serving = import_module(PORT + ".serving")
     cfg = _tiny(attention_impl="flash")
-    w = make_weights(cfg, 5, "cpu")
+    w = make_weights(family, cfg, 5, "cpu")
     b = _batch(cfg, 16)
     eng = serving.ScoreEngine(config.ModelConfig(**cfg), w, device="cpu")
     _, got, _, _ = eng.score(b["input_ids"], b["attention_mask"])
-    want = ref.class_probs(w, cfg, torch.from_numpy(b["input_ids"]), torch.from_numpy(b["attention_mask"]), 8)
+    want = family.class_probs(w, cfg, torch.from_numpy(b["input_ids"]), torch.from_numpy(b["attention_mask"]), 8)
     assert compare.prob_gap(got, want.numpy()) < 1e-6
 
 
@@ -103,9 +104,9 @@ def test_training_steps_with_dropout_replay_the_program(tmp_path):
 
 def test_weights_are_seeded_and_on_the_device():
     cfg = _tiny()
-    a, b = make_weights(cfg, 1, "cpu"), make_weights(cfg, 1, "cpu")
+    a, b = make_weights(family, cfg, 1, "cpu"), make_weights(family, cfg, 1, "cpu")
     assert all(torch.equal(a[k], b[k]) for k in a)
-    c = make_weights(cfg, 2, "cpu")
+    c = make_weights(family, cfg, 2, "cpu")
     assert not torch.equal(a["classifier.weight"], c["classifier.weight"])
     assert all(v.dtype == torch.float32 for v in a.values())
     assert np.allclose(a["encoder.layer_0.sa_ln.weight"].numpy(), 1.0)
@@ -118,3 +119,31 @@ def test_control_rounds_to_float8(dtype):
     mantissa = {torch.float8_e4m3fn: 3, torch.float8_e5m2: 2}[dtype]
     rel = 2.0 ** -(mantissa + 1)  # half an ulp, relative to the value
     assert ((y - x).abs() <= rel * x.abs() * 1.0001 + 1e-6).all() and (y != x).any()
+
+
+#: sha256 over each leaf's key, shape and fp32 bytes, in the order
+#: ``make_weights`` returns them, from seed 12345 on the CPU: the weights
+#: the parent commit drew for the two real configurations, before the
+#: leaves moved into the family module.
+PARENT_WEIGHTS = {
+    "distilbert-base": "68e382348e9027ed2b46248bc48259b9e24e6dbeb644f41a80c23845b42873f9",
+    "bert-large": "9ed4b1472c6ac3cf430e1fe8898995c8ddb9275d97f4eb93dd2a4da430751211",
+}
+
+
+@pytest.mark.parametrize("name", sorted(PARENT_WEIGHTS))
+def test_the_real_configurations_draw_the_parent_s_weights(name):
+    import hashlib
+
+    from conftest import BENCH
+    from pbcore import bench
+
+    data = bench.read_json(f"{BENCH}/configs/{name}.json")
+    cfg = {k: v for k, v in data.items() if k not in bench.CONFIG_DOC_KEYS}
+    w = make_weights(bench.load_family(data.get("reference", bench.DEFAULT_FAMILY)), cfg, 12345, "cpu")
+    h = hashlib.sha256()
+    for k, v in w.items():
+        h.update(k.encode())
+        h.update(str(tuple(v.shape)).encode())
+        h.update(v.contiguous().numpy())
+    assert h.hexdigest() == PARENT_WEIGHTS[name]
