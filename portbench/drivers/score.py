@@ -51,10 +51,11 @@ def build(run: Run):
     t = run.cell.traffic
     cfg = run.cell.model_fields()
     run.mark("imports")
+    model_cfg = run.cell.port_config(config)
     ids, mask, _ = flows.flow_pool(t, cfg, run.sub("flows"))
     run.mark("pool")
     w0 = make_weights(run.cell.family, cfg, run.sub("weights"), run.device)
-    engine = serving.ScoreEngine(config.ModelConfig(**cfg), w0, pad_id=0, device=run.device)
+    engine = serving.ScoreEngine(model_cfg, w0, pad_id=0, device=run.device)
     run.mark("weights and engine")
     return engine, ids, mask
 

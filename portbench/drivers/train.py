@@ -69,13 +69,14 @@ def build(run: Run):
     t = run.cell.traffic
     cfg = run.cell.model_fields()
     run.mark("imports")
+    model_cfg = run.cell.port_config(config)
     ids, mask, labels = flows.flow_pool(t, cfg, run.sub("flows"))
     split = pipeline.TokenizedSplit(ids, mask, labels)
     run.mark("pool")
     w0 = make_weights(run.cell.family, cfg, run.sub("weights"), run.device)
     opt = opt_params(run)
     trainer = engine.Trainer(
-        config.ModelConfig(**cfg),
+        model_cfg,
         config.TrainConfig(learning_rate=opt["learning_rate"], b1=opt["b1"], b2=opt["b2"], eps=opt["eps"],
                            seed=run.sub("shuffle"), log_every=0),
         pad_id=0, drop_remainder=True, device=run.device,

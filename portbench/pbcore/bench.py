@@ -4,8 +4,10 @@
 metrics; the files under ``portbench/`` hold them, one file each:
 
 * ``configs/<config>.json`` (the path is the configuration's ``file``):
-  the model as run, in the port's ``ModelConfig`` field names, beside its
-  published source; its ``"reference"`` key names its family;
+  the model as run, in the field names of the class in the port's
+  ``config`` module that its ``"port_config"`` key names (``ModelConfig``
+  without the key), beside its published source; its ``"reference"`` key
+  names its family;
 * ``reference/<family>.py``: a model family's plain reference, its
   leaves and its work counts (``FAMILY_INTERFACE``); ``distilbert`` for
   a configuration without the key;
@@ -41,10 +43,13 @@ JAX_PACKAGE = "detecting_cyber_attacks_with_distilled_large_language_models_in_d
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "optax", "orbax", JAX_PACKAGE)
 
 #: Keys of a configuration file that document it and are not model fields.
-CONFIG_DOC_KEYS = ("source", "published", "assumed", "type_vocab_size", "reference")
+CONFIG_DOC_KEYS = ("source", "published", "assumed", "type_vocab_size", "reference", "port_config")
 
 #: The family of a configuration that names none.
 DEFAULT_FAMILY = "distilbert"
+
+#: The port's config class of a configuration that names none.
+DEFAULT_PORT_CONFIG = "ModelConfig"
 
 #: What a family module under ``reference/`` provides:
 #:
@@ -125,6 +130,7 @@ class Cell:
     bench: str  # the portbench/ directory the cell's files are in
     chips: int
     config_name: str
+    config_file: str  # as BENCHMARK.json names it
     config: dict
     traffic_name: str
     traffic: dict
@@ -135,6 +141,23 @@ class Cell:
     def model_fields(self) -> dict:
         """The configuration's fields as run (no documentation keys)."""
         return {k: v for k, v in self.config.items() if k not in CONFIG_DOC_KEYS}
+
+    @property
+    def port_config_name(self) -> str:
+        return self.config.get("port_config", DEFAULT_PORT_CONFIG)
+
+    def port_config(self, config_module: ModuleType):
+        """The port's config object of this configuration: the class
+        ``port_config_name`` of ``config_module`` over ``model_fields()``."""
+        name = self.port_config_name
+        cls = getattr(config_module, name, None)
+        if not (isinstance(cls, type) and dataclasses.is_dataclass(cls)):
+            raise ValueError(f"{self.config_file}: the port's config module has no dataclass {name!r}")
+        fields = self.model_fields()
+        unknown = sorted(set(fields) - {f.name for f in dataclasses.fields(cls)})
+        if unknown:
+            raise ValueError(f"{self.config_file}: keys {unknown} are not fields of the port's {name}")
+        return cls(**fields)
 
     @property
     def family_name(self) -> str:
@@ -170,6 +193,7 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
         bench=bench,
         chips=int(w["chips"]),
         config_name=w["config"],
+        config_file=configs[w["config"]]["file"],
         config=read_json(os.path.join(root, configs[w["config"]]["file"])),
         traffic_name=w["traffic"],
         traffic=read_json(os.path.join(bench, "traffic", f"{w['traffic']}.json")),

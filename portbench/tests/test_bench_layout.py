@@ -76,15 +76,25 @@ def test_every_config_is_used_and_its_fields_are_the_port_s():
     from importlib import import_module
 
     config = import_module(PORT + ".config")
-    fields = {f.name for f in dataclasses.fields(config.ModelConfig)}
     used = {w["config"] for w in SPEC["workloads"]}
     for c in SPEC["configs"]:
         assert c["name"] in used and c["file"].startswith("portbench/")
         data = json.load(open(os.path.join(ROOT, c["file"])))
+        cls = getattr(config, data.get("port_config", bench.DEFAULT_PORT_CONFIG))
         model = {k: v for k, v in data.items() if k not in bench.CONFIG_DOC_KEYS}
-        assert set(model) <= fields
-        config.ModelConfig(**model)  # validates
+        assert set(model) <= {f.name for f in dataclasses.fields(cls)}
+        cls(**model)  # validates
         assert set(c["reduced"]) <= set(data) and c["source"] == data["source"]
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_each_cell_builds_the_model_config_it_always_built(cell):
+    from importlib import import_module
+
+    config = import_module(PORT + ".config")
+    c = bench.load_cell(cell)
+    built = c.port_config(config)
+    assert type(built) is config.ModelConfig and built == config.ModelConfig(**c.model_fields())
 
 
 @pytest.mark.parametrize("config", [c["name"] for c in SPEC["configs"]])
