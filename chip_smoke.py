@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card (H100).
 
-    python3 chip_smoke.py [--seed N] [--mode all|adam]
+    python3 chip_smoke.py [--seed N] [--mode all|adam|residual-ln]
 
-``--mode adam`` runs phases 1, 2 (the Adam library alone) and 18 only.
+``--mode adam`` runs phases 1, 2 (the Adam library alone) and 18 only;
+``--mode residual-ln`` phases 1, 2 (K1's and the residual LayerNorm's
+libraries, built together as the model's first forward builds them) and
+18b only.
 
 Phases; any failure exits non-zero before the last line is printed:
 
@@ -436,6 +439,20 @@ Phases; any failure exits non-zero before the last line is printed:
             chain's) and the 28-byte bound. It runs right after phase 2:
             after the other phases its profiler session has recorded no
             device events;
+18b. kernel-residual-ln — the residual add + LayerNorm kernels
+            (``csrc/residual_ln.cu``) at one scoring call's rows (128 x
+            128) and both models' widths (768, 1,024), bf16: the forward
+            against the plain expression (atol 1e-5 + rtol 8e-3: one bf16
+            rounding each), the backward's dx against autograd of the
+            fp32 plain path (the same bound) and dgamma/dbeta (atol 2e-3
+            + rtol 1e-4); then the forward's time (CUDA events,
+            ``kernel_ms``), its device time a launch (profiler,
+            ``device_ms``), the plain expression's (``plain_ms``),
+            ``F.layer_norm`` on the bf16 sum (``library_ms``, a
+            yardstick the port never calls) and the 6-byte bound; and the
+            training pair's (forward keeping the sum and the stats, then
+            the backward) device time beside its 14-byte bound. Right
+            after phase 18, for the same reason;
 19. the kernels' JSON line (K1 as its two instantiations, rate 0 at the
    serving shape and dropout at the training shape, then K2, K3 and K4;
    K1's rate-0 launches count phase 5, phase 6's evaluation, the
@@ -612,6 +629,7 @@ from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed
     adam as adam_mod,
     flash_attention as flash_mod,
     fold as fold_mod,
+    residual_ln as rln_mod,
 )
 from detecting_cyber_attacks_with_distilled_large_language_models_in_distributed_networks_tpu_torch.ops.attention import (
     make_attention_bias,
@@ -1270,9 +1288,12 @@ def train_phase(seed: int, card: str, ckpt_dir: str) -> tuple[dict[str, int], di
         flash_mod.FWD_LAUNCHES = flash_mod.FWD_DROPOUT_LAUNCHES = 0
         flash_mod.DKDV_LAUNCHES = flash_mod.DQ_LAUNCHES = flash_mod.BWD_DO_COPIES = 0
         adam_mod.ADAM_LAUNCHES = 0
+        rln_mod.FWD_LAUNCHES = rln_mod.BWD_LAUNCHES = 0
         res = run_local(args)
         torch.cuda.synchronize()
         launches = {
+            "residual_ln": rln_mod.FWD_LAUNCHES,
+            "residual_ln_bwd": rln_mod.BWD_LAUNCHES,
             "flash_fwd": flash_mod.FWD_LAUNCHES,
             "flash_fwd_dropout": flash_mod.FWD_DROPOUT_LAUNCHES,
             "flash_bwd_dkdv": flash_mod.DKDV_LAUNCHES,
@@ -1295,6 +1316,10 @@ def train_phase(seed: int, card: str, ckpt_dir: str) -> tuple[dict[str, int], di
           f"K1-dropout/K2/K3 launches {launches} for {steps} steps")
     check(launches["flash_fwd"] == mcfg.n_layers * eval_batches, f"K1 (rate 0) launches {launches['flash_fwd']} for {eval_batches} eval batches")
     check(launches["adam"] == steps, f"Adam launches {launches['adam']} for {steps} steps of 102 leaves (one a step)")
+    check(launches["residual_ln"] == 2 * mcfg.n_layers * (steps + eval_batches)
+          and launches["residual_ln_bwd"] == 2 * mcfg.n_layers * steps,
+          f"residual LayerNorm launches {launches['residual_ln']} / {launches['residual_ln_bwd']} (forward / backward) "
+          f"for {steps} steps and {eval_batches} eval batches (two a block each)")
     check(do_copies == 0, f"the backward copied dO {do_copies} times on the model's path")
     check(all(np.isfinite(res["losses"])), f"non-finite loss {res['losses']}")
     check(header == "Accuracy,Loss,Precision,Recall,F1-Score", f"metrics CSV header {header!r}")
@@ -2308,6 +2333,102 @@ def adam_kernel_phase(seed: int, card: str) -> list[dict]:
             "library_elements_differ": lib_differ,
         })
         del params, mus, nus, grads, steps
+        torch.cuda.empty_cache()
+    return entries
+
+
+def residual_ln_bound(rows: int, n: int, nbytes: int) -> tuple[float, str]:
+    """Least time (ms) of a residual LayerNorm pass moving ``nbytes`` an
+    element over ``rows`` x ``n`` (6 for a bf16 forward: x and r in, y
+    out); a few fp32 operations an element, so bytes bound it."""
+    return nbytes * rows * n / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def profiled_ms(fn, fragment: str, launches: int = 10) -> float:
+    """Device time a launch of the kernels whose name holds ``fragment``,
+    over ``launches`` calls of ``fn`` under the profiler."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if fragment in e.key]
+    check(events and sum(e.count for e in events) >= launches,
+          f"the profiler saw {[(e.key, e.count) for e in events]} for {launches} calls of {fragment}")
+    total = sum(getattr(e, "device_time_total", None) or e.cuda_time_total for e in events)
+    return total / 1e3 / launches
+
+
+def residual_ln_kernel_phase(seed: int, card: str) -> list[dict]:
+    """Phase 18b: the residual LayerNorm kernels against the plain
+    expression at one scoring call's rows and both models' widths, then
+    their times. Returns its kernels-line entries."""
+    entries = []
+    eps = ModelConfig().layer_norm_eps
+    for name, n in (("distilbert-base", 768), ("bert-large", 1024)):
+        rows = 128 * 128
+        g = torch.Generator(device="cuda").manual_seed(seed + 181)
+        x = torch.randn((128, 128, n), generator=g, device="cuda").bfloat16()
+        r = (0.5 * torch.randn((128, 128, n), generator=g, device="cuda")).bfloat16()
+        w = 1.0 + 0.1 * torch.randn(n, generator=g, device="cuda")
+        b = 0.1 * torch.randn(n, generator=g, device="cuda")
+        dy = torch.randn((128, 128, n), generator=g, device="cuda").bfloat16()
+        before = rln_mod.FWD_LAUNCHES
+        y = rln_mod.residual_layer_norm(x, r, w, b, eps, torch.bfloat16)
+        plain = rln_mod.residual_layer_norm_reference(x, r, w, b, eps, torch.bfloat16)
+        fwd_err = (y.float() - plain.float()).abs().max().item()
+        check(rln_mod.FWD_LAUNCHES == before + 1, "the forward did not launch once")
+        check(torch.allclose(y.float(), plain.float(), atol=1e-5, rtol=8e-3),
+              f"residual LayerNorm forward at {name}: max |err| {fwd_err}")
+        leaves = [t.clone().requires_grad_(True) for t in (x, r, w, b)]
+        rln_mod.residual_layer_norm(*leaves, eps, torch.bfloat16).backward(dy)
+        ref = [(x + r).float().requires_grad_(True), w.clone().requires_grad_(True), b.clone().requires_grad_(True)]
+        F.layer_norm(ref[0], (n,), ref[1], ref[2], eps).backward(dy.float())
+        torch.cuda.synchronize()
+        dx_err = (leaves[0].grad.float() - ref[0].grad).abs().max().item()
+        check(torch.equal(leaves[0].grad, leaves[1].grad), "dx and dr differ")
+        check(torch.allclose(leaves[0].grad.float(), ref[0].grad, atol=1e-5, rtol=8e-3),
+              f"residual LayerNorm dx at {name}: max |err| {dx_err}")
+        for got, want, what in ((leaves[2].grad, ref[1].grad, "dgamma"), (leaves[3].grad, ref[2].grad, "dbeta")):
+            check(torch.allclose(got, want, atol=2e-3, rtol=1e-4),
+                  f"residual LayerNorm {what} at {name}: max |err| {(got - want).abs().max().item()}")
+        print(f"residual LayerNorm check {name} [{rows}, {n}] bf16: forward max |err| {fwd_err:.3g}, "
+              f"dx max |err| {dx_err:.3g}", flush=True)
+        s = (x + r).contiguous()
+        wb, bb = w.bfloat16(), b.bfloat16()
+        t_k = time_ms(lambda: rln_mod.residual_layer_norm(x, r, w, b, eps, torch.bfloat16))
+        t_p = time_ms(lambda: rln_mod.residual_layer_norm_reference(x, r, w, b, eps, torch.bfloat16))
+        t_l = time_ms(lambda: F.layer_norm(s, (n,), wb, bb, eps))
+        t_d = profiled_ms(lambda: rln_mod.residual_layer_norm(x, r, w, b, eps, torch.bfloat16),
+                          "residual_layer_norm_fwd")
+        saved = rln_mod.residual_ln_forward(x, r, w, b, eps, save=True)
+        t_df = profiled_ms(lambda: rln_mod.residual_ln_forward(x, r, w, b, eps, save=True), "residual_layer_norm_fwd")
+        t_db = profiled_ms(lambda: rln_mod.residual_ln_backward(dy, saved[1], saved[2], w), "residual_layer_norm_")
+        t_dt = t_df + t_db
+        bound, bound_by = residual_ln_bound(rows, n, 6)
+        bound_t = residual_ln_bound(rows, n, 8)[0] + residual_ln_bound(rows, n, 6)[0]
+        print(f"residual LayerNorm time {name} [{rows}, {n}] bf16 {card}: kernel_ms={t_k:.4f} device_ms={t_d:.4f} "
+              f"plain_ms={t_p:.4f} library_ms(F.layer_norm on the bf16 sum)={t_l:.4f} bound_ms={bound:.4f} "
+              f"({bound_by}); {100 * bound / t_d:.1f}% of the bound by device time; training pair device_ms "
+              f"{t_df:.4f} + {t_db:.4f} against {bound_t:.4f} ({100 * bound_t / t_dt:.1f}%)", flush=True)
+        entries.append({
+            "name": "residual_ln",
+            "shape": f"{name}: [{rows}, {n}] bf16",
+            "route": "cuda",
+            "source": f"{PORT}/csrc/residual_ln.cu",
+            "replaces": None,
+            "launches": None,
+            "max_abs_err": fwd_err,
+            "ms": t_k,
+            "device_ms": t_d,
+            "plain_ms": t_p,
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "library_ms": t_l,
+            "train_device_ms": [t_df, t_db],
+            "train_bound_ms": bound_t,
+        })
+        del x, r, dy, leaves, ref, s, saved
         torch.cuda.empty_cache()
     return entries
 
@@ -5869,7 +5990,7 @@ def check_phase(seed: int, card: str, unarmed_wall: float) -> dict[str, int]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--mode", choices=("all", "adam"), default="all")
+    ap.add_argument("--mode", choices=("all", "adam", "residual-ln"), default="all")
     args = ap.parse_args()
     seed = args.seed
     if not torch.cuda.is_available():
@@ -5888,8 +6009,17 @@ def main() -> int:
 
     phase("build")
     t0 = time.monotonic()
-    built = _build.build(["adam"] if args.mode == "adam" else None)
+    built = _build.build({"adam": ["adam"], "residual-ln": _build.build_group("residual_ln")}.get(args.mode))
     print(f"built {sorted(built) or 'nothing (cached)'} in {time.monotonic() - t0:.1f} s", flush=True)
+
+    if args.mode == "residual-ln":
+        phase("kernel-residual-ln")
+        print(json.dumps({"kernels": residual_ln_kernel_phase(seed, card)}), flush=True)
+        print(json.dumps({
+            "ok": True,
+            "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()},
+        }), flush=True)
+        return 0
 
     # First: after the other phases of a whole run, its profiler session
     # has recorded no device events (never in ``--mode adam``).
@@ -5902,6 +6032,8 @@ def main() -> int:
             "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()},
         }), flush=True)
         return 0
+    phase("kernel-residual-ln")
+    rln_entries = residual_ln_kernel_phase(seed, card)
 
     phase("kernel")
     k1 = kernel_phase(seed)
@@ -6020,7 +6152,7 @@ def main() -> int:
     for row in adam_entries:
         row["launches"] = adam_launches
 
-    print(json.dumps({"kernels": [k1, k1_drop, k2, k3, k4, *adam_entries]}), flush=True)
+    print(json.dumps({"kernels": [k1, k1_drop, k2, k3, k4, *adam_entries, *rln_entries]}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()},

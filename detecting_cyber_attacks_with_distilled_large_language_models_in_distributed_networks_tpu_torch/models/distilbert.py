@@ -12,7 +12,10 @@ the other by renaming leaves alone.
 Dtypes: parameters stay fp32; every Linear and embedding runs in
 ``cfg.compute_dtype`` (weights cast at use, as flax ``nn.Dense(dtype=)``
 does); LayerNorm statistics, the attention softmax and the head run in
-fp32.
+fp32. A block's two residual + LayerNorm sites are one op
+(:func:`..ops.residual_ln.residual_layer_norm`: the same arithmetic, one
+hand-written kernel a pass on the card); the embeddings' LayerNorm, whose
+position term broadcasts over the batch, stays the plain expression.
 
 Dropout (train mode, ``deterministic=False``) sits where the JAX model
 puts it: the embeddings' output, each block's attention output and FFN
@@ -72,6 +75,7 @@ from ..device import torch_dtype
 from ..ops.attention import dot_product_attention, make_attention_bias
 from ..ops.flash_attention import draw_seed_words, flash_attention
 from ..ops.hash_dropout import hash_dropout
+from ..ops.residual_ln import residual_layer_norm
 
 
 def _dropout(
@@ -139,6 +143,13 @@ def _layer_norm(x: torch.Tensor, mod: nn.LayerNorm, dtype: torch.dtype) -> torch
     return F.layer_norm(
         x.float(), mod.normalized_shape, _on(mod.weight, x.device), _on(mod.bias, x.device), mod.eps
     ).to(dtype)
+
+
+def _residual_layer_norm(x: torch.Tensor, r: torch.Tensor, mod: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
+    """``_layer_norm(x + r, mod, dtype)`` in one op: the plain expression on
+    the CPU, one hand-written kernel a pass on the card
+    (:mod:`..ops.residual_ln`)."""
+    return residual_layer_norm(x, r, _on(mod.weight, x.device), _on(mod.bias, x.device), mod.eps, dtype)
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -228,7 +239,7 @@ class TransformerBlock(nn.Module):
         None (the generator's ``torch.rand`` mask)."""
         cfg = self.cfg
         cd = torch_dtype(cfg.compute_dtype)
-        x = _layer_norm(x + attn_out, self.sa_ln, cd)
+        x = _residual_layer_norm(x, attn_out, self.sa_ln, cd)
         h = _linear(x, self.lin1, cd)
         h = F.gelu(h, approximate="tanh" if cfg.gelu == "tanh" else "none")
         h = _linear(h, self.lin2, cd)
@@ -236,7 +247,7 @@ class TransformerBlock(nn.Module):
             h = _dropout(h, cfg.dropout, deterministic, generator)
         else:
             h = hash_dropout(h, cfg.dropout, hashed[0], offsets=hashed[1], deterministic=deterministic)
-        return _layer_norm(x + h, self.out_ln, cd)
+        return _residual_layer_norm(x, h, self.out_ln, cd)
 
     def forward_ring(
         self, xs: list[list[torch.Tensor]], biases: list[list[torch.Tensor]], deterministic: bool,

@@ -6,7 +6,9 @@ library lands in ``build/torch_kernels/`` at the repository root, named by
 a hash of the source, of every ``csrc/`` header it includes (directly or
 through another header) and of the flags, so an edited source or shared
 header rebuilds every library that uses it and an unchanged one is reused. Nothing is built at import: the first call that
-needs a kernel builds it. A failed build raises; nothing falls back.
+needs a kernel builds it, together with the libraries of its group
+(:data:`BUILD_GROUPS`), all started at once. A failed build raises;
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -25,7 +27,16 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 
 #: Library name -> source file under csrc/.
-SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu", "fold": "fold.cu", "adam": "adam.cu"}
+SOURCES = {
+    "flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu", "fold": "fold.cu", "adam": "adam.cu",
+    "residual_ln": "residual_ln.cu",
+}
+
+#: Libraries that one forward of the model needs together: the first load
+#: of any of them builds the whole group in one :func:`build` call, so on
+#: a cold start their ``nvcc`` runs side by side instead of one after the
+#: other. Every other library builds alone.
+BUILD_GROUPS = (("flash_fwd", "residual_ln"),)
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
@@ -112,11 +123,20 @@ def build(names=None) -> dict[str, float]:
     return took
 
 
+def build_group(name: str) -> list[str]:
+    """The libraries built with ``name``: its group, or itself alone."""
+    for group in BUILD_GROUPS:
+        if name in group:
+            return list(group)
+    return [name]
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, building it first if needed."""
+    """The loaded library ``name``, building it and its group first if
+    needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build([name])
+            build(build_group(name))
             lib = _libs[name] = ctypes.CDLL(library_path(name))
         return lib
